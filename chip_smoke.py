@@ -1,0 +1,445 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (diffbindfr_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each with its own deadline (a phase that overruns ends the run with
+a non-zero exit code):
+  1. device   require CUDA; print the card's name and power limit (nvidia-smi)
+  2. build    nvcc-build the trunk-conv kernels (csrc/*.cu) into one .so
+  3. load     read the diff_r2 checkpoint and the 3dbs prep cache
+  4. tables   the score-norm rows (SO(3) and torus) of the 20 sampler steps,
+              computed on the card and on the CPU: they must agree (<= 1e-6)
+  5. kernels  B1 cross, B2 pair, B3 knn at the 3dbs bucket shapes (nl 128,
+              na 1024, k 16) with diff_r2 weights, layers 0 and 5, B = 4 and
+              the dock batch B = 16: each kernel against its plain PyTorch
+              version (max|err| <= 1e-4 max|ref|), CUDA-event times
+  6. forward  full-width score net with the kernels on 3dbs, against the JAX
+              package's numbers (tests/fixtures/torch_port_ref.npz, <= 1e-3)
+              and against the port's plain path on the card
+  7. dock     the dock stage of predict (app.pipeline.dock) on 3dbs: 16 poses
+              in one batch, 20 SDE steps, kernels on; a first (cold) call,
+              then the measured call, in which each kernel's launch
+              counter must read 6 x 20 = 120; poses finite; poses/s, RMSD to
+              the prep-cache pose; 4 poses rerun through the plain path with
+              the same noise
+  8. profile  torch.profiler over 2 sampler steps of the same batch: device
+              time of the three kernels vs all other device work, and the
+              device-busy share of the steps' wall time
+The second-to-last lines are the kernels JSON and the nvidia-smi line; the
+last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+"""
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SAMPLE = os.path.join(ROOT, "runs/eval_r5_scsrc/prep_cache/3dbs_r12.npz")
+CKPT = os.path.join(ROOT, "runs/diff_r2/ckpt_best.npz")
+FIXTURE = os.path.join(ROOT, "tests/fixtures/torch_port_ref.npz")
+DEV = "cuda"
+DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 300,
+             "forward": 180, "dock": 300, "profile": 120}
+# published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
+# tensor cores, HBM3 bandwidth
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+KERNELS = {
+    "cross_conv": ("diffbindfr_torch/csrc/cross_conv.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:693"),
+    "pair_conv": ("diffbindfr_torch/csrc/pair_conv.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:433"),
+    "knn_conv": ("diffbindfr_torch/csrc/knn_conv.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:935"),
+}
+SCHED = {"tr_sigma_min": 0.1, "tr_sigma_max": 6.0, "rot_sigma_min": 0.03,
+         "rot_sigma_max": 1.55, "tor_sigma_min": 0.0314, "tor_sigma_max": 3.14,
+         "sc_tor_sigma_min": 0.0314, "sc_tor_sigma_max": 3.14}
+
+
+class Phase:
+    """Prints one flushed line per phase; a watchdog ends the process when
+    the phase overruns its deadline (it also fires inside a hung CUDA call)."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.time()
+        self.timer = threading.Timer(DEADLINES[self.name], self._expire)
+        self.timer.daemon = True
+        self.timer.start()
+        print(f"[{self.name}] start", flush=True)
+        return self
+
+    def _expire(self):
+        print(f"[{self.name}] FAILED: deadline of {DEADLINES[self.name]} s passed", flush=True)
+        os._exit(124)
+
+    def __exit__(self, exc_type, exc, tb):
+        self.timer.cancel()
+        state = "ok" if exc_type is None else f"FAILED: {exc_type.__name__}: {exc}"
+        print(f"[{self.name}] {state} ({time.time() - self.t0:.2f} s)", flush=True)
+        return False
+
+
+def rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def time_ms(fn, warmup, iters):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def nbytes(*ts):
+    total = 0
+    for t in ts:
+        if isinstance(t, dict):
+            total += nbytes(*t.values())
+        elif t is not None:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def kernel_inputs(torch, params, s_np, layer, bsz, seed):
+    """Trunk-conv inputs of one layer at the 3dbs bucket shapes: 3dbs
+    geometry with the ligand shifted per replica, seeded random features."""
+    from diffbindfr_torch.data.sample import stack_samples, to_device
+    from diffbindfr_torch.models import score_net as sn
+    from diffbindfr_torch.nn import layers as L
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    s = to_device(stack_samples([s_np] * bsz), DEV)
+    shift = torch.randn(bsz, 1, 3, generator=g, device=DEV) * 1.5
+    lig_pos = (s.lig_pos + shift) * s.lig_mask[..., None]
+    cfg = sn.ScoreNetConfig()
+    spec = sn._specs(cfg)[0][layer]
+    c_lig, c_cross, c_knn = sn._kernel_consts(cfg)[layer]
+    din = spec.dw.in1.dim
+    lig_x = torch.randn(bsz, lig_pos.shape[1], din, generator=g, device=DEV)
+    atm_x = torch.randn(bsz, s.atm_pos.shape[1], din, generator=g, device=DEV)
+    t = torch.rand(bsz, generator=g, device=DEV)
+    temb = L.sinusoidal_time_emb(t, cfg.sigma_embed_dim, cfg.emb_scale)
+    cut = sn.sigmas_from_t(t, SCHED).tr * 0.2 + 5.0
+    bidx = torch.arange(bsz, device=DEV)[:, None]
+    nl, na = lig_pos.shape[1], s.atm_pos.shape[1]
+    bond_feat = torch.zeros(bsz, nl, nl, cfg.lig_edge_dim, device=DEV)
+    bond_feat.index_put_((bidx, s.lig_e_src, s.lig_e_dst),
+                         s.lig_e_feat * s.lig_e_mask[..., None], accumulate=True)
+    bond_mask = torch.zeros(bsz, nl, nl, device=DEV)
+    bond_mask.index_put_((bidx, s.lig_e_src, s.lig_e_dst), s.lig_e_mask, accumulate=True)
+    cab = torch.zeros(bsz, na, device=DEV)
+    cab.index_put_((bidx, s.cab_idx), s.cab_mask, accumulate=True)
+    cab = (cab > 0).float()
+    idx, valid = L.knn_edges(s.atm_pos, s.atm_pos, s.atm_mask, s.atm_mask, k=cfg.atom_knn,
+                             cutoff=cfg.atom_cutoff, exclude_self=True)
+    lp = {k: params[f"{k}_convs"][layer] for k in ("lig", "al", "la", "atom")}
+    zero = torch.zeros_like(s.lig_mask)
+    pair_params = sn._kernel_params(params["lig_edge_emb"], lp["lig"]["fc"])
+    knn_params = {"emb": params["atom_edge_emb"], "fc": lp["atom"]["fc"]}
+    args = {
+        "pair_conv": (c_lig, lig_pos, lig_pos, lig_x, lig_x, s.lig_mask, s.lig_mask, zero, zero,
+                      temb, cfg.lig_cutoff, pair_params, bond_feat, bond_mask),
+        "cross_conv": (c_cross, lig_pos, s.atm_pos, lig_x, atm_x, s.lig_mask, s.atm_mask, cab,
+                       temb, cut, params["la_edge_emb"], lp["al"]["fc"], lp["la"]["fc"]),
+        "knn_conv": (c_knn, s.atm_pos, atm_x, s.atm_mask, idx, valid.float(), temb, knn_params),
+    }
+    return args
+
+
+def work(torch, name, args):
+    """(FLOPs, bytes) the function needs on these inputs: MLP and tensor-
+    product operations over the pairs its masks keep; each input read once,
+    each output written once."""
+    from diffbindfr_torch.nn.trunk_convs import _dist
+
+    c = args[0]
+    ck, meta = c.tables
+    tp_ops = float(sum(2 * int(m[2]) + 2 for m in meta)) + 2 * 9 * ck.shape[1]
+    if name == "knn_conv":
+        _, pos, x, mask, idx, valid, temb, p = args
+        pairs = float(valid.sum())
+        emb, fcs = p["emb"], [p["fc"]]
+        e_in = emb["l1"]["w"].shape[0] - c.sed
+        he = emb["l1"]["w"].shape[1]
+        inputs = (pos, x, idx, valid, temb, p)
+        n_out = x.shape[0] * x.shape[1]
+    elif name == "pair_conv":
+        _, tp, sp, tx, sx, tm, sm, ct, cs, temb, cut, p, bf, bm = args
+        vec = sp[:, None, :, :] - tp[:, :, None, :]
+        d = _dist(vec)
+        eye = torch.eye(tp.shape[1], dtype=torch.bool, device=tp.device)
+        mask = (((d <= cut) & ~eye) | (bm > 0)) & (tm[:, :, None] > 0) & (sm[:, None, :] > 0)
+        pairs = float(mask.sum())
+        fcs = [{"l1": {"w": p["fc_w1"]}, "l2": {"w": p["fc_w2"]}}]
+        e_in = p["emb_w1"].shape[0] - c.sed
+        he = p["emb_w1"].shape[1]
+        inputs = (tp, tx, tm, temb, p, bf, bm)
+        n_out = tx.shape[0] * tx.shape[1]
+    else:
+        _, lp_, ap, lx, ax, lm, am, cab, temb, cut, emb, fal, fla = args
+        d = _dist(ap[:, None, :, :] - lp_[:, :, None, :])
+        mask = ((cab[:, None, :] > 0) | (d <= cut[:, None, None])) & (lm[:, :, None] > 0) \
+            & (am[:, None, :] > 0)
+        pairs = float(mask.sum())
+        fcs = [fal, fla]
+        e_in = emb["l1"]["w"].shape[0] - c.sed
+        he = emb["l1"]["w"].shape[1]
+        inputs = (lp_, ap, lx, ax, lm, am, cab, temb, cut, emb, fal, fla)
+        n_out = lx.shape[0] * (lx.shape[1] + ax.shape[1])
+    per_pair = 2.0 * (e_in * he + he * c.ns)
+    for fc in fcs:
+        w1, w2 = fc["l1"]["w"], fc["l2"]["w"]
+        per_pair += 2.0 * (w1.shape[0] * w1.shape[1] + w2.shape[0] * w2.shape[1]) + tp_ops
+    return pairs * per_pair, nbytes(*inputs) + 4.0 * n_out * c.dout, pairs
+
+
+def phase_kernels(torch, params, s_np, results):
+    from diffbindfr_torch.nn import trunk_convs as TC
+
+    plain = {"cross_conv": TC.cross_conv_plain, "pair_conv": TC.pair_conv_plain,
+             "knn_conv": TC.knn_conv_plain}
+    wrapper = {"cross_conv": TC.cross_conv, "pair_conv": TC.pair_conv,
+               "knn_conv": TC.knn_conv}
+    for layer, bsz in ((0, 4), (5, 4), (5, 16)):
+        args = kernel_inputs(torch, params, s_np, layer, bsz, seed=layer * 100 + bsz)
+        for name in KERNELS:
+            a = args[name]
+            with torch.no_grad():
+                got = wrapper[name](*a)
+                ref = plain[name](*a)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                err = max(rel_err(g_, r_) for g_, r_ in zip(got, ref))
+                abs_err = max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
+                finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
+                ms = time_ms(lambda: wrapper[name](*a), 3, 10)
+                plain_ms = time_ms(lambda: plain[name](*a), 1, 2)
+            flops, byts, pairs = work(torch, name, a)
+            bound_ms = max(flops / PEAK_FP32, byts / PEAK_BYTES) * 1e3
+            row = dict(layer=layer, batch=bsz, max_rel_err=err, max_abs_err=abs_err,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, pairs=pairs,
+                       flops=flops, bytes=byts,
+                       bound_by="operations" if flops / PEAK_FP32 >= byts / PEAK_BYTES else "bytes")
+            results.setdefault(name, []).append(row)
+            print(f"  {name} layer {layer} B={bsz}: max|err|/max|ref| {err:.2e} "
+                  f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.3f} ms "
+                  f"({row['bound_by']}) pairs {pairs:.0f}", flush=True)
+            if not finite or err > 1e-4:
+                raise AssertionError(f"{name} layer {layer}: kernel disagrees with plain ({err:.3e})")
+
+
+def phase_tables(torch, sp, sn, scfg):
+    """The score-norm rows the sampler reads, on the card and on the CPU."""
+    from diffbindfr_torch.geometry import so3, torus
+
+    ts = sp.t_schedule(scfg, DEV)
+    sig = sn.sigmas_from_t(ts[: scfg.actual_steps], scfg.schedule)
+    rows = {"so3": (so3.exp_score_norm_row, sorted(set(so3._eps_index(sig.rot).tolist()))),
+            "torus": (torus.score_norm_row, sorted(set(
+                torus._sigma_index(torch.cat([sig.tor, sig.sc_tor])).tolist())))}
+    for name, (fn, idx) in rows.items():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        card = [fn(i, DEV) for i in idx]
+        card_s = time.time() - t0
+        t0 = time.time()
+        host = [fn(i, "cpu") for i in idx]
+        host_s = time.time() - t0
+        err = max(abs(a - b) / abs(b) for a, b in zip(card, host))
+        print(f"  {name}: {len(idx)} rows in {card_s:.3f} s on the card, {host_s:.3f} s on "
+              f"the CPU; max rel diff {err:.2e}", flush=True)
+        if not all(v == v and abs(v) < float("inf") for v in card) or not err <= 1e-6:
+            raise AssertionError(f"{name} score-norm rows on the card disagree with the CPU")
+
+
+def phase_profile(torch, sp, params, cfg, s_np):
+    """Device time by kernel over 2 sampler steps of the 16-pose batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffbindfr_torch.data.sample import stack_samples, to_device
+
+    scfg = sp.SamplerConfig(actual_steps=2)
+    batch = to_device(stack_samples([s_np] * 16), DEV)
+    noise = sp.draw_noise(batch, scfg, torch.Generator(device=DEV).manual_seed(2))
+    with torch.no_grad():
+        sp.sample(params, cfg, scfg, batch, noise)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            sp.sample(params, cfg, scfg, batch, noise)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((e.key, dev_us / 1e3, e.count))
+    if not rows:
+        print("  the profiler saw no device time: breakdown not measured", flush=True)
+        return
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    ours = sum(r[1] for r in rows if any(f"{k}_kernel" in r[0] for k in KERNELS))
+    print(f"  2 steps, B=16, under the profiler: wall {wall * 1e3:.1f} ms, device "
+          f"{total:.1f} ms ({100 * total / (wall * 1e3):.1f}% busy), trunk kernels "
+          f"{ours:.1f} ms ({100 * ours / total:.1f}% of device time)", flush=True)
+    for key, ms, cnt in rows[:10]:
+        print(f"    {ms:9.3f} ms  x{cnt:<5d} {key[:90]}", flush=True)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    with Phase("device"):
+        if not torch.cuda.is_available():
+            raise RuntimeError("torch.cuda.is_available() is false: this run needs a GPU")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip().splitlines()[0]
+        print(smi, flush=True)
+        print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
+              f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
+              flush=True)
+        sys.path.insert(0, ROOT)
+        from diffbindfr_torch.utils.device import resolve_device
+
+        resolve_device(DEV)
+
+    from diffbindfr_torch import sampler as sp
+    from diffbindfr_torch.app import pipeline
+    from diffbindfr_torch.data.sample import _load_sample_npz, stack_samples, to_device
+    from diffbindfr_torch.geometry.kabsch import masked_rmsd
+    from diffbindfr_torch.models import score_net as sn
+    from diffbindfr_torch.nn import trunk_convs as TC
+    from diffbindfr_torch.utils import cuda_build
+    from diffbindfr_torch.utils.checkpoint import load_checkpoint
+
+    with Phase("build"):
+        cuda_build.load()
+        for line in "\n".join(cuda_build.build_log).splitlines():
+            if "registers" in line or "spill" in line or line.startswith("=="):
+                print("  " + line.strip(), flush=True)
+
+    with Phase("load"):
+        params, step = load_checkpoint(CKPT, use_ema=True, device=DEV)
+        s_np = _load_sample_npz(SAMPLE)
+        print(f"  checkpoint step {step}; sample {os.path.relpath(SAMPLE, ROOT)}", flush=True)
+
+    scfg = sp.SamplerConfig()
+    with Phase("tables"):
+        phase_tables(torch, sp, sn, scfg)
+
+    per_kernel = {}
+    with Phase("kernels"):
+        phase_kernels(torch, params, s_np, per_kernel)
+
+    cfg = sn.ScoreNetConfig()
+    with Phase("forward"):
+        ref = np.load(FIXTURE)
+        fs = s_np._replace(lig_pos=(s_np.lig_pos + ref["shift"]) * s_np.lig_mask[:, None])
+        batch = to_device(stack_samples([fs]), DEV)
+        t = torch.tensor([float(ref["t"])], device=DEV)
+        sig = sn.sigmas_from_t(t, SCHED)
+        with torch.no_grad():
+            out_k = sn.apply(params, cfg, batch, t, sig, use_kernels=True)
+            out_p = sn.apply(params, cfg, batch, t, sig, use_kernels=False)
+            fwd_ms = time_ms(lambda: sn.apply(params, cfg, batch, t, sig, use_kernels=True), 1, 3)
+        errs = {}
+        for f in ("tr", "rot", "tor", "sc_tor"):
+            k_, p_ = getattr(out_k, f)[0], getattr(out_p, f)[0]
+            r_ = torch.from_numpy(ref[f]).to(DEV)
+            errs[f] = {"vs_jax": rel_err(k_, r_), "vs_plain": rel_err(k_, p_)}
+            print(f"  {f}: kernels vs JAX fixture {errs[f]['vs_jax']:.2e}, "
+                  f"vs plain path on the card {errs[f]['vs_plain']:.2e}", flush=True)
+        print(f"  full-width forward B=1: {fwd_ms:.2f} ms", flush=True)
+        bad = [f for f, e in errs.items() if not e["vs_jax"] <= 1e-3]
+        if bad:
+            raise AssertionError(f"forward disagrees with the JAX fixture on {bad}")
+
+    with Phase("dock"):
+        prepared = [pipeline.PreparedPair.from_prep_cache(SAMPLE)]
+        n_poses, steps = 16, scfg.actual_steps
+        # first call: computes the score-norm rows of the 20 sigmas on the
+        # card, warms the allocator and the libraries
+        t0 = time.time()
+        pipeline.dock(prepared, params, cfg, scfg, num_poses=n_poses, batch_size=n_poses,
+                      seed=1, device=DEV, verbose=False)
+        torch.cuda.synchronize()
+        print(f"  first (cold) dock call: {time.time() - t0:.3f} s", flush=True)
+        TC.reset_launches()
+        t0 = time.time()
+        res = pipeline.dock(prepared, params, cfg, scfg, num_poses=n_poses,
+                            batch_size=n_poses, seed=0, device=DEV, verbose=False)
+        torch.cuda.synchronize()
+        dock_s = time.time() - t0
+        counts = dict(TC.launches)
+        print(f"  launches during dock: {counts}", flush=True)
+        lig = np.stack([r.lig_pos for r in res])
+        finite = bool(np.isfinite(lig).all() and all(np.isfinite(r.atom14_pos).all() for r in res))
+        mask = s_np.lig_mask > 0
+        rmsd = np.sqrt(((lig[:, mask] - s_np.lig_pos[mask]) ** 2).sum(-1).mean(-1))
+        print(f"  {n_poses} poses, {steps} steps in {dock_s:.3f} s: "
+              f"{n_poses / dock_s:.3f} poses/s on {smi}", flush=True)
+        print(f"  RMSD to the prep-cache pose: min {rmsd.min():.3f} A, "
+              f"median {np.median(rmsd):.3f} A; per pose "
+              + " ".join(f"{v:.2f}" for v in rmsd), flush=True)
+        # rerun poses 0..3 through the plain path with the same noise
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        full = to_device(stack_samples([s_np] * n_poses), DEV)
+        noise = sp.draw_noise(full, scfg, gen).select([0, 1, 2, 3])
+        four = to_device(stack_samples([s_np] * 4), DEV)
+        with torch.no_grad():
+            plain = sp.sample(params, cfg, scfg, four, noise, use_kernels=False)
+        m4 = four.lig_mask
+        dk = masked_rmsd(torch.from_numpy(lig[:4]).to(DEV), plain.lig_pos, m4).tolist()
+        print("  kernel vs plain path, same noise, per-pose RMSD (A): "
+              + ", ".join(f"{v:.2e}" for v in dk), flush=True)
+        want = 6 * steps
+        if any(counts[k] != want for k in KERNELS):
+            raise AssertionError(f"launch counts {counts}, expected {want} each")
+        if not finite:
+            raise AssertionError("non-finite poses")
+
+    with Phase("profile"):
+        phase_profile(torch, sp, params, cfg, s_np)
+
+    rows = []
+    for name, (src, repl) in KERNELS.items():
+        main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                     "launches": counts[name], "max_abs_err": main_row["max_abs_err"],
+                     "max_rel_err": main_row["max_rel_err"], "ms": main_row["ms"],
+                     "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+                     "bound_by": main_row["bound_by"], "library_ms": None,
+                     "layer": 5, "batch": 16})
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        rc = main()
+    except Exception as e:  # report and fail: every phase must pass
+        print(f"chip_smoke FAILED: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+        rc = 1
+    sys.exit(rc)

@@ -1,0 +1,95 @@
+// B1: dual ligand<->pocket cross conv over the dense [nl, na] block.
+// Replaces diffbindfr_tpu/nn/pallas_conv_t.py:make_cross_conv_t (the
+// pallas_call at :693); contract of the XLA twin make_cross_twin
+// (nn/pallas_conv.py:295-356). Mask: CA/CB atom or d <= 0.2 sigma_tr + 5,
+// and both nodes valid. Outputs the masked message sums `al` [B, nl, dout]
+// (atoms -> ligand rows, fc_al) and `la` [B, na, dout] (ligand -> atom
+// columns, fc_la; same edge features and spherical harmonics).
+// Blocks run in no order, so `la` gets its own launch with the atoms as
+// targets, which recomputes the shared edge MLP (about 6% of the pair work)
+// instead of reducing partial sums across blocks or using atomics: both
+// outputs are deterministic.
+// Bound on the H100: fp32 FMA in the two TP-weight MLPs (operations);
+// masked pairs are skipped, so the work follows the cutoff, not nl x na.
+#include "trunk_conv.cuh"
+
+namespace {
+__global__ void __launch_bounds__(dbfr::kThreads, 2) cross_conv_kernel(dbfr::ConvArgs a) {
+  dbfr::conv_block<dbfr::kDense>(a);
+}
+}  // namespace
+
+extern "C" int dbfr_cross_conv(
+    const void* lig_pos, const void* atm_pos, const void* lig_x, const void* atm_x,
+    const void* lig_mask, const void* atm_mask, const void* cabflag,
+    const void* cutoff, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* al_w1, const void* al_b1, const void* al_w2,
+    const void* al_b2, const void* la_w1, const void* la_b1, const void* la_w2,
+    const void* la_b2, const void* ck, const void* gs_off, const void* out_meta,
+    void* out_al, void* out_la, int batch, int nl, int na, int din, int dout,
+    int ns, int he, int hf, int nw, int kdim, int gs_n, float gs_coeff,
+    void* stream) {
+  dbfr::ConvArgs a = {};
+  a.cab = (const float*)cabflag;
+  a.cutoff = (const float*)cutoff;
+  a.w1 = (const float*)w1;
+  a.b1 = (const float*)b1;
+  a.w2 = (const float*)w2;
+  a.b2 = (const float*)b2;
+  a.ck = (const float*)ck;
+  a.gs_off = (const float*)gs_off;
+  a.out_meta = (const int*)out_meta;
+  a.din = din;
+  a.dout = dout;
+  a.nb = 0;
+  a.k = 0;
+  a.ns = ns;
+  a.he = he;
+  a.hf = hf;
+  a.nw = nw;
+  a.kdim = kdim;
+  a.gs_n = gs_n;
+  a.gs_coeff = gs_coeff;
+  a.exclude_self = 0;
+  cudaStream_t st = (cudaStream_t)stream;
+
+  // al: ligand rows are the targets, atoms the sources (vec = atom - ligand)
+  dbfr::ConvArgs al = a;
+  al.tgt_pos = (const float*)lig_pos;
+  al.src_pos = (const float*)atm_pos;
+  al.tgt_x = (const float*)lig_x;
+  al.src_x = (const float*)atm_x;
+  al.tgt_mask = (const float*)lig_mask;
+  al.src_mask = (const float*)atm_mask;
+  al.nt = nl;
+  al.nsrc = na;
+  al.cab_on_tgt = 0;
+  al.flip = 0;
+  al.wf1 = (const float*)al_w1;
+  al.bf1 = (const float*)al_b1;
+  al.wf2 = (const float*)al_w2;
+  al.bf2 = (const float*)al_b2;
+  al.out = (float*)out_al;
+  int rc = dbfr::launch<dbfr::kDense>(cross_conv_kernel, al, batch, st);
+  if (rc != 0) return rc;
+
+  // la: atoms are the targets, ligand rows the sources; flip keeps
+  // vec = atom - ligand, so distances, masks and sh match the al pass
+  dbfr::ConvArgs la = a;
+  la.tgt_pos = (const float*)atm_pos;
+  la.src_pos = (const float*)lig_pos;
+  la.tgt_x = (const float*)atm_x;
+  la.src_x = (const float*)lig_x;
+  la.tgt_mask = (const float*)atm_mask;
+  la.src_mask = (const float*)lig_mask;
+  la.nt = na;
+  la.nsrc = nl;
+  la.cab_on_tgt = 1;
+  la.flip = 1;
+  la.wf1 = (const float*)la_w1;
+  la.bf1 = (const float*)la_b1;
+  la.wf2 = (const float*)la_w2;
+  la.bf2 = (const float*)la_b2;
+  la.out = (float*)out_la;
+  return dbfr::launch<dbfr::kDense>(cross_conv_kernel, la, batch, st);
+}

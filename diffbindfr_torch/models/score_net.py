@@ -1,0 +1,385 @@
+"""SE(3)-equivariant diffusion score network ('sep' mode, f32), in PyTorch.
+
+Counterpart of diffbindfr_tpu/models/score_net.py. Same graphs, trunk and
+heads: dense ligand-ligand and ligand-pocket pair blocks, a 16-neighbour
+pocket-atom list, 6 separable tensor-product conv layers over the ladder
+48x0e -> +12x1o -> +12x1e -> +48x0o, the centre-conv tr/rot head, the
+ligand and side-chain pseudotorque heads and the sigma scaling. The forward
+is written for a batch [B, ...] directly (the JAX package vmaps a
+single-sample function).
+
+`use_kernels=True` is the counterpart of `use_pallas=True` with
+`pallas_layout='cmt'`: node features stay component-major through the
+trunk and each layer's three convs run through nn/trunk_convs.py (the CUDA
+kernels on the card); `use_kernels=False` is the plain XLA-path port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple
+
+import torch
+
+from ..geometry import so3, torus
+from ..nn import layers as L
+from ..nn import trunk_convs as TC
+from ..nn.irreps import apply_full_tensor_product, compile_full_tensor_product
+
+SH_IRREPS = "1x0e+1x1o+1x2e"
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoreNetConfig:
+    """The fields of the JAX ScoreNetConfig that the 'sep' f32 inference path
+    reads, with the same defaults (the flagship model)."""
+
+    ns: int = 48
+    nv: int = 12
+    num_conv_layers: int = 6
+    sigma_embed_dim: int = 32
+    distance_embed_dim: int = 32
+    lig_node_dim: int = 27
+    lig_edge_dim: int = 10
+    atom_cat_dims: tuple = (37, 22, 4, 21, 2)
+    lig_cutoff: float = 5.0
+    atom_cutoff: float = 4.0
+    cross_max_distance: float = 32.0
+    center_max_distance: float = 32.0
+    dynamic_max_cross: bool = True
+    cross_cutoff: float = 32.0
+    atom_knn: int = 16
+    emb_scale: float = 1000.0
+    scale_by_sigma: bool = True
+    no_sc_torsion: bool = False
+
+    @property
+    def irrep_seq(self) -> tuple:
+        ns, nv = self.ns, self.nv
+        return (
+            f"{ns}x0e",
+            f"{ns}x0e+{nv}x1o",
+            f"{ns}x0e+{nv}x1o+{nv}x1e",
+            f"{ns}x0e+{nv}x1o+{nv}x1e+{ns}x0o",
+        )
+
+    def layer_irreps(self, layer: int) -> tuple:
+        seq = self.irrep_seq
+        return seq[min(layer, len(seq) - 1)], seq[min(layer + 1, len(seq) - 1)]
+
+
+class Sigmas(NamedTuple):
+    """Per-sample noise levels [B] of the four manifolds."""
+
+    tr: torch.Tensor
+    rot: torch.Tensor
+    tor: torch.Tensor
+    sc_tor: torch.Tensor
+
+
+class SigmaScales(NamedTuple):
+    """Per-sample output scales [B] of the rot, tor and sc_tor heads."""
+
+    rot: torch.Tensor  # IGSO(3) score norm
+    tor: torch.Tensor  # sqrt of the torus score norm
+    sc_tor: torch.Tensor
+
+
+def sigma_scales(sigmas: Sigmas) -> SigmaScales:
+    """Score-norm scales at `sigmas`; the lookups read grid indices on the
+    host (so3.score_norm), so a loop computes them once, before it."""
+    return SigmaScales(rot=so3.score_norm(sigmas.rot),
+                       tor=torch.sqrt(torus.score_norm(sigmas.tor)),
+                       sc_tor=torch.sqrt(torus.score_norm(sigmas.sc_tor)))
+
+
+class ScoreOutput(NamedTuple):
+    tr: torch.Tensor  # [B, 3]
+    rot: torch.Tensor  # [B, 3]
+    tor: torch.Tensor  # [B, T]
+    sc_tor: torch.Tensor  # [B, R, 4]
+
+
+@functools.lru_cache(maxsize=8)
+def _specs(cfg: ScoreNetConfig):
+    """Static TP path tables of every conv in the network."""
+    convs = tuple(L.make_conv_spec(cfg.layer_irreps(l)[0], SH_IRREPS, cfg.layer_irreps(l)[1])
+                  for l in range(cfg.num_conv_layers))
+    final_in = cfg.layer_irreps(cfg.num_conv_layers - 1)[1]
+    final = L.make_conv_spec(final_in, SH_IRREPS, "2x1o+2x1e")
+    # FullTP(sh, bond 2e) truncated to l <= 1 is exact here: higher-l outputs
+    # cannot couple the l <= 1 ladder to the 0o+0e conv output
+    tor_sh = compile_full_tensor_product(SH_IRREPS, "1x2e", lmax_out=1)
+    tor_conv = L.make_conv_spec(final_in, str(tor_sh.out), f"{cfg.ns}x0o+{cfg.ns}x0e")
+    return convs, final, tor_sh, tor_conv
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_consts(cfg: ScoreNetConfig):
+    """Per layer: (pair, cross, knn) ConvConsts of the trunk kernels."""
+    convs = _specs(cfg)[0]
+    kw = dict(ns=cfg.ns, sed=cfg.sigma_embed_dim, gs_n=cfg.distance_embed_dim)
+    return tuple(
+        (TC.ConvConsts(s.dw, gs_stop=cfg.lig_cutoff, **kw),
+         TC.ConvConsts(s.dw, gs_stop=cfg.cross_max_distance, **kw),
+         TC.ConvConsts(s.dw, gs_stop=cfg.atom_cutoff, **kw))
+        for s in convs
+    )
+
+
+def _kernel_params(emb, fc):
+    return {
+        "emb_w1": emb["l1"]["w"], "emb_b1": emb["l1"]["b"],
+        "emb_w2": emb["l2"]["w"], "emb_b2": emb["l2"]["b"],
+        "fc_w1": fc["l1"]["w"], "fc_b1": fc["l1"]["b"],
+        "fc_w2": fc["l2"]["w"], "fc_b2": fc["l2"]["b"],
+    }
+
+
+def _gs(cfg, d, stop):
+    return L.gaussian_smearing(d, 0.0, stop, cfg.distance_embed_dim)
+
+
+def _bexp(x, *shape):
+    """Broadcast per-sample vectors [B, C] to [B, *shape, C]."""
+    return x.reshape(x.shape[0], *([1] * len(shape)), x.shape[-1]).expand(
+        x.shape[0], *shape, x.shape[-1])
+
+
+def _gather_rows(x, idx):
+    """x [B, N, C], idx [B, ...] -> [B, ..., C]."""
+    b = torch.arange(x.shape[0], device=x.device).reshape((-1,) + (1,) * (idx.dim() - 1))
+    return x[b, idx]
+
+
+def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool = True,
+          scales: SigmaScales | None = None):
+    """Batched forward. s: DockingSample of tensors [B, ...]; t [B]; `scales`
+    = sigma_scales(sigmas), looked up here when not given."""
+    ns = cfg.ns
+    convs, final_spec, tor_sh_spec, tor_conv_spec = _specs(cfg)
+    bsz, nl, na = s.lig_pos.shape[0], s.lig_pos.shape[1], s.atm_pos.shape[1]
+    dev = s.lig_pos.device
+    bidx = torch.arange(bsz, device=dev)
+
+    temb = L.sinusoidal_time_emb(t, cfg.sigma_embed_dim, cfg.emb_scale)  # [B, sed]
+
+    # ---------------- node embeddings
+    lig_x = L.mlp_apply(params["lig_node_emb"],
+                        torch.cat([s.lig_feat, _bexp(temb, nl)], dim=-1))
+    atom_x = L.atom_encoder_apply(params["atom_node_emb"], s.atm_feat, _bexp(temb, na))
+
+    # ---------------- ligand graph: dense masked pair block
+    bond_feat = lig_x.new_zeros(bsz, nl, nl, cfg.lig_edge_dim)
+    bond_feat.index_put_((bidx[:, None], s.lig_e_src, s.lig_e_dst),
+                         s.lig_e_feat * s.lig_e_mask[..., None], accumulate=True)
+    bond_mask = lig_x.new_zeros(bsz, nl, nl)
+    bond_mask.index_put_((bidx[:, None], s.lig_e_src, s.lig_e_dst), s.lig_e_mask,
+                         accumulate=True)
+    lig_vec = s.lig_pos[:, None, :, :] - s.lig_pos[:, :, None, :]  # i -> j
+    lig_len = torch.linalg.norm(lig_vec + 1e-9, dim=-1)
+    both_l = (s.lig_mask[:, :, None] * s.lig_mask[:, None, :]) > 0
+    eye = torch.eye(nl, dtype=torch.bool, device=dev)
+    lig_pair_mask = ((((lig_len <= cfg.lig_cutoff) & ~eye) | (bond_mask > 0)) & both_l).float()
+
+    # ---------------- atom graph: radius-4A fixed-degree neighbour list
+    atm_idx, atm_valid = L.knn_edges(s.atm_pos, s.atm_pos, s.atm_mask, s.atm_mask,
+                                     k=min(cfg.atom_knn, na), cutoff=cfg.atom_cutoff,
+                                     exclude_self=True)
+    ka = atm_idx.shape[-1]
+    atm_vmask = atm_valid.float()
+
+    # ---------------- cross graph: dense [NL, NA]; CA/CB atoms always on
+    cabflag = lig_x.new_zeros(bsz, na)
+    cabflag.index_put_((bidx[:, None], s.cab_idx), s.cab_mask, accumulate=True)
+    cabflag = cabflag > 0
+    if cfg.dynamic_max_cross:
+        cross_cutoff = sigmas.tr * 0.2 + 5.0
+    else:
+        cross_cutoff = torch.full((bsz,), cfg.cross_cutoff, device=dev)
+    cross_vec = s.atm_pos[:, None, :, :] - s.lig_pos[:, :, None, :]  # lig -> atom
+    cross_len = torch.linalg.norm(cross_vec + 1e-9, dim=-1)
+    both_c = (s.lig_mask[:, :, None] * s.atm_mask[:, None, :]) > 0
+    cross_mask = ((cabflag[:, None, :] | (cross_len <= cross_cutoff[:, None, None]))
+                  & both_c).float()
+
+    if use_kernels:
+        kconsts = _kernel_consts(cfg)
+        cnt_lig = torch.clamp(lig_pair_mask.sum(2), min=1.0)
+        cnt_al = torch.clamp(cross_mask.sum(2), min=1.0)
+        cnt_la = torch.clamp(cross_mask.sum(1), min=1.0)
+        cnt_atm = torch.clamp(atm_vmask.sum(2), min=1.0)
+        cab_f = cabflag.float()
+        zero_l = torch.zeros_like(s.lig_mask)
+        lig_cm = TC.cm_from_irreps(convs[0].dw.in1, lig_x)
+        atom_cm = TC.cm_from_irreps(convs[0].dw.in1, atom_x)
+        for l in range(cfg.num_conv_layers):
+            spec, (c_lig, c_cross, c_knn) = convs[l], kconsts[l]
+            lp = {k: params[f"{k}_convs"][l] for k in ("lig", "al", "la", "atom")}
+            out_dim = spec.out.dim
+            lig_sum = TC.pair_conv(
+                c_lig, s.lig_pos, s.lig_pos, lig_cm, lig_cm, s.lig_mask, s.lig_mask,
+                zero_l, zero_l, temb, cfg.lig_cutoff,
+                _kernel_params(params["lig_edge_emb"], lp["lig"]["fc"]), bond_feat, bond_mask)
+            al_sum, la_sum = TC.cross_conv(
+                c_cross, s.lig_pos, s.atm_pos, lig_cm, atom_cm, s.lig_mask, s.atm_mask,
+                cab_f, temb, cross_cutoff, params["la_edge_emb"], lp["al"]["fc"],
+                lp["la"]["fc"])
+            atm_sum = TC.knn_conv(
+                c_knn, s.atm_pos, atom_cm, s.atm_mask, atm_idx, atm_vmask, temb,
+                {"emb": params["atom_edge_emb"], "fc": lp["atom"]["fc"]})
+            lig_update = L.tp_conv_finalize_cm(lp["lig"], spec, lig_sum / cnt_lig[..., None])
+            al_update = L.tp_conv_finalize_cm(lp["al"], spec, al_sum / cnt_al[..., None])
+            la_update = L.tp_conv_finalize_cm(lp["la"], spec, la_sum / cnt_la[..., None])
+            atom_update = L.tp_conv_finalize_cm(lp["atom"], spec, atm_sum / cnt_atm[..., None])
+            lig_cm = L.pad_to_dim(lig_cm, out_dim) + lig_update + al_update
+            atom_cm = L.pad_to_dim(atom_cm, out_dim) + atom_update + la_update
+        final_ladder = convs[-1].out
+        lig_x = TC.cm_to_irreps(final_ladder, lig_cm)
+        atom_x = TC.cm_to_irreps(final_ladder, atom_cm)
+    else:
+        lig_e_attr = L.mlp_apply(params["lig_edge_emb"], torch.cat(
+            [bond_feat, _bexp(temb, nl, nl), _gs(cfg, lig_len, cfg.lig_cutoff)], dim=-1))
+        lig_sh = L.sh_l2(lig_vec)
+        atm_vec = _gather_rows(s.atm_pos, atm_idx) - s.atm_pos[:, :, None, :]
+        atm_len = torch.linalg.norm(atm_vec + 1e-9, dim=-1)
+        atm_e_attr = L.mlp_apply(params["atom_edge_emb"], torch.cat(
+            [_bexp(temb, na, ka), _gs(cfg, atm_len, cfg.atom_cutoff)], dim=-1))
+        atm_sh = L.sh_l2(atm_vec)
+        la_attr = L.mlp_apply(params["la_edge_emb"], torch.cat(
+            [_bexp(temb, nl, na), _gs(cfg, cross_len, cfg.cross_max_distance)], dim=-1))
+        cross_sh = L.sh_l2(cross_vec)
+        for l in range(cfg.num_conv_layers):
+            spec = convs[l]
+            lp = {k: params[f"{k}_convs"][l] for k in ("lig", "al", "la", "atom")}
+            lig_x, atom_x = _plain_layer(spec, lp, ns, lig_x, atom_x, lig_e_attr, lig_sh,
+                                         lig_pair_mask, la_attr, cross_sh, cross_mask,
+                                         atm_e_attr, atm_sh, atm_idx, atm_vmask)
+
+    # ---------------- tr / rot head: centre conv
+    wsum = torch.clamp(s.lig_mask.sum(1), min=1.0)
+    center = (s.lig_pos * s.lig_mask[..., None]).sum(1) / wsum[:, None]
+    c_vec = s.lig_pos - center[:, None, :]
+    c_len = torch.linalg.norm(c_vec + 1e-12, dim=-1)
+    c_attr = L.mlp_apply(params["center_edge_emb"], torch.cat(
+        [_bexp(temb, nl), _gs(cfg, c_len, cfg.center_max_distance)], dim=-1))
+    c_attr = torch.cat([c_attr, lig_x[..., :ns]], dim=-1)
+    m = L.tp_conv_messages(params["final_conv"], final_spec, lig_x, L.sh_l2(c_vec), c_attr)
+    gp = L.tp_conv_finalize(params["final_conv"], final_spec,
+                            L.masked_mean(m, s.lig_mask, dim=1))  # [B, 12]
+
+    tr_pred = gp[:, 0:3] + gp[:, 6:9]
+    rot_pred = gp[:, 3:6] + gp[:, 9:12]
+    if "readout_rot" in params:
+        # fixed basis rotation of checkpoints imported from e3nn
+        rot_const = params["readout_rot"].detach()
+        tr_pred = tr_pred @ rot_const.T
+        rot_pred = rot_pred @ rot_const.T
+    tr_norm = torch.linalg.norm(tr_pred, dim=-1, keepdim=True) + 1e-12
+    tr_pred = tr_pred / tr_norm * L.mlp_apply(params["tr_final"], torch.cat([tr_norm, temb], -1))
+    rot_norm = torch.linalg.norm(rot_pred, dim=-1, keepdim=True) + 1e-12
+    rot_pred = rot_pred / rot_norm * L.mlp_apply(params["rot_final"],
+                                                 torch.cat([rot_norm, temb], -1))
+
+    # ---------------- ligand pseudotorque head
+    tor_pred = _pseudotorque(
+        params["tor_edge_emb"], params["tor_bond_conv"], params["tor_final"],
+        tor_sh_spec, tor_conv_spec, node_x=lig_x, node_pos=s.lig_pos,
+        node_mask=s.lig_mask, bond_src=s.tor_src, bond_dst=s.tor_dst,
+        bond_mask=s.tor_mask, k=min(32, nl), cutoff=cfg.lig_cutoff, cfg=cfg)
+
+    # ---------------- side-chain pseudotorque head
+    if not cfg.no_sc_torsion:
+        nres = s.sc_src.shape[1]
+        sc_pred = _pseudotorque(
+            params["sc_edge_emb"], params["sc_tor_bond_conv"], params["sc_tor_final"],
+            tor_sh_spec, tor_conv_spec, node_x=atom_x, node_pos=s.atm_pos,
+            node_mask=s.atm_mask, bond_src=s.sc_src.reshape(bsz, -1),
+            bond_dst=s.sc_dst.reshape(bsz, -1), bond_mask=s.chi_mask.reshape(bsz, -1),
+            k=24, cutoff=cfg.atom_cutoff, cfg=cfg).reshape(bsz, nres, 4)
+    else:
+        sc_pred = torch.zeros_like(s.chi_mask)
+
+    # ---------------- scale by sigma
+    if cfg.scale_by_sigma:
+        if scales is None:
+            scales = sigma_scales(sigmas)
+        tr_pred = tr_pred / sigmas.tr[:, None]
+        rot_pred = rot_pred * scales.rot[:, None]
+        tor_pred = tor_pred * scales.tor[:, None]
+        sc_pred = sc_pred * scales.sc_tor[:, None, None]
+
+    return ScoreOutput(tr=tr_pred, rot=rot_pred, tor=tor_pred * s.tor_mask,
+                       sc_tor=sc_pred * s.chi_mask)
+
+
+def _plain_layer(spec, lp, ns, lig_x, atom_x, lig_e_attr, lig_sh, lig_pair_mask,
+                 la_attr, cross_sh, cross_mask, atm_e_attr, atm_sh, atm_idx, atm_vmask):
+    """One trunk layer on the plain (XLA-path) graph tensors, irreps layout."""
+    bsz, nl, na, din = lig_x.shape[0], lig_x.shape[1], atom_x.shape[1], lig_x.shape[-1]
+    ka = atm_idx.shape[-1]
+    out_dim = spec.out.dim
+    # ligand <- ligand
+    e = torch.cat([lig_e_attr, lig_x[:, :, None, :ns].expand(bsz, nl, nl, ns),
+                   lig_x[:, None, :, :ns].expand(bsz, nl, nl, ns)], dim=-1)
+    m = L.tp_conv_messages(lp["lig"], spec, lig_x[:, None].expand(bsz, nl, nl, din), lig_sh, e)
+    lig_update = L.tp_conv_finalize(lp["lig"], spec, L.masked_mean(m, lig_pair_mask, dim=2))
+    # ligand <- atoms (al), mean over atoms
+    e = torch.cat([la_attr, lig_x[:, :, None, :ns].expand(bsz, nl, na, ns),
+                   atom_x[:, None, :, :ns].expand(bsz, nl, na, ns)], dim=-1)
+    m = L.tp_conv_messages(lp["al"], spec, atom_x[:, None].expand(bsz, nl, na, din),
+                           cross_sh, e)
+    al_update = L.tp_conv_finalize(lp["al"], spec, L.masked_mean(m, cross_mask, dim=2))
+    # atoms <- atoms, gather-form knn
+    nbr = _gather_rows(atom_x, atm_idx)
+    e = torch.cat([atm_e_attr, atom_x[:, :, None, :ns].expand(bsz, na, ka, ns),
+                   nbr[..., :ns]], dim=-1)
+    m = L.tp_conv_messages(lp["atom"], spec, nbr, atm_sh, e)
+    atom_update = L.tp_conv_finalize(lp["atom"], spec, L.masked_mean(m, atm_vmask, dim=2))
+    # atoms <- ligand (la), mean over the ligand
+    e = torch.cat([la_attr, atom_x[:, None, :, :ns].expand(bsz, nl, na, ns),
+                   lig_x[:, :, None, :ns].expand(bsz, nl, na, ns)], dim=-1)
+    m = L.tp_conv_messages(lp["la"], spec, lig_x[:, :, None].expand(bsz, nl, na, din),
+                           cross_sh, e)
+    la_update = L.tp_conv_finalize(lp["la"], spec, L.masked_mean(m, cross_mask, dim=1))
+    lig2 = L.pad_to_dim(lig_x, out_dim) + lig_update + al_update
+    atom2 = L.pad_to_dim(atom_x, out_dim) + atom_update + la_update
+    return lig2, atom2
+
+
+def _pseudotorque(emb_p, conv_p, final_p, tor_sh_spec, tor_conv_spec, *, node_x,
+                  node_pos, node_mask, bond_src, bond_dst, bond_mask, k, cutoff, cfg):
+    """Bond midpoints gather nearby nodes; edge sh = FullTP(sh(edge),
+    sh_2e(bond)); one scalar score per bond. Batched [B, NB]."""
+    ns = cfg.ns
+    bsz, nb = bond_src.shape
+    bond_vec = _gather_rows(node_pos, bond_dst) - _gather_rows(node_pos, bond_src)
+    bond_sh2 = L.sh_l2(bond_vec)[..., 4:9]
+    bond_attr = _gather_rows(node_x, bond_src) + _gather_rows(node_x, bond_dst)
+    mid = 0.5 * (_gather_rows(node_pos, bond_src) + _gather_rows(node_pos, bond_dst))
+    idx, valid = L.knn_edges(mid, node_pos, bond_mask, node_mask, k=k, cutoff=cutoff)
+    vec = _gather_rows(node_pos, idx) - mid[:, :, None, :]
+    length = torch.linalg.norm(vec + 1e-12, dim=-1)
+    e_attr = L.mlp_apply(emb_p, _gs(cfg, length, cutoff))
+    nbr = _gather_rows(node_x, idx)
+    e_attr = torch.cat([e_attr, nbr[..., :ns],
+                        bond_attr[:, :, None, :ns].expand(bsz, nb, k, ns)], dim=-1)
+    tor_sh = apply_full_tensor_product(tor_sh_spec, L.sh_l2(vec),
+                                       bond_sh2[:, :, None, :].expand(bsz, nb, k, 5))
+    m = L.tp_conv_messages(conv_p, tor_conv_spec, nbr, tor_sh, e_attr)
+    agg = L.masked_mean(m, valid.float(), dim=2)
+    agg = L.tp_conv_finalize(conv_p, tor_conv_spec, agg)
+    return L.mlp_apply(final_p, agg, act=torch.tanh)[..., 0]
+
+
+def sigmas_from_t(t, schedule) -> Sigmas:
+    """Geometric interpolation sigma_min^(1-t) sigma_max^t."""
+    def geo(lo, hi):
+        return lo ** (1.0 - t) * hi**t
+
+    return Sigmas(
+        tr=geo(schedule["tr_sigma_min"], schedule["tr_sigma_max"]),
+        rot=geo(schedule["rot_sigma_min"], schedule["rot_sigma_max"]),
+        tor=geo(schedule["tor_sigma_min"], schedule["tor_sigma_max"]),
+        sc_tor=geo(schedule["sc_tor_sigma_min"], schedule["sc_tor_sigma_max"]),
+    )

@@ -1,0 +1,232 @@
+"""Functional building blocks of the score network, in PyTorch.
+
+Counterpart of diffbindfr_tpu/nn/layers.py: parameters are nested dicts of
+tensors (as loaded from the JAX package's checkpoints) and every block is a
+plain function of (params, tensors). Padded elements are handled by masks.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from .irreps import (
+    Irreps,
+    LinearSpec,
+    TensorProductSpec,
+    apply_dw_tensor_product,
+    apply_linear,
+    apply_linear_cm,
+    compile_dw_tensor_product,
+    compile_linear,
+    spherical_harmonics_l2,
+)
+
+# ---------------------------------------------------------------------------
+# linear / mlp
+# ---------------------------------------------------------------------------
+
+
+def linear_apply(p, x):
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def mlp_apply(p, x, act=torch.relu):
+    """Linear-act-Linear (SimpleLinear); inference only, so no dropout."""
+    return linear_apply(p["l2"], act(linear_apply(p["l1"], x)))
+
+
+# ---------------------------------------------------------------------------
+# equivariant layer norm (irreps layout and component-major layout)
+# ---------------------------------------------------------------------------
+
+
+def irreps_layer_norm_apply(p, irreps: Irreps, x, eps: float = 1e-5):
+    outs = []
+    iw = ib = ims = 0
+    for off, mul, ir in irreps.slices():
+        d = ir.dim
+        field = x[..., off : off + mul * d].reshape(x.shape[:-1] + (mul, d))
+        mean = field.mean(dim=-2, keepdim=True)
+        shift = p["mean_shift"][ims : ims + mul][:, None]
+        field = field - mean * shift
+        ims += mul
+        norm = (field**2).mean(dim=-1).mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(norm + eps) * p["weight"][iw : iw + mul]
+        iw += mul
+        field = field * inv[..., None]
+        if d == 1 and ir.p == 1:
+            field = field + p["bias"][ib : ib + mul][:, None]
+            ib += mul
+        outs.append(field.reshape(x.shape[:-1] + (mul * d,)))
+    return torch.cat(outs, dim=-1)
+
+
+def irreps_layer_norm_apply_cm(p, irreps: Irreps, x, eps: float = 1e-5):
+    outs = []
+    iw = ib = ims = 0
+    for off, mul, ir in irreps.slices():
+        d = ir.dim
+        field = torch.stack(
+            [x[..., off + k * mul : off + (k + 1) * mul] for k in range(d)], dim=-2
+        )  # [..., d, mul]
+        mean = field.mean(dim=-1, keepdim=True)
+        shift = p["mean_shift"][ims : ims + mul]
+        field = field - mean * shift[None, :]
+        ims += mul
+        norm = (field**2).mean(dim=-2).mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(norm + eps) * p["weight"][iw : iw + mul]
+        iw += mul
+        field = field * inv[..., None, :]
+        if d == 1 and ir.p == 1:
+            field = field + p["bias"][ib : ib + mul][None, :]
+            ib += mul
+        outs.append(torch.cat([field[..., k, :] for k in range(d)], dim=-1))
+    return torch.cat(outs, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+
+def gaussian_smearing(d, start: float, stop: float, num: int):
+    """[...] distances -> [..., num] RBF features."""
+    offset = torch.linspace(start, stop, num, dtype=torch.float32, device=d.device)
+    coeff = -0.5 / (offset[1] - offset[0]) ** 2
+    return torch.exp(coeff * (d[..., None] - offset) ** 2)
+
+
+def sinusoidal_time_emb(t, dim: int, scale: float = 1000.0):
+    """t [...] in [0, 1] -> [..., dim]."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(10000.0) / (half - 1)
+        * torch.arange(half, dtype=torch.float32, device=t.device)
+    )
+    ang = (t * scale)[..., None] * freqs
+    emb = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    if dim % 2 == 1:
+        emb = torch.nn.functional.pad(emb, (0, 1))
+    return emb
+
+
+def atom_encoder_apply(p, cat_feats, scalars):
+    """cat_feats [..., n_cat] int ids; scalars [..., scalar_dim] or None."""
+    x = 0.0
+    for i, e in enumerate(p["embs"]):
+        x = x + e["emb"][cat_feats[..., i]]
+    if scalars is not None and "scalar_lin" in p:
+        x = x + torch.cat([x, scalars], dim=-1) @ p["scalar_lin"]["w"]
+    return x
+
+
+# ---------------------------------------------------------------------------
+# tensor-product convolution ('sep' mode)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvSpec:
+    """Static description of one separable TP conv: depthwise TP with
+    per-edge weights, then an edge-independent irreps Linear after
+    aggregation."""
+
+    out: Irreps
+    dw: TensorProductSpec
+    lin: LinearSpec
+
+    @property
+    def msg_dim(self) -> int:
+        return self.dw.out.dim
+
+
+def make_conv_spec(in_s: str, sh_s: str, out_s: str) -> ConvSpec:
+    out = Irreps.parse(out_s)
+    lmax = max(ir.l for _, ir in out.items)
+    dw = compile_dw_tensor_product(in_s, sh_s, lmax_out=lmax)
+    return ConvSpec(out, dw, compile_linear(str(dw.out), out_s))
+
+
+def tp_conv_messages(p, spec: ConvSpec, src_feat, edge_sh, edge_attr):
+    """Per-edge weighted depthwise TP (before aggregation)."""
+    w = mlp_apply(p["fc"], edge_attr)
+    return apply_dw_tensor_product(spec.dw, src_feat, edge_sh, w)
+
+
+def tp_conv_finalize(p, spec: ConvSpec, agg):
+    agg = apply_linear(spec.lin, agg, p["mix"])
+    if "ln" in p:
+        agg = irreps_layer_norm_apply(p["ln"], spec.out, agg)
+    return agg
+
+
+def tp_conv_finalize_cm(p, spec: ConvSpec, agg_cm):
+    """tp_conv_finalize entirely in component-major layout."""
+    out = apply_linear_cm(spec.lin, agg_cm, p["mix"])
+    if "ln" in p:
+        out = irreps_layer_norm_apply_cm(p["ln"], spec.out, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# masked aggregation helpers
+# ---------------------------------------------------------------------------
+
+
+def masked_mean(msgs, mask, dim: int):
+    """Mean of msgs over `dim` counting only mask == 1 entries.
+
+    Accumulates in f32 when the reduced axis is longer than 32 (bf16 sums
+    over hundreds of neighbours lose precision); short reductions keep the
+    message dtype. Returns msgs.dtype."""
+    m = mask[..., None] if mask.dim() == msgs.dim() - 1 else mask
+    acc = torch.float32 if msgs.shape[dim] > 32 else msgs.dtype
+    s = (msgs.to(acc) * m.to(acc)).sum(dim=dim)
+    n = m.to(torch.float32).sum(dim=dim)
+    return (s.to(torch.float32) / torch.clamp(n, min=1.0)).to(msgs.dtype)
+
+
+def pad_to_dim(x, dim: int):
+    """Right-pad the last axis with zeros (irreps ladder residuals)."""
+    if x.shape[-1] == dim:
+        return x
+    return torch.nn.functional.pad(x, (0, dim - x.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# neighbour lists
+# ---------------------------------------------------------------------------
+
+
+def knn_edges(pos_q, pos_k, mask_q, mask_k, k: int, cutoff, exclude_self: bool = False):
+    """Fixed-degree neighbour list from dense distances, batched.
+
+    pos_q [..., Nq, 3], pos_k [..., Nk, 3], masks [..., N]. Returns (idx
+    [..., Nq, k] int64, valid [..., Nq, k] bool): the k nearest keys within
+    `cutoff` (a float or a tensor broadcastable to [..., 1, 1]). Exact
+    top-k with ties to the lower index, as lax.top_k: a stable ascending
+    sort, never torch.topk, whose tie order on CUDA is unspecified.
+    """
+    k = min(k, pos_k.shape[-2])
+    d2 = ((pos_q[..., :, None, :] - pos_k[..., None, :, :]) ** 2).sum(dim=-1)
+    big = torch.tensor(1e10, dtype=d2.dtype, device=d2.device)
+    invalid = ~(mask_k > 0)[..., None, :]
+    if exclude_self:
+        eye = torch.eye(pos_q.shape[-2], pos_k.shape[-2], dtype=torch.bool, device=d2.device)
+        invalid = invalid | eye
+    d2 = torch.where(invalid, big, d2)
+    d2_sorted, idx = torch.sort(d2, dim=-1, stable=True)
+    d2_sel, idx = d2_sorted[..., :k], idx[..., :k]
+    cut = torch.as_tensor(cutoff, dtype=d2.dtype, device=d2.device)
+    valid = (d2_sel <= cut**2) & (mask_q > 0)[..., None] & (d2_sel < big * 0.5)
+    return idx, valid
+
+
+def sh_l2(vec):
+    """Spherical harmonics 0e+1o+2e with component normalisation."""
+    return spherical_harmonics_l2(vec, normalize=True)

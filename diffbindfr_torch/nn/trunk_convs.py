@@ -1,0 +1,449 @@
+"""The score network's three trunk convs: CUDA kernels and plain versions.
+
+Counterpart of diffbindfr_tpu/nn/pallas_conv_t.py (the cmT Pallas kernels
+on the default `use_pallas` path). Each conv has
+  * a wrapper (`pair_conv`, `cross_conv`, `knn_conv`) that launches its
+    hand-written CUDA kernel (csrc/*.cu) on CUDA tensors, or raises;
+  * a plain PyTorch version (`*_plain`), a port of the XLA twin in
+    diffbindfr_tpu/nn/pallas_conv.py:227-405, which the wrapper uses only
+    for tensors on the CPU and which tests and chip_smoke.py hold the
+    kernels against;
+  * a launch counter, `launches[name]`, raised by one per kernel call.
+
+| wrapper | replaces (TPU kernel) | CUDA source |
+| cross_conv (B1) | pallas_conv_t.py:make_cross_conv_t (call :693) | csrc/cross_conv.cu |
+| pair_conv (B2) | pallas_conv_t.py:make_pair_conv_t (call :433) | csrc/pair_conv.cu |
+| knn_conv (B3) | pallas_conv_t.py:make_knn_conv_t (call :935) | csrc/knn_conv.cu |
+
+Contract (the twins'): component-major f32 node features in, masked message
+SUM [B, N_target, dw.out.dim] component-major out; a leading batch axis B
+replaces the vmap. What bounds the kernels on the H100 and what their design
+does about it is in csrc/trunk_conv.cuh and the kernel sources.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from .irreps import Irreps, TensorProductSpec, apply_dw_tensor_product, clebsch_gordan
+from .layers import sh_l2
+
+launches = {"cross_conv": 0, "pair_conv": 0, "knn_conv": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# component-major layout converters (nn/pallas_conv.py:51-80)
+# ---------------------------------------------------------------------------
+
+
+def cm_from_irreps(irreps: Irreps, x):
+    """[..., dim] irreps layout ([mul, d] per slot) -> component-major ([d, mul])."""
+    parts = []
+    for off, mul, ir in irreps.slices():
+        d = ir.dim
+        blk = x[..., off : off + mul * d]
+        if d > 1:
+            blk = blk.reshape(x.shape[:-1] + (mul, d)).transpose(-1, -2).reshape(
+                x.shape[:-1] + (mul * d,))
+        parts.append(blk)
+    return torch.cat(parts, dim=-1)
+
+
+def cm_to_irreps(irreps: Irreps, x):
+    parts = []
+    for off, mul, ir in irreps.slices():
+        d = ir.dim
+        blk = x[..., off : off + mul * d]
+        if d > 1:
+            blk = blk.reshape(x.shape[:-1] + (d, mul)).transpose(-1, -2).reshape(
+                x.shape[:-1] + (mul * d,))
+        parts.append(blk)
+    return torch.cat(parts, dim=-1)
+
+
+def _path_constants(spec: TensorProductSpec):
+    """Per-path metadata + stacked sh -> Cb contraction matrix [9, kdim]
+    (alpha folded in); cb column layout per path: [i * d3 + k]."""
+    metas = []
+    ck_cols = []
+    off = 0
+    for p in spec.paths:
+        d1, d2, d3 = 2 * p.l1 + 1, 2 * p.l2 + 1, 2 * p.l3 + 1
+        C = clebsch_gordan(p.l1, p.l2, p.l3)
+        block = np.zeros((9, d1 * d3))
+        block[p.s2 : p.s2 + d2] = np.transpose(C, (1, 0, 2)).reshape(d2, d1 * d3) * p.alpha
+        ck_cols.append(block)
+        metas.append(dict(s1=p.s1, mul=p.mul1, d1=d1, d3=d3, s3=p.s3,
+                          w_off=p.w_offset, cb_off=off))
+        off += d1 * d3
+    return metas, np.concatenate(ck_cols, axis=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvConsts:
+    """Static tables of one trunk conv (one layer's depthwise TP)."""
+
+    spec: TensorProductSpec
+    ns: int
+    sed: int
+    gs_stop: float
+    gs_n: int
+
+    @property
+    def din(self) -> int:
+        return self.spec.in1.dim
+
+    @property
+    def dout(self) -> int:
+        return self.spec.out.dim
+
+    @property
+    def gs_offsets(self) -> np.ndarray:
+        return np.linspace(0.0, self.gs_stop, self.gs_n)
+
+    @property
+    def gs_coeff(self) -> float:
+        offs = self.gs_offsets
+        return float(-0.5 / (offs[1] - offs[0]) ** 2)
+
+    @functools.cached_property
+    def tables(self):
+        """(ck [9, kdim] f32, out_meta [dout, 8] i32) as numpy arrays.
+        out_meta row o (component-major output column o = s3 + k*mul + u):
+        a_base = s1 + u, mul, d1, w_idx = w_off + u, cb_base = cb_off + k, d3."""
+        metas, ck = _path_constants(self.spec)
+        meta = np.zeros((self.dout, 8), np.int32)
+        for m in metas:
+            for k in range(m["d3"]):
+                for u in range(m["mul"]):
+                    meta[m["s3"] + k * m["mul"] + u] = (
+                        m["s1"] + u, m["mul"], m["d1"], m["w_off"] + u,
+                        m["cb_off"] + k, m["d3"], 0, 0)
+        return ck.astype(np.float32), meta
+
+    def device_tables(self, device):
+        """(ck, gs_offsets, out_meta) tensors on `device`, cached."""
+        return _device_tables(self, str(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(c: ConvConsts, device: str):
+    ck, meta = c.tables
+    return (torch.from_numpy(np.ascontiguousarray(ck)).to(device),
+            torch.tensor(c.gs_offsets, dtype=torch.float32, device=device),
+            torch.from_numpy(meta).to(device))
+
+
+# ---------------------------------------------------------------------------
+# plain versions (ports of the XLA twins), batched over B
+# ---------------------------------------------------------------------------
+
+# pair rows per chunk of the plain versions: bounds their peak memory
+_PLAIN_PAIRS = 1 << 14
+
+
+def _mlp2(w1, b1, w2, b2, x):
+    return torch.relu(x @ w1 + b1) @ w2 + b2
+
+
+def _gauss(c: ConvConsts, d):
+    offs = torch.tensor(c.gs_offsets, dtype=torch.float32, device=d.device)
+    return torch.exp(c.gs_coeff * (d[..., None] - offs) ** 2)
+
+
+def _dist(vec):
+    vx, vy, vz = vec[..., 0], vec[..., 1], vec[..., 2]
+    return torch.sqrt(vx * vx + vy * vy + vz * vz + 1e-12)
+
+
+def _cutoffs(cutoff, batch: int, device):
+    return torch.as_tensor(cutoff, dtype=torch.float32, device=device).reshape(-1).expand(batch)
+
+
+def _rows(mask_b):
+    return torch.nonzero(mask_b > 0).reshape(-1)
+
+
+def _chunks(idx, width: int):
+    step = max(1, _PLAIN_PAIRS // max(width, 1))
+    return [idx[i : i + step] for i in range(0, idx.shape[0], step)]
+
+
+def pair_conv_plain(c: ConvConsts, tgt_pos, src_pos, tgt_x, src_x, tgt_mask,
+                    src_mask, cab_t, cab_s, temb, cutoff, params, bond_feat,
+                    bond_mask):
+    """Plain B2: make_pair_twin in the score net's configuration (bond
+    features, self pairs excluded, cab flags on the source side). Rows and
+    columns whose node mask is 0 contribute nothing in the twin either, so
+    only valid nodes are visited."""
+    p = params
+    bsz, nt, ns = tgt_x.shape[0], tgt_x.shape[1], c.ns
+    cut = _cutoffs(cutoff, bsz, tgt_x.device)
+    out = tgt_x.new_zeros(bsz, nt, c.dout)
+    for b in range(bsz):
+        si = _rows(src_mask[b])
+        src_irr = cm_to_irreps(c.spec.in1, src_x[b, si])
+        for ti in _chunks(_rows(tgt_mask[b]), si.shape[0]):
+            vec = src_pos[b, si][None, :, :] - tgt_pos[b, ti][:, None, :]
+            d = _dist(vec)
+            mask = (cab_s[b, si][None, :] > 0) | (d <= cut[b])
+            mask = (mask & (ti[:, None] != si[None, :])) | (bond_mask[b][ti][:, si] > 0)
+            r, s = vec.shape[:2]
+            attr = _mlp2(p["emb_w1"], p["emb_b1"], p["emb_w2"], p["emb_b2"],
+                         torch.cat([bond_feat[b][ti][:, si], temb[b].expand(r, s, -1),
+                                    _gauss(c, d)], dim=-1))
+            e = torch.cat([attr, tgt_x[b, ti, None, :ns].expand(r, s, ns),
+                           src_x[b, si, :ns][None].expand(r, s, ns)], dim=-1)
+            w = _mlp2(p["fc_w1"], p["fc_b1"], p["fc_w2"], p["fc_b2"], e)
+            m = apply_dw_tensor_product(c.spec, src_irr[None].expand(r, s, -1), sh_l2(vec), w)
+            out[b, ti] = cm_from_irreps(c.spec.out, (m * mask[..., None].float()).sum(1))
+    return out
+
+
+def cross_conv_plain(c: ConvConsts, lig_pos, atm_pos, lig_x, atm_x, lig_mask,
+                     atm_mask, cabflag, temb, cutoff, emb_params, fc_al, fc_la):
+    """Plain B1 (make_cross_twin): returns (al [B, nl, dout], la [B, na, dout])."""
+    e_, ns = emb_params, c.ns
+    bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
+    cut = _cutoffs(cutoff, bsz, lig_x.device)
+    al = lig_x.new_zeros(bsz, nl, c.dout)
+    la = atm_x.new_zeros(bsz, na, c.dout)
+    for b in range(bsz):
+        ai = _rows(atm_mask[b])
+        atm_irr = cm_to_irreps(c.spec.in1, atm_x[b, ai])
+        la_sum = atm_x.new_zeros(ai.shape[0], c.dout)
+        for li in _chunks(_rows(lig_mask[b]), ai.shape[0]):
+            vec = atm_pos[b, ai][None, :, :] - lig_pos[b, li][:, None, :]
+            d = _dist(vec)
+            maskf = ((cabflag[b, ai][None, :] > 0) | (d <= cut[b]))[..., None].float()
+            r, s = vec.shape[:2]
+            attr = _mlp2(e_["l1"]["w"], e_["l1"]["b"], e_["l2"]["w"], e_["l2"]["b"],
+                         torch.cat([temb[b].expand(r, s, -1), _gauss(c, d)], dim=-1))
+            lig_sc = lig_x[b, li, None, :ns].expand(r, s, ns)
+            atm_sc = atm_x[b, ai, :ns][None].expand(r, s, ns)
+            sh = sh_l2(vec)
+            w_al = _mlp2(fc_al["l1"]["w"], fc_al["l1"]["b"], fc_al["l2"]["w"],
+                         fc_al["l2"]["b"], torch.cat([attr, lig_sc, atm_sc], dim=-1))
+            m_al = apply_dw_tensor_product(c.spec, atm_irr[None].expand(r, s, -1), sh, w_al)
+            al[b, li] = cm_from_irreps(c.spec.out, (m_al * maskf).sum(1))
+            w_la = _mlp2(fc_la["l1"]["w"], fc_la["l1"]["b"], fc_la["l2"]["w"],
+                         fc_la["l2"]["b"], torch.cat([attr, atm_sc, lig_sc], dim=-1))
+            lig_irr = cm_to_irreps(c.spec.in1, lig_x[b, li])
+            m_la = apply_dw_tensor_product(c.spec, lig_irr[:, None].expand(r, s, -1), sh, w_la)
+            la_sum = la_sum + (m_la * maskf).sum(0)
+        la[b, ai] = cm_from_irreps(c.spec.out, la_sum)
+    return al, la
+
+
+def knn_conv_plain(c: ConvConsts, pos, x, mask, idx, valid, temb, params):
+    """Plain B3 (make_knn_twin): sums over the valid neighbour slots."""
+    e_, fc, ns = params["emb"], params["fc"], c.ns
+    bsz, n, k = idx.shape
+    out = x.new_zeros(bsz, n, c.dout)
+    for b in range(bsz):
+        xi = cm_to_irreps(c.spec.in1, x[b])
+        nb_idx = idx[b].long()
+        vec = pos[b][nb_idx] - pos[b][:, None, :]
+        d = _dist(vec)
+        attr = _mlp2(e_["l1"]["w"], e_["l1"]["b"], e_["l2"]["w"], e_["l2"]["b"],
+                     torch.cat([temb[b].expand(n, k, -1), _gauss(c, d)], dim=-1))
+        ee = torch.cat([attr, x[b, :, None, :ns].expand(n, k, ns), x[b][nb_idx][..., :ns]], dim=-1)
+        w = _mlp2(fc["l1"]["w"], fc["l1"]["b"], fc["l2"]["w"], fc["l2"]["b"], ee)
+        m = apply_dw_tensor_product(c.spec, xi[nb_idx], sh_l2(vec), w)
+        out[b] = cm_from_irreps(c.spec.out, (m * valid[b].float()[..., None]).sum(1))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_ARGTYPES = {
+    "dbfr_pair_conv": [_P] * 7 + [_I] + [_P] * 15 + [_I] * 12 + [_F, _I, _I, _P],
+    "dbfr_cross_conv": [_P] * 25 + [_I] * 11 + [_F, _P],
+    "dbfr_knn_conv": [_P] * 17 + [_I] * 11 + [_F, _P],
+}
+# the widest matrix a kernel thread tiles (kMaxJ * 32 columns, trunk_conv.cuh)
+_MAX_COLS = 320
+
+
+def _library():
+    from ..utils import cuda_build
+
+    lib = cuda_build.load()
+    for name, types in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _arg(t, shape, dev):
+    """Validate one kernel input; returns it as contiguous float32."""
+    if t.device != dev or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"kernel input on {t.device} with shape {tuple(t.shape)}; "
+                         f"expected {dev} and {tuple(shape)}")
+    return t.to(torch.float32).contiguous()
+
+
+def _mlp_args(mlp, n_in, hidden, n_out, dev):
+    return [_arg(mlp["l1"]["w"], (n_in, hidden), dev), _arg(mlp["l1"]["b"], (hidden,), dev),
+            _arg(mlp["l2"]["w"], (hidden, n_out), dev), _arg(mlp["l2"]["b"], (n_out,), dev)]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _prep_edge(c: ConvConsts, emb_w1, emb_b1, temb, edge_extra: int, bsz: int, dev):
+    """Reorder the edge-MLP input rows to [Gaussian | bond] and fold the time
+    embedding into a per-sample bias (constant across the pairs of a sample)."""
+    he = emb_b1.shape[0]
+    w1 = _arg(emb_w1, (edge_extra + c.sed + c.gs_n, he), dev)
+    beff = _arg(temb, (bsz, c.sed), dev) @ w1[edge_extra : edge_extra + c.sed]
+    beff = beff + _arg(emb_b1, (he,), dev)
+    w_in = torch.cat([w1[edge_extra + c.sed :], w1[:edge_extra]], dim=0).contiguous()
+    return w_in, beff.contiguous()
+
+
+def _dims(c: ConvConsts, emb_w2, fc_w1):
+    """(edge hidden, TP-weight hidden, n weights, kdim), checked against the
+    widest product a kernel thread tiles."""
+    he, hf, nw = emb_w2.shape[0], fc_w1.shape[1], c.spec.weight_numel
+    kdim = c.tables[0].shape[1]
+    if max(he, hf, nw, c.ns, kdim) > _MAX_COLS:
+        raise ValueError(f"trunk conv kernels tile at most {_MAX_COLS} columns")
+    return he, hf, nw, kdim
+
+
+def _check_nodes(name: str, *counts):
+    if max(counts) >= 1 << 16:
+        raise ValueError(f"{name}: at most 65535 nodes per side")
+
+
+def pair_conv(c: ConvConsts, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask,
+              cab_t, cab_s, temb, cutoff, params, bond_feat, bond_mask):
+    """B2 ligand-ligand conv, the score net's configuration: self pairs
+    excluded, bonded pairs always on, cab flags on the source side."""
+    if not tgt_x.is_cuda:
+        return pair_conv_plain(c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask,
+                               cab_t, cab_s, temb, cutoff, params, bond_feat, bond_mask)
+    return _pair_conv_kernel(_library(), c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask,
+                             src_mask, cab_s, temb, cutoff, params, bond_feat,
+                             bond_mask, torch.cuda.current_stream().cuda_stream)
+
+
+def _pair_conv_kernel(lib, c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask,
+                      cab_s, temb, cutoff, params, bond_feat, bond_mask, stream):
+    p, dev = params, tgt_x.device
+    bsz, nt, nsrc = tgt_x.shape[0], tgt_x.shape[1], src_x.shape[1]
+    _check_nodes("pair_conv", nt, nsrc)
+    nb = bond_feat.shape[-1]
+    he, hf, nw, kdim = _dims(c, p["emb_w2"], p["fc_w1"])
+    w_in, beff = _prep_edge(c, p["emb_w1"], p["emb_b1"], temb, nb, bsz, dev)
+    ck, gs_off, meta = c.device_tables(dev)
+    cut = _cutoffs(cutoff, bsz, dev).contiguous()
+    keep = [_arg(v, shape, dev) for v, shape in (
+        (tgt_pos, (bsz, nt, 3)), (src_pos, (bsz, nsrc, 3)), (tgt_x, (bsz, nt, c.din)),
+        (src_x, (bsz, nsrc, c.din)), (tgt_mask, (bsz, nt)), (src_mask, (bsz, nsrc)),
+        (cab_s, (bsz, nsrc)), (bond_feat, (bsz, nt, nsrc, nb)), (bond_mask, (bsz, nt, nsrc)))]
+    keep += [_arg(p["emb_w2"], (he, c.ns), dev), _arg(p["emb_b2"], (c.ns,), dev),
+             _arg(p["fc_w1"], (3 * c.ns, hf), dev), _arg(p["fc_b1"], (hf,), dev),
+             _arg(p["fc_w2"], (hf, nw), dev), _arg(p["fc_b2"], (nw,), dev)]
+    out = torch.zeros(bsz, nt, c.dout, dtype=torch.float32, device=dev)
+    rc = lib.dbfr_pair_conv(
+        *[_ptr(v) for v in keep[:7]], 0, _ptr(cut), _ptr(keep[7]), _ptr(keep[8]),
+        _ptr(w_in), _ptr(beff), *[_ptr(v) for v in keep[9:]],
+        _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
+        bsz, nt, nsrc, c.din, c.dout, nb, c.ns, he, hf, nw, kdim, c.gs_n,
+        c.gs_coeff, 0, 1, stream)
+    _check(rc, "pair_conv")
+    launches["pair_conv"] += 1
+    return out
+
+
+def cross_conv(c: ConvConsts, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask,
+               cabflag, temb, cutoff, emb_params, fc_al, fc_la):
+    """B1 dual cross conv: (al [B, nl, dout], la [B, na, dout])."""
+    if not lig_x.is_cuda:
+        return cross_conv_plain(c, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask,
+                                cabflag, temb, cutoff, emb_params, fc_al, fc_la)
+    return _cross_conv_kernel(_library(), c, lig_pos, atm_pos, lig_x, atm_x, lig_mask,
+                              atm_mask, cabflag, temb, cutoff, emb_params, fc_al, fc_la,
+                              torch.cuda.current_stream().cuda_stream)
+
+
+def _cross_conv_kernel(lib, c, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask,
+                       cabflag, temb, cutoff, emb_params, fc_al, fc_la, stream):
+    e_, dev = emb_params, lig_x.device
+    bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
+    _check_nodes("cross_conv", nl, na)
+    he, hf, nw, kdim = _dims(c, e_["l2"]["w"], fc_al["l1"]["w"])
+    w_in, beff = _prep_edge(c, e_["l1"]["w"], e_["l1"]["b"], temb, 0, bsz, dev)
+    ck, gs_off, meta = c.device_tables(dev)
+    cut = _cutoffs(cutoff, bsz, dev).contiguous()
+    keep = [_arg(v, shape, dev) for v, shape in (
+        (lig_pos, (bsz, nl, 3)), (atm_pos, (bsz, na, 3)), (lig_x, (bsz, nl, c.din)),
+        (atm_x, (bsz, na, c.din)), (lig_mask, (bsz, nl)), (atm_mask, (bsz, na)),
+        (cabflag, (bsz, na)))]
+    wts = [_arg(e_["l2"]["w"], (he, c.ns), dev), _arg(e_["l2"]["b"], (c.ns,), dev)]
+    wts += _mlp_args(fc_al, 3 * c.ns, hf, nw, dev) + _mlp_args(fc_la, 3 * c.ns, hf, nw, dev)
+    al = torch.zeros(bsz, nl, c.dout, dtype=torch.float32, device=dev)
+    la = torch.zeros(bsz, na, c.dout, dtype=torch.float32, device=dev)
+    rc = lib.dbfr_cross_conv(
+        *[_ptr(v) for v in keep], _ptr(cut), _ptr(w_in), _ptr(beff),
+        *[_ptr(v) for v in wts], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(al), _ptr(la),
+        bsz, nl, na, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, stream)
+    _check(rc, "cross_conv")
+    launches["cross_conv"] += 1
+    return al, la
+
+
+def knn_conv(c: ConvConsts, pos, x, mask, idx, valid, temb, params):
+    """B3 pocket-atom conv over the neighbour list idx/valid [B, N, k]."""
+    if not x.is_cuda:
+        return knn_conv_plain(c, pos, x, mask, idx, valid, temb, params)
+    return _knn_conv_kernel(_library(), c, pos, x, idx, valid, temb, params,
+                            torch.cuda.current_stream().cuda_stream)
+
+
+def _knn_conv_kernel(lib, c, pos, x, idx, valid, temb, params, stream):
+    e_, fc, dev = params["emb"], params["fc"], x.device
+    bsz, n, k = idx.shape
+    _check_nodes("knn_conv", n)
+    he, hf, nw, kdim = _dims(c, e_["l2"]["w"], fc["l1"]["w"])
+    w_in, beff = _prep_edge(c, e_["l1"]["w"], e_["l1"]["b"], temb, 0, bsz, dev)
+    ck, gs_off, meta = c.device_tables(dev)
+    pos_, x_, valid_ = (_arg(pos, (bsz, n, 3), dev), _arg(x, (bsz, n, c.din), dev),
+                        _arg(valid, (bsz, n, k), dev))
+    if idx.device != dev:
+        raise ValueError(f"kernel input on {idx.device}; expected {dev}")
+    idx_ = idx.to(torch.int32).contiguous()
+    wts = [_arg(e_["l2"]["w"], (he, c.ns), dev), _arg(e_["l2"]["b"], (c.ns,), dev)]
+    wts += _mlp_args(fc, 3 * c.ns, hf, nw, dev)
+    out = torch.zeros(bsz, n, c.dout, dtype=torch.float32, device=dev)
+    rc = lib.dbfr_knn_conv(
+        _ptr(pos_), _ptr(x_), _ptr(idx_), _ptr(valid_), None, _ptr(w_in), _ptr(beff),
+        *[_ptr(v) for v in wts], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
+        bsz, n, k, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, stream)
+    _check(rc, "knn_conv")
+    launches["knn_conv"] += 1
+    return out

@@ -1,0 +1,112 @@
+"""Hand-written CUDA trunk-conv kernels against their plain versions, on
+the card. Marked `cuda`: skipped (with a reason) where no GPU is present.
+Imports no JAX, so it runs on the GPU machine with
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -p no:cacheprovider
+
+Tolerance: f32 sums in another order, max|err| <= 1e-4 * max|ref|.
+"""
+import numpy as np
+import pytest
+import torch
+
+from diffbindfr_torch.nn import layers as L
+from diffbindfr_torch.nn import trunk_convs as TC
+
+NS, NV, SED, GSN = 8, 4, 16, 16
+LADDER = f"{NS}x0e+{NV}x1o+{NV}x1e+{NS}x0o"
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _system(dev, nt=24, nsrc=300, bsz=3, seed=0):
+    rng = np.random.default_rng(seed)
+    cs = L.make_conv_spec(LADDER, "1x0e+1x1o+1x2e", LADDER)
+    din, wn = cs.dw.in1.dim, cs.dw.weight_numel
+
+    def f(*shape, sc=1.0):
+        return torch.tensor(rng.normal(size=shape) * sc, dtype=torch.float32, device=dev)
+
+    def mlp(i, h, o):
+        return {"l1": {"w": f(i, h, sc=0.2), "b": f(h, sc=0.1)},
+                "l2": {"w": f(h, o, sc=0.2), "b": f(o, sc=0.1)}}
+
+    def bern(p, *shape):
+        return torch.tensor(rng.random(shape) < p, dtype=torch.float32, device=dev)
+
+    return dict(
+        cs=cs, tgt_pos=f(bsz, nt, 3, sc=3), src_pos=f(bsz, nsrc, 3, sc=6),
+        tgt_x=f(bsz, nt, din), src_x=f(bsz, nsrc, din), tgt_mask=bern(0.85, bsz, nt),
+        src_mask=bern(0.9, bsz, nsrc), cab=bern(0.2, bsz, nsrc), temb=f(bsz, SED),
+        emb=mlp(SED + GSN, NS, NS), fc_a=mlp(3 * NS, 3 * NS, wn), fc_b=mlp(3 * NS, 3 * NS, wn),
+        pair_w1=f(10 + SED + GSN, NS, sc=0.2), f=f, bern=bern)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.cuda
+def test_cross_kernel_matches_plain(dev):
+    S = _system(dev)
+    c = TC.ConvConsts(S["cs"].dw, NS, SED, 32.0, GSN)
+    cut = torch.tensor([6.5, 5.2, 8.0], device=dev)
+    args = (c, S["tgt_pos"], S["src_pos"], S["tgt_x"], S["src_x"], S["tgt_mask"],
+            S["src_mask"], S["cab"], S["temb"], cut, S["emb"], S["fc_a"], S["fc_b"])
+    before = TC.launches["cross_conv"]
+    al, la = TC.cross_conv(*args)
+    torch.cuda.synchronize()
+    assert TC.launches["cross_conv"] == before + 1
+    al0, la0 = TC.cross_conv_plain(*args)
+    assert _rel(al, al0) <= 1e-4 and _rel(la, la0) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_pair_kernel_matches_plain(dev):
+    S = _system(dev, nt=40, nsrc=40)
+    f, bern = S["f"], S["bern"]
+    c = TC.ConvConsts(S["cs"].dw, NS, SED, 5.0, GSN)
+    bsz, nl = S["tgt_x"].shape[:2]
+    pos = f(bsz, nl, 3, sc=2.5)
+    bm = bern(0.1, bsz, nl, nl)
+    bf = f(bsz, nl, nl, 10) * bm[..., None]
+    p = {"emb_w1": S["pair_w1"], "emb_b1": S["emb"]["l1"]["b"], "emb_w2": S["emb"]["l2"]["w"],
+         "emb_b2": S["emb"]["l2"]["b"], "fc_w1": S["fc_a"]["l1"]["w"],
+         "fc_b1": S["fc_a"]["l1"]["b"], "fc_w2": S["fc_a"]["l2"]["w"],
+         "fc_b2": S["fc_a"]["l2"]["b"]}
+    zero = torch.zeros(bsz, nl, device=dev)
+    args = (c, pos, pos, S["tgt_x"], S["tgt_x"], S["tgt_mask"], S["tgt_mask"], zero, zero,
+            S["temb"], 5.0, p, bf, bm)
+    got = TC.pair_conv(*args)
+    torch.cuda.synchronize()
+    assert _rel(got, TC.pair_conv_plain(*args)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_knn_kernel_matches_plain(dev):
+    S = _system(dev, nt=10)
+    c = TC.ConvConsts(S["cs"].dw, NS, SED, 4.0, GSN)
+    pos = S["f"](*S["src_pos"].shape, sc=2.0)
+    idx, valid = L.knn_edges(pos, pos, S["src_mask"], S["src_mask"], k=16, cutoff=4.0,
+                             exclude_self=True)
+    args = (c, pos, S["src_x"], S["src_mask"], idx, valid.float(), S["temb"],
+            {"emb": S["emb"], "fc": S["fc_a"]})
+    got = TC.knn_conv(*args)
+    torch.cuda.synchronize()
+    assert _rel(got, TC.knn_conv_plain(*args)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_rejects_bad_parameters(dev):
+    S = _system(dev)
+    c = TC.ConvConsts(S["cs"].dw, NS, SED, 32.0, GSN)
+    bad = {"l1": S["fc_a"]["l1"], "l2": {"w": S["fc_a"]["l2"]["w"][:, :-1],
+                                         "b": S["fc_a"]["l2"]["b"][:-1]}}
+    with pytest.raises(ValueError):
+        TC.cross_conv(c, S["tgt_pos"], S["src_pos"], S["tgt_x"], S["src_x"], S["tgt_mask"],
+                      S["src_mask"], S["cab"], S["temb"], 6.0, S["emb"], bad, S["fc_b"])
