@@ -8,8 +8,9 @@ a non-zero exit code):
   1. device   require CUDA; print the card's name and power limit (nvidia-smi)
   2. build    nvcc-build the trunk-conv kernels (csrc/*.cu) into one .so
   3. load     read the diff_r2 checkpoint and the 3dbs prep cache
-  4. tables   the score-norm rows (SO(3) and torus) of the 20 sampler steps,
-              computed on the card and on the CPU: they must agree (<= 1e-6)
+  4. tables   the SO(3) and torus tables built on the card, against the
+              score-norm rows of the 20 sampler steps computed on the CPU
+              (<= 1e-6)
   5. kernels  B1 cross, B2 pair, B3 knn at the 3dbs bucket shapes (nl 128,
               na 1024, k 16) with diff_r2 weights, layers 0 and 5, B = 4 and
               the dock batch B = 16: each kernel against its plain PyTorch
@@ -26,23 +27,49 @@ a non-zero exit code):
   8. profile  torch.profiler over 2 sampler steps of the same batch: device
               time of the three kernels vs all other device work, and the
               device-busy share of the steps' wall time
+  9. bwd_kernels  B4 cross, B5 pair, B6 knn backward at layers 0 and 5,
+              B = 4 (the 128/1024 training batch) and B = 16, and at layer 1
+              B = 4 and layer 5 B = 1, on the kernel inputs of phase 5 with a
+              seeded cotangent: every feature and parameter gradient against
+              autograd through the plain version on the card, CUDA-event
+              times. Gate per tensor: max|err| <= 5e-4 max|ref|, where the
+              plain version may take the kernel's decision at a ReLU
+              pre-activation within f32 rounding of 0 and nowhere else
+              (nn/relu_ties.py); each such tie is printed with |z| and its
+              rounding bound
+  10. train_parity  one full-width train step (diff_r2 params, a fixed 3dbs
+              batch of 4, fixed TrainNoise) on the kernel path and on the
+              plain path: loss terms within 1e-5, grad_norm within 1e-4
+              (relative), every parameter gradient within 1e-3 max|ref|
+  11. train   the port's train_cli on a copy of the five prep caches from
+              diff_r2's params at -bs 16: 3 warm-up steps, then 20 steps
+              resumed from the saved state, counted: per step each backward
+              kernel launches 6 times and each forward kernel 12 (remat
+              reruns the forward); then 5 steps with --no-remat (6 each);
+              every step's loss finite, the checkpoint reloads; samples/s
+              and step ms after each run's first step, peak memory, and the
+              profiler's device time over 2 steps
 The second-to-last lines are the kernels JSON and the nvidia-smi line; the
 last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SAMPLE = os.path.join(ROOT, "runs/eval_r5_scsrc/prep_cache/3dbs_r12.npz")
 CKPT = os.path.join(ROOT, "runs/diff_r2/ckpt_best.npz")
+PREP = os.path.join(ROOT, "runs/eval_r5_scsrc/prep_cache")
 FIXTURE = os.path.join(ROOT, "tests/fixtures/torch_port_ref.npz")
 DEV = "cuda"
 DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 300,
-             "forward": 180, "dock": 300, "profile": 120}
+             "forward": 180, "dock": 300, "profile": 120, "bwd_kernels": 480,
+             "train_parity": 180, "train": 300}
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
@@ -51,6 +78,15 @@ KERNELS = {
     "cross_conv": ("diffbindfr_torch/csrc/cross_conv.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:693"),
     "pair_conv": ("diffbindfr_torch/csrc/pair_conv.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:433"),
     "knn_conv": ("diffbindfr_torch/csrc/knn_conv.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:935"),
+}
+# backward kernels: launch counter -> (source, replaced TPU kernel, forward wrapper)
+BWD_KERNELS = {
+    "cross_bwd": ("diffbindfr_torch/csrc/cross_bwd.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:1600",
+                  "cross_conv"),
+    "pair_bwd": ("diffbindfr_torch/csrc/pair_bwd.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:1258",
+                 "pair_conv"),
+    "knn_bwd": ("diffbindfr_torch/csrc/knn_bwd.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:1884",
+                "knn_conv"),
 }
 SCHED = {"tr_sigma_min": 0.1, "tr_sigma_max": 6.0, "rot_sigma_min": 0.03,
          "rot_sigma_max": 1.55, "tor_sigma_min": 0.0314, "tor_sigma_max": 3.14,
@@ -241,28 +277,331 @@ def phase_kernels(torch, params, s_np, results):
                 raise AssertionError(f"{name} layer {layer}: kernel disagrees with plain ({err:.3e})")
 
 
-def phase_tables(torch, sp, sn, scfg):
-    """The score-norm rows the sampler reads, on the card and on the CPU."""
+def grad_inputs(name, args, names=None):
+    """args with the node features and every parameter tensor replaced by
+    leaf copies that require grad, and those leaves (features first); their
+    names are appended to `names` when given."""
+    leaves = []
+    names = [] if names is None else names
+
+    def leaf(t, n):
+        t = t.detach().clone().requires_grad_(True)
+        leaves.append(t)
+        names.append(n)
+        return t
+
+    def tree(x, n):
+        if isinstance(x, dict):
+            return {k: tree(v, f"{n}/{k}") for k, v in x.items()}
+        return leaf(x, n)
+
+    a = list(args)
+    if name == "pair_conv":
+        a[3] = a[4] = leaf(a[3], "x")
+        a[11] = {k: leaf(v, k) for k, v in a[11].items()}
+    elif name == "cross_conv":
+        a[3], a[4] = leaf(a[3], "lig_x"), leaf(a[4], "atm_x")
+        a[10], a[11], a[12] = tree(a[10], "emb"), tree(a[11], "fc_al"), tree(a[12], "fc_la")
+    else:
+        a[2] = leaf(a[2], "x")
+        a[7] = tree(a[7], "p")
+    return a, leaves
+
+
+def bwd_launcher(torch, TC, name, args, gs):
+    """A call of the backward kernel alone on these inputs and cotangents."""
+    def plain(v):
+        return v.detach() if torch.is_tensor(v) else v
+
+    if name == "pair_conv":
+        c, tp, sp, tx, sx, tm, sm, ct, cs, temb, cut, p, bf, bm = args
+        data, x1, x2, w_in, beff, *w = map(plain, TC._pair_inputs(
+            c, tp, sp, tx, sx, tm, sm, cs, temb, cut, p, bf, bm))
+        return lambda: TC.pair_bwd(data, x1, x2, w_in, beff, w, gs[0])
+    if name == "cross_conv":
+        data, lx, ax, w_in, beff, *w = map(plain, TC._cross_inputs(*args))
+        return lambda: TC.cross_bwd(data, lx, ax, w_in, beff, w, gs[0], gs[1])
+    c, pos, x, mask, idx, valid, temb, p = args
+    data, x1, w_in, beff, *w = map(plain, TC._knn_inputs(c, pos, x, idx, valid, temb, p))
+    return lambda: TC.knn_bwd(data, x1, w_in, beff, w, gs[0])
+
+
+# (layer, batch) of the backward-kernel checks: the training batch of 4 and
+# the dock batch of 16 at the first and last layer, and two more shapes
+BWD_SHAPES = ((0, 4), (5, 4), (0, 16), (5, 16), (1, 4), (5, 1))
+# the MLPs of each conv in the order its plain version runs them, and what
+# the target and source index of a pair are
+MLP_ROLES = {"cross_conv": (("edge", "fc_al", "fc_la"), "ligand", "atom"),
+             "pair_conv": (("edge", "fc"), "ligand", "ligand"),
+             "knn_conv": (("edge", "fc"), "atom", "neighbour slot")}
+
+
+def diagnose_f64(torch, name, args, plain_fn, got, ref32, gs):
+    """Kernel and plain f32 gradients against autograd through the plain
+    version in float64: which side of a tie the exact value falls on."""
+    def f64(x):
+        if isinstance(x, dict):
+            return {k: f64(v) for k, v in x.items()}
+        if torch.is_tensor(x) and x.is_floating_point():
+            return x.double()
+        return x
+
+    diff, leaves = grad_inputs(name, [f64(a) for a in args])
+    out = plain_fn(*diff)
+    out = out if isinstance(out, tuple) else (out,)
+    ref = torch.autograd.grad(out, leaves, [g.double() for g in gs])
+    for what, grads in (("kernel", got), ("plain f32", ref32)):
+        print(f"    {what} vs plain f64, max|err|/max|ref| per gradient: " + " ".join(
+            f"{rel_err(g_.double(), r_):.1e}" for g_, r_ in zip(grads, ref)), flush=True)
+
+
+def phase_bwd_kernels(torch, params, s_np, results):
+    from diffbindfr_torch.nn import trunk_convs as TC
+    from diffbindfr_torch.nn.relu_ties import ReluTies
+
+    plain = {"cross_conv": TC.cross_conv_plain, "pair_conv": TC.pair_conv_plain,
+             "knn_conv": TC.knn_conv_plain}
+    wrapper = {"cross_conv": TC.cross_conv, "pair_conv": TC.pair_conv,
+               "knn_conv": TC.knn_conv}
+    for layer, bsz in BWD_SHAPES:
+        args = kernel_inputs(torch, params, s_np, layer, bsz, seed=layer * 100 + bsz)
+        for bname, (_, _, name) in BWD_KERNELS.items():
+            names = []
+            diff, leaves = grad_inputs(name, args[name], names)
+            out_k = wrapper[name](*diff)
+            out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+            gen = torch.Generator(device=DEV).manual_seed(layer * 10 + bsz)
+            gs = [torch.randn(o.shape, generator=gen, device=DEV) for o in out_k]
+            got = torch.autograd.grad(out_k, leaves, gs)
+            ties = ReluTies(plain[name], diff, leaves, gs)
+            raw, final, flips = ties.check(got, 5e-4)
+            n_ties, n_values, ref = ties.n_ties, ties.n_values, ties.ref
+            explain = ties.explain(got) if max(final) > 5e-4 else []
+            del ties
+            torch.cuda.synchronize()
+            print("    max|err|/max|ref|: " + " ".join(
+                f"{n} {a:.1e}" + (f" ({b:.1e} with the ties below)" if b != a else "")
+                for n, a, b in zip(names, raw, final)), flush=True)
+            roles, tgt, src = MLP_ROLES[name]
+            for f in flips:
+                print(f"    ReLU tie taken the other way: sample {f['b']} {tgt} {f['target']} "
+                      f"{src} {f['source']}, {roles[f['role']]} hidden unit {f['unit']}: "
+                      f"z {f['z']:.3e}, |z| <= rounding bound {f['bound']:.3e}", flush=True)
+            if flips:
+                diagnose_f64(torch, name, args[name], plain[name], got, ref, gs)
+            err, tie_err = max(raw), max(final)
+            abs_err = max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
+            finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
+            ms = time_ms(bwd_launcher(torch, TC, name, args[name], gs), 2, 5)
+            out_p = plain[name](*diff)
+            out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+            plain_ms = time_ms(lambda: torch.autograd.grad(out_p, leaves, gs, retain_graph=True),
+                               0, 1)
+            del out_p, ref
+            flops, byts, pairs = work(torch, name, args[name])
+            # the recompute plus both products of every MLP's backward: 3x the
+            # forward's operations; bytes: the forward's, the cotangent, and
+            # one gradient per feature and parameter tensor
+            flops *= 3.0
+            byts += nbytes(*gs) + nbytes(*leaves)
+            bound_ms = max(flops / PEAK_FP32, byts / PEAK_BYTES) * 1e3
+            row = dict(layer=layer, batch=bsz, max_rel_err=err, tie_rel_err=tie_err,
+                       ties_taken=len(flips), max_abs_err=abs_err, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms, pairs=pairs, flops=flops,
+                       bytes=byts,
+                       bound_by="operations" if flops / PEAK_FP32 >= byts / PEAK_BYTES else "bytes")
+            results.setdefault(bname, []).append(row)
+            print(f"  {bname} layer {layer} B={bsz}: {len(got)} gradients, max|err|/max|ref| "
+                  f"{err:.2e} ({tie_err:.2e} with {len(flips)} of {n_ties} ReLU ties "
+                  f"in {n_values} pre-activations taken the other way) kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound "
+                  f"{bound_ms:.3f} ms ({row['bound_by']}) pairs {pairs:.0f}", flush=True)
+            if not finite or not tie_err <= 5e-4:
+                for e in explain:
+                    print(f"    closest single flip to the largest bias-gradient difference "
+                          f"({e['diff']:.2e}): sample {e['b']} {tgt} {e['target']} {src} "
+                          f"{e['source']}, {roles[e['role']]} unit {e['unit']}: flip "
+                          f"{e['delta']:.2e}, z {e['z']:.3e}, rounding bound {e['bound']:.3e}",
+                          flush=True)
+                raise AssertionError(f"{bname} layer {layer} B={bsz}: kernel gradients disagree "
+                                     f"with autograd through the plain version ({err:.3e}; "
+                                     f"{tie_err:.3e} with {len(flips)} ties flipped)")
+
+
+def param_paths(tree, prefix=""):
+    """Leaf paths of a parameter tree, in train.tree_leaves order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in param_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in param_paths(v, f"{prefix}#{i}/")]
+    return [prefix[:-1]]
+
+
+def phase_train_parity(torch, params, s_np):
+    """One full-width train step's loss terms and gradients, kernel path vs
+    plain path, same batch and noise."""
+    from diffbindfr_torch import train
+    from diffbindfr_torch.data.sample import stack_samples, to_device
+    from diffbindfr_torch.models import score_net as sn
+    from diffbindfr_torch.sampler import SamplerConfig
+
+    cfg, tcfg, scfg = sn.ScoreNetConfig(remat=True), train.TrainConfig(), SamplerConfig()
+    batch = to_device(stack_samples([s_np] * 4), DEV)
+    noise = train.draw_noise(batch, tcfg, torch.Generator(device=DEV).manual_seed(11))
+    out = {}
+    for path, use_kernels in (("kernel", True), ("plain", False)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m, g = train.loss_and_grads(params, batch, noise, cfg, scfg, tcfg, use_kernels)
+        m["grad_norm"] = train.global_norm(g)
+        torch.cuda.synchronize()
+        out[path] = ({k: float(v) for k, v in m.items()}, g)
+        print(f"  {path} path: loss and gradients in {time.time() - t0:.3f} s: "
+              + " ".join(f"{k} {v:.6g}" for k, v in out[path][0].items()), flush=True)
+    (mk, gk), (mp, gp) = out["kernel"], out["plain"]
+    terms = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mk}
+    paths = param_paths(params)
+    keep = [i for i, b in enumerate(gp) if b.numel() and float(b.abs().max()) > 0]
+    errs = {paths[i]: rel_err(gk[i], gp[i]) for i in keep}
+    worst = max(errs, key=errs.get)
+    print("  relative differences: " + " ".join(f"{k} {v:.2e}" for k, v in terms.items())
+          + f"; parameter gradients max|err|/max|ref| {errs[worst]:.2e} ({worst}) over "
+          f"{len(errs)} tensors ({len(gp) - len(keep)} with zero gradients skipped); above "
+          f"1e-4: {sum(e > 1e-4 for e in errs.values())}", flush=True)
+    bad = [k for k, v in terms.items() if not v <= (1e-4 if k == "grad_norm" else 1e-5)]
+    if bad or not errs[worst] <= 1e-3:
+        raise AssertionError(f"kernel path disagrees with the plain path: {bad}, "
+                             f"gradients {errs[worst]:.3e} ({worst})")
+
+
+def phase_train(torch, smi):
+    """The port's train_cli on the card; returns the launch counts per step."""
+    from diffbindfr_torch import train
+    from diffbindfr_torch.app import train_cli
+    from diffbindfr_torch.data.sample import _load_sample_npz, stack_samples, to_device
+    from diffbindfr_torch.models import score_net as sn
+    from diffbindfr_torch.nn import trunk_convs as TC
+    from diffbindfr_torch.sampler import SamplerConfig
+    from diffbindfr_torch.utils.checkpoint import load_checkpoint, load_train_state
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train.")
+    try:
+        cache, out = os.path.join(tmp, "cache"), os.path.join(tmp, "out")
+        os.makedirs(cache)
+        for fn in sorted(os.listdir(PREP)):
+            if fn.endswith(".npz"):
+                shutil.copy(os.path.join(PREP, fn), cache)
+        step0 = int(load_checkpoint(CKPT, device="cpu")[1] or 0)
+        common = ["--stream-cache", cache, "-o", out, "-bs", "16", "--ckpt-every", "1000000",
+                  "--device", DEV]
+        warm, timed, flat = 3, 20, 5
+        t0 = time.time()
+        train_cli.main(common + ["--resume", CKPT, "--steps", str(step0 + warm)])
+        print(f"  {warm} warm-up steps from diff_r2 (step {step0}) in "
+              f"{time.time() - t0:.3f} s, tables and first steps included", flush=True)
+        TC.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        res = train_cli.main(common + ["--resume", os.path.join(out, "train_state.npz"),
+                                       "--steps", str(step0 + warm + timed)])
+        counts = dict(TC.launches)
+        peak = torch.cuda.max_memory_allocated()
+        report_rate(res, f"remat on, peak memory {peak / 2**30:.2f} GiB on {smi}")
+        print("  losses " + " ".join(f"{v:.3f}" for v in res["losses"]), flush=True)
+        print(f"  launches in the {timed} timed steps: {counts}", flush=True)
+        last = os.path.join(out, f"ckpt_{step0 + warm + timed:07d}.npz")
+        p_back, st = load_checkpoint(last, use_ema=False, device=DEV)
+        state = load_train_state(os.path.join(out, "train_state.npz"), DEV)
+        same = all(torch.equal(a, b) for a, b in zip(train.tree_leaves(p_back),
+                                                      train.tree_leaves(state.params)))
+        if len(res["losses"]) != timed or not all(v == v and abs(v) < float("inf")
+                                                  for v in res["losses"]):
+            raise AssertionError("non-finite training loss")
+        if st != step0 + warm + timed or not same:
+            raise AssertionError("the checkpoint does not reload to the trained parameters")
+        want = {**{k: 6 * timed for k in BWD_KERNELS}, **{k: 12 * timed for k in KERNELS}}
+        if counts != want:
+            raise AssertionError(f"launch counts {counts}, expected {want}")
+
+        # without remat the backward reuses the forward's activations
+        TC.reset_launches()
+        res = train_cli.main(common + ["--no-remat", "--resume",
+                                       os.path.join(out, "train_state.npz"),
+                                       "--steps", str(step0 + warm + timed + flat)])
+        no_remat = dict(TC.launches)
+        report_rate(res, "remat off")
+        print(f"  launches in the {flat} steps without remat: {no_remat}", flush=True)
+        if not all(v == v and abs(v) < float("inf") for v in res["losses"]):
+            raise AssertionError("non-finite training loss without remat")
+        if no_remat != {k: 6 * flat for k in list(KERNELS) + list(BWD_KERNELS)}:
+            raise AssertionError(f"launch counts without remat {no_remat}, expected "
+                                 f"{6 * flat} each")
+
+        # device time over 2 steps of one 128/1024 batch under the profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        cfg = sn.ScoreNetConfig(remat=True)
+        tcfg, scfg = train.TrainConfig(total_steps=step0 + 100), SamplerConfig()
+        s_np = _load_sample_npz(SAMPLE)
+        batch = to_device(stack_samples([s_np] * 4), DEV)
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        noise = train.draw_noise(batch, tcfg, gen)
+        state, _ = train.train_step(state, batch, noise, cfg, scfg, tcfg, device=DEV)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            for _ in range(2):
+                state, _ = train.train_step(state, batch, noise, cfg, scfg, tcfg, device=DEV)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        report_profile(prof, wall, "2 train steps, B=4 (128/1024)",
+                       list(KERNELS) + list(BWD_KERNELS))
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def report_rate(res, what):
+    """train_cli's rate after its first step (which waits for the first
+    batch's decode) and over all its steps."""
+    print(f"  {what}: {res['steady_steps']} steps after the first, {res['steady_samples']} "
+          f"samples in {res['steady_seconds']:.3f} s: "
+          f"{res['steady_samples'] / res['steady_seconds']:.3f} samples/s, "
+          f"{1e3 * res['steady_seconds'] / res['steady_steps']:.1f} ms/step (all "
+          f"{res['steps']} steps: {res['samples'] / res['seconds']:.3f} samples/s)", flush=True)
+
+
+def phase_tables(torch, np, sp, sn, scfg):
+    """The SO(3) and torus tables built on the card, their score norms
+    against the tables in use (cached or built at first use), and the rows
+    the sampler reads against the same rows computed on the CPU."""
     from diffbindfr_torch.geometry import so3, torus
 
     ts = sp.t_schedule(scfg, DEV)
     sig = sn.sigmas_from_t(ts[: scfg.actual_steps], scfg.schedule)
-    rows = {"so3": (so3.exp_score_norm_row, sorted(set(so3._eps_index(sig.rot).tolist()))),
-            "torus": (torus.score_norm_row, sorted(set(
-                torus._sigma_index(torch.cat([sig.tor, sig.sc_tor])).tolist())))}
-    for name, (fn, idx) in rows.items():
+    checks = {"so3": (so3, lambda t: t.exp_score_norms, so3.exp_score_norm_row,
+                      so3._eps_index(sig.rot)),
+              "torus": (torus, lambda t: t.score_norm, torus.score_norm_row,
+                        torus._sigma_index(torch.cat([sig.tor, sig.sc_tor])))}
+    for name, (mod, norms, row_fn, idx) in checks.items():
         torch.cuda.synchronize()
         t0 = time.time()
-        card = [fn(i, DEV) for i in idx]
+        fresh = mod.compute_tables(DEV)
         card_s = time.time() - t0
+        in_use = mod.tables(DEV)
+        card = norms(in_use)
+        # the table in use may come from the disk cache of another device
+        norm_key = "exp_score_norms" if name == "so3" else "score_norm"
+        same = float(np.max(np.abs(fresh[norm_key] - card.cpu().numpy()) / np.abs(fresh[norm_key])))
+        rows = sorted(set(idx.tolist()))
         t0 = time.time()
-        host = [fn(i, "cpu") for i in idx]
+        host = torch.tensor([row_fn(i, "cpu") for i in rows])
         host_s = time.time() - t0
-        err = max(abs(a - b) / abs(b) for a, b in zip(card, host))
-        print(f"  {name}: {len(idx)} rows in {card_s:.3f} s on the card, {host_s:.3f} s on "
-              f"the CPU; max rel diff {err:.2e}", flush=True)
-        if not all(v == v and abs(v) < float("inf") for v in card) or not err <= 1e-6:
-            raise AssertionError(f"{name} score-norm rows on the card disagree with the CPU")
+        got = card[rows].cpu()
+        err = float(((got - host).abs() / host.abs()).max())
+        print(f"  {name}: whole table built on the card in {card_s:.3f} s (score norms vs "
+              f"the table in use: max rel diff {same:.2e}); {len(rows)} sampler rows on the CPU "
+              f"in {host_s:.3f} s; max rel diff {err:.2e}", flush=True)
+        if not same <= 1e-6 or not bool(torch.isfinite(card).all()) or not err <= 1e-6:
+            raise AssertionError(f"{name} score-norm table on the card disagrees with the CPU")
 
 
 def phase_profile(torch, sp, params, cfg, s_np):
@@ -282,6 +621,11 @@ def phase_profile(torch, sp, params, cfg, s_np):
             sp.sample(params, cfg, scfg, batch, noise)
             torch.cuda.synchronize()
             wall = time.time() - t0
+    report_profile(prof, wall, "2 steps, B=16", list(KERNELS))
+
+
+def report_profile(prof, wall, what, names):
+    """Device time by kernel, the share of `names`' kernels, the busy share."""
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
@@ -294,11 +638,13 @@ def phase_profile(torch, sp, params, cfg, s_np):
         return
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    ours = sum(r[1] for r in rows if any(f"{k}_kernel" in r[0] for k in KERNELS))
-    print(f"  2 steps, B=16, under the profiler: wall {wall * 1e3:.1f} ms, device "
+    bwd = any(k.endswith("_bwd") for k in names)
+    ours = sum(r[1] for r in rows if any(f"{k}_kernel" in r[0] or f"{k}_rev_kernel" in r[0]
+                                         for k in names) or (bwd and "reduce_rows" in r[0]))
+    print(f"  {what} under the profiler: wall {wall * 1e3:.1f} ms, device "
           f"{total:.1f} ms ({100 * total / (wall * 1e3):.1f}% busy), trunk kernels "
           f"{ours:.1f} ms ({100 * ours / total:.1f}% of device time)", flush=True)
-    for key, ms, cnt in rows[:10]:
+    for key, ms, cnt in rows[:12]:
         print(f"    {ms:9.3f} ms  x{cnt:<5d} {key[:90]}", flush=True)
 
 
@@ -343,7 +689,7 @@ def main() -> int:
 
     scfg = sp.SamplerConfig()
     with Phase("tables"):
-        phase_tables(torch, sp, sn, scfg)
+        phase_tables(torch, np, sp, sn, scfg)
 
     per_kernel = {}
     with Phase("kernels"):
@@ -375,8 +721,7 @@ def main() -> int:
     with Phase("dock"):
         prepared = [pipeline.PreparedPair.from_prep_cache(SAMPLE)]
         n_poses, steps = 16, scfg.actual_steps
-        # first call: computes the score-norm rows of the 20 sigmas on the
-        # card, warms the allocator and the libraries
+        # first call: warms the allocator and the libraries
         t0 = time.time()
         pipeline.dock(prepared, params, cfg, scfg, num_poses=n_poses, batch_size=n_poses,
                       seed=1, device=DEV, verbose=False)
@@ -419,6 +764,15 @@ def main() -> int:
     with Phase("profile"):
         phase_profile(torch, sp, params, cfg, s_np)
 
+    with Phase("bwd_kernels"):
+        phase_bwd_kernels(torch, params, s_np, per_kernel)
+
+    with Phase("train_parity"):
+        phase_train_parity(torch, params, s_np)
+
+    with Phase("train"):
+        train_counts = phase_train(torch, smi)
+
     rows = []
     for name, (src, repl) in KERNELS.items():
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]
@@ -428,6 +782,17 @@ def main() -> int:
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 16})
+    for name, (src, repl, _) in BWD_KERNELS.items():
+        # the training shapes: layer 5, the 128/1024 batch of 4
+        main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 4][0]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                     "launches": train_counts[name], "max_abs_err": main_row["max_abs_err"],
+                     "max_rel_err": main_row["max_rel_err"],
+                     "tie_rel_err": main_row["tie_rel_err"],
+                     "ties_taken": main_row["ties_taken"], "ms": main_row["ms"],
+                     "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+                     "bound_by": main_row["bound_by"], "library_ms": None,
+                     "layer": 5, "batch": 4})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,12 @@
-// Shared device code of the three trunk-conv kernels (B1 cross, B2 pair,
-// B3 knn): one block gathers the valid (target, source) pairs of its g
-// targets, then runs the whole per-pair chain on chunks of 32 pairs in
-// shared memory and sums the messages per target. A chunk is latency-bound
-// (weight tiles stream through shared memory between barriers), so blocks
-// in flight matter as much as full chunks: dense blocks take several
-// targets only when the target side is long and the source side short
-// (the la pass: 1024 atoms x 128 ligand rows); see launch().
+// Shared device code of the trunk-conv kernels (forward B1 cross, B2 pair,
+// B3 knn; the backward kernels B4-B6 build on it in trunk_conv_bwd.cuh):
+// one block gathers the valid (target, source) pairs of its g owned nodes,
+// then runs the whole per-pair chain on chunks of 32 pairs in shared memory
+// and sums per owned node. A chunk is latency-bound (weight tiles stream
+// through shared memory between barriers), so blocks in flight matter as
+// much as full chunks: dense blocks take several owned nodes only when the
+// owned side is long and the other side short (the la pass: 1024 atoms x
+// 128 ligand rows); see launch().
 //
 // Per pair: distance -> mask -> 32-bin Gaussian (+ bond features) -> edge
 // MLP -> [attr | tgt scalars | src scalars] -> TP-weight MLP -> l<=2
@@ -29,11 +30,15 @@ constexpr int kPairs = 32;     // pairs per chunk: one per lane of warp 0
 constexpr int kStride = 36;    // padded pair stride of the activation tiles
 constexpr int kKTile = 8;      // weight rows staged per step
 constexpr int kMaxJ = 10;      // output columns per lane: every N <= 320
-constexpr int kKnnGroup = 4;   // knn targets per block (4 x 16 = 64 pairs)
+constexpr int kKnnGroup = 4;   // knn owned nodes per block (4 x 16 = 64 pairs)
 constexpr int kDenseCands = 1024;  // dense mode: at most 1024 candidates per block
-constexpr int kMaxGroup = 8;       // and at most 8 targets, one per 128 targets
+constexpr int kMaxGroup = 8;       // and at most 8 owned nodes, one per 128
+constexpr int kMaxInPaths = 8;     // backward: TP paths reading one input column
 
-enum Mode { kDense = 0, kKnn = 1 };
+// kDense: candidates = (owned node, every node of the other side);
+// kKnn: the owned targets' neighbour-list slots; kKnnRev (backward only):
+// the owned sources' entries of the reverse neighbour list.
+enum Mode { kDense = 0, kKnn = 1, kKnnRev = 2 };
 
 struct ConvArgs {
   const float* tgt_pos;    // [B, nt, 3]
@@ -63,12 +68,42 @@ struct ConvArgs {
   int nt, nsrc, din, dout, nb, k, ns, he, hf, nw, kdim, gs_n;
   float gs_coeff;
   int flip, cab_on_tgt, exclude_self;
-  int g;  // targets per block, set by launch()
+  int g;  // owned nodes per block, set by the launcher
+  // ---- backward only (trunk_conv_bwd.cuh)
+  const float* gout;     // [B, nt, dout] cotangent of out
+  const float* wf2t;     // [nw, hf] = wf2^T
+  const float* wf1t;     // [hf, 3 ns] = wf1^T
+  const float* w2t;      // [ns, he] = w2^T
+  const int* w_meta;     // [nw, 8]: a_base, mul, d1, o_base, cb_off, d3, 0, 0
+  const int* in_meta;    // [din, kMaxInPaths, 8]: o_base, mul, w_idx, cb_base, d3, 0, 0, 0
+  const int* rev_off;    // [B, nsrc + 1] offsets into rev_tgt / rev_src (kKnnRev)
+  const int* rev_tgt;    // reverse neighbour list: target of each entry
+  const int* rev_src;    // and its source
+  float* d_own;          // [B, n_own, din] feature gradient of the owned side
+  float* part;           // [blocks, part_stride] per-block parameter-gradient sums
+  int part_stride, o_win, o_beff, o_w2, o_b2, o_wf1, o_bf1, o_wf2, o_bf2;
+  int own_src, accumulate, batch;
 };
 
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// owned side: the targets (forward, and the backward's target pass) or the
+// sources (the backward's source pass, own_src)
+__host__ __device__ inline int n_owned(const ConvArgs& a) { return a.own_src ? a.nsrc : a.nt; }
+
+// candidates per owned node
+__host__ __device__ inline int per_owned(const ConvArgs& a, int mode) {
+  return mode == kDense ? (a.own_src ? a.nt : a.nsrc) : a.k;
+}
+
+// owned nodes per block: knn blocks take 4 (64 list slots); dense blocks
+// group only when the owned side is long and the other side short
+__host__ __device__ inline int group_size(const ConvArgs& a, int mode) {
+  if (mode != kDense) return kKnnGroup;
+  return imax(1, imin(imin(kMaxGroup, kDenseCands / imax(per_owned(a, mode), 1)), n_owned(a) / 128));
+}
 
 // Shared-memory plan, in 4-byte words; every region starts 16-byte aligned.
 struct Plan {
@@ -78,22 +113,22 @@ struct Plan {
 __host__ __device__ inline Plan make_plan(const ConvArgs& a, int mode) {
   Plan p;
   const int ke = a.gs_n + a.nb;
-  const int ncand = a.g * (mode == kKnn ? a.k : a.nsrc);
   const int maxn = imax(imax(imax(a.he, a.ns), imax(a.hf, a.nw)), a.kdim);
   p.r1 = imax(3 * a.ns, a.nw) * kStride;
   p.r2 = imax(imax(a.hf, a.kdim), ke + a.he) * kStride;
   p.ws = round4(kKTile * maxn);
   p.sh = 9 * kStride;
   p.acc = round4(a.g * a.dout);
-  p.list = round4(ncand);
-  p.misc = 3 * kPairs + 8;
+  p.list = round4(a.g * per_owned(a, mode));
+  p.misc = 4 * kPairs + 8;
   p.words = p.r1 + p.r2 + p.ws + p.sh + p.acc + p.list + p.misc;
   return p;
 }
 
 // out[n][p] = act(sum_k in[k][p] * W[k][n] + bias[n]) for the 32 pairs of a
-// chunk; in/out are [rows][kStride] tiles, W is row-major [K][N] in global
-// memory. Thread (warp w, lane l) owns pairs 4w..4w+3 and columns l + 32 j.
+// chunk; in/out are [rows][kStride] tiles (never the same rows), W is
+// row-major [K][N] in global memory. Thread (warp w, lane l) owns pairs
+// 4w..4w+3 and columns l + 32 j.
 __device__ __forceinline__ void gemm(const float* in, int K,
                                      const float* __restrict__ W,
                                      const float* __restrict__ bias, int N,
@@ -191,55 +226,47 @@ constexpr float kSqrt3 = 1.7320508075688772f;
 constexpr float kSqrt15 = 3.872983346207417f;
 constexpr float kSqrt5Half = 1.118033988749895f;
 
-// Body of every trunk-conv kernel: block = targets t0 .. t0 + g - 1.
-// Dense mode: candidates = (target, every source). Knn mode: candidates =
-// the targets' neighbour-list slots.
-template <int MODE>
-__device__ __forceinline__ void conv_block(const ConvArgs& a) {
-  extern __shared__ float4 smem_f4[];
-  float* smem = reinterpret_cast<float*>(smem_f4);
-  const Plan pl = make_plan(a, MODE);
-  float* r1 = smem;
-  float* r2 = r1 + pl.r1;
-  float* ws = r2 + pl.r2;
-  float* shs = ws + pl.ws;
-  float* acc = shs + pl.sh;
-  int* list = reinterpret_cast<int*>(acc + pl.acc);
-  int* pair_tl = list + pl.list;
-  int* pair_s = pair_tl + kPairs;
-  float* pair_d = reinterpret_cast<float*>(pair_s + kPairs);
-  int* wcnt = reinterpret_cast<int*>(pair_d + kPairs);
+// Per-pair slots of the current chunk (shared memory).
+struct Slots {
+  int* t;      // target node
+  int* s;      // source node
+  int* own;    // owned node, relative to the block's first
+  float* d;    // distance
+  int* wcnt;   // per-warp counts of the compaction
+};
 
-  const int b = blockIdx.y;
+// 1. Compact the valid candidates of owned nodes own0 .. own0 + g - 1 into
+// `list`, in candidate order (deterministic); entry = (owned << 16) | other.
+// A masked target receives no message, so it yields no pair.
+template <int MODE>
+__device__ __forceinline__ int compact_pairs(const ConvArgs& a, int b, int own0, int* list,
+                                             int* wcnt) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int g = a.g;
-  const int t0 = blockIdx.x * g;
+  const int per = per_owned(a, MODE);
+  const int ncand = a.g * per;
+  const int n_own = n_owned(a);
   const float cut = MODE == kDense ? a.cutoff[b] : 0.f;
-  const int per_target = MODE == kKnn ? a.k : a.nsrc;
-  const int ncand = g * per_target;
-  for (int i = tid; i < g * a.dout; i += kThreads) acc[i] = 0.f;
-
-  // 1. compact this block's valid pairs, in candidate order (deterministic)
   int total = 0;
   for (int c0 = 0; c0 < ncand; c0 += kThreads) {
     const int c = c0 + tid;
     bool ok = false;
     int entry = 0;
-    const int gl = c / per_target;
-    const int t = t0 + gl;
-    if (c < ncand && t < a.nt) {
-      int s = c % per_target;
+    const int gl = c / per;
+    const int own = own0 + gl;
+    if (c < ncand && own < n_own) {
+      int other = c % per;
       if (MODE == kKnn) {
-        const size_t e = ((size_t)b * a.nt + t) * a.k + s;
-        s = a.knn_idx[e];
-        ok = a.knn_valid[e] > 0.f && s >= 0 && s < a.nsrc;
+        const size_t e = ((size_t)b * a.nt + own) * a.k + other;
+        other = a.knn_idx[e];
+        ok = a.knn_valid[e] > 0.f && other >= 0 && other < a.nsrc;
       } else {
-        // a masked target row receives no message: its output stays zero
+        const int t = a.own_src ? other : own;
+        const int s = a.own_src ? own : other;
         ok = a.tgt_mask[(size_t)b * a.nt + t] > 0.f && dense_valid(a, b, t, s, cut);
       }
-      entry = (gl << 16) | (ok ? s : 0);
+      entry = (gl << 16) | (ok ? other : 0);
     }
     const unsigned bal = __ballot_sync(0xffffffffu, ok);
     if (lane == 0) wcnt[warp] = __popc(bal);
@@ -255,87 +282,146 @@ __device__ __forceinline__ void conv_block(const ConvArgs& a) {
     total += all;
     __syncthreads();
   }
+  return total;
+}
 
+// 2. Pairs c0 .. c0 + n - 1 of the block's list (kKnnRev: of the reverse
+// list, read from global memory): nodes, distance and spherical harmonics,
+// one pair per lane of warp 0. The caller synchronises.
+template <int MODE>
+__device__ __forceinline__ void load_chunk(const ConvArgs& a, int b, int own0, const int* list,
+                                           int c0, int n, Slots sl, float* shs) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int t = 0, s = 0, gl = 0;
+  float vx = 0.f, vy = 0.f, vz = 0.f, d = 0.f;
+  if (lane < n) {
+    if (MODE == kKnnRev) {
+      t = a.rev_tgt[c0 + lane];
+      s = a.rev_src[c0 + lane];
+      gl = s - own0;
+    } else {
+      const int e = list[c0 + lane];
+      gl = e >> 16;
+      const int other = e & 0xffff;
+      t = a.own_src ? other : own0 + gl;
+      s = a.own_src ? own0 + gl : other;
+    }
+    const PairGeo pg = pair_geo(a.tgt_pos + ((size_t)b * a.nt + t) * 3,
+                                a.src_pos + ((size_t)b * a.nsrc + s) * 3, a.flip);
+    vx = pg.vx;
+    vy = pg.vy;
+    vz = pg.vz;
+    d = pg.d;
+  }
+  sl.t[lane] = t;
+  sl.s[lane] = s;
+  sl.own[lane] = gl;
+  sl.d[lane] = d;
+  const float nrm = sqrtf(vx * vx + vy * vy + vz * vz);
+  const float den = fmaxf(nrm, 1e-9f);
+  const float x = vx / den, y = vy / den, z = vz / den;
+  shs[0 * kStride + lane] = 1.f;
+  shs[1 * kStride + lane] = x * kSqrt3;
+  shs[2 * kStride + lane] = y * kSqrt3;
+  shs[3 * kStride + lane] = z * kSqrt3;
+  shs[4 * kStride + lane] = kSqrt15 * x * y;
+  shs[5 * kStride + lane] = kSqrt15 * y * z;
+  shs[6 * kStride + lane] = kSqrt5Half * (3.f * z * z - 1.f);
+  shs[7 * kStride + lane] = kSqrt15 * x * z;
+  shs[8 * kStride + lane] = 0.5f * kSqrt15 * (x * x - y * y);
+}
+
+// 3. Edge-MLP input rows [Gaussian (gs_n) | bond features (nb)] -> in_rows,
+// and 4. the scalar rows [tgt (ns) | src (ns)] of the TP-weight MLP input ->
+// sc_rows. Lanes beyond the chunk's n pairs are zero.
+__device__ __forceinline__ void input_rows(const ConvArgs& a, int b, int n, Slots sl,
+                                           float* in_rows, float* sc_rows) {
+  const int ke = a.gs_n + a.nb;
+  for (int i = threadIdx.x; i < ke * kPairs; i += kThreads) {
+    const int r = i / kPairs, p = i % kPairs;
+    float v = 0.f;
+    if (p < n) {
+      if (r < a.gs_n) {
+        const float diff = sl.d[p] - a.gs_off[r];
+        v = expf(a.gs_coeff * (diff * diff));
+      } else {
+        const size_t e = ((size_t)b * a.nt + sl.t[p]) * a.nsrc + sl.s[p];
+        v = a.bond_feat[e * a.nb + (r - a.gs_n)];
+      }
+    }
+    in_rows[r * kStride + p] = v;
+  }
+  for (int i = threadIdx.x; i < 2 * a.ns * kPairs; i += kThreads) {
+    const int p = i / (2 * a.ns), r = i % (2 * a.ns);
+    float v = 0.f;
+    if (p < n) {
+      v = r < a.ns ? a.tgt_x[((size_t)b * a.nt + sl.t[p]) * a.din + r]
+                   : a.src_x[((size_t)b * a.nsrc + sl.s[p]) * a.din + (r - a.ns)];
+    }
+    sc_rows[r * kStride + p] = v;
+  }
+}
+
+// 5.-7. Edge MLP (h1 = relu(W1^T in + b1_eff), attr -> e[0:ns]), TP-weight
+// MLP (h = relu(Wf1^T e + bf1), w = Wf2^T h + bf2) and cb = ck^T sh. The
+// forward lets later tiles reuse the rows of earlier ones.
+__device__ __forceinline__ void mlp_forward(const ConvArgs& a, int b, float* in_rows, float* h1,
+                                            float* e, float* h, float* w, float* cb,
+                                            const float* shs, float* ws) {
+  const int ke = a.gs_n + a.nb;
+  gemm(in_rows, ke, a.w1, a.b1 + (size_t)b * a.he, a.he, h1, true, ws);
+  gemm(h1, a.he, a.w2, a.b2, a.ns, e, false, ws);
+  gemm(e, 3 * a.ns, a.wf1, a.bf1, a.hf, h, true, ws);
+  gemm(h, a.hf, a.wf2, a.bf2, a.nw, w, false, ws);
+  gemm(shs, 9, a.ck, nullptr, a.kdim, cb, false, ws);
+}
+
+// Body of every forward trunk-conv kernel: block = targets t0 .. t0 + g - 1.
+template <int MODE>
+__device__ __forceinline__ void conv_block(const ConvArgs& a) {
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const Plan pl = make_plan(a, MODE);
+  float* r1 = smem;
+  float* r2 = r1 + pl.r1;
+  float* ws = r2 + pl.r2;
+  float* shs = ws + pl.ws;
+  float* acc = shs + pl.sh;
+  int* list = reinterpret_cast<int*>(acc + pl.acc);
+  Slots sl;
+  sl.t = list + pl.list;
+  sl.s = sl.t + kPairs;
+  sl.own = sl.s + kPairs;
+  sl.d = reinterpret_cast<float*>(sl.own + kPairs);
+  sl.wcnt = reinterpret_cast<int*>(sl.d + kPairs);
+
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int g = a.g;
+  const int t0 = blockIdx.x * g;
+  for (int i = tid; i < g * a.dout; i += kThreads) acc[i] = 0.f;
+
+  const int total = compact_pairs<MODE>(a, b, t0, list, sl.wcnt);
   const int ke = a.gs_n + a.nb;
   for (int c0 = 0; c0 < total; c0 += kPairs) {
     const int n = min(kPairs, total - c0);
-    // 2. geometry and spherical harmonics, one pair per lane of warp 0
-    if (warp == 0) {
-      int tl = 0, s = 0;
-      float vx = 0.f, vy = 0.f, vz = 0.f, d = 0.f;
-      if (lane < n) {
-        const int e = list[c0 + lane];
-        tl = e >> 16;
-        s = e & 0xffff;
-        const PairGeo pg = pair_geo(a.tgt_pos + ((size_t)b * a.nt + t0 + tl) * 3,
-                                    a.src_pos + ((size_t)b * a.nsrc + s) * 3, a.flip);
-        vx = pg.vx;
-        vy = pg.vy;
-        vz = pg.vz;
-        d = pg.d;
-      }
-      pair_tl[lane] = tl;
-      pair_s[lane] = s;
-      pair_d[lane] = d;
-      const float nrm = sqrtf(vx * vx + vy * vy + vz * vz);
-      const float den = fmaxf(nrm, 1e-9f);
-      const float x = vx / den, y = vy / den, z = vz / den;
-      shs[0 * kStride + lane] = 1.f;
-      shs[1 * kStride + lane] = x * kSqrt3;
-      shs[2 * kStride + lane] = y * kSqrt3;
-      shs[3 * kStride + lane] = z * kSqrt3;
-      shs[4 * kStride + lane] = kSqrt15 * x * y;
-      shs[5 * kStride + lane] = kSqrt15 * y * z;
-      shs[6 * kStride + lane] = kSqrt5Half * (3.f * z * z - 1.f);
-      shs[7 * kStride + lane] = kSqrt15 * x * z;
-      shs[8 * kStride + lane] = 0.5f * kSqrt15 * (x * x - y * y);
-    }
+    load_chunk<MODE>(a, b, t0, list, c0, n, sl, shs);
     __syncthreads();
-    // 3. edge-MLP input rows [Gaussian (gs_n) | bond features (nb)] -> r2
-    for (int i = tid; i < ke * kPairs; i += kThreads) {
-      const int r = i / kPairs, p = i % kPairs;
-      float v = 0.f;
-      if (p < n) {
-        if (r < a.gs_n) {
-          const float diff = pair_d[p] - a.gs_off[r];
-          v = expf(a.gs_coeff * (diff * diff));
-        } else {
-          const size_t e = ((size_t)b * a.nt + t0 + pair_tl[p]) * a.nsrc + pair_s[p];
-          v = a.bond_feat[e * a.nb + (r - a.gs_n)];
-        }
-      }
-      r2[r * kStride + p] = v;
-    }
-    // 4. scalar rows of the TP-weight MLP input [attr | tgt | src] -> r1
-    for (int i = tid; i < 2 * a.ns * kPairs; i += kThreads) {
-      const int p = i / (2 * a.ns), r = i % (2 * a.ns);
-      float v = 0.f;
-      if (p < n) {
-        v = r < a.ns
-                ? a.tgt_x[((size_t)b * a.nt + t0 + pair_tl[p]) * a.din + r]
-                : a.src_x[((size_t)b * a.nsrc + pair_s[p]) * a.din + (r - a.ns)];
-      }
-      r1[(a.ns + r) * kStride + p] = v;
-    }
-    // 5. edge MLP: relu(W1^T [gs | bond] + b1_eff) -> r2[ke:], then attr -> r1[0:ns]
-    gemm(r2, ke, a.w1, a.b1 + (size_t)b * a.he, a.he, r2 + ke * kStride, true, ws);
-    gemm(r2 + ke * kStride, a.he, a.w2, a.b2, a.ns, r1, false, ws);
-    // 6. TP-weight MLP: hidden -> r2, weights -> r1
-    gemm(r1, 3 * a.ns, a.wf1, a.bf1, a.hf, r2, true, ws);
-    gemm(r2, a.hf, a.wf2, a.bf2, a.nw, r1, false, ws);
-    // 7. cb = ck^T sh -> r2[0:kdim]
-    gemm(shs, 9, a.ck, nullptr, a.kdim, r2, false, ws);
+    input_rows(a, b, n, sl, r2, r1 + a.ns * kStride);
+    // edge MLP -> r2[ke:], attr -> r1[0:ns]; hidden -> r2, weights -> r1; cb -> r2
+    mlp_forward(a, b, r2, r2 + ke * kStride, r1, r2, r1, r2, shs, ws);
     // 8. depthwise TP, summed per target: thread o owns output column o
     const int4* meta = reinterpret_cast<const int4*>(a.out_meta);
     for (int o = tid; o < a.dout; o += kThreads) {
       const int4 m0 = meta[2 * o];      // a_base, mul, d1, w_idx
       const int4 m1 = meta[2 * o + 1];  // cb_base, d3
       for (int p = 0; p < n; ++p) {
-        const float* xs = a.src_x + ((size_t)b * a.nsrc + pair_s[p]) * a.din + m0.x;
+        const float* xs = a.src_x + ((size_t)b * a.nsrc + sl.s[p]) * a.din + m0.x;
         float zv = 0.f;
         for (int i = 0; i < m0.z; ++i)
           zv = fmaf(__ldg(xs + i * m0.y), r2[(m1.x + i * m1.y) * kStride + p], zv);
-        acc[pair_tl[p] * a.dout + o] += zv * r1[m0.w * kStride + p];
+        acc[sl.own[p] * a.dout + o] += zv * r1[m0.w * kStride + p];
       }
     }
     __syncthreads();
@@ -353,8 +439,7 @@ inline int launch(void (*kernel)(ConvArgs), ConvArgs a, int batch, cudaStream_t 
   // measured on the H100 (PERF.md): grouping the la pass's 1024 atom
   // targets took B1 from 8.46 to 7.25 ms, grouping the 128 ligand rows of
   // B2 slowed it from 0.57 to 0.85 ms (fewer blocks in flight)
-  a.g = MODE == kKnn ? kKnnGroup
-                     : imax(1, imin(imin(kMaxGroup, kDenseCands / imax(a.nsrc, 1)), a.nt / 128));
+  a.g = group_size(a, MODE);
   const Plan pl = make_plan(a, MODE);
   const int bytes = pl.words * 4;
   cudaError_t err = cudaFuncSetAttribute(

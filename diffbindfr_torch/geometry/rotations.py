@@ -2,6 +2,8 @@
 diffbindfr_tpu/geometry/rotations.py."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -78,3 +80,8 @@ def random_rotation(shape=(), generator=None, device="cpu"):
     """Uniform random rotation matrices via normalised Gaussian quaternions."""
     q = torch.randn(tuple(shape) + (4,), generator=generator, device=device)
     return quaternion_to_matrix(q / torch.linalg.norm(q, dim=-1, keepdim=True))
+
+
+def wrap_angle(x):
+    """Wrap angles to [-pi, pi) (rotations.py:wrap_angle)."""
+    return torch.remainder(x + math.pi, 2.0 * math.pi) - math.pi

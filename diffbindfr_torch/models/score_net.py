@@ -9,17 +9,22 @@ is written for a batch [B, ...] directly (the JAX package vmaps a
 single-sample function).
 
 `use_kernels=True` is the counterpart of `use_pallas=True` with
-`pallas_layout='cmt'`: node features stay component-major through the
-trunk and each layer's three convs run through nn/trunk_convs.py (the CUDA
-kernels on the card); `use_kernels=False` is the plain XLA-path port.
+`pallas_layout='cmt'` and `pallas_bwd=True`: node features stay
+component-major through the trunk and each layer's three convs run through
+nn/trunk_convs.py (the CUDA kernels on the card, forward and backward);
+`use_kernels=False` is the plain XLA-path port. Both are differentiable;
+`init_params` draws a fresh tree with the JAX package's initialisers.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..geometry import so3, torus
 from ..nn import layers as L
@@ -31,8 +36,8 @@ SH_IRREPS = "1x0e+1x1o+1x2e"
 
 @dataclasses.dataclass(frozen=True)
 class ScoreNetConfig:
-    """The fields of the JAX ScoreNetConfig that the 'sep' f32 inference path
-    reads, with the same defaults (the flagship model)."""
+    """The fields of the JAX ScoreNetConfig that the 'sep' f32 path reads,
+    with the same defaults (the flagship model)."""
 
     ns: int = 48
     nv: int = 12
@@ -52,6 +57,10 @@ class ScoreNetConfig:
     emb_scale: float = 1000.0
     scale_by_sigma: bool = True
     no_sc_torsion: bool = False
+    # recompute each trunk layer in the backward (torch.utils.checkpoint,
+    # the JAX package's per-layer jax.checkpoint); the training CLI turns it
+    # on unless --no-remat
+    remat: bool = False
 
     @property
     def irrep_seq(self) -> tuple:
@@ -86,8 +95,7 @@ class SigmaScales(NamedTuple):
 
 
 def sigma_scales(sigmas: Sigmas) -> SigmaScales:
-    """Score-norm scales at `sigmas`; the lookups read grid indices on the
-    host (so3.score_norm), so a loop computes them once, before it."""
+    """Score-norm scales at `sigmas`: lookups in the device tables."""
     return SigmaScales(rot=so3.score_norm(sigmas.rot),
                        tor=torch.sqrt(torus.score_norm(sigmas.tor)),
                        sc_tor=torch.sqrt(torus.score_norm(sigmas.sc_tor)))
@@ -213,27 +221,18 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
         zero_l = torch.zeros_like(s.lig_mask)
         lig_cm = TC.cm_from_irreps(convs[0].dw.in1, lig_x)
         atom_cm = TC.cm_from_irreps(convs[0].dw.in1, atom_x)
+        graph = dict(s=s, zero_l=zero_l, temb=temb, bond_feat=bond_feat, bond_mask=bond_mask,
+                     cab_f=cab_f, cross_cutoff=cross_cutoff, atm_idx=atm_idx,
+                     atm_vmask=atm_vmask, cnt_lig=cnt_lig, cnt_al=cnt_al, cnt_la=cnt_la,
+                     cnt_atm=cnt_atm)
         for l in range(cfg.num_conv_layers):
             spec, (c_lig, c_cross, c_knn) = convs[l], kconsts[l]
             lp = {k: params[f"{k}_convs"][l] for k in ("lig", "al", "la", "atom")}
-            out_dim = spec.out.dim
-            lig_sum = TC.pair_conv(
-                c_lig, s.lig_pos, s.lig_pos, lig_cm, lig_cm, s.lig_mask, s.lig_mask,
-                zero_l, zero_l, temb, cfg.lig_cutoff,
-                _kernel_params(params["lig_edge_emb"], lp["lig"]["fc"]), bond_feat, bond_mask)
-            al_sum, la_sum = TC.cross_conv(
-                c_cross, s.lig_pos, s.atm_pos, lig_cm, atom_cm, s.lig_mask, s.atm_mask,
-                cab_f, temb, cross_cutoff, params["la_edge_emb"], lp["al"]["fc"],
-                lp["la"]["fc"])
-            atm_sum = TC.knn_conv(
-                c_knn, s.atm_pos, atom_cm, s.atm_mask, atm_idx, atm_vmask, temb,
-                {"emb": params["atom_edge_emb"], "fc": lp["atom"]["fc"]})
-            lig_update = L.tp_conv_finalize_cm(lp["lig"], spec, lig_sum / cnt_lig[..., None])
-            al_update = L.tp_conv_finalize_cm(lp["al"], spec, al_sum / cnt_al[..., None])
-            la_update = L.tp_conv_finalize_cm(lp["la"], spec, la_sum / cnt_la[..., None])
-            atom_update = L.tp_conv_finalize_cm(lp["atom"], spec, atm_sum / cnt_atm[..., None])
-            lig_cm = L.pad_to_dim(lig_cm, out_dim) + lig_update + al_update
-            atom_cm = L.pad_to_dim(atom_cm, out_dim) + atom_update + la_update
+
+            def kernel_layer(lig_cm, atom_cm, spec=spec, consts=(c_lig, c_cross, c_knn), lp=lp):
+                return _kernel_layer(params, cfg, spec, consts, lp, graph, lig_cm, atom_cm)
+
+            lig_cm, atom_cm = _remat(cfg, kernel_layer, lig_cm, atom_cm)
         final_ladder = convs[-1].out
         lig_x = TC.cm_to_irreps(final_ladder, lig_cm)
         atom_x = TC.cm_to_irreps(final_ladder, atom_cm)
@@ -252,9 +251,13 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
         for l in range(cfg.num_conv_layers):
             spec = convs[l]
             lp = {k: params[f"{k}_convs"][l] for k in ("lig", "al", "la", "atom")}
-            lig_x, atom_x = _plain_layer(spec, lp, ns, lig_x, atom_x, lig_e_attr, lig_sh,
-                                         lig_pair_mask, la_attr, cross_sh, cross_mask,
-                                         atm_e_attr, atm_sh, atm_idx, atm_vmask)
+
+            def plain_layer(lig_x, atom_x, spec=spec, lp=lp):
+                return _plain_layer(spec, lp, ns, lig_x, atom_x, lig_e_attr, lig_sh,
+                                    lig_pair_mask, la_attr, cross_sh, cross_mask, atm_e_attr,
+                                    atm_sh, atm_idx, atm_vmask)
+
+            lig_x, atom_x = _remat(cfg, plain_layer, lig_x, atom_x)
 
     # ---------------- tr / rot head: centre conv
     wsum = torch.clamp(s.lig_mask.sum(1), min=1.0)
@@ -311,6 +314,38 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
 
     return ScoreOutput(tr=tr_pred, rot=rot_pred, tor=tor_pred * s.tor_mask,
                        sc_tor=sc_pred * s.chi_mask)
+
+
+def _remat(cfg: ScoreNetConfig, layer, lig, atom):
+    """layer(lig, atom), recomputed in the backward when cfg.remat is set."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(layer, lig, atom, use_reentrant=False)
+    return layer(lig, atom)
+
+
+def _kernel_layer(params, cfg, spec, consts, lp, g, lig_cm, atom_cm):
+    """One trunk layer through the kernel wrappers, component-major layout."""
+    s, temb = g["s"], g["temb"]
+    c_lig, c_cross, c_knn = consts
+    out_dim = spec.out.dim
+    lig_sum = TC.pair_conv(
+        c_lig, s.lig_pos, s.lig_pos, lig_cm, lig_cm, s.lig_mask, s.lig_mask,
+        g["zero_l"], g["zero_l"], temb, cfg.lig_cutoff,
+        _kernel_params(params["lig_edge_emb"], lp["lig"]["fc"]), g["bond_feat"], g["bond_mask"])
+    al_sum, la_sum = TC.cross_conv(
+        c_cross, s.lig_pos, s.atm_pos, lig_cm, atom_cm, s.lig_mask, s.atm_mask,
+        g["cab_f"], temb, g["cross_cutoff"], params["la_edge_emb"], lp["al"]["fc"],
+        lp["la"]["fc"])
+    atm_sum = TC.knn_conv(
+        c_knn, s.atm_pos, atom_cm, s.atm_mask, g["atm_idx"], g["atm_vmask"], temb,
+        {"emb": params["atom_edge_emb"], "fc": lp["atom"]["fc"]})
+    lig_update = L.tp_conv_finalize_cm(lp["lig"], spec, lig_sum / g["cnt_lig"][..., None])
+    al_update = L.tp_conv_finalize_cm(lp["al"], spec, al_sum / g["cnt_al"][..., None])
+    la_update = L.tp_conv_finalize_cm(lp["la"], spec, la_sum / g["cnt_la"][..., None])
+    atom_update = L.tp_conv_finalize_cm(lp["atom"], spec, atm_sum / g["cnt_atm"][..., None])
+    lig2 = L.pad_to_dim(lig_cm, out_dim) + lig_update + al_update
+    atom2 = L.pad_to_dim(atom_cm, out_dim) + atom_update + la_update
+    return lig2, atom2
 
 
 def _plain_layer(spec, lp, ns, lig_x, atom_x, lig_e_attr, lig_sh, lig_pair_mask,
@@ -383,3 +418,88 @@ def sigmas_from_t(t, schedule) -> Sigmas:
         tor=geo(schedule["tor_sigma_min"], schedule["tor_sigma_max"]),
         sc_tor=geo(schedule["sc_tor_sigma_min"], schedule["sc_tor_sigma_max"]),
     )
+
+
+# ---------------------------------------------------------------------------
+# initialisation (models/score_net.py:init_params and nn/layers.py of the JAX
+# package: the same tree, keys, shapes and distributions; the draws differ)
+# ---------------------------------------------------------------------------
+
+
+def _uniform(gen, shape, a):
+    return (torch.rand(shape, generator=gen, dtype=torch.float32) * 2.0 - 1.0) * a
+
+
+def _linear_init(gen, din, dout, bias=True):
+    p = {"w": _uniform(gen, (din, dout), math.sqrt(6.0 / (din + dout)))}  # xavier
+    if bias:
+        p["b"] = torch.zeros(dout)
+    return p
+
+
+def _mlp_init(gen, din, dout, hidden=None, bias=True):
+    hidden = dout if hidden is None else hidden
+    return {"l1": _linear_init(gen, din, hidden, bias), "l2": _linear_init(gen, hidden, dout, bias)}
+
+
+def _layer_norm_init(irreps):
+    shift = np.concatenate([np.ones(mul) if (ir.l == 0 and ir.p == 1) else np.zeros(mul)
+                            for mul, ir in irreps.items])
+    return {"mean_shift": torch.tensor(shift, dtype=torch.float32),
+            "weight": torch.ones(sum(mul for mul, _ in irreps.items)),
+            "bias": torch.zeros(irreps.num_scalars)}
+
+
+def _tp_conv_init(gen, spec: L.ConvSpec, n_edge: int):
+    mix = [torch.randn(n_in * mul3, generator=gen) / math.sqrt(max(n_in, 1))
+           for _, _, _, n_in, mul3 in spec.lin.blocks]
+    return {"fc": _mlp_init(gen, n_edge, spec.dw.weight_numel, n_edge),
+            "mix": torch.cat(mix) if mix else torch.zeros(0),
+            "ln": _layer_norm_init(spec.out)}
+
+
+def _atom_encoder_init(gen, emb_dim, cat_dims, scalar_dim):
+    embs = [{"emb": _uniform(gen, (n, emb_dim), math.sqrt(6.0 / (n + emb_dim)))}
+            for n in cat_dims]
+    lin = emb_dim + scalar_dim
+    return {"embs": embs,
+            "scalar_lin": {"w": _uniform(gen, (lin, emb_dim), math.sqrt(6.0 / lin))}}  # kaiming
+
+
+def init_params(generator: torch.Generator, cfg: ScoreNetConfig, device="cpu"):
+    """A fresh parameter tree (float32 on `device`) drawn from the CPU
+    `generator`."""
+    ns, sed, ded = cfg.ns, cfg.sigma_embed_dim, cfg.distance_embed_dim
+    convs, final, _, tor_conv = _specs(cfg)
+    g = generator
+    p = {
+        "lig_node_emb": _mlp_init(g, cfg.lig_node_dim + sed, ns),
+        "lig_edge_emb": _mlp_init(g, cfg.lig_edge_dim + sed + ded, ns),
+        "atom_node_emb": _atom_encoder_init(g, ns, cfg.atom_cat_dims, sed),
+        "atom_edge_emb": _mlp_init(g, sed + ded, ns),
+        "la_edge_emb": _mlp_init(g, sed + ded, ns),
+        "lig_convs": [], "atom_convs": [], "al_convs": [], "la_convs": [],
+        "center_edge_emb": _mlp_init(g, sed + ded, ns),
+        "final_conv": _tp_conv_init(g, final, 2 * ns),
+        "tr_final": _mlp_init(g, 1 + sed, 1, hidden=ns),
+        "rot_final": _mlp_init(g, 1 + sed, 1, hidden=ns),
+        "tor_edge_emb": _mlp_init(g, ded, ns),
+        "tor_bond_conv": _tp_conv_init(g, tor_conv, 3 * ns),
+        "tor_final": _mlp_init(g, 2 * ns, 1, hidden=ns, bias=False),
+    }
+    for spec in convs:
+        for k in ("lig", "atom", "al", "la"):
+            p[f"{k}_convs"].append(_tp_conv_init(g, spec, 3 * ns))
+    if not cfg.no_sc_torsion:
+        p["sc_edge_emb"] = _mlp_init(g, ded, ns)
+        p["sc_tor_bond_conv"] = _tp_conv_init(g, tor_conv, 3 * ns)
+        p["sc_tor_final"] = _mlp_init(g, 2 * ns, 1, hidden=ns, bias=False)
+    return _tree_to(p, device)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)

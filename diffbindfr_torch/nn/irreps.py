@@ -293,9 +293,14 @@ def compile_linear(in_s: str, out_s: str) -> LinearSpec:
 
 
 def _cg(p: TPPath, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(
-        clebsch_gordan(p.l1, p.l2, p.l3), dtype=like.dtype, device=like.device
-    )
+    return _cg_tensor(p.l1, p.l2, p.l3, like.dtype, str(like.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _cg_tensor(l1: int, l2: int, l3: int, dtype, device: str) -> torch.Tensor:
+    # kept per device: a copy from host memory at every call would make the
+    # host wait for the device's queue to drain
+    return torch.as_tensor(clebsch_gordan(l1, l2, l3), dtype=dtype, device=device)
 
 
 def apply_dw_tensor_product(spec: TensorProductSpec, x1, x2, weights):

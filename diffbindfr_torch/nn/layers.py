@@ -36,7 +36,8 @@ def linear_apply(p, x):
 
 
 def mlp_apply(p, x, act=torch.relu):
-    """Linear-act-Linear (SimpleLinear); inference only, so no dropout."""
+    """Linear-act-Linear (SimpleLinear). No dropout: training pins it to 0.0,
+    as the JAX package's train_cli does."""
     return linear_apply(p["l2"], act(linear_apply(p["l1"], x)))
 
 
@@ -214,7 +215,8 @@ def knn_edges(pos_q, pos_k, mask_q, mask_k, k: int, cutoff, exclude_self: bool =
     """
     k = min(k, pos_k.shape[-2])
     d2 = ((pos_q[..., :, None, :] - pos_k[..., None, :, :]) ** 2).sum(dim=-1)
-    big = torch.tensor(1e10, dtype=d2.dtype, device=d2.device)
+    # constants by fill on the device: no host copy, so no wait for the queue
+    big = torch.full((), 1e10, dtype=d2.dtype, device=d2.device)
     invalid = ~(mask_k > 0)[..., None, :]
     if exclude_self:
         eye = torch.eye(pos_q.shape[-2], pos_k.shape[-2], dtype=torch.bool, device=d2.device)
@@ -222,7 +224,8 @@ def knn_edges(pos_q, pos_k, mask_q, mask_k, k: int, cutoff, exclude_self: bool =
     d2 = torch.where(invalid, big, d2)
     d2_sorted, idx = torch.sort(d2, dim=-1, stable=True)
     d2_sel, idx = d2_sorted[..., :k], idx[..., :k]
-    cut = torch.as_tensor(cutoff, dtype=d2.dtype, device=d2.device)
+    cut = (cutoff.to(d2.device, d2.dtype) if torch.is_tensor(cutoff)
+           else torch.full((), cutoff, dtype=d2.dtype, device=d2.device))
     valid = (d2_sel <= cut**2) & (mask_q > 0)[..., None] & (d2_sel < big * 0.5)
     return idx, valid
 

@@ -1,24 +1,35 @@
 """The score network's three trunk convs: CUDA kernels and plain versions.
 
 Counterpart of diffbindfr_tpu/nn/pallas_conv_t.py (the cmT Pallas kernels
-on the default `use_pallas` path). Each conv has
-  * a wrapper (`pair_conv`, `cross_conv`, `knn_conv`) that launches its
-    hand-written CUDA kernel (csrc/*.cu) on CUDA tensors, or raises;
+on the default `use_pallas` path, with `pallas_bwd`). Each conv has
+  * a wrapper (`pair_conv`, `cross_conv`, `knn_conv`) that, on CUDA
+    tensors, runs a torch.autograd.Function whose forward launches the
+    conv's hand-written CUDA kernel and whose backward launches its
+    backward kernel (csrc/*.cu), or raises;
   * a plain PyTorch version (`*_plain`), a port of the XLA twin in
     diffbindfr_tpu/nn/pallas_conv.py:227-405, which the wrapper uses only
-    for tensors on the CPU and which tests and chip_smoke.py hold the
-    kernels against;
-  * a launch counter, `launches[name]`, raised by one per kernel call.
+    for tensors on the CPU (autograd through it is the plain backward) and
+    which tests and chip_smoke.py hold the kernels against;
+  * launch counters, `launches[name]`, raised by one per kernel call.
 
 | wrapper | replaces (TPU kernel) | CUDA source |
 | cross_conv (B1) | pallas_conv_t.py:make_cross_conv_t (call :693) | csrc/cross_conv.cu |
 | pair_conv (B2) | pallas_conv_t.py:make_pair_conv_t (call :433) | csrc/pair_conv.cu |
 | knn_conv (B3) | pallas_conv_t.py:make_knn_conv_t (call :935) | csrc/knn_conv.cu |
+| cross_bwd (B4) | pallas_conv_t.py:make_cross_bwd_t (call :1600) | csrc/cross_bwd.cu |
+| pair_bwd (B5) | pallas_conv_t.py:make_pair_bwd_t (call :1258) | csrc/pair_bwd.cu |
+| knn_bwd (B6) | pallas_conv_t.py:make_knn_bwd_t (call :1884) | csrc/knn_bwd.cu |
 
 Contract (the twins'): component-major f32 node features in, masked message
-SUM [B, N_target, dw.out.dim] component-major out; a leading batch axis B
-replaces the vmap. What bounds the kernels on the H100 and what their design
-does about it is in csrc/trunk_conv.cuh and the kernel sources.
+SUM [B, N_target, dout] component-major out; a leading batch axis B
+replaces the vmap. Gradients flow to the node features and every parameter;
+positions, time embedding, masks and bond features get none (pure data in
+training, as the JAX package's hand-written backward assumes). The folded
+edge input (`_prep_edge`) stays in the autograd graph, so the backward
+kernels return gradients of (w_in, b_eff) and of the MLPs, and autograd maps
+them to the parameter tree. What bounds the kernels on the H100 and what
+their design does about it is in csrc/trunk_conv.cuh, csrc/trunk_conv_bwd.cuh
+and the kernel sources.
 """
 from __future__ import annotations
 
@@ -32,7 +43,8 @@ import torch
 from .irreps import Irreps, TensorProductSpec, apply_dw_tensor_product, clebsch_gordan
 from .layers import sh_l2
 
-launches = {"cross_conv": 0, "pair_conv": 0, "knn_conv": 0}
+launches = {"cross_conv": 0, "pair_conv": 0, "knn_conv": 0,
+            "cross_bwd": 0, "pair_bwd": 0, "knn_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -68,6 +80,10 @@ def cm_to_irreps(irreps: Irreps, x):
                 x.shape[:-1] + (mul * d,))
         parts.append(blk)
     return torch.cat(parts, dim=-1)
+
+
+# TP paths that may read one input column (kMaxInPaths, trunk_conv.cuh)
+MAX_IN_PATHS = 8
 
 
 def _path_constants(spec: TensorProductSpec):
@@ -134,6 +150,33 @@ class ConvConsts:
         """(ck, gs_offsets, out_meta) tensors on `device`, cached."""
         return _device_tables(self, str(device))
 
+    @functools.cached_property
+    def bwd_tables(self):
+        """(w_meta [nw, 8], in_meta [din, MAX_IN_PATHS, 8]) int32, the
+        backward kernels' views of the same paths.
+        w_meta row j = w_off + u: a_base = s1 + u, mul, d1, o_base = s3 + u,
+        cb_off, d3. in_meta[c]: one entry per path reading input column
+        c = s1 + i * mul + u: o_base, mul, w_idx, cb_base = cb_off + i * d3,
+        d3; unused entries have d3 = 0."""
+        metas, _ = _path_constants(self.spec)
+        w_meta = np.zeros((self.spec.weight_numel, 8), np.int32)
+        in_meta = np.zeros((self.din, MAX_IN_PATHS, 8), np.int32)
+        used = np.zeros(self.din, np.int64)
+        for m in metas:
+            for u in range(m["mul"]):
+                w_meta[m["w_off"] + u] = (m["s1"] + u, m["mul"], m["d1"], m["s3"] + u,
+                                          m["cb_off"], m["d3"], 0, 0)
+                for i in range(m["d1"]):
+                    col = m["s1"] + i * m["mul"] + u
+                    in_meta[col, used[col]] = (m["s3"] + u, m["mul"], m["w_off"] + u,
+                                               m["cb_off"] + i * m["d3"], m["d3"], 0, 0, 0)
+                    used[col] += 1
+        return w_meta, in_meta
+
+    def device_bwd_tables(self, device):
+        """(w_meta, in_meta) tensors on `device`, cached."""
+        return _device_bwd_tables(self, str(device))
+
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(c: ConvConsts, device: str):
@@ -141,6 +184,11 @@ def _device_tables(c: ConvConsts, device: str):
     return (torch.from_numpy(np.ascontiguousarray(ck)).to(device),
             torch.tensor(c.gs_offsets, dtype=torch.float32, device=device),
             torch.from_numpy(meta).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_bwd_tables(c: ConvConsts, device: str):
+    return tuple(torch.from_numpy(t).to(device) for t in c.bwd_tables)
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +214,9 @@ def _dist(vec):
 
 
 def _cutoffs(cutoff, batch: int, device):
-    return torch.as_tensor(cutoff, dtype=torch.float32, device=device).reshape(-1).expand(batch)
+    if not torch.is_tensor(cutoff):  # a fill on the device, not a host copy
+        return torch.full((batch,), cutoff, dtype=torch.float32, device=device)
+    return cutoff.to(device, torch.float32).reshape(-1).expand(batch)
 
 
 def _rows(mask_b):
@@ -274,9 +324,15 @@ _ARGTYPES = {
     "dbfr_pair_conv": [_P] * 7 + [_I] + [_P] * 15 + [_I] * 12 + [_F, _I, _I, _P],
     "dbfr_cross_conv": [_P] * 25 + [_I] * 11 + [_F, _P],
     "dbfr_knn_conv": [_P] * 17 + [_I] * 11 + [_F, _P],
+    "dbfr_pair_bwd": [_P] * 7 + [_I] + [_P] * 23 + [_I] * 12 + [_F, _I, _I, _P],
+    "dbfr_cross_bwd": [_P] * 37 + [_I] * 11 + [_F, _P],
+    "dbfr_knn_bwd": [_P] * 26 + [_I] * 11 + [_F, _P],
 }
 # the widest matrix a kernel thread tiles (kMaxJ * 32 columns, trunk_conv.cuh)
 _MAX_COLS = 320
+# persistent blocks of a backward target pass: rows of the parameter-gradient
+# scratch (kBwdBlocks, trunk_conv_bwd.cuh)
+_BWD_BLOCKS = 264
 
 
 def _library():
@@ -289,6 +345,10 @@ def _library():
             fn.argtypes = types
             fn.restype = ctypes.c_int
     return lib
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
 
 
 def _arg(t, shape, dev):
@@ -315,7 +375,9 @@ def _check(rc: int, name: str):
 
 def _prep_edge(c: ConvConsts, emb_w1, emb_b1, temb, edge_extra: int, bsz: int, dev):
     """Reorder the edge-MLP input rows to [Gaussian | bond] and fold the time
-    embedding into a per-sample bias (constant across the pairs of a sample)."""
+    embedding into a per-sample bias (constant across the pairs of a sample).
+    Plain differentiable tensor ops: autograd maps the kernels' gradients of
+    (w_in, beff) back to emb_w1 / emb_b1."""
     he = emb_b1.shape[0]
     w1 = _arg(emb_w1, (edge_extra + c.sed + c.gs_n, he), dev)
     beff = _arg(temb, (bsz, c.sed), dev) @ w1[edge_extra : edge_extra + c.sed]
@@ -329,7 +391,7 @@ def _dims(c: ConvConsts, emb_w2, fc_w1):
     widest product a kernel thread tiles."""
     he, hf, nw = emb_w2.shape[0], fc_w1.shape[1], c.spec.weight_numel
     kdim = c.tables[0].shape[1]
-    if max(he, hf, nw, c.ns, kdim) > _MAX_COLS:
+    if max(he, hf, nw, 3 * c.ns, kdim) > _MAX_COLS:
         raise ValueError(f"trunk conv kernels tile at most {_MAX_COLS} columns")
     return he, hf, nw, kdim
 
@@ -339,111 +401,337 @@ def _check_nodes(name: str, *counts):
         raise ValueError(f"{name}: at most 65535 nodes per side")
 
 
+def _grad_layout(ke: int, he: int, ns: int, hf: int, nw: int, bsz: int):
+    """Offsets of the backward kernels' reduced parameter gradients (the
+    layout of set_grad_layout in trunk_conv_bwd.cuh) and the row stride."""
+    shapes = (("w_in", (ke, he)), ("beff", (bsz, he)), ("w2", (he, ns)), ("b2", (ns,)),
+              ("wf1", (3 * ns, hf)), ("bf1", (hf,)), ("wf2", (hf, nw)), ("bf2", (nw,)))
+    out, off = {}, 0
+    for name, shape in shapes:
+        out[name] = (off, shape)
+        off += int(np.prod(shape))
+    return out, (off + 3) & ~3
+
+
+def _split_grads(flat, layout):
+    return {k: flat[o : o + int(np.prod(shape))].view(shape) for k, (o, shape) in layout.items()}
+
+
+def _grad_scratch(layout_stride: int, dev):
+    """(per-block partial sums, zeroed; reduced result)"""
+    return (torch.zeros(_BWD_BLOCKS, layout_stride, dtype=torch.float32, device=dev),
+            torch.empty(layout_stride, dtype=torch.float32, device=dev))
+
+
+def _transposed(*ws):
+    return [w.t().contiguous() for w in ws]
+
+
+class _Data:
+    """Non-differentiable inputs of one kernel call (positions, masks, cutoff,
+    neighbour lists, bond features), validated and contiguous, with the conv's
+    static tables and sizes. Autograd sees none of them: in training they are
+    pure data, as the JAX package's hand-written backward assumes."""
+
+    def __init__(self, c: ConvConsts, dims, bsz, **tensors):
+        self.c, self.dims, self.bsz = c, dims, bsz
+        self.__dict__.update(tensors)
+
+
+# ---- B2 pair conv / B5 backward ------------------------------------------
+
+
 def pair_conv(c: ConvConsts, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask,
               cab_t, cab_s, temb, cutoff, params, bond_feat, bond_mask):
     """B2 ligand-ligand conv, the score net's configuration: self pairs
-    excluded, bonded pairs always on, cab flags on the source side."""
+    excluded, bonded pairs always on, cab flags on the source side.
+    Differentiable in the node features and every parameter (B5 backward)."""
     if not tgt_x.is_cuda:
         return pair_conv_plain(c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask,
                                cab_t, cab_s, temb, cutoff, params, bond_feat, bond_mask)
-    return _pair_conv_kernel(_library(), c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask,
-                             src_mask, cab_s, temb, cutoff, params, bond_feat,
-                             bond_mask, torch.cuda.current_stream().cuda_stream)
+    return _PairConvFn.apply(*_pair_inputs(c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask,
+                                           src_mask, cab_s, temb, cutoff, params, bond_feat,
+                                           bond_mask))
 
 
-def _pair_conv_kernel(lib, c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask,
-                      cab_s, temb, cutoff, params, bond_feat, bond_mask, stream):
+def _pair_inputs(c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_s, temb, cutoff,
+                 params, bond_feat, bond_mask):
+    """Arguments of _PairConvFn: validated data, features, folded edge input
+    and the other weights."""
     p, dev = params, tgt_x.device
     bsz, nt, nsrc = tgt_x.shape[0], tgt_x.shape[1], src_x.shape[1]
     _check_nodes("pair_conv", nt, nsrc)
     nb = bond_feat.shape[-1]
     he, hf, nw, kdim = _dims(c, p["emb_w2"], p["fc_w1"])
     w_in, beff = _prep_edge(c, p["emb_w1"], p["emb_b1"], temb, nb, bsz, dev)
-    ck, gs_off, meta = c.device_tables(dev)
-    cut = _cutoffs(cutoff, bsz, dev).contiguous()
-    keep = [_arg(v, shape, dev) for v, shape in (
-        (tgt_pos, (bsz, nt, 3)), (src_pos, (bsz, nsrc, 3)), (tgt_x, (bsz, nt, c.din)),
-        (src_x, (bsz, nsrc, c.din)), (tgt_mask, (bsz, nt)), (src_mask, (bsz, nsrc)),
-        (cab_s, (bsz, nsrc)), (bond_feat, (bsz, nt, nsrc, nb)), (bond_mask, (bsz, nt, nsrc)))]
-    keep += [_arg(p["emb_w2"], (he, c.ns), dev), _arg(p["emb_b2"], (c.ns,), dev),
-             _arg(p["fc_w1"], (3 * c.ns, hf), dev), _arg(p["fc_b1"], (hf,), dev),
-             _arg(p["fc_w2"], (hf, nw), dev), _arg(p["fc_b2"], (nw,), dev)]
-    out = torch.zeros(bsz, nt, c.dout, dtype=torch.float32, device=dev)
+    data = _Data(c, (he, hf, nw, kdim), bsz, nb=nb, **{k: _arg(v, shape, dev) for k, v, shape in (
+        ("tgt_pos", tgt_pos, (bsz, nt, 3)), ("src_pos", src_pos, (bsz, nsrc, 3)),
+        ("tgt_mask", tgt_mask, (bsz, nt)), ("src_mask", src_mask, (bsz, nsrc)),
+        ("cab_s", cab_s, (bsz, nsrc)), ("bond_feat", bond_feat, (bsz, nt, nsrc, nb)),
+        ("bond_mask", bond_mask, (bsz, nt, nsrc)))})
+    data.cut = _cutoffs(cutoff, bsz, dev).contiguous()
+    weights = [_arg(p["emb_w2"], (he, c.ns), dev), _arg(p["emb_b2"], (c.ns,), dev),
+               _arg(p["fc_w1"], (3 * c.ns, hf), dev), _arg(p["fc_b1"], (hf,), dev),
+               _arg(p["fc_w2"], (hf, nw), dev), _arg(p["fc_b2"], (nw,), dev)]
+    return (data, _arg(tgt_x, (bsz, nt, c.din), dev), _arg(src_x, (bsz, nsrc, c.din), dev),
+            w_in, beff, *weights)
+
+
+class _PairConvFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, tgt_x, src_x, w_in, beff, *weights):
+        ctx.data = data
+        ctx.save_for_backward(tgt_x, src_x, w_in, beff, *weights)
+        return _pair_conv_kernel(_library(), data, tgt_x, src_x, w_in, beff, weights, _stream())
+
+    @staticmethod
+    def backward(ctx, g):
+        tgt_x, src_x, w_in, beff, *weights = ctx.saved_tensors
+        d_tgt, d_src, gr = pair_bwd(ctx.data, tgt_x, src_x, w_in, beff, weights, g)
+        return (None, d_tgt, d_src, gr["w_in"], gr["beff"], gr["w2"], gr["b2"], gr["wf1"],
+                gr["bf1"], gr["wf2"], gr["bf2"])
+
+
+def _pair_conv_kernel(lib, data, tgt_x, src_x, w_in, beff, weights, stream):
+    c, d = data.c, data
+    bsz, nt, nsrc = tgt_x.shape[0], tgt_x.shape[1], src_x.shape[1]
+    he, hf, nw, kdim = d.dims
+    ck, gs_off, meta = c.device_tables(tgt_x.device)
+    out = torch.zeros(bsz, nt, c.dout, dtype=torch.float32, device=tgt_x.device)
     rc = lib.dbfr_pair_conv(
-        *[_ptr(v) for v in keep[:7]], 0, _ptr(cut), _ptr(keep[7]), _ptr(keep[8]),
-        _ptr(w_in), _ptr(beff), *[_ptr(v) for v in keep[9:]],
+        _ptr(d.tgt_pos), _ptr(d.src_pos), _ptr(tgt_x), _ptr(src_x), _ptr(d.tgt_mask),
+        _ptr(d.src_mask), _ptr(d.cab_s), 0, _ptr(d.cut), _ptr(d.bond_feat), _ptr(d.bond_mask),
+        _ptr(w_in), _ptr(beff), *[_ptr(v) for v in weights],
         _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
-        bsz, nt, nsrc, c.din, c.dout, nb, c.ns, he, hf, nw, kdim, c.gs_n,
+        bsz, nt, nsrc, c.din, c.dout, d.nb, c.ns, he, hf, nw, kdim, c.gs_n,
         c.gs_coeff, 0, 1, stream)
     _check(rc, "pair_conv")
     launches["pair_conv"] += 1
     return out
 
 
+def pair_bwd(data, tgt_x, src_x, w_in, beff, weights, g):
+    """B5: (d_tgt, d_src, parameter gradients) of pair_conv for the output
+    cotangent g, by the hand-written kernel (CUDA tensors only)."""
+    c, d, dev = data.c, data, tgt_x.device
+    bsz, nt, nsrc = tgt_x.shape[0], tgt_x.shape[1], src_x.shape[1]
+    he, hf, nw, kdim = d.dims
+    w2, b2, wf1, bf1, wf2, bf2 = weights
+    layout, stride = _grad_layout(c.gs_n + d.nb, he, c.ns, hf, nw, bsz)
+    part, flat = _grad_scratch(stride, dev)
+    ck, gs_off, _ = c.device_tables(dev)
+    w_meta, in_meta = c.device_bwd_tables(dev)
+    g = _arg(g, (bsz, nt, c.dout), dev)
+    d_tgt = torch.empty(bsz, nt, c.din, dtype=torch.float32, device=dev)
+    d_src = torch.empty(bsz, nsrc, c.din, dtype=torch.float32, device=dev)
+    transposed = _transposed(w2, wf1, wf2)  # kept alive through the call
+    rc = _library().dbfr_pair_bwd(
+        _ptr(d.tgt_pos), _ptr(d.src_pos), _ptr(tgt_x), _ptr(src_x), _ptr(d.tgt_mask),
+        _ptr(d.src_mask), _ptr(d.cab_s), 0, _ptr(d.cut), _ptr(d.bond_feat), _ptr(d.bond_mask),
+        _ptr(w_in), _ptr(beff), *[_ptr(v) for v in weights],
+        *[_ptr(v) for v in transposed],
+        _ptr(ck), _ptr(gs_off), _ptr(w_meta), _ptr(in_meta), _ptr(g), _ptr(d_tgt), _ptr(d_src),
+        _ptr(part), _ptr(flat), bsz, nt, nsrc, c.din, c.dout, d.nb, c.ns, he, hf, nw, kdim,
+        c.gs_n, c.gs_coeff, 0, 1, _stream())
+    _check(rc, "pair_bwd")
+    launches["pair_bwd"] += 1
+    return d_tgt, d_src, _split_grads(flat, layout)
+
+
+# ---- B1 cross conv / B4 backward -----------------------------------------
+
+
 def cross_conv(c: ConvConsts, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask,
                cabflag, temb, cutoff, emb_params, fc_al, fc_la):
-    """B1 dual cross conv: (al [B, nl, dout], la [B, na, dout])."""
+    """B1 dual cross conv: (al [B, nl, dout], la [B, na, dout]).
+    Differentiable in the node features and every parameter (B4 backward)."""
     if not lig_x.is_cuda:
         return cross_conv_plain(c, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask,
                                 cabflag, temb, cutoff, emb_params, fc_al, fc_la)
-    return _cross_conv_kernel(_library(), c, lig_pos, atm_pos, lig_x, atm_x, lig_mask,
-                              atm_mask, cabflag, temb, cutoff, emb_params, fc_al, fc_la,
-                              torch.cuda.current_stream().cuda_stream)
+    return _CrossConvFn.apply(*_cross_inputs(c, lig_pos, atm_pos, lig_x, atm_x, lig_mask,
+                                             atm_mask, cabflag, temb, cutoff, emb_params,
+                                             fc_al, fc_la))
 
 
-def _cross_conv_kernel(lib, c, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask,
-                       cabflag, temb, cutoff, emb_params, fc_al, fc_la, stream):
+def _cross_inputs(c, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cabflag, temb,
+                  cutoff, emb_params, fc_al, fc_la):
     e_, dev = emb_params, lig_x.device
     bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
     _check_nodes("cross_conv", nl, na)
     he, hf, nw, kdim = _dims(c, e_["l2"]["w"], fc_al["l1"]["w"])
     w_in, beff = _prep_edge(c, e_["l1"]["w"], e_["l1"]["b"], temb, 0, bsz, dev)
-    ck, gs_off, meta = c.device_tables(dev)
-    cut = _cutoffs(cutoff, bsz, dev).contiguous()
-    keep = [_arg(v, shape, dev) for v, shape in (
-        (lig_pos, (bsz, nl, 3)), (atm_pos, (bsz, na, 3)), (lig_x, (bsz, nl, c.din)),
-        (atm_x, (bsz, na, c.din)), (lig_mask, (bsz, nl)), (atm_mask, (bsz, na)),
-        (cabflag, (bsz, na)))]
-    wts = [_arg(e_["l2"]["w"], (he, c.ns), dev), _arg(e_["l2"]["b"], (c.ns,), dev)]
-    wts += _mlp_args(fc_al, 3 * c.ns, hf, nw, dev) + _mlp_args(fc_la, 3 * c.ns, hf, nw, dev)
-    al = torch.zeros(bsz, nl, c.dout, dtype=torch.float32, device=dev)
-    la = torch.zeros(bsz, na, c.dout, dtype=torch.float32, device=dev)
+    data = _Data(c, (he, hf, nw, kdim), bsz, **{k: _arg(v, shape, dev) for k, v, shape in (
+        ("lig_pos", lig_pos, (bsz, nl, 3)), ("atm_pos", atm_pos, (bsz, na, 3)),
+        ("lig_mask", lig_mask, (bsz, nl)), ("atm_mask", atm_mask, (bsz, na)),
+        ("cab", cabflag, (bsz, na)))})
+    data.cut = _cutoffs(cutoff, bsz, dev).contiguous()
+    weights = [_arg(e_["l2"]["w"], (he, c.ns), dev), _arg(e_["l2"]["b"], (c.ns,), dev)]
+    weights += _mlp_args(fc_al, 3 * c.ns, hf, nw, dev) + _mlp_args(fc_la, 3 * c.ns, hf, nw, dev)
+    return (data, _arg(lig_x, (bsz, nl, c.din), dev), _arg(atm_x, (bsz, na, c.din), dev),
+            w_in, beff, *weights)
+
+
+class _CrossConvFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, lig_x, atm_x, w_in, beff, *weights):
+        ctx.data = data
+        ctx.save_for_backward(lig_x, atm_x, w_in, beff, *weights)
+        return _cross_conv_kernel(_library(), data, lig_x, atm_x, w_in, beff, weights,
+                                  _stream())
+
+    @staticmethod
+    def backward(ctx, g_al, g_la):
+        lig_x, atm_x, w_in, beff, *weights = ctx.saved_tensors
+        d_lig, d_atm, ga, gl = cross_bwd(ctx.data, lig_x, atm_x, w_in, beff, weights, g_al, g_la)
+        edge = [ga[k] + gl[k] for k in ("w_in", "beff", "w2", "b2")]
+        fc = [gr[k] for gr in (ga, gl) for k in ("wf1", "bf1", "wf2", "bf2")]
+        return (None, d_lig, d_atm, *edge, *fc)
+
+
+def _cross_conv_kernel(lib, data, lig_x, atm_x, w_in, beff, weights, stream):
+    c, d = data.c, data
+    bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
+    he, hf, nw, kdim = d.dims
+    ck, gs_off, meta = c.device_tables(lig_x.device)
+    al = torch.zeros(bsz, nl, c.dout, dtype=torch.float32, device=lig_x.device)
+    la = torch.zeros(bsz, na, c.dout, dtype=torch.float32, device=lig_x.device)
     rc = lib.dbfr_cross_conv(
-        *[_ptr(v) for v in keep], _ptr(cut), _ptr(w_in), _ptr(beff),
-        *[_ptr(v) for v in wts], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(al), _ptr(la),
+        _ptr(d.lig_pos), _ptr(d.atm_pos), _ptr(lig_x), _ptr(atm_x), _ptr(d.lig_mask),
+        _ptr(d.atm_mask), _ptr(d.cab), _ptr(d.cut), _ptr(w_in), _ptr(beff),
+        *[_ptr(v) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(al), _ptr(la),
         bsz, nl, na, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, stream)
     _check(rc, "cross_conv")
     launches["cross_conv"] += 1
     return al, la
 
 
+def cross_bwd(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la):
+    """B4: (d_lig, d_atm, al gradients, la gradients) of cross_conv; the edge-
+    MLP entries of the two gradient dicts are the two directions' shares."""
+    c, d, dev = data.c, data, lig_x.device
+    bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
+    he, hf, nw, kdim = d.dims
+    w2, b2, al_w1, al_b1, al_w2, al_b2, la_w1, la_b1, la_w2, la_b2 = weights
+    layout, stride = _grad_layout(c.gs_n, he, c.ns, hf, nw, bsz)
+    part_al, flat_al = _grad_scratch(stride, dev)
+    part_la, flat_la = _grad_scratch(stride, dev)
+    ck, gs_off, _ = c.device_tables(dev)
+    w_meta, in_meta = c.device_bwd_tables(dev)
+    g_al = lig_x.new_zeros(bsz, nl, c.dout) if g_al is None else _arg(g_al, (bsz, nl, c.dout), dev)
+    g_la = atm_x.new_zeros(bsz, na, c.dout) if g_la is None else _arg(g_la, (bsz, na, c.dout), dev)
+    d_lig = torch.empty(bsz, nl, c.din, dtype=torch.float32, device=dev)
+    d_atm = torch.empty(bsz, na, c.din, dtype=torch.float32, device=dev)
+    w2t, al_w1t, al_w2t, la_w1t, la_w2t = _transposed(w2, al_w1, al_w2, la_w1, la_w2)
+    rc = _library().dbfr_cross_bwd(
+        _ptr(d.lig_pos), _ptr(d.atm_pos), _ptr(lig_x), _ptr(atm_x), _ptr(d.lig_mask),
+        _ptr(d.atm_mask), _ptr(d.cab), _ptr(d.cut), _ptr(w_in), _ptr(beff), _ptr(w2), _ptr(b2),
+        _ptr(w2t), _ptr(al_w1), _ptr(al_b1), _ptr(al_w2), _ptr(al_b2), _ptr(al_w1t),
+        _ptr(al_w2t), _ptr(la_w1), _ptr(la_b1), _ptr(la_w2), _ptr(la_b2), _ptr(la_w1t),
+        _ptr(la_w2t), _ptr(ck), _ptr(gs_off), _ptr(w_meta), _ptr(in_meta), _ptr(g_al),
+        _ptr(g_la), _ptr(d_lig), _ptr(d_atm), _ptr(part_al), _ptr(part_la), _ptr(flat_al),
+        _ptr(flat_la), bsz, nl, na, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n,
+        c.gs_coeff, _stream())
+    _check(rc, "cross_bwd")
+    launches["cross_bwd"] += 1
+    return d_lig, d_atm, _split_grads(flat_al, layout), _split_grads(flat_la, layout)
+
+
+# ---- B3 knn conv / B6 backward -------------------------------------------
+
+
 def knn_conv(c: ConvConsts, pos, x, mask, idx, valid, temb, params):
-    """B3 pocket-atom conv over the neighbour list idx/valid [B, N, k]."""
+    """B3 pocket-atom conv over the neighbour list idx/valid [B, N, k].
+    Differentiable in the node features and every parameter (B6 backward)."""
     if not x.is_cuda:
         return knn_conv_plain(c, pos, x, mask, idx, valid, temb, params)
-    return _knn_conv_kernel(_library(), c, pos, x, idx, valid, temb, params,
-                            torch.cuda.current_stream().cuda_stream)
+    return _KnnConvFn.apply(*_knn_inputs(c, pos, x, idx, valid, temb, params))
 
 
-def _knn_conv_kernel(lib, c, pos, x, idx, valid, temb, params, stream):
+def _knn_inputs(c, pos, x, idx, valid, temb, params):
     e_, fc, dev = params["emb"], params["fc"], x.device
     bsz, n, k = idx.shape
     _check_nodes("knn_conv", n)
     he, hf, nw, kdim = _dims(c, e_["l2"]["w"], fc["l1"]["w"])
     w_in, beff = _prep_edge(c, e_["l1"]["w"], e_["l1"]["b"], temb, 0, bsz, dev)
-    ck, gs_off, meta = c.device_tables(dev)
-    pos_, x_, valid_ = (_arg(pos, (bsz, n, 3), dev), _arg(x, (bsz, n, c.din), dev),
-                        _arg(valid, (bsz, n, k), dev))
     if idx.device != dev:
         raise ValueError(f"kernel input on {idx.device}; expected {dev}")
-    idx_ = idx.to(torch.int32).contiguous()
-    wts = [_arg(e_["l2"]["w"], (he, c.ns), dev), _arg(e_["l2"]["b"], (c.ns,), dev)]
-    wts += _mlp_args(fc, 3 * c.ns, hf, nw, dev)
-    out = torch.zeros(bsz, n, c.dout, dtype=torch.float32, device=dev)
+    data = _Data(c, (he, hf, nw, kdim), bsz, pos=_arg(pos, (bsz, n, 3), dev),
+                 valid=_arg(valid, (bsz, n, k), dev), idx=idx.to(torch.int32).contiguous())
+    weights = [_arg(e_["l2"]["w"], (he, c.ns), dev), _arg(e_["l2"]["b"], (c.ns,), dev)]
+    weights += _mlp_args(fc, 3 * c.ns, hf, nw, dev)
+    return (data, _arg(x, (bsz, n, c.din), dev), w_in, beff, *weights)
+
+
+class _KnnConvFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, x, w_in, beff, *weights):
+        ctx.data = data
+        ctx.save_for_backward(x, w_in, beff, *weights)
+        return _knn_conv_kernel(_library(), data, x, w_in, beff, weights, _stream())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_in, beff, *weights = ctx.saved_tensors
+        d_x, gr = knn_bwd(ctx.data, x, w_in, beff, weights, g)
+        return (None, d_x, gr["w_in"], gr["beff"], gr["w2"], gr["b2"], gr["wf1"], gr["bf1"],
+                gr["wf2"], gr["bf2"])
+
+
+def _knn_conv_kernel(lib, data, x, w_in, beff, weights, stream):
+    c, d = data.c, data
+    bsz, n, k = d.idx.shape
+    he, hf, nw, kdim = d.dims
+    ck, gs_off, meta = c.device_tables(x.device)
+    out = torch.zeros(bsz, n, c.dout, dtype=torch.float32, device=x.device)
     rc = lib.dbfr_knn_conv(
-        _ptr(pos_), _ptr(x_), _ptr(idx_), _ptr(valid_), None, _ptr(w_in), _ptr(beff),
-        *[_ptr(v) for v in wts], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
+        _ptr(d.pos), _ptr(x), _ptr(d.idx), _ptr(d.valid), None, _ptr(w_in), _ptr(beff),
+        *[_ptr(v) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
         bsz, n, k, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, stream)
     _check(rc, "knn_conv")
     launches["knn_conv"] += 1
     return out
+
+
+def reverse_neighbours(idx, valid):
+    """Reverse neighbour list of idx/valid [B, n, k]: (rev_off [B, n + 1],
+    rev_tgt, rev_src) with the entries of source s of sample b at
+    rev_off[b, s] .. rev_off[b, s + 1], in (target, slot) order. Device ops
+    only (a stable sort and a search), no host read."""
+    bsz, n, k = idx.shape
+    dev = idx.device
+    idx = idx.long()
+    ok = (valid > 0) & (idx >= 0) & (idx < n)
+    bidx = torch.arange(bsz, device=dev)[:, None, None]
+    key = torch.where(ok, bidx * (n + 1) + idx, torch.full_like(idx, bsz * (n + 1)))
+    skey, perm = torch.sort(key.reshape(-1), stable=True)
+    rev_tgt = ((perm // k) % n).to(torch.int32)
+    rev_src = (skey % (n + 1)).to(torch.int32)
+    q = (torch.arange(bsz, device=dev)[:, None] * (n + 1)
+         + torch.arange(n + 1, device=dev)[None]).reshape(-1)
+    rev_off = torch.searchsorted(skey, q).to(torch.int32).reshape(bsz, n + 1)
+    return rev_off.contiguous(), rev_tgt.contiguous(), rev_src.contiguous()
+
+
+def knn_bwd(data, x, w_in, beff, weights, g):
+    """B6: (d_x, parameter gradients) of knn_conv for the output cotangent g."""
+    c, d, dev = data.c, data, x.device
+    bsz, n, k = d.idx.shape
+    he, hf, nw, kdim = d.dims
+    w2, b2, wf1, bf1, wf2, bf2 = weights
+    layout, stride = _grad_layout(c.gs_n, he, c.ns, hf, nw, bsz)
+    part, flat = _grad_scratch(stride, dev)
+    ck, gs_off, _ = c.device_tables(dev)
+    w_meta, in_meta = c.device_bwd_tables(dev)
+    rev_off, rev_tgt, rev_src = reverse_neighbours(d.idx, d.valid)
+    g = _arg(g, (bsz, n, c.dout), dev)
+    d_x = torch.empty(bsz, n, c.din, dtype=torch.float32, device=dev)
+    w2t, wf1t, wf2t = _transposed(w2, wf1, wf2)
+    rc = _library().dbfr_knn_bwd(
+        _ptr(d.pos), _ptr(x), _ptr(d.idx), _ptr(d.valid), _ptr(w_in), _ptr(beff), _ptr(w2),
+        _ptr(b2), _ptr(w2t), _ptr(wf1), _ptr(bf1), _ptr(wf2), _ptr(bf2), _ptr(wf1t),
+        _ptr(wf2t), _ptr(ck), _ptr(gs_off), _ptr(w_meta), _ptr(in_meta), _ptr(rev_off),
+        _ptr(rev_tgt), _ptr(rev_src), _ptr(g), _ptr(d_x), _ptr(part), _ptr(flat),
+        bsz, n, k, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, _stream())
+    _check(rc, "knn_bwd")
+    launches["knn_bwd"] += 1
+    return d_x, _split_grads(flat, layout)

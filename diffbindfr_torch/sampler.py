@@ -142,8 +142,7 @@ def sample(params, net_cfg: sn.ScoreNetConfig, cfg: SamplerConfig, batch,
     lig_pos, chi, atm_pos = init_pose(batch, cfg, noise)
     ts = t_schedule(cfg, dev)
     sigs = [sn.sigmas_from_t(ts[i], cfg.schedule) for i in range(cfg.actual_steps)]
-    # every step's score-norm scales, looked up before the loop so that the
-    # loop never waits for the device
+    # every step's score-norm scales, looked up once, before the loop
     scales = sn.sigma_scales(sn.Sigmas(*[torch.stack(v) for v in zip(*sigs)]))
     tr_g_scale = math.sqrt(2.0 * math.log(cfg.tr_sigma_max / cfg.tr_sigma_min))
     rot_g_scale = 2.0 * math.sqrt(math.log(cfg.rot_sigma_max / cfg.rot_sigma_min))

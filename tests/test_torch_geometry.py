@@ -161,3 +161,87 @@ def test_score_norm_grid_indices_match(rng):
                                   np.asarray(JSO3._eps_index(jnp.asarray(sig))))
     np.testing.assert_array_equal(TTOR._sigma_index(_t(sig)).numpy(),
                                   np.asarray(JTOR._sigma_index(jnp.asarray(sig))))
+
+
+# ---- the device tables: the port's own rows against the JAX package's tables,
+# and the lookups on the JAX package's tables
+
+@pytest.mark.parametrize("rows", [[0, 1, 50], [137, 500], [998, 999]])
+def test_so3_table_rows_match(rows):
+    """cdf and exp_score_norms everywhere; the per-omega score where the
+    density is at least 1e-9 of its row's peak (below that the JAX table
+    holds the series' rounding noise, up to 3e5 at eps 0.01, omega near pi)."""
+    jt = JSO3.tables()
+    r = TSO3.compute_rows(rows)
+    np.testing.assert_allclose(r["exp_score_norms"].to(torch.float32).numpy(),
+                               jt.exp_score_norms[rows].astype(np.float32), rtol=1e-6)
+    cdf = r["cdf_vals"].numpy()
+    np.testing.assert_allclose(cdf.astype(np.float32), jt.cdf_vals[rows], rtol=0, atol=1e-6)
+    pdf = np.diff(cdf, prepend=0.0, axis=1)
+    keep = pdf > 1e-9 * pdf.max(axis=1, keepdims=True)
+    assert keep.sum(axis=1).min() >= 40
+    got = r["score_norms"].to(torch.float32).numpy()
+    np.testing.assert_allclose(got[keep], jt.score_norms[rows].astype(np.float32)[keep],
+                               rtol=1e-6)
+
+
+def test_torus_table_rows_match():
+    rows = [0, 1, 700, 1400, 2000]
+    jt = JTOR.tables()
+    r = TTOR.compute_rows(rows)
+    np.testing.assert_allclose(r["score"].to(torch.float32).numpy(), jt.score[rows], rtol=1e-6)
+    np.testing.assert_allclose(r["score_norm"].to(torch.float32).numpy(), jt.score_norm[rows],
+                               rtol=1e-6)
+
+
+@pytest.fixture
+def jax_tables_on_cpu():
+    saved = dict(TSO3._tables), dict(TTOR._tables)
+    jt = JSO3.tables()
+    TSO3.set_tables(TSO3.SO3Tables.from_numpy("cpu", **jt._asdict()))
+    tt = JTOR.tables()
+    TTOR.set_tables(TTOR.TorusTables.from_numpy("cpu", score=tt.score, score_norm=tt.score_norm))
+    yield
+    for mod, old in zip((TSO3, TTOR), saved):
+        mod._tables.clear()
+        mod._tables.update(old)
+
+
+def test_so3_lookups_match(jax_tables_on_cpu, rng):
+    eps = np.concatenate([rng.uniform(0.03, 1.55, 60), [0.01, 0.0101, 2.0, 1e-3]])
+    eps = eps.astype(np.float32)
+    vec = (rng.normal(size=(eps.size, 3)) * rng.uniform(0.01, 3.1, (eps.size, 1)))
+    vec = vec.astype(np.float32)
+    np.testing.assert_array_equal(TSO3.score_norm(_t(eps)).numpy(),
+                                  np.asarray(JSO3.score_norm(jnp.asarray(eps))))
+    want = jax.vmap(JSO3.score_vec)(jnp.asarray(eps), jnp.asarray(vec))
+    np.testing.assert_allclose(TSO3.score_vec(_t(eps), _t(vec)).numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    # sample_vec with the JAX draws injected (so3.py:sample_vec splits its key in two)
+    keys = jax.random.split(jax.random.PRNGKey(3), eps.size)
+    want = jax.vmap(JSO3.sample_vec)(keys, jnp.asarray(eps))
+    k12 = jax.vmap(jax.random.split)(keys)
+    normal = jax.vmap(lambda k: jax.random.normal(k, (3,)))(k12[:, 0])
+    uniform = jax.vmap(lambda k: jax.random.uniform(k, ()))(k12[:, 1])
+    got = TSO3.sample_vec(_t(eps), normal=_t(normal), uniform=_t(uniform))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    # and from a generator: rotation angles inside (0, pi]
+    drawn = TSO3.sample_vec(_t(eps), generator=torch.Generator().manual_seed(0))
+    assert drawn.shape == (eps.size, 3)
+    assert float(torch.linalg.norm(drawn, dim=-1).max()) <= np.pi + 1e-6
+
+
+def test_torus_lookups_match(jax_tables_on_cpu, rng):
+    x = rng.uniform(-9.0, 9.0, (40, 7)).astype(np.float32)
+    x[0, :3] = [0.0, 1e-7, -np.pi]
+    sigma = rng.uniform(0.03, 3.2, (40, 1)).astype(np.float32)
+    np.testing.assert_allclose(TTOR.score(_t(x), _t(sigma)).numpy(),
+                               np.asarray(JTOR.score(jnp.asarray(x), jnp.asarray(sigma))),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(TTOR.score_norm(_t(sigma[:, 0])).numpy(),
+                                  np.asarray(JTOR.score_norm(jnp.asarray(sigma[:, 0]))))
+    key = jax.random.PRNGKey(5)
+    want = JTOR.sample(key, jnp.asarray(sigma), (40, 1))
+    normal = jax.random.normal(key, (40, 1))
+    np.testing.assert_allclose(TTOR.sample(_t(sigma), normal=_t(normal)).numpy(),
+                               np.asarray(want), rtol=1e-6, atol=1e-6)

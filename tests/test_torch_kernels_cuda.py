@@ -1,10 +1,15 @@
 """Hand-written CUDA trunk-conv kernels against their plain versions, on
-the card. Marked `cuda`: skipped (with a reason) where no GPU is present.
-Imports no JAX, so it runs on the GPU machine with
+the card: the forward kernels B1-B3 and the backward kernels B4-B6 (autograd
+through the wrappers against autograd through the plain versions). Marked
+`cuda`: skipped (with a reason) where no GPU is present. Imports no JAX, so
+it runs on the GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -p no:cacheprovider
 
-Tolerance: f32 sums in another order, max|err| <= 1e-4 * max|ref|.
+Tolerance: f32 sums in another order, max|err| <= 1e-4 * max|ref| forward;
+every gradient max|err| <= 5e-4 * max|ref|, where the plain version may
+take the kernel's decision at a ReLU pre-activation within f32 rounding of 0
+and nowhere else (nn/relu_ties.py).
 """
 import numpy as np
 import pytest
@@ -12,6 +17,7 @@ import torch
 
 from diffbindfr_torch.nn import layers as L
 from diffbindfr_torch.nn import trunk_convs as TC
+from diffbindfr_torch.nn.relu_ties import ReluTies
 
 NS, NV, SED, GSN = 8, 4, 16, 16
 LADDER = f"{NS}x0e+{NV}x1o+{NV}x1e+{NS}x0o"
@@ -110,3 +116,123 @@ def test_kernel_wrapper_rejects_bad_parameters(dev):
     with pytest.raises(ValueError):
         TC.cross_conv(c, S["tgt_pos"], S["src_pos"], S["tgt_x"], S["src_x"], S["tgt_mask"],
                       S["src_mask"], S["cab"], S["temb"], 6.0, S["emb"], bad, S["fc_b"])
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+def _grad_close(plain, args, leaves, gs, got, tol=5e-4):
+    raw, final, flips = ReluTies(plain, args, leaves, gs).check(got, tol)
+    assert max(final) <= tol, (raw, final, flips)
+
+
+def _mlp_leaves(m):
+    return {k: {"w": _leaf(v["w"]), "b": _leaf(v["b"])} for k, v in m.items()}
+
+
+def _flat(m):
+    return [m[k][q] for k in ("l1", "l2") for q in ("w", "b")]
+
+
+@pytest.mark.cuda
+def test_cross_backward_kernel_matches_plain(dev):
+    S = _system(dev)
+    c = TC.ConvConsts(S["cs"].dw, NS, SED, 32.0, GSN)
+    cut = torch.tensor([6.5, 5.2, 8.0], device=dev)
+    lx, ax = _leaf(S["tgt_x"]), _leaf(S["src_x"])
+    emb, fa, fb = _mlp_leaves(S["emb"]), _mlp_leaves(S["fc_a"]), _mlp_leaves(S["fc_b"])
+    args = (c, S["tgt_pos"], S["src_pos"], lx, ax, S["tgt_mask"], S["src_mask"], S["cab"],
+            S["temb"], cut, emb, fa, fb)
+    leaves = [lx, ax] + _flat(emb) + _flat(fa) + _flat(fb)
+    out = TC.cross_conv(*args)
+    gs = [torch.randn_like(o) for o in out]
+    before = TC.launches["cross_bwd"]
+    got = torch.autograd.grad(out, leaves, gs)
+    torch.cuda.synchronize()
+    assert TC.launches["cross_bwd"] == before + 1
+    _grad_close(TC.cross_conv_plain, args, leaves, gs, got)
+
+
+@pytest.mark.cuda
+def test_pair_backward_kernel_matches_plain(dev):
+    S = _system(dev, nt=40, nsrc=40)
+    f, bern = S["f"], S["bern"]
+    c = TC.ConvConsts(S["cs"].dw, NS, SED, 5.0, GSN)
+    bsz, nl = S["tgt_x"].shape[:2]
+    pos = f(bsz, nl, 3, sc=2.5)
+    bm = bern(0.1, bsz, nl, nl)
+    bf = f(bsz, nl, nl, 10) * bm[..., None]
+    p = {k: _leaf(v) for k, v in (
+        ("emb_w1", S["pair_w1"]), ("emb_b1", S["emb"]["l1"]["b"]), ("emb_w2", S["emb"]["l2"]["w"]),
+        ("emb_b2", S["emb"]["l2"]["b"]), ("fc_w1", S["fc_a"]["l1"]["w"]),
+        ("fc_b1", S["fc_a"]["l1"]["b"]), ("fc_w2", S["fc_a"]["l2"]["w"]),
+        ("fc_b2", S["fc_a"]["l2"]["b"]))}
+    x = _leaf(S["tgt_x"])
+    zero = torch.zeros(bsz, nl, device=dev)
+    args = (c, pos, pos, x, x, S["tgt_mask"], S["tgt_mask"], zero, zero, S["temb"], 5.0, p, bf,
+            bm)
+    out = TC.pair_conv(*args)
+    g = torch.randn_like(out)
+    before = TC.launches["pair_bwd"]
+    got = torch.autograd.grad(out, [x] + list(p.values()), g)
+    torch.cuda.synchronize()
+    assert TC.launches["pair_bwd"] == before + 1
+    _grad_close(TC.pair_conv_plain, args, [x] + list(p.values()), [g], got)
+
+
+@pytest.mark.cuda
+def test_knn_backward_kernel_matches_plain(dev):
+    S = _system(dev, nt=10)
+    c = TC.ConvConsts(S["cs"].dw, NS, SED, 4.0, GSN)
+    pos = S["f"](*S["src_pos"].shape, sc=2.0)
+    idx, valid = L.knn_edges(pos, pos, S["src_mask"], S["src_mask"], k=16, cutoff=4.0,
+                             exclude_self=True)
+    x = _leaf(S["src_x"])
+    p = {"emb": _mlp_leaves(S["emb"]), "fc": _mlp_leaves(S["fc_a"])}
+    args = (c, pos, x, S["src_mask"], idx, valid.float(), S["temb"], p)
+    leaves = [x] + _flat(p["emb"]) + _flat(p["fc"])
+    out = TC.knn_conv(*args)
+    g = torch.randn_like(out)
+    before = TC.launches["knn_bwd"]
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert TC.launches["knn_bwd"] == before + 1
+    _grad_close(TC.knn_conv_plain, args, leaves, [g], got)
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_reject_bad_cotangents(dev):
+    S = _system(dev, nt=12, nsrc=60)
+    cross = TC._cross_inputs(TC.ConvConsts(S["cs"].dw, NS, SED, 32.0, GSN), S["tgt_pos"],
+                             S["src_pos"], S["tgt_x"], S["src_x"], S["tgt_mask"], S["src_mask"],
+                             S["cab"], S["temb"], 6.0, S["emb"], S["fc_a"], S["fc_b"])
+    data, lx, ax, w_in, beff, *w = cross
+    bsz, nl, na, dout = lx.shape[0], lx.shape[1], ax.shape[1], data.c.dout
+    good_la = torch.zeros(bsz, na, dout, device=dev)
+    for bad in (torch.zeros(bsz, nl, dout + 1, device=dev), torch.zeros(bsz, nl, dout)):
+        with pytest.raises(ValueError):
+            TC.cross_bwd(data, lx, ax, w_in, beff, w, bad, good_la)
+    c = TC.ConvConsts(S["cs"].dw, NS, SED, 5.0, GSN)
+    zero = torch.zeros_like(S["tgt_mask"])
+    bm = torch.zeros(bsz, nl, nl, device=dev)
+    pair = TC._pair_inputs(c, S["tgt_pos"], S["tgt_pos"], S["tgt_x"], S["tgt_x"], S["tgt_mask"],
+                           S["tgt_mask"], zero, S["temb"], 5.0,
+                           {"emb_w1": S["pair_w1"], "emb_b1": S["emb"]["l1"]["b"],
+                            "emb_w2": S["emb"]["l2"]["w"], "emb_b2": S["emb"]["l2"]["b"],
+                            "fc_w1": S["fc_a"]["l1"]["w"], "fc_b1": S["fc_a"]["l1"]["b"],
+                            "fc_w2": S["fc_a"]["l2"]["w"], "fc_b2": S["fc_a"]["l2"]["b"]},
+                           torch.zeros(bsz, nl, nl, 10, device=dev), bm)
+    data, tx, sx, w_in, beff, *w = pair
+    for bad in (torch.zeros(bsz, nl + 1, c.dout, device=dev), torch.zeros(bsz, nl, c.dout)):
+        with pytest.raises(ValueError):
+            TC.pair_bwd(data, tx, sx, w_in, beff, w, bad)
+    k = TC.ConvConsts(S["cs"].dw, NS, SED, 4.0, GSN)
+    idx, valid = L.knn_edges(S["src_pos"], S["src_pos"], S["src_mask"], S["src_mask"], k=16,
+                             cutoff=4.0, exclude_self=True)
+    knn = TC._knn_inputs(k, S["src_pos"], S["src_x"], idx, valid.float(), S["temb"],
+                         {"emb": S["emb"], "fc": S["fc_a"]})
+    data, x, w_in, beff, *w = knn
+    for bad in (torch.zeros(bsz, na, k.dout - 1, device=dev), torch.zeros(bsz, na, k.dout)):
+        with pytest.raises(ValueError):
+            TC.knn_bwd(data, x, w_in, beff, w, bad)
