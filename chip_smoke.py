@@ -25,8 +25,8 @@ a non-zero exit code):
               the prep-cache pose; 4 poses rerun through the plain path with
               the same noise
   8. profile  torch.profiler over 2 sampler steps of the same batch: device
-              time of the three kernels vs all other device work, and the
-              device-busy share of the steps' wall time
+              time of the three kernels vs all other device work, the
+              device-busy share of the steps' wall time, kernel launches per step
   9. bwd_kernels  B4 cross, B5 pair, B6 knn backward at layers 0 and 5,
               B = 4 (the 128/1024 training batch) and B = 16, and at layer 1
               B = 4 and layer 5 B = 1, on the kernel inputs of phase 5 with a
@@ -49,9 +49,32 @@ a non-zero exit code):
               every step's loss finite, the checkpoint reloads; samples/s
               and step ms after each run's first step, peak memory, and the
               profiler's device time over 2 steps
+  12. rm_kernels  the row-major kernel configurations' kernels: B7 cross,
+              B8 pair, B9 knn with the finalize in the kernel, and B10 (the
+              whole layer), at the 3dbs bucket shapes, layers 0 and 5, B = 16,
+              on diff_r2 weights and phase 5's kernel inputs, against their
+              plain versions (max|err| <= 1e-4 max|ref|); CUDA-event times,
+              bounds and plain times
+  13. rm_forward  the full-width score net in the row-major configurations
+              (rowmajor, +fused_epilogue, +fused_layer) against the JAX fixture
+              (<= 1e-3, as phase 6)
+  14. rm_dock  16 poses x 20 steps of 3dbs after a warm-up, the default (cmt),
+              fused_epilogue and fused_layer configurations in turns
+              (A B C C B A): every pose finite, exact launch counts (cmt: B1-B3
+              120 each; fused_epilogue: B7-B9 120 each; fused_layer: B10 120;
+              every other kernel 0), poses/s of each
+  15. rm_profile  phase 8's profile for fused_epilogue and fused_layer; for
+              the three configurations: device ms, busy share, the trunk
+              kernels' share and kernel launches per step
+  16. rm_grad  one full-width train-loss gradient (B = 1, fixed noise) in the
+              fused_layer configuration, kernel path vs plain path: every
+              parameter gradient within 1e-3 max|ref| (B10's backward
+              recomputes through its plain version)
 The second-to-last lines are the kernels JSON and the nvidia-smi line; the
 last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
+import contextlib
+import functools
 import json
 import os
 import shutil
@@ -60,6 +83,7 @@ import sys
 import tempfile
 import threading
 import time
+import weakref
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SAMPLE = os.path.join(ROOT, "runs/eval_r5_scsrc/prep_cache/3dbs_r12.npz")
@@ -69,7 +93,8 @@ FIXTURE = os.path.join(ROOT, "tests/fixtures/torch_port_ref.npz")
 DEV = "cuda"
 DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 300,
              "forward": 180, "dock": 300, "profile": 120, "bwd_kernels": 480,
-             "train_parity": 180, "train": 300}
+             "train_parity": 180, "train": 300, "rm_kernels": 240, "rm_forward": 120,
+             "rm_dock": 300, "rm_profile": 120, "rm_grad": 180}
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
@@ -88,6 +113,19 @@ BWD_KERNELS = {
     "knn_bwd": ("diffbindfr_torch/csrc/knn_bwd.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:1884",
                 "knn_conv"),
 }
+# the row-major configurations' kernels: launch counter -> (source, replaced TPU kernel)
+RM_KERNELS = {
+    "cross_conv_fin": ("diffbindfr_torch/csrc/cross_conv.cu", "diffbindfr_tpu/nn/pallas_conv.py:1008"),
+    "pair_conv_fin": ("diffbindfr_torch/csrc/pair_conv.cu", "diffbindfr_tpu/nn/pallas_conv.py:653"),
+    "knn_conv_fin": ("diffbindfr_torch/csrc/knn_conv.cu", "diffbindfr_tpu/nn/pallas_conv.py:1225"),
+    "layer_conv": ("diffbindfr_torch/csrc/layer_conv.cu", "diffbindfr_tpu/nn/pallas_layer.py:552"),
+}
+# kernel configurations of the score net (ScoreNetConfig fields) and the
+# kernels each launches in a dock
+RM_MODES = {"cmt": ({}, tuple(KERNELS)),
+            "fused_epilogue": (dict(pallas_layout="rowmajor", fused_epilogue=True),
+                               ("cross_conv_fin", "pair_conv_fin", "knn_conv_fin")),
+            "fused_layer": (dict(pallas_layout="rowmajor", fused_layer=True), ("layer_conv",))}
 SCHED = {"tr_sigma_min": 0.1, "tr_sigma_max": 6.0, "rot_sigma_min": 0.03,
          "rot_sigma_max": 1.55, "tor_sigma_min": 0.0314, "tor_sigma_max": 3.14,
          "sc_tor_sigma_min": 0.0314, "sc_tor_sigma_max": 3.14}
@@ -154,6 +192,7 @@ def kernel_inputs(torch, params, s_np, layer, bsz, seed):
     from diffbindfr_torch.data.sample import stack_samples, to_device
     from diffbindfr_torch.models import score_net as sn
     from diffbindfr_torch.nn import layers as L
+    from diffbindfr_torch.nn import trunk_convs as TC
 
     g = torch.Generator(device=DEV).manual_seed(seed)
     s = to_device(stack_samples([s_np] * bsz), DEV)
@@ -182,7 +221,7 @@ def kernel_inputs(torch, params, s_np, layer, bsz, seed):
                              cutoff=cfg.atom_cutoff, exclude_self=True)
     lp = {k: params[f"{k}_convs"][layer] for k in ("lig", "al", "la", "atom")}
     zero = torch.zeros_like(s.lig_mask)
-    pair_params = sn._kernel_params(params["lig_edge_emb"], lp["lig"]["fc"])
+    pair_params = TC.pair_params(params["lig_edge_emb"], lp["lig"]["fc"])
     knn_params = {"emb": params["atom_edge_emb"], "fc": lp["atom"]["fc"]}
     args = {
         "pair_conv": (c_lig, lig_pos, lig_pos, lig_x, lig_x, s.lig_mask, s.lig_mask, zero, zero,
@@ -517,7 +556,8 @@ def phase_train(torch, smi):
             raise AssertionError("non-finite training loss")
         if st != step0 + warm + timed or not same:
             raise AssertionError("the checkpoint does not reload to the trained parameters")
-        want = {**{k: 6 * timed for k in BWD_KERNELS}, **{k: 12 * timed for k in KERNELS}}
+        want = {k: 0 for k in TC.launches}
+        want.update({**{k: 6 * timed for k in BWD_KERNELS}, **{k: 12 * timed for k in KERNELS}})
         if counts != want:
             raise AssertionError(f"launch counts {counts}, expected {want}")
 
@@ -531,7 +571,8 @@ def phase_train(torch, smi):
         print(f"  launches in the {flat} steps without remat: {no_remat}", flush=True)
         if not all(v == v and abs(v) < float("inf") for v in res["losses"]):
             raise AssertionError("non-finite training loss without remat")
-        if no_remat != {k: 6 * flat for k in list(KERNELS) + list(BWD_KERNELS)}:
+        if no_remat != {k: 6 * flat if k in KERNELS or k in BWD_KERNELS else 0
+                        for k in TC.launches}:
             raise AssertionError(f"launch counts without remat {no_remat}, expected "
                                  f"{6 * flat} each")
 
@@ -621,11 +662,13 @@ def phase_profile(torch, sp, params, cfg, s_np):
             sp.sample(params, cfg, scfg, batch, noise)
             torch.cuda.synchronize()
             wall = time.time() - t0
-    report_profile(prof, wall, "2 steps, B=16", list(KERNELS))
+    return report_profile(prof, wall, "2 steps, B=16", list(KERNELS), steps=2)
 
 
-def report_profile(prof, wall, what, names):
-    """Device time by kernel, the share of `names`' kernels, the busy share."""
+def report_profile(prof, wall, what, names, steps=None):
+    """Device time by kernel, the share of `names`' kernels, the busy share;
+    with `steps`, the kernel launches per step. Returns (device ms, busy
+    share, trunk share, launches per step) or None."""
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
@@ -635,17 +678,388 @@ def report_profile(prof, wall, what, names):
             rows.append((e.key, dev_us / 1e3, e.count))
     if not rows:
         print("  the profiler saw no device time: breakdown not measured", flush=True)
-        return
+        return None
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     bwd = any(k.endswith("_bwd") for k in names)
     ours = sum(r[1] for r in rows if any(f"{k}_kernel" in r[0] or f"{k}_rev_kernel" in r[0]
                                          for k in names) or (bwd and "reduce_rows" in r[0]))
+    # kernels only: copies and fills are device work but no kernel launch
+    kernels = sum(r[2] for r in rows if not r[0].startswith(("Memcpy", "Memset")))
+    per_step = kernels / steps if steps else None
     print(f"  {what} under the profiler: wall {wall * 1e3:.1f} ms, device "
           f"{total:.1f} ms ({100 * total / (wall * 1e3):.1f}% busy), trunk kernels "
-          f"{ours:.1f} ms ({100 * ours / total:.1f}% of device time)", flush=True)
+          f"{ours:.1f} ms ({100 * ours / total:.1f}% of device time)"
+          + (f", {per_step:.0f} kernel launches per step" if steps else ""), flush=True)
     for key, ms, cnt in rows[:12]:
         print(f"    {ms:9.3f} ms  x{cnt:<5d} {key[:90]}", flush=True)
+    return total, total / (wall * 1e3), ours / total, per_step
+
+
+def rm_inputs(torch, params, s_np, layer, bsz, seed):
+    """Inputs of B7-B10 at one layer: phase 5's kernel inputs (returned as
+    well), the layer's finalize parameters and the counts from the masks."""
+    from diffbindfr_torch.models import score_net as sn
+    from diffbindfr_torch.nn.trunk_convs import _dist
+
+    args = kernel_inputs(torch, params, s_np, layer, bsz, seed)
+    lc = sn._layer_consts(sn.ScoreNetConfig())[layer]
+    (_, lig_pos, _, lig_x, _, lig_mask, _, zero, _, temb, lig_cut, pair_params, bond_feat,
+     bond_mask) = args["pair_conv"]
+    _, _, atm_pos, _, atm_x, _, atm_mask, cab, _, cut, emb_cross, fc_al, fc_la = args["cross_conv"]
+    _, _, _, _, idx, valid, _, knn_params = args["knn_conv"]
+    lp = {k: params[f"{k}_convs"][layer] for k in ("lig", "al", "la", "atom")}
+
+    def fin(k):
+        return {"mix": lp[k]["mix"], "ln": lp[k]["ln"]}
+
+    lm, am = lig_mask[:, :, None] > 0, atm_mask[:, None, :] > 0
+    eye = torch.eye(lig_pos.shape[1], dtype=torch.bool, device=DEV)
+    d = _dist(lig_pos[:, None, :, :] - lig_pos[:, :, None, :])
+    m_ll = (((d <= lig_cut) & ~eye) | (bond_mask > 0)) & lm & (lig_mask[:, None, :] > 0)
+    dc = _dist(atm_pos[:, None, :, :] - lig_pos[:, :, None, :])
+    m_c = ((cab[:, None, :] > 0) | (dc <= cut[:, None, None])) & lm & am
+    cnt_lig, cnt_al, cnt_la, cnt_atm = (torch.clamp(m.float().sum(dim), min=1.0) for m, dim in (
+        (m_ll, 2), (m_c, 2), (m_c, 1), (valid, 2)))
+    lparams = {"emb_lig": params["lig_edge_emb"], "emb_cross": params["la_edge_emb"],
+               "emb_atom": params["atom_edge_emb"]}
+    for t in lp:
+        lparams.update({f"fc_{t}": lp[t]["fc"], f"mix_{t}": lp[t]["mix"], f"ln_{t}": lp[t]["ln"]})
+    rm = {
+        "cross_conv_fin": (lc.cross, lc.fin, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask,
+                           cab, temb, cut, emb_cross, fc_al, fc_la, fin("al"), fin("la"), cnt_al,
+                           cnt_la),
+        "pair_conv_fin": (lc.lig, lc.fin, lig_pos, lig_pos, lig_x, lig_x, lig_mask, lig_mask, zero,
+                          zero, temb, lig_cut, {**pair_params, **fin("lig")}, bond_feat,
+                          bond_mask, cnt_lig),
+        "knn_conv_fin": (lc.atom, lc.fin, atm_pos, atm_x, atm_mask, idx, valid, temb,
+                         {**knn_params, **fin("atom")}),
+        "layer_conv": (lc, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cab, temb, cut,
+                       bond_feat, bond_mask, idx, valid, cnt_lig, cnt_al, cnt_la, cnt_atm,
+                       lparams),
+    }
+    return rm, args
+
+
+def rm_work(torch, name, rm_args, args):
+    """(FLOPs, bytes, pairs) of B7-B10 on these inputs: the pair work of the
+    convs they run (work()), plus per finalized row the count divide (dout),
+    the block-sparse mix (2 x its input rows per output column) and the
+    LayerNorm (~8 x out_dim); each input read once, each output written once."""
+    lc = rm_args[0] if name == "layer_conv" else None
+    fin = lc.fin if lc is not None else rm_args[1]
+    meta, _ = fin.tables
+    mix = 2.0 * float(sum(int(r[3 + 3 * s_]) for r in meta for s_ in range(int(r[0]))))
+    per_row = fin.spec.dw.out.dim + mix + 8.0 * fin.out_dim
+    bsz, nl, na = args["cross_conv"][3].shape[0], args["cross_conv"][3].shape[1], \
+        args["cross_conv"][4].shape[1]
+    # convs run, rows finalized, rows written
+    base, fin_rows, out_rows = {
+        "cross_conv_fin": (["cross_conv"], nl + na, nl + na),
+        "pair_conv_fin": (["pair_conv"], nl, nl),
+        "knn_conv_fin": (["knn_conv"], na, na),
+        "layer_conv": (["pair_conv", "cross_conv", "knn_conv"], 2 * (nl + na), nl + na)}[name]
+    flops = pairs = 0.0
+    for b in base:
+        f_, _, p_ = work(torch, b, args[b])
+        flops, pairs = flops + f_, pairs + p_
+    flops += bsz * fin_rows * per_row
+    tensors = [t for t in rm_args if torch.is_tensor(t) or isinstance(t, dict)]
+    return flops, nbytes(*tensors) + 4.0 * bsz * out_rows * fin.out_dim, pairs
+
+
+def phase_rm_kernels(torch, params, s_np, results):
+    from diffbindfr_torch.nn import layer_conv as LC
+    from diffbindfr_torch.nn import trunk_convs as TC
+
+    plain = {"cross_conv_fin": TC.cross_conv_fin_plain, "pair_conv_fin": TC.pair_conv_fin_plain,
+             "knn_conv_fin": TC.knn_conv_fin_plain, "layer_conv": LC.layer_conv_plain}
+    wrapper = {"cross_conv_fin": TC.cross_conv_fin, "pair_conv_fin": TC.pair_conv_fin,
+               "knn_conv_fin": TC.knn_conv_fin, "layer_conv": LC.layer_conv}
+    for layer, bsz in ((0, 16), (5, 16)):
+        rm, args = rm_inputs(torch, params, s_np, layer, bsz, seed=layer * 100 + bsz)
+        for name in RM_KERNELS:
+            a = rm[name]
+            with torch.no_grad():
+                got = wrapper[name](*a)
+                ref = plain[name](*a)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                err = max(rel_err(g_, r_) for g_, r_ in zip(got, ref))
+                abs_err = max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
+                finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
+                ms = time_ms(lambda: wrapper[name](*a), 3, 10)
+                plain_ms = time_ms(lambda: plain[name](*a), 1, 2)
+            flops, byts, pairs = rm_work(torch, name, a, args)
+            bound_ms = max(flops / PEAK_FP32, byts / PEAK_BYTES) * 1e3
+            row = dict(layer=layer, batch=bsz, max_rel_err=err, max_abs_err=abs_err, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms, pairs=pairs, flops=flops,
+                       bytes=byts,
+                       bound_by="operations" if flops / PEAK_FP32 >= byts / PEAK_BYTES else "bytes")
+            results.setdefault(name, []).append(row)
+            print(f"  {name} layer {layer} B={bsz}: max|err|/max|ref| {err:.2e} "
+                  f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.3f} ms "
+                  f"({row['bound_by']}) pairs {pairs:.0f}", flush=True)
+            if not finite or err > 1e-4:
+                raise AssertionError(f"{name} layer {layer}: kernel disagrees with plain ({err:.3e})")
+
+
+def rm_config(sn, mode, **kw):
+    import dataclasses
+
+    return dataclasses.replace(sn.ScoreNetConfig(**kw), **RM_MODES[mode][0])
+
+
+def phase_rm_forward(torch, np, sn, params, s_np):
+    ref = np.load(FIXTURE)
+    fs = s_np._replace(lig_pos=(s_np.lig_pos + ref["shift"]) * s_np.lig_mask[:, None])
+    from diffbindfr_torch.data.sample import stack_samples, to_device
+
+    batch = to_device(stack_samples([fs]), DEV)
+    t = torch.tensor([float(ref["t"])], device=DEV)
+    sig = sn.sigmas_from_t(t, SCHED)
+    modes = {"rowmajor": rm_config(sn, "cmt", pallas_layout="rowmajor"),
+             "rowmajor+fused_epilogue": rm_config(sn, "fused_epilogue"),
+             "rowmajor+fused_layer": rm_config(sn, "fused_layer")}
+    bad = []
+    for name, cfg in modes.items():
+        with torch.no_grad():
+            out = sn.apply(params, cfg, batch, t, sig, use_kernels=True)
+            ms = time_ms(lambda: sn.apply(params, cfg, batch, t, sig, use_kernels=True), 1, 3)
+        errs = {f: rel_err(getattr(out, f)[0], torch.from_numpy(ref[f]).to(DEV))
+                for f in ("tr", "rot", "tor", "sc_tor")}
+        print(f"  {name}: vs JAX fixture " + " ".join(f"{f} {e:.2e}" for f, e in errs.items())
+              + f"; full-width forward B=1 {ms:.2f} ms", flush=True)
+        bad += [f"{name}/{f}" for f, e in errs.items() if not e <= 1e-3]
+    if bad:
+        raise AssertionError(f"forward disagrees with the JAX fixture on {bad}")
+
+
+def phase_rm_dock(torch, np, sn, sp, pipeline, TC, params, s_np, smi):
+    """The dock in the three configurations, in turns; returns each
+    configuration's launch counts."""
+    from diffbindfr_torch.geometry.kabsch import masked_rmsd
+
+    prepared = [pipeline.PreparedPair.from_prep_cache(SAMPLE)]
+    scfg = sp.SamplerConfig()
+    cfgs = {m: rm_config(sn, m) for m in RM_MODES}
+    n_poses, want_n = 16, cfgs["cmt"].num_conv_layers * scfg.actual_steps
+    for m, cfg in cfgs.items():  # warm-up: 2 steps of each
+        pipeline.dock(prepared, params, cfg, sp.SamplerConfig(actual_steps=2), num_poses=n_poses,
+                      batch_size=n_poses, seed=1, device=DEV, verbose=False)
+    torch.cuda.synchronize()
+    rates, poses, counts = {m: [] for m in cfgs}, {}, {}
+    for m in ("cmt", "fused_epilogue", "fused_layer", "fused_layer", "fused_epilogue", "cmt"):
+        TC.reset_launches()
+        t0 = time.time()
+        res = pipeline.dock(prepared, params, cfgs[m], scfg, num_poses=n_poses,
+                            batch_size=n_poses, seed=0, device=DEV, verbose=False)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        counts[m] = dict(TC.launches)
+        lig = np.stack([r.lig_pos for r in res])
+        finite = bool(np.isfinite(lig).all() and all(np.isfinite(r.atom14_pos).all() for r in res))
+        rates[m].append(n_poses / dt)
+        poses[m] = lig
+        want = {k: (want_n if k in RM_MODES[m][1] else 0) for k in TC.launches}
+        print(f"  {m}: {n_poses} poses, {scfg.actual_steps} steps in {dt:.3f} s: "
+              f"{n_poses / dt:.3f} poses/s; launches {counts[m]}", flush=True)
+        if counts[m] != want:
+            raise AssertionError(f"{m}: launch counts {counts[m]}, expected {want}")
+        if not finite:
+            raise AssertionError(f"{m}: non-finite poses")
+    mask = torch.from_numpy(s_np.lig_mask[None].repeat(n_poses, 0)).to(DEV)
+    for m in ("fused_epilogue", "fused_layer"):
+        d = masked_rmsd(torch.from_numpy(poses[m]).to(DEV), torch.from_numpy(poses["cmt"]).to(DEV),
+                        mask)
+        print(f"  {m} vs cmt, same noise, per-pose RMSD (A): median {float(d.median()):.2e}, "
+              f"max {float(d.max()):.2e}", flush=True)
+    print("  poses/s on " + smi + ": " + "; ".join(
+        f"{m} " + ", ".join(f"{r:.3f}" for r in v) for m, v in rates.items()), flush=True)
+    return counts
+
+
+def phase_rm_profile(torch, sn, sp, params, s_np, cmt):
+    """Phase 8's profile (the same batch, noise and steps; its cmt numbers
+    are `cmt`) for the two row-major configurations, warmed by rm_dock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffbindfr_torch.data.sample import stack_samples, to_device
+
+    scfg = sp.SamplerConfig(actual_steps=2)
+    batch = to_device(stack_samples([s_np] * 16), DEV)
+    noise = sp.draw_noise(batch, scfg, torch.Generator(device=DEV).manual_seed(2))
+    out = {"cmt": cmt}
+    for m, (_, names) in RM_MODES.items():
+        if m == "cmt":
+            continue
+        cfg = rm_config(sn, m)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
+                sp.sample(params, cfg, scfg, batch, noise)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+        out[m] = report_profile(prof, wall, f"{m}: 2 steps, B=16", list(names), steps=2)
+    print("  per step (device ms, busy share, trunk share, kernel launches): " + "; ".join(
+        f"{m} " + ("not measured" if v is None else
+                   f"{v[0] / 2:.1f} ms, {100 * v[1]:.1f}%, {100 * v[2]:.1f}%, {v[3]:.0f}")
+        for m, v in out.items()), flush=True)
+
+
+class DecisionLog:
+    """The score net's ReLU decisions in one loss-and-gradient run: every MLP
+    pre-activation z (the trunk convs' plain versions through
+    trunk_convs._mlp2, embeddings and heads through layers.mlp_apply), keyed
+    by (trunk layer, first-layer weight, call), so that two runs of the same
+    configuration line up whichever order they evaluate the layers in (the
+    kernel path recomputes each layer's plain version in its backward, last
+    layer first). `flips` = {key: bool mask}: positions whose ReLU derivative
+    the backward takes the other way."""
+
+    def __init__(self, torch, TC, L, LC):
+        self.torch, self.TC, self.L, self.LC = torch, TC, L, LC
+        self.z, self.flips, self._seen, self._layer = {}, {}, {}, None
+
+    def _relu(self, z, w1):
+        key = (self._layer, w1.data_ptr(), self._seen.get((self._layer, w1.data_ptr()), 0))
+        self._seen[key[:2]] = key[2] + 1
+        self.z[key] = z.detach()
+        return flip_relu(self.torch).apply(z, self, key)
+
+    @contextlib.contextmanager
+    def patched(self, plain_layer=False):
+        TC, L, LC = self.TC, self.L, self.LC
+        saved = TC._mlp2, L.mlp_apply, LC.layer_conv_plain, LC.layer_conv
+        torch = self.torch
+
+        def mlp2(w1, b1, w2, b2, x):
+            return self._relu(x @ w1 + b1, w1) @ w2 + b2
+
+        def mlp_apply(p, x, act=torch.relu):
+            z = L.linear_apply(p["l1"], x)
+            h = self._relu(z, p["l1"]["w"]) if act is torch.relu else act(z)
+            return L.linear_apply(p["l2"], h)
+
+        def layer_plain(*args):
+            self._layer = args[-1]["fc_lig"]["l1"]["w"].data_ptr()
+            try:
+                return saved[2](*args)
+            finally:
+                self._layer = None
+
+        TC._mlp2, L.mlp_apply, LC.layer_conv_plain = mlp2, mlp_apply, layer_plain
+        if plain_layer:
+            LC.layer_conv = layer_plain
+        try:
+            yield self
+        finally:
+            TC._mlp2, L.mlp_apply, LC.layer_conv_plain, LC.layer_conv = saved
+
+
+@functools.lru_cache(maxsize=None)
+def flip_relu(torch):
+    """ReLU whose derivative follows a DecisionLog's flips at backward time."""
+
+    class FlipRelu(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, z, log, key):
+            ctx.save_for_backward(z)
+            ctx.log, ctx.key = weakref.ref(log), key  # the log holds no graph
+            return torch.relu(z)
+
+        @staticmethod
+        def backward(ctx, g):
+            (z,) = ctx.saved_tensors
+            on = z > 0
+            flip = ctx.log().flips.get(ctx.key)
+            if flip is not None:
+                on = on ^ flip
+            return torch.where(on, g, torch.zeros_like(g)), None, None
+
+    return FlipRelu
+
+
+def phase_rm_grad(torch, sn, params, s_np):
+    """Gradients of the train loss (B = 1, fixed noise) in the fused_layer
+    configuration: the kernel path (B10 forward, its backward recomputing the
+    plain version) against the same configuration with B10's plain version,
+    every parameter gradient within 1e-3 max|ref|. The reference may take the
+    kernel path's ReLU decision only where the two runs' pre-activations of
+    one (pair, unit) straddle 0 while agreeing to 1e-4 of the call's max|z|
+    (f32 rounding: one such pair can move a gradient tensor by ~1e-2 at
+    B = 1), and nowhere else; each such decision is printed. The plain XLA
+    path (use_kernels=False: another formulation, whose decisions cannot be
+    lined up) is printed beside it."""
+    from diffbindfr_torch import train
+    from diffbindfr_torch.data.sample import stack_samples, to_device
+    from diffbindfr_torch.nn import layer_conv as LC
+    from diffbindfr_torch.nn import layers as L
+    from diffbindfr_torch.nn import trunk_convs as TC
+    from diffbindfr_torch.sampler import SamplerConfig
+
+    cfg, tcfg, scfg = rm_config(sn, "fused_layer"), train.TrainConfig(), SamplerConfig()
+    batch = to_device(stack_samples([s_np]), DEV)
+    noise = train.draw_noise(batch, tcfg, torch.Generator(device=DEV).manual_seed(13))
+
+    def grads(log, plain_layer):
+        leaves = [p.detach().requires_grad_(True) for p in train.tree_leaves(params)]
+        with log.patched(plain_layer):
+            loss, _ = train.loss_fn(train.tree_unflatten(params, leaves), cfg, scfg, tcfg, batch,
+                                    noise, use_kernels=True)
+            g = torch.autograd.grad(loss, leaves, allow_unused=True, retain_graph=True)
+        return loss, leaves, [torch.zeros_like(p) if x is None else x for p, x in zip(leaves, g)]
+
+    TC.reset_launches()
+    kern = DecisionLog(torch, TC, L, LC)
+    loss_k, _, gk = grads(kern, False)
+    launches = TC.launches["layer_conv"]
+    ref = DecisionLog(torch, TC, L, LC)
+    loss_r, leaves, graw = grads(ref, True)
+    torch.cuda.synchronize()
+    if set(kern.z) != set(ref.z) or any(kern.z[k].shape != ref.z[k].shape for k in ref.z):
+        raise AssertionError("the two runs' ReLU decisions do not line up")
+    flips, worst_dz, taken = {}, 0.0, []
+    for key, zr in ref.z.items():
+        zk = kern.z[key]
+        scale = float(zr.abs().max().clamp_min(1e-30))
+        worst_dz = max(worst_dz, float((zk - zr).abs().max()) / scale)
+        d = (zk > 0) != (zr > 0)
+        if bool(d.any()):
+            flips[key] = d
+            for pos in torch.nonzero(d.reshape(-1)).reshape(-1).tolist():
+                taken.append((key, pos, float(zk.reshape(-1)[pos]), float(zr.reshape(-1)[pos]),
+                              scale))
+    ref.flips = flips
+    leaves_g = [torch.zeros_like(p) if x is None else x for p, x in zip(leaves, torch.autograd.grad(
+        loss_r, leaves, allow_unused=True))]
+    paths = param_paths(params)
+    keep = [i for i, b in enumerate(graw) if b.numel() and float(b.abs().max()) > 0]
+    raw = {paths[i]: rel_err(gk[i], graw[i]) for i in keep}
+    tie = {paths[i]: rel_err(gk[i], leaves_g[i]) for i in keep}
+    _, gx = train.loss_and_grads(params, batch, noise, cfg, scfg, tcfg, use_kernels=False)
+    xla = {paths[i]: rel_err(gk[i], gx[i]) for i in keep if float(gx[i].abs().max()) > 0}
+    names = {t.data_ptr(): n for t, n in zip(train.tree_leaves(params), paths)}
+    for (layer, w1, call), pos, zk, zr, scale in taken:
+        where = f" in the layer of {names[layer]}" if layer is not None else ""
+        print(f"  ReLU decision taken the kernel path's way: {names[w1]}{where}, call {call}, "
+              f"position {pos}: z {zk:.3e} (kernel path) vs {zr:.3e} (plain), max|z| "
+              f"{scale:.3g}", flush=True)
+    w_raw, w_tie, w_xla = (max(d_, key=d_.get) for d_ in (raw, tie, xla))
+    print(f"  B10 launches {launches}; loss {float(loss_k.detach()):.6g} vs "
+          f"{float(loss_r.detach()):.6g}; "
+          f"pre-activations agree to {worst_dz:.2e} of each call's max|z| "
+          f"({sum(z.numel() for z in ref.z.values())} in {len(ref.z)} calls); parameter "
+          f"gradients over {len(keep)} tensors, max|err|/max|ref|: {raw[w_raw]:.2e} ({w_raw}), "
+          f"{tie[w_tie]:.2e} ({w_tie}) with the {len(taken)} decisions above; against the "
+          f"XLA plain path {xla[w_xla]:.2e} ({w_xla})", flush=True)
+    bad = [t for t in taken if not abs(t[2] - t[3]) <= 1e-4 * t[4]]
+    if launches != cfg.num_conv_layers or bad or not tie[w_tie] <= 1e-3:
+        raise AssertionError(f"fused_layer gradients disagree with the plain version: "
+                             f"{tie[w_tie]:.3e} ({w_tie}); {len(bad)} decisions beyond rounding; "
+                             f"{launches} launches")
 
 
 def main() -> int:
@@ -756,13 +1170,13 @@ def main() -> int:
         print("  kernel vs plain path, same noise, per-pose RMSD (A): "
               + ", ".join(f"{v:.2e}" for v in dk), flush=True)
         want = 6 * steps
-        if any(counts[k] != want for k in KERNELS):
+        if counts != {k: want if k in KERNELS else 0 for k in TC.launches}:
             raise AssertionError(f"launch counts {counts}, expected {want} each")
         if not finite:
             raise AssertionError("non-finite poses")
 
     with Phase("profile"):
-        phase_profile(torch, sp, params, cfg, s_np)
+        cmt_profile = phase_profile(torch, sp, params, cfg, s_np)
 
     with Phase("bwd_kernels"):
         phase_bwd_kernels(torch, params, s_np, per_kernel)
@@ -772,6 +1186,21 @@ def main() -> int:
 
     with Phase("train"):
         train_counts = phase_train(torch, smi)
+
+    with Phase("rm_kernels"):
+        phase_rm_kernels(torch, params, s_np, per_kernel)
+
+    with Phase("rm_forward"):
+        phase_rm_forward(torch, np, sn, params, s_np)
+
+    with Phase("rm_dock"):
+        rm_counts = phase_rm_dock(torch, np, sn, sp, pipeline, TC, params, s_np, smi)
+
+    with Phase("rm_profile"):
+        phase_rm_profile(torch, sn, sp, params, s_np, cmt_profile)
+
+    with Phase("rm_grad"):
+        phase_rm_grad(torch, sn, params, s_np)
 
     rows = []
     for name, (src, repl) in KERNELS.items():
@@ -793,6 +1222,17 @@ def main() -> int:
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 4})
+    for name, (src, repl) in RM_KERNELS.items():
+        # the dock shapes at layer 5; launches from the dock in the
+        # configuration that runs the kernel
+        main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]
+        mode = "fused_layer" if name == "layer_conv" else "fused_epilogue"
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                     "launches": rm_counts[mode][name], "max_abs_err": main_row["max_abs_err"],
+                     "max_rel_err": main_row["max_rel_err"], "ms": main_row["ms"],
+                     "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+                     "bound_by": main_row["bound_by"], "library_ms": None,
+                     "layer": 5, "batch": 16})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,15 +11,31 @@
 // outputs are deterministic.
 // Bound on the H100: fp32 FMA in the two TP-weight MLPs (operations);
 // masked pairs are skipped, so the work follows the cutoff, not nl x na.
-#include "trunk_conv.cuh"
+//
+// B7: dbfr_cross_conv_fin is the same conv with the finalize of
+// diffbindfr_tpu/nn/pallas_conv.py:make_cross_conv(fin=) (the pallas_call at
+// :1008) on both outputs: al / max(cnt_al, 1) and la / max(cnt_la, 1), each
+// through its own irreps Linear and LayerNorm, as a per-block epilogue of
+// each pass (conv_fin.cuh); the TPU kernel finalized the atom side on its
+// last grid step, here the la pass's blocks own their atoms.
+#include "conv_fin.cuh"
 
 namespace {
 __global__ void __launch_bounds__(dbfr::kThreads, 2) cross_conv_kernel(dbfr::ConvArgs a) {
   dbfr::conv_block<dbfr::kDense>(a);
 }
+
+__global__ void __launch_bounds__(dbfr::kThreads, 2) cross_conv_fin_kernel(dbfr::ConvArgs a) {
+  dbfr::conv_fin_block<dbfr::kDense>(a);
+}
+
+int launch_pass(const dbfr::ConvArgs& a, int batch, cudaStream_t st) {
+  return a.out_dim > 0 ? dbfr::launch<dbfr::kDense>(cross_conv_fin_kernel, a, batch, st)
+                       : dbfr::launch<dbfr::kDense>(cross_conv_kernel, a, batch, st);
+}
 }  // namespace
 
-extern "C" int dbfr_cross_conv(
+extern "C" int dbfr_cross_conv_fin(
     const void* lig_pos, const void* atm_pos, const void* lig_x, const void* atm_x,
     const void* lig_mask, const void* atm_mask, const void* cabflag,
     const void* cutoff, const void* w1, const void* b1, const void* w2,
@@ -28,7 +44,10 @@ extern "C" int dbfr_cross_conv(
     const void* la_b2, const void* ck, const void* gs_off, const void* out_meta,
     void* out_al, void* out_la, int batch, int nl, int na, int din, int dout,
     int ns, int he, int hf, int nw, int kdim, int gs_n, float gs_coeff,
-    void* stream) {
+    const void* al_cnt, const void* al_mix, const void* al_ln_w, const void* al_ln_ms,
+    const void* al_ln_b, const void* la_cnt, const void* la_mix, const void* la_ln_w,
+    const void* la_ln_ms, const void* la_ln_b, const void* mix_meta, const void* ln_slots,
+    int out_dim, int n_slots, int mix_numel, void* stream) {
   dbfr::ConvArgs a = {};
   a.cab = (const float*)cabflag;
   a.cutoff = (const float*)cutoff;
@@ -70,7 +89,9 @@ extern "C" int dbfr_cross_conv(
   al.wf2 = (const float*)al_w2;
   al.bf2 = (const float*)al_b2;
   al.out = (float*)out_al;
-  int rc = dbfr::launch<dbfr::kDense>(cross_conv_kernel, al, batch, st);
+  dbfr::set_fin(al, al_cnt, al_mix, al_ln_w, al_ln_ms, al_ln_b, mix_meta, ln_slots, out_dim,
+                n_slots, mix_numel);
+  int rc = launch_pass(al, batch, st);
   if (rc != 0) return rc;
 
   // la: atoms are the targets, ligand rows the sources; flip keeps
@@ -91,5 +112,26 @@ extern "C" int dbfr_cross_conv(
   la.wf2 = (const float*)la_w2;
   la.bf2 = (const float*)la_b2;
   la.out = (float*)out_la;
-  return dbfr::launch<dbfr::kDense>(cross_conv_kernel, la, batch, st);
+  dbfr::set_fin(la, la_cnt, la_mix, la_ln_w, la_ln_ms, la_ln_b, mix_meta, ln_slots, out_dim,
+                n_slots, mix_numel);
+  return launch_pass(la, batch, st);
+}
+
+// B1: the sums alone (no finalize)
+extern "C" int dbfr_cross_conv(
+    const void* lig_pos, const void* atm_pos, const void* lig_x, const void* atm_x,
+    const void* lig_mask, const void* atm_mask, const void* cabflag,
+    const void* cutoff, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* al_w1, const void* al_b1, const void* al_w2,
+    const void* al_b2, const void* la_w1, const void* la_b1, const void* la_w2,
+    const void* la_b2, const void* ck, const void* gs_off, const void* out_meta,
+    void* out_al, void* out_la, int batch, int nl, int na, int din, int dout,
+    int ns, int he, int hf, int nw, int kdim, int gs_n, float gs_coeff,
+    void* stream) {
+  return dbfr_cross_conv_fin(lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cabflag, cutoff,
+                             w1, b1, w2, b2, al_w1, al_b1, al_w2, al_b2, la_w1, la_b1, la_w2,
+                             la_b2, ck, gs_off, out_meta, out_al, out_la, batch, nl, na, din,
+                             dout, ns, he, hf, nw, kdim, gs_n, gs_coeff, nullptr, nullptr,
+                             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, nullptr, nullptr, 0, 0, 0, stream);
 }

@@ -5,21 +5,33 @@
 // neighbours. A block takes 4 targets (64 list slots), so a chunk of 32
 // pairs is full even though each target has at most k = 16 neighbours.
 // Bound on the H100: fp32 FMA in the TP-weight MLP (operations).
-#include "trunk_conv.cuh"
+//
+// B9: dbfr_knn_conv_fin is the same conv with the finalize of
+// diffbindfr_tpu/nn/pallas_conv.py:make_knn_conv(fin=) (the pallas_call at
+// :1225): sums / max(sum of valid, 1) -> irreps Linear -> LayerNorm, as a
+// per-block epilogue (conv_fin.cuh); `cnt` is the valid count per target.
+#include "conv_fin.cuh"
 
 namespace {
 __global__ void __launch_bounds__(dbfr::kThreads, 2) knn_conv_kernel(dbfr::ConvArgs a) {
   dbfr::conv_block<dbfr::kKnn>(a);
 }
+
+__global__ void __launch_bounds__(dbfr::kThreads, 2) knn_conv_fin_kernel(dbfr::ConvArgs a) {
+  dbfr::conv_fin_block<dbfr::kKnn>(a);
+}
 }  // namespace
 
-extern "C" int dbfr_knn_conv(
+extern "C" int dbfr_knn_conv_fin(
     const void* pos, const void* x, const void* idx, const void* valid,
     const void* cutoff, const void* w1, const void* b1, const void* w2,
     const void* b2, const void* wf1, const void* bf1, const void* wf2,
     const void* bf2, const void* ck, const void* gs_off, const void* out_meta,
     void* out, int batch, int n, int k, int din, int dout, int ns, int he,
-    int hf, int nw, int kdim, int gs_n, float gs_coeff, void* stream) {
+    int hf, int nw, int kdim, int gs_n, float gs_coeff, const void* cnt,
+    const void* mix_w, const void* ln_w, const void* ln_ms, const void* ln_b,
+    const void* mix_meta, const void* ln_slots, int out_dim, int n_slots, int mix_numel,
+    void* stream) {
   dbfr::ConvArgs a = {};
   a.tgt_pos = (const float*)pos;
   a.src_pos = (const float*)pos;
@@ -53,5 +65,23 @@ extern "C" int dbfr_knn_conv(
   a.kdim = kdim;
   a.gs_n = gs_n;
   a.gs_coeff = gs_coeff;
-  return dbfr::launch<dbfr::kKnn>(knn_conv_kernel, a, batch, (cudaStream_t)stream);
+  dbfr::set_fin(a, cnt, mix_w, ln_w, ln_ms, ln_b, mix_meta, ln_slots, out_dim, n_slots,
+                mix_numel);
+  return out_dim > 0
+             ? dbfr::launch<dbfr::kKnn>(knn_conv_fin_kernel, a, batch, (cudaStream_t)stream)
+             : dbfr::launch<dbfr::kKnn>(knn_conv_kernel, a, batch, (cudaStream_t)stream);
+}
+
+// B3: the sums alone (no finalize)
+extern "C" int dbfr_knn_conv(
+    const void* pos, const void* x, const void* idx, const void* valid,
+    const void* cutoff, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* wf1, const void* bf1, const void* wf2,
+    const void* bf2, const void* ck, const void* gs_off, const void* out_meta,
+    void* out, int batch, int n, int k, int din, int dout, int ns, int he,
+    int hf, int nw, int kdim, int gs_n, float gs_coeff, void* stream) {
+  return dbfr_knn_conv_fin(pos, x, idx, valid, cutoff, w1, b1, w2, b2, wf1, bf1, wf2, bf2, ck,
+                           gs_off, out_meta, out, batch, n, k, din, dout, ns, he, hf, nw, kdim,
+                           gs_n, gs_coeff, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, 0, 0, 0, stream);
 }

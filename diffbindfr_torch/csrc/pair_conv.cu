@@ -6,15 +6,24 @@
 // Mask: (d <= cutoff and not self) or bonded, and both nodes valid.
 // Bound on the H100: fp32 FMA in the per-pair MLPs (operations); the design
 // skips masked pairs entirely and keeps every per-pair tensor on chip.
-#include "trunk_conv.cuh"
+//
+// B8: dbfr_pair_conv_fin is the same conv with the finalize of
+// diffbindfr_tpu/nn/pallas_conv.py:make_pair_conv(fin=) (the pallas_call at
+// :653): sums / max(cnt, 1) -> irreps Linear -> LayerNorm, as a per-block
+// epilogue of the same block loop (conv_fin.cuh); out is [B, nt, out_dim].
+#include "conv_fin.cuh"
 
 namespace {
 __global__ void __launch_bounds__(dbfr::kThreads, 2) pair_conv_kernel(dbfr::ConvArgs a) {
   dbfr::conv_block<dbfr::kDense>(a);
 }
+
+__global__ void __launch_bounds__(dbfr::kThreads, 2) pair_conv_fin_kernel(dbfr::ConvArgs a) {
+  dbfr::conv_fin_block<dbfr::kDense>(a);
+}
 }  // namespace
 
-extern "C" int dbfr_pair_conv(
+extern "C" int dbfr_pair_conv_fin(
     const void* tgt_pos, const void* src_pos, const void* tgt_x, const void* src_x,
     const void* tgt_mask, const void* src_mask, const void* cab, int cab_on_tgt,
     const void* cutoff, const void* bond_feat, const void* bond_mask,
@@ -23,7 +32,9 @@ extern "C" int dbfr_pair_conv(
     const void* ck, const void* gs_off, const void* out_meta, void* out,
     int batch, int nt, int nsrc, int din, int dout, int nb, int ns, int he,
     int hf, int nw, int kdim, int gs_n, float gs_coeff, int flip,
-    int exclude_self, void* stream) {
+    int exclude_self, const void* cnt, const void* mix_w, const void* ln_w,
+    const void* ln_ms, const void* ln_b, const void* mix_meta, const void* ln_slots,
+    int out_dim, int n_slots, int mix_numel, void* stream) {
   dbfr::ConvArgs a = {};
   a.tgt_pos = (const float*)tgt_pos;
   a.src_pos = (const float*)src_pos;
@@ -63,5 +74,27 @@ extern "C" int dbfr_pair_conv(
   a.flip = flip;
   a.cab_on_tgt = cab_on_tgt;
   a.exclude_self = exclude_self;
-  return dbfr::launch<dbfr::kDense>(pair_conv_kernel, a, batch, (cudaStream_t)stream);
+  dbfr::set_fin(a, cnt, mix_w, ln_w, ln_ms, ln_b, mix_meta, ln_slots, out_dim, n_slots,
+                mix_numel);
+  return out_dim > 0
+             ? dbfr::launch<dbfr::kDense>(pair_conv_fin_kernel, a, batch, (cudaStream_t)stream)
+             : dbfr::launch<dbfr::kDense>(pair_conv_kernel, a, batch, (cudaStream_t)stream);
+}
+
+// B2: the sums alone (no finalize)
+extern "C" int dbfr_pair_conv(
+    const void* tgt_pos, const void* src_pos, const void* tgt_x, const void* src_x,
+    const void* tgt_mask, const void* src_mask, const void* cab, int cab_on_tgt,
+    const void* cutoff, const void* bond_feat, const void* bond_mask,
+    const void* w1, const void* b1, const void* w2, const void* b2,
+    const void* wf1, const void* bf1, const void* wf2, const void* bf2,
+    const void* ck, const void* gs_off, const void* out_meta, void* out,
+    int batch, int nt, int nsrc, int din, int dout, int nb, int ns, int he,
+    int hf, int nw, int kdim, int gs_n, float gs_coeff, int flip,
+    int exclude_self, void* stream) {
+  return dbfr_pair_conv_fin(tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab, cab_on_tgt,
+                            cutoff, bond_feat, bond_mask, w1, b1, w2, b2, wf1, bf1, wf2, bf2,
+                            ck, gs_off, out_meta, out, batch, nt, nsrc, din, dout, nb, ns, he,
+                            hf, nw, kdim, gs_n, gs_coeff, flip, exclude_self, nullptr, nullptr,
+                            nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, stream);
 }

@@ -18,6 +18,9 @@
 // The MLPs are fp32 FMA register-tiled products (4 pairs x up to 10 columns
 // per thread) with weights streamed through shared memory 8 rows at a time.
 // Geometry, masks and every sum are exact fp32 (no TF32, no fast math).
+// conv_sums() is the pair loop alone, so that the finalize kernels
+// (conv_fin.cuh: B7-B9 with fin, B10) run it and then their epilogue on the
+// block's complete sums.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,6 +86,15 @@ struct ConvArgs {
   float* part;           // [blocks, part_stride] per-block parameter-gradient sums
   int part_stride, o_win, o_beff, o_w2, o_b2, o_wf1, o_bf1, o_wf2, o_bf2;
   int own_src, accumulate, batch;
+  // ---- finalize epilogue only (conv_fin.cuh)
+  const float* cnt;      // [B, nt] message counts (clamped to >= 1 there)
+  const float* mix_w;    // [mix_numel] irreps-Linear weight vector
+  const float* ln_w;     // LayerNorm weight, one per output slot channel
+  const float* ln_ms;    // LayerNorm mean shift, one per output slot channel
+  const float* ln_b;     // LayerNorm bias, one per 0e channel
+  const int* mix_meta;   // [out_dim, 16] (trunk_convs.FinConsts.tables)
+  const int* ln_slots;   // [n_slots, 8]
+  int out_dim, n_slots, mix_numel;  // out_dim = 0: no finalize
 };
 
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
@@ -105,9 +117,17 @@ __host__ __device__ inline int group_size(const ConvArgs& a, int mode) {
   return imax(1, imin(imin(kMaxGroup, kDenseCands / imax(per_owned(a, mode), 1)), n_owned(a) / 128));
 }
 
+// per (owned row, output slot) LayerNorm statistics of the finalize: the
+// means of up to kMaxComp components, then 1 / sqrt(norm + eps)
+constexpr int kMaxComp = 5;
+constexpr int kStat = 8;
+
 // Shared-memory plan, in 4-byte words; every region starts 16-byte aligned.
+// With a finalize (out_dim > 0) the epilogue stages the mix weights in r1
+// and the mixed rows in r2 (both free after the pair loop), and adds the
+// output accumulator `oacc` and the LayerNorm statistics `stats`.
 struct Plan {
-  int r1, r2, ws, sh, acc, list, misc, words;
+  int r1, r2, ws, sh, acc, list, oacc, stats, misc, words;
 };
 
 __host__ __device__ inline Plan make_plan(const ConvArgs& a, int mode) {
@@ -120,8 +140,33 @@ __host__ __device__ inline Plan make_plan(const ConvArgs& a, int mode) {
   p.sh = 9 * kStride;
   p.acc = round4(a.g * a.dout);
   p.list = round4(a.g * per_owned(a, mode));
+  p.oacc = 0;
+  p.stats = 0;
+  if (a.out_dim > 0) {
+    p.r1 = imax(p.r1, round4(a.mix_numel));
+    p.r2 = imax(p.r2, round4(a.g * a.out_dim));
+    p.oacc = round4(a.g * a.out_dim);
+    p.stats = round4(a.g * a.n_slots * kStat);
+  }
   p.misc = 4 * kPairs + 8;
-  p.words = p.r1 + p.r2 + p.ws + p.sh + p.acc + p.list + p.misc;
+  p.words = p.r1 + p.r2 + p.ws + p.sh + p.acc + p.list + p.oacc + p.stats + p.misc;
+  return p;
+}
+
+// the larger of two plans, region by region (B10: one layout for the four
+// convs of a layer)
+__host__ __device__ inline Plan max_plan(const Plan& x, const Plan& y) {
+  Plan p;
+  p.r1 = imax(x.r1, y.r1);
+  p.r2 = imax(x.r2, y.r2);
+  p.ws = imax(x.ws, y.ws);
+  p.sh = imax(x.sh, y.sh);
+  p.acc = imax(x.acc, y.acc);
+  p.list = imax(x.list, y.list);
+  p.oacc = imax(x.oacc, y.oacc);
+  p.stats = imax(x.stats, y.stats);
+  p.misc = imax(x.misc, y.misc);
+  p.words = p.r1 + p.r2 + p.ws + p.sh + p.acc + p.list + p.oacc + p.stats + p.misc;
   return p;
 }
 
@@ -377,40 +422,54 @@ __device__ __forceinline__ void mlp_forward(const ConvArgs& a, int b, float* in_
   gemm(shs, 9, a.ck, nullptr, a.kdim, cb, false, ws);
 }
 
-// Body of every forward trunk-conv kernel: block = targets t0 .. t0 + g - 1.
-template <int MODE>
-__device__ __forceinline__ void conv_block(const ConvArgs& a) {
+// The block's shared-memory regions, carved from the dynamic allocation.
+struct Regions {
+  float *r1, *r2, *ws, *shs, *acc, *oacc, *stats;
+  int* list;
+  Slots sl;
+};
+
+__device__ __forceinline__ Regions carve(const Plan& pl) {
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
-  const Plan pl = make_plan(a, MODE);
-  float* r1 = smem;
-  float* r2 = r1 + pl.r1;
-  float* ws = r2 + pl.r2;
-  float* shs = ws + pl.ws;
-  float* acc = shs + pl.sh;
-  int* list = reinterpret_cast<int*>(acc + pl.acc);
-  Slots sl;
-  sl.t = list + pl.list;
-  sl.s = sl.t + kPairs;
-  sl.own = sl.s + kPairs;
-  sl.d = reinterpret_cast<float*>(sl.own + kPairs);
-  sl.wcnt = reinterpret_cast<int*>(sl.d + kPairs);
+  Regions R;
+  R.r1 = smem;
+  R.r2 = R.r1 + pl.r1;
+  R.ws = R.r2 + pl.r2;
+  R.shs = R.ws + pl.ws;
+  R.acc = R.shs + pl.sh;
+  R.oacc = R.acc + pl.acc;
+  R.stats = R.oacc + pl.oacc;
+  R.list = reinterpret_cast<int*>(R.stats + pl.stats);
+  R.sl.t = R.list + pl.list;
+  R.sl.s = R.sl.t + kPairs;
+  R.sl.own = R.sl.s + kPairs;
+  R.sl.d = reinterpret_cast<float*>(R.sl.own + kPairs);
+  R.sl.wcnt = reinterpret_cast<int*>(R.sl.d + kPairs);
+  return R;
+}
 
-  const int b = blockIdx.y;
+// The masked message sums of targets t0 .. t0 + g - 1 of sample b into
+// R.acc [g][dout] (zeroed here). Ends after a barrier when there was a
+// chunk; callers synchronise before reading acc from other threads.
+template <int MODE>
+__device__ __forceinline__ void conv_sums(const ConvArgs& a, int b, int t0, const Regions& R) {
   const int tid = threadIdx.x;
-  const int g = a.g;
-  const int t0 = blockIdx.x * g;
-  for (int i = tid; i < g * a.dout; i += kThreads) acc[i] = 0.f;
+  const Slots sl = R.sl;
+  float* r1 = R.r1;
+  float* r2 = R.r2;
+  float* acc = R.acc;
+  for (int i = tid; i < a.g * a.dout; i += kThreads) acc[i] = 0.f;
 
-  const int total = compact_pairs<MODE>(a, b, t0, list, sl.wcnt);
+  const int total = compact_pairs<MODE>(a, b, t0, R.list, sl.wcnt);
   const int ke = a.gs_n + a.nb;
   for (int c0 = 0; c0 < total; c0 += kPairs) {
     const int n = min(kPairs, total - c0);
-    load_chunk<MODE>(a, b, t0, list, c0, n, sl, shs);
+    load_chunk<MODE>(a, b, t0, R.list, c0, n, sl, R.shs);
     __syncthreads();
     input_rows(a, b, n, sl, r2, r1 + a.ns * kStride);
     // edge MLP -> r2[ke:], attr -> r1[0:ns]; hidden -> r2, weights -> r1; cb -> r2
-    mlp_forward(a, b, r2, r2 + ke * kStride, r1, r2, r1, r2, shs, ws);
+    mlp_forward(a, b, r2, r2 + ke * kStride, r1, r2, r1, r2, R.shs, R.ws);
     // 8. depthwise TP, summed per target: thread o owns output column o
     const int4* meta = reinterpret_cast<const int4*>(a.out_meta);
     for (int o = tid; o < a.dout; o += kThreads) {
@@ -426,11 +485,21 @@ __device__ __forceinline__ void conv_block(const ConvArgs& a) {
     }
     __syncthreads();
   }
+}
+
+// Body of every forward trunk-conv kernel: block = targets t0 .. t0 + g - 1.
+template <int MODE>
+__device__ __forceinline__ void conv_block(const ConvArgs& a) {
+  const Regions R = carve(make_plan(a, MODE));
+  const int b = blockIdx.y;
+  const int g = a.g;
+  const int t0 = blockIdx.x * g;
+  conv_sums<MODE>(a, b, t0, R);
 
   // 9. per-target sums -> out
-  for (int i = tid; i < g * a.dout; i += kThreads) {
+  for (int i = threadIdx.x; i < g * a.dout; i += kThreads) {
     const int t = t0 + i / a.dout;
-    if (t < a.nt) a.out[((size_t)b * a.nt + t) * a.dout + (i % a.dout)] = acc[i];
+    if (t < a.nt) a.out[((size_t)b * a.nt + t) * a.dout + (i % a.dout)] = R.acc[i];
   }
 }
 

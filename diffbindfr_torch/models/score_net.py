@@ -8,12 +8,21 @@ ligand and side-chain pseudotorque heads and the sigma scaling. The forward
 is written for a batch [B, ...] directly (the JAX package vmaps a
 single-sample function).
 
-`use_kernels=True` is the counterpart of `use_pallas=True` with
-`pallas_layout='cmt'` and `pallas_bwd=True`: node features stay
-component-major through the trunk and each layer's three convs run through
-nn/trunk_convs.py (the CUDA kernels on the card, forward and backward);
-`use_kernels=False` is the plain XLA-path port. Both are differentiable;
-`init_params` draws a fresh tree with the JAX package's initialisers.
+`use_kernels=True` is the counterpart of `use_pallas=True`: node features
+stay component-major through the trunk, and the config's kernel fields pick
+the kernels of each layer, with the JAX package's meaning and precedence
+(score_net.py:410-418 there):
+  * `pallas_layout='cmt'` (default; `pallas_bwd=True`): the three convs B1-B3
+    (nn/trunk_convs.py, CUDA forward and backward kernels on the card), the
+    finalize and residual adds in PyTorch; both flags below are ignored;
+  * `'rowmajor'`: the same without a flag (the row-major kernels B7-B9 with
+    `fin=None` compute B1-B3's contract); with `fused_epilogue`, B7-B9 with
+    the finalize inside each kernel and only the residual adds in PyTorch;
+    with `fused_layer` (which beats `fused_epilogue`), B10: the whole layer
+    in one launch (nn/layer_conv.py).
+`use_kernels=False` is the plain XLA-path port and reads none of those
+fields. Every mode is differentiable; `init_params` draws a fresh tree with
+the JAX package's initialisers.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..geometry import so3, torus
+from ..nn import layer_conv as LC
 from ..nn import layers as L
 from ..nn import trunk_convs as TC
 from ..nn.irreps import apply_full_tensor_product, compile_full_tensor_product
@@ -61,6 +71,21 @@ class ScoreNetConfig:
     # the JAX package's per-layer jax.checkpoint); the training CLI turns it
     # on unless --no-remat
     remat: bool = False
+    # kernels of the trunk with use_kernels=True (the JAX fields of the same
+    # names; see the module docstring): 'cmt' or 'rowmajor'
+    pallas_layout: str = "cmt"
+    fused_epilogue: bool = False
+    fused_layer: bool = False
+
+    @property
+    def kernel_mode(self) -> str:
+        """The trunk's kernel path under use_kernels=True: 'convs' (B1-B3,
+        finalize in PyTorch), 'epilogue' (B7-B9 with fin) or 'layer' (B10)."""
+        if self.pallas_layout not in ("cmt", "rowmajor"):
+            raise ValueError(f"pallas_layout {self.pallas_layout!r}: 'cmt' or 'rowmajor'")
+        if self.pallas_layout == "cmt":
+            return "convs"
+        return "layer" if self.fused_layer else "epilogue" if self.fused_epilogue else "convs"
 
     @property
     def irrep_seq(self) -> tuple:
@@ -135,13 +160,11 @@ def _kernel_consts(cfg: ScoreNetConfig):
     )
 
 
-def _kernel_params(emb, fc):
-    return {
-        "emb_w1": emb["l1"]["w"], "emb_b1": emb["l1"]["b"],
-        "emb_w2": emb["l2"]["w"], "emb_b2": emb["l2"]["b"],
-        "fc_w1": fc["l1"]["w"], "fc_b1": fc["l1"]["b"],
-        "fc_w2": fc["l2"]["w"], "fc_b2": fc["l2"]["b"],
-    }
+@functools.lru_cache(maxsize=8)
+def _layer_consts(cfg: ScoreNetConfig):
+    """Per layer: the LayerConsts of B10 (its FinConsts serve B7-B9)."""
+    return tuple(LC.LayerConsts(spec, *consts)
+                 for spec, consts in zip(_specs(cfg)[0], _kernel_consts(cfg)))
 
 
 def _gs(cfg, d, stop):
@@ -212,7 +235,12 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
                   & both_c).float()
 
     if use_kernels:
-        kconsts = _kernel_consts(cfg)
+        mode = cfg.kernel_mode
+        lconsts = _layer_consts(cfg)
+        if mode == "layer" and ka < cfg.atom_knn:
+            # as the JAX package pads for its k-specialised layer kernel
+            atm_idx = torch.nn.functional.pad(atm_idx, (0, cfg.atom_knn - ka))
+            atm_vmask = torch.nn.functional.pad(atm_vmask, (0, cfg.atom_knn - ka))
         cnt_lig = torch.clamp(lig_pair_mask.sum(2), min=1.0)
         cnt_al = torch.clamp(cross_mask.sum(2), min=1.0)
         cnt_la = torch.clamp(cross_mask.sum(1), min=1.0)
@@ -225,12 +253,13 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
                      cab_f=cab_f, cross_cutoff=cross_cutoff, atm_idx=atm_idx,
                      atm_vmask=atm_vmask, cnt_lig=cnt_lig, cnt_al=cnt_al, cnt_la=cnt_la,
                      cnt_atm=cnt_atm)
+        layer_fn = {"convs": _kernel_layer, "epilogue": _epilogue_layer,
+                    "layer": _fused_layer}[mode]
         for l in range(cfg.num_conv_layers):
-            spec, (c_lig, c_cross, c_knn) = convs[l], kconsts[l]
             lp = {k: params[f"{k}_convs"][l] for k in ("lig", "al", "la", "atom")}
 
-            def kernel_layer(lig_cm, atom_cm, spec=spec, consts=(c_lig, c_cross, c_knn), lp=lp):
-                return _kernel_layer(params, cfg, spec, consts, lp, graph, lig_cm, atom_cm)
+            def kernel_layer(lig_cm, atom_cm, lc=lconsts[l], lp=lp):
+                return layer_fn(params, cfg, lc, lp, graph, lig_cm, atom_cm)
 
             lig_cm, atom_cm = _remat(cfg, kernel_layer, lig_cm, atom_cm)
         final_ladder = convs[-1].out
@@ -323,15 +352,16 @@ def _remat(cfg: ScoreNetConfig, layer, lig, atom):
     return layer(lig, atom)
 
 
-def _kernel_layer(params, cfg, spec, consts, lp, g, lig_cm, atom_cm):
-    """One trunk layer through the kernel wrappers, component-major layout."""
+def _kernel_layer(params, cfg, lc, lp, g, lig_cm, atom_cm):
+    """One trunk layer through B1-B3, component-major layout; the finalize
+    and residual adds in PyTorch."""
     s, temb = g["s"], g["temb"]
-    c_lig, c_cross, c_knn = consts
+    spec, c_lig, c_cross, c_knn = lc.spec, lc.lig, lc.cross, lc.atom
     out_dim = spec.out.dim
     lig_sum = TC.pair_conv(
         c_lig, s.lig_pos, s.lig_pos, lig_cm, lig_cm, s.lig_mask, s.lig_mask,
         g["zero_l"], g["zero_l"], temb, cfg.lig_cutoff,
-        _kernel_params(params["lig_edge_emb"], lp["lig"]["fc"]), g["bond_feat"], g["bond_mask"])
+        TC.pair_params(params["lig_edge_emb"], lp["lig"]["fc"]), g["bond_feat"], g["bond_mask"])
     al_sum, la_sum = TC.cross_conv(
         c_cross, s.lig_pos, s.atm_pos, lig_cm, atom_cm, s.lig_mask, s.atm_mask,
         g["cab_f"], temb, g["cross_cutoff"], params["la_edge_emb"], lp["al"]["fc"],
@@ -346,6 +376,45 @@ def _kernel_layer(params, cfg, spec, consts, lp, g, lig_cm, atom_cm):
     lig2 = L.pad_to_dim(lig_cm, out_dim) + lig_update + al_update
     atom2 = L.pad_to_dim(atom_cm, out_dim) + atom_update + la_update
     return lig2, atom2
+
+
+def _fin(lp_conv):
+    return {"mix": lp_conv["mix"], "ln": lp_conv["ln"]}
+
+
+def _epilogue_layer(params, cfg, lc, lp, g, lig_cm, atom_cm):
+    """One trunk layer through B7-B9 with the finalize in the kernels; only
+    the residual adds in PyTorch (JAX score_net.py:485-519)."""
+    s, temb, fin = g["s"], g["temb"], lc.fin
+    lig_update = TC.pair_conv_fin(
+        lc.lig, fin, s.lig_pos, s.lig_pos, lig_cm, lig_cm, s.lig_mask, s.lig_mask,
+        g["zero_l"], g["zero_l"], temb, cfg.lig_cutoff,
+        {**TC.pair_params(params["lig_edge_emb"], lp["lig"]["fc"]), **_fin(lp["lig"])},
+        g["bond_feat"], g["bond_mask"], g["cnt_lig"])
+    al_update, la_update = TC.cross_conv_fin(
+        lc.cross, fin, s.lig_pos, s.atm_pos, lig_cm, atom_cm, s.lig_mask, s.atm_mask,
+        g["cab_f"], temb, g["cross_cutoff"], params["la_edge_emb"], lp["al"]["fc"],
+        lp["la"]["fc"], _fin(lp["al"]), _fin(lp["la"]), g["cnt_al"], g["cnt_la"])
+    atom_update = TC.knn_conv_fin(
+        lc.atom, fin, s.atm_pos, atom_cm, s.atm_mask, g["atm_idx"], g["atm_vmask"], temb,
+        {"emb": params["atom_edge_emb"], "fc": lp["atom"]["fc"], **_fin(lp["atom"])})
+    lig2 = L.pad_to_dim(lig_cm, fin.out_dim) + lig_update + al_update
+    atom2 = L.pad_to_dim(atom_cm, fin.out_dim) + atom_update + la_update
+    return lig2, atom2
+
+
+def _fused_layer(params, cfg, lc, lp, g, lig_cm, atom_cm):
+    """One trunk layer in one B10 launch (JAX score_net.py:457-479)."""
+    s = g["s"]
+    lparams = {"emb_lig": params["lig_edge_emb"], "emb_cross": params["la_edge_emb"],
+               "emb_atom": params["atom_edge_emb"]}
+    for t in ("lig", "al", "la", "atom"):
+        lparams.update({f"fc_{t}": lp[t]["fc"], f"mix_{t}": lp[t]["mix"],
+                        f"ln_{t}": lp[t]["ln"]})
+    return LC.layer_conv(lc, s.lig_pos, s.atm_pos, lig_cm, atom_cm, s.lig_mask, s.atm_mask,
+                         g["cab_f"], g["temb"], g["cross_cutoff"], g["bond_feat"],
+                         g["bond_mask"], g["atm_idx"], g["atm_vmask"], g["cnt_lig"],
+                         g["cnt_al"], g["cnt_la"], g["cnt_atm"], lparams)
 
 
 def _plain_layer(spec, lp, ns, lig_x, atom_x, lig_e_attr, lig_sh, lig_pair_mask,

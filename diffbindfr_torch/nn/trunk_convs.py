@@ -19,6 +19,16 @@ on the default `use_pallas` path, with `pallas_bwd`). Each conv has
 | cross_bwd (B4) | pallas_conv_t.py:make_cross_bwd_t (call :1600) | csrc/cross_bwd.cu |
 | pair_bwd (B5) | pallas_conv_t.py:make_pair_bwd_t (call :1258) | csrc/pair_bwd.cu |
 | knn_bwd (B6) | pallas_conv_t.py:make_knn_bwd_t (call :1884) | csrc/knn_bwd.cu |
+| cross_conv_fin (B7) | pallas_conv.py:make_cross_conv, fin= (call :1008) | csrc/cross_conv.cu |
+| pair_conv_fin (B8) | pallas_conv.py:make_pair_conv, fin= (call :653) | csrc/pair_conv.cu |
+| knn_conv_fin (B9) | pallas_conv.py:make_knn_conv, fin= (call :1225) | csrc/knn_conv.cu |
+
+The row-major kernels B7-B9 without `fin` compute exactly B1-B3's contract,
+so B1-B3 serve them. With `fin` (a `FinConsts`), the `*_fin` wrappers return
+the finished update: the masked sums divided by max(count, 1), mixed by the
+irreps Linear and LayerNorm-ed, in one launch (csrc/conv_fin.cuh). Their
+backward recomputes through the plain version with autograd, the JAX
+package's rule for these kernels (`_vjp_wrap`, pallas_conv.py:211-224).
 
 Contract (the twins'): component-major f32 node features in, masked message
 SUM [B, N_target, dout] component-major out; a leading batch axis B
@@ -41,10 +51,11 @@ import numpy as np
 import torch
 
 from .irreps import Irreps, TensorProductSpec, apply_dw_tensor_product, clebsch_gordan
-from .layers import sh_l2
+from .layers import ConvSpec, sh_l2, tp_conv_finalize_cm
 
 launches = {"cross_conv": 0, "pair_conv": 0, "knn_conv": 0,
-            "cross_bwd": 0, "pair_bwd": 0, "knn_bwd": 0}
+            "cross_bwd": 0, "pair_bwd": 0, "knn_bwd": 0,
+            "cross_conv_fin": 0, "pair_conv_fin": 0, "knn_conv_fin": 0, "layer_conv": 0}
 
 
 def reset_launches() -> None:
@@ -327,6 +338,11 @@ _ARGTYPES = {
     "dbfr_pair_bwd": [_P] * 7 + [_I] + [_P] * 23 + [_I] * 12 + [_F, _I, _I, _P],
     "dbfr_cross_bwd": [_P] * 37 + [_I] * 11 + [_F, _P],
     "dbfr_knn_bwd": [_P] * 26 + [_I] * 11 + [_F, _P],
+    "dbfr_pair_conv_fin": [_P] * 7 + [_I] + [_P] * 15 + [_I] * 12 + [_F, _I, _I]
+                          + [_P] * 7 + [_I] * 3 + [_P],
+    "dbfr_cross_conv_fin": [_P] * 25 + [_I] * 11 + [_F] + [_P] * 12 + [_I] * 3 + [_P],
+    "dbfr_knn_conv_fin": [_P] * 17 + [_I] * 11 + [_F] + [_P] * 7 + [_I] * 3 + [_P],
+    "dbfr_layer_conv": [_P, _I, _P, _I, _P, _I, _P],
 }
 # the widest matrix a kernel thread tiles (kMaxJ * 32 columns, trunk_conv.cuh)
 _MAX_COLS = 320
@@ -439,6 +455,13 @@ class _Data:
 
 
 # ---- B2 pair conv / B5 backward ------------------------------------------
+
+
+def pair_params(emb, fc):
+    """The pair conv's parameter dict from the edge MLP and the TP-weight MLP."""
+    return {"emb_w1": emb["l1"]["w"], "emb_b1": emb["l1"]["b"], "emb_w2": emb["l2"]["w"],
+            "emb_b2": emb["l2"]["b"], "fc_w1": fc["l1"]["w"], "fc_b1": fc["l1"]["b"],
+            "fc_w2": fc["l2"]["w"], "fc_b2": fc["l2"]["b"]}
 
 
 def pair_conv(c: ConvConsts, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask,
@@ -735,3 +758,292 @@ def knn_bwd(data, x, w_in, beff, weights, g):
     _check(rc, "knn_bwd")
     launches["knn_bwd"] += 1
     return d_x, _split_grads(flat, layout)
+
+
+# ---------------------------------------------------------------------------
+# finalize epilogue (B7-B9 with fin=, and B10): divide by max(count, 1) ->
+# irreps-Linear mix -> irreps LayerNorm, component-major
+# (nn/pallas_conv.py:_fin_twin, dense_mix_cm, ln_tables, make_ln_cm)
+# ---------------------------------------------------------------------------
+
+# input slots of one irrep type that an output slot mixes (kMixSegs, conv_fin.cuh)
+MIX_SEGS = 4
+# components of an irrep the LayerNorm statistics hold (kMaxComp: l <= 2)
+MAX_COMP = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class FinConsts:
+    """Static tables of one conv's finalize (a layers.ConvSpec: dw TP output
+    -> irreps Linear -> LayerNorm over `spec.out`)."""
+
+    spec: ConvSpec
+
+    @property
+    def out_dim(self) -> int:
+        return self.spec.out.dim
+
+    @property
+    def n_w(self) -> int:  # LayerNorm weights / mean shifts: one per slot channel
+        return sum(mul for mul, _ in self.spec.out.items)
+
+    @property
+    def n_b(self) -> int:  # LayerNorm biases: one per 0e channel
+        return self.spec.out.num_scalars
+
+    @functools.cached_property
+    def tables(self):
+        """(mix_meta [out_dim, 16], ln_slots [n_slots, 8]) int32.
+
+        mix_meta row j (component-major output column j = off3 + k mul3 + v
+        of slot i3): nseg, mul3, then per input slot s of the same irrep
+        type (in_base = o + k m, m, w_base = w_off + r mul3 + v), so that
+        y[j] = sum_s sum_u x[in_base + u] w[w_base + u mul3] (apply_linear_cm);
+        entry 14 is i3 and 15 is k. ln_slots row i3: off, mul, d, iw (first
+        weight / mean shift), ib (first bias, -1 unless 0e)."""
+        out, lin = self.spec.out, self.spec.lin
+        blocks = {blk[1]: blk for blk in lin.blocks}
+        meta = np.zeros((out.dim, 16), np.int32)
+        slots = np.zeros((len(out.items), 8), np.int32)
+        iw = ib = 0
+        for i3, (off3, mul3, ir3) in enumerate(out.slices()):
+            d = ir3.dim
+            if d > MAX_COMP:
+                raise ValueError(f"finalize kernels take l <= 2, not {ir3}")
+            is_0e = ir3.l == 0 and ir3.p == 1
+            slots[i3, :5] = (off3, mul3, d, iw, ib if is_0e else -1)
+            iw += mul3
+            ib += mul3 if is_0e else 0
+            ins, w_off = (blocks[i3][0], blocks[i3][2]) if i3 in blocks else ((), 0)
+            if len(ins) > MIX_SEGS:
+                raise ValueError(f"finalize kernels mix at most {MIX_SEGS} input slots")
+            for k in range(d):
+                for v in range(mul3):
+                    row = meta[off3 + k * mul3 + v]
+                    row[0], row[1], row[14], row[15] = len(ins), mul3, i3, k
+                    r = 0
+                    for s, (o, m) in enumerate(ins):
+                        row[2 + 3 * s : 5 + 3 * s] = (o + k * m, m, w_off + r * mul3 + v)
+                        r += m
+        return meta, slots
+
+    def device_tables(self, device):
+        """(mix_meta, ln_slots) tensors on `device`, cached."""
+        return _device_fin_tables(self, str(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_fin_tables(f: FinConsts, device: str):
+    return tuple(torch.from_numpy(t).to(device) for t in f.tables)
+
+
+def finalize_plain(fin: FinConsts, p, agg, cnt):
+    """Plain finalize: agg [..., dout] sums / max(cnt, 1) -> mix -> LayerNorm;
+    p = {"mix": weight vector, "ln": LayerNorm dict}."""
+    return tp_conv_finalize_cm(p, fin.spec, agg / torch.clamp(cnt, min=1.0)[..., None])
+
+
+def pair_conv_fin_plain(c: ConvConsts, fin: FinConsts, tgt_pos, src_pos, tgt_x, src_x, tgt_mask,
+                        src_mask, cab_t, cab_s, temb, cutoff, params, bond_feat, bond_mask, cnt):
+    """Plain B8 (make_pair_twin(fin=)): params also hold "mix" and "ln"."""
+    return finalize_plain(fin, params, pair_conv_plain(
+        c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_t, cab_s, temb, cutoff,
+        params, bond_feat, bond_mask), cnt)
+
+
+def cross_conv_fin_plain(c: ConvConsts, fin: FinConsts, lig_pos, atm_pos, lig_x, atm_x, lig_mask,
+                         atm_mask, cabflag, temb, cutoff, emb_params, fc_al, fc_la, fin_al,
+                         fin_la, cnt_al, cnt_la):
+    """Plain B7 (make_cross_twin(fin=)): finished (al [B, nl, out_dim],
+    la [B, na, out_dim])."""
+    al, la = cross_conv_plain(c, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cabflag,
+                              temb, cutoff, emb_params, fc_al, fc_la)
+    return finalize_plain(fin, fin_al, al, cnt_al), finalize_plain(fin, fin_la, la, cnt_la)
+
+
+def knn_conv_fin_plain(c: ConvConsts, fin: FinConsts, pos, x, mask, idx, valid, temb, params):
+    """Plain B9 (make_knn_twin(fin=)): finalized by the count of valid slots."""
+    return finalize_plain(fin, params, knn_conv_plain(c, pos, x, mask, idx, valid, temb, params),
+                          valid.float().sum(-1))
+
+
+def _flatten(tree, leaves: list):
+    """Structure of `tree` (nested dicts / lists / tuples) with each tensor
+    replaced by its index in `leaves`, where it is appended."""
+    if torch.is_tensor(tree):
+        leaves.append(tree)
+        return ("t", len(leaves) - 1)
+    if isinstance(tree, dict):
+        return ("d", {k: _flatten(v, leaves) for k, v in tree.items()})
+    if isinstance(tree, (list, tuple)):
+        return ("l", type(tree), [_flatten(v, leaves) for v in tree])
+    return ("c", tree)
+
+
+def _unflatten(spec, leaves):
+    kind = spec[0]
+    if kind == "t":
+        return leaves[spec[1]]
+    if kind == "d":
+        return {k: _unflatten(v, leaves) for k, v in spec[1].items()}
+    if kind == "l":
+        return spec[1](_unflatten(v, leaves) for v in spec[2])
+    return spec[1]
+
+
+class _PlainBackwardFn(torch.autograd.Function):
+    """Forward: `kernel(*args)`; backward: autograd through `plain(*args)`,
+    recomputed (the JAX package's custom-VJP rule for B7-B10). Every tensor
+    of `args` is an input, so gradients reach whatever the plain version
+    differentiates."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, spec, *leaves):
+        ctx.plain, ctx.spec = plain, spec
+        ctx.save_for_backward(*leaves)
+        return kernel(*_unflatten(spec, leaves))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:]
+        leaves = [t.detach().requires_grad_(True) if n and t.is_floating_point() else t.detach()
+                  for t, n in zip(saved, need)]
+        diff = [t for t in leaves if t.requires_grad]
+        with torch.enable_grad():
+            out = ctx.plain(*_unflatten(ctx.spec, leaves))
+            outs = out if isinstance(out, tuple) else (out,)
+            grads = torch.autograd.grad(outs, diff, gs, allow_unused=True) if diff else ()
+        it = iter(grads)
+        return (None, None, None, *[next(it) if t.requires_grad else None for t in leaves])
+
+
+def _with_plain_backward(kernel, plain, *args):
+    leaves: list = []
+    spec = _flatten(args, leaves)
+    return _PlainBackwardFn.apply(kernel, plain, spec, *leaves)
+
+
+def _fin_ptrs(fin: FinConsts, p, cnt, rows, dev):
+    """Kernel arguments of one finalize: pointers to (cnt, mix, ln weight,
+    mean shift, bias), and those tensors, which the caller holds through
+    the launch."""
+    ln = p["ln"]
+    ts = [_arg(cnt, rows, dev), _arg(p["mix"], (fin.spec.lin.weight_numel,), dev),
+          _arg(ln["weight"], (fin.n_w,), dev), _arg(ln["mean_shift"], (fin.n_w,), dev),
+          _arg(ln["bias"], (fin.n_b,), dev)]
+    return [_ptr(t) for t in ts], ts
+
+
+def _fin_tail(fin: FinConsts, dev):
+    mix_meta, ln_slots = fin.device_tables(dev)
+    return [_ptr(mix_meta), _ptr(ln_slots)], [fin.out_dim, len(fin.spec.out.items),
+                                              fin.spec.lin.weight_numel]
+
+
+# ---- B8 pair conv with finalize --------------------------------------------
+
+
+def pair_conv_fin(c: ConvConsts, fin: FinConsts, tgt_pos, src_pos, tgt_x, src_x, tgt_mask,
+                  src_mask, cab_t, cab_s, temb, cutoff, params, bond_feat, bond_mask, cnt):
+    """B8: pair_conv's sums finalized in the kernel -> [B, nt, out_dim]."""
+    args = (c, fin, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_t, cab_s, temb,
+            cutoff, params, bond_feat, bond_mask, cnt)
+    if not tgt_x.is_cuda:
+        return pair_conv_fin_plain(*args)
+    return _with_plain_backward(_pair_fin_kernel, pair_conv_fin_plain, *args)
+
+
+def _pair_fin_kernel(c, fin, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_t, cab_s,
+                     temb, cutoff, params, bond_feat, bond_mask, cnt):
+    data, tx, sx, w_in, beff, *weights = _pair_inputs(
+        c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_s, temb, cutoff, params,
+        bond_feat, bond_mask)
+    d, dev = data, tx.device
+    bsz, nt, nsrc = tx.shape[0], tx.shape[1], sx.shape[1]
+    he, hf, nw, kdim = d.dims
+    ck, gs_off, meta = c.device_tables(dev)
+    fptrs, _keep = _fin_ptrs(fin, params, cnt, (bsz, nt), dev)
+    tptrs, tints = _fin_tail(fin, dev)
+    out = torch.empty(bsz, nt, fin.out_dim, dtype=torch.float32, device=dev)
+    rc = _library().dbfr_pair_conv_fin(
+        _ptr(d.tgt_pos), _ptr(d.src_pos), _ptr(tx), _ptr(sx), _ptr(d.tgt_mask),
+        _ptr(d.src_mask), _ptr(d.cab_s), 0, _ptr(d.cut), _ptr(d.bond_feat), _ptr(d.bond_mask),
+        _ptr(w_in), _ptr(beff), *[_ptr(v) for v in weights],
+        _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
+        bsz, nt, nsrc, c.din, c.dout, d.nb, c.ns, he, hf, nw, kdim, c.gs_n,
+        c.gs_coeff, 0, 1, *fptrs, *tptrs, *tints, _stream())
+    _check(rc, "pair_conv_fin")
+    launches["pair_conv_fin"] += 1
+    return out
+
+
+# ---- B7 cross conv with finalize -------------------------------------------
+
+
+def cross_conv_fin(c: ConvConsts, fin: FinConsts, lig_pos, atm_pos, lig_x, atm_x, lig_mask,
+                   atm_mask, cabflag, temb, cutoff, emb_params, fc_al, fc_la, fin_al, fin_la,
+                   cnt_al, cnt_la):
+    """B7: cross_conv's two sums finalized in the kernel -> (al [B, nl,
+    out_dim], la [B, na, out_dim]); fin_al / fin_la = {"mix", "ln"}."""
+    args = (c, fin, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cabflag, temb, cutoff,
+            emb_params, fc_al, fc_la, fin_al, fin_la, cnt_al, cnt_la)
+    if not lig_x.is_cuda:
+        return cross_conv_fin_plain(*args)
+    return _with_plain_backward(_cross_fin_kernel, cross_conv_fin_plain, *args)
+
+
+def _cross_fin_kernel(c, fin, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cabflag, temb,
+                      cutoff, emb_params, fc_al, fc_la, fin_al, fin_la, cnt_al, cnt_la):
+    data, lx, ax, w_in, beff, *weights = _cross_inputs(
+        c, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cabflag, temb, cutoff,
+        emb_params, fc_al, fc_la)
+    d, dev = data, lx.device
+    bsz, nl, na = lx.shape[0], lx.shape[1], ax.shape[1]
+    he, hf, nw, kdim = d.dims
+    ck, gs_off, meta = c.device_tables(dev)
+    al_ptrs, _keep_al = _fin_ptrs(fin, fin_al, cnt_al, (bsz, nl), dev)
+    la_ptrs, _keep_la = _fin_ptrs(fin, fin_la, cnt_la, (bsz, na), dev)
+    tptrs, tints = _fin_tail(fin, dev)
+    al = torch.empty(bsz, nl, fin.out_dim, dtype=torch.float32, device=dev)
+    la = torch.empty(bsz, na, fin.out_dim, dtype=torch.float32, device=dev)
+    rc = _library().dbfr_cross_conv_fin(
+        _ptr(d.lig_pos), _ptr(d.atm_pos), _ptr(lx), _ptr(ax), _ptr(d.lig_mask),
+        _ptr(d.atm_mask), _ptr(d.cab), _ptr(d.cut), _ptr(w_in), _ptr(beff),
+        *[_ptr(v) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(al), _ptr(la),
+        bsz, nl, na, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff,
+        *al_ptrs, *la_ptrs, *tptrs, *tints, _stream())
+    _check(rc, "cross_conv_fin")
+    launches["cross_conv_fin"] += 1
+    return al, la
+
+
+# ---- B9 knn conv with finalize ---------------------------------------------
+
+
+def knn_conv_fin(c: ConvConsts, fin: FinConsts, pos, x, mask, idx, valid, temb, params):
+    """B9: knn_conv's sums finalized in the kernel by the count of valid
+    neighbour slots -> [B, N, out_dim]; params also hold "mix" and "ln"."""
+    args = (c, fin, pos, x, mask, idx, valid, temb, params)
+    if not x.is_cuda:
+        return knn_conv_fin_plain(*args)
+    return _with_plain_backward(_knn_fin_kernel, knn_conv_fin_plain, *args)
+
+
+def _knn_fin_kernel(c, fin, pos, x, mask, idx, valid, temb, params):
+    data, xx, w_in, beff, *weights = _knn_inputs(c, pos, x, idx, valid, temb, params)
+    d, dev = data, xx.device
+    bsz, n, k = d.idx.shape
+    he, hf, nw, kdim = d.dims
+    ck, gs_off, meta = c.device_tables(dev)
+    fptrs, _keep = _fin_ptrs(fin, params, d.valid.sum(-1), (bsz, n), dev)
+    tptrs, tints = _fin_tail(fin, dev)
+    out = torch.empty(bsz, n, fin.out_dim, dtype=torch.float32, device=dev)
+    rc = _library().dbfr_knn_conv_fin(
+        _ptr(d.pos), _ptr(xx), _ptr(d.idx), _ptr(d.valid), None, _ptr(w_in), _ptr(beff),
+        *[_ptr(v) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
+        bsz, n, k, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff,
+        *fptrs, *tptrs, *tints, _stream())
+    _check(rc, "knn_conv_fin")
+    launches["knn_conv_fin"] += 1
+    return out

@@ -1,6 +1,8 @@
 """Hand-written CUDA trunk-conv kernels against their plain versions, on
-the card: the forward kernels B1-B3 and the backward kernels B4-B6 (autograd
-through the wrappers against autograd through the plain versions). Marked
+the card: the forward kernels B1-B3, the backward kernels B4-B6 (autograd
+through the wrappers against autograd through the plain versions), the
+finalize kernels B7-B9 and the whole-layer kernel B10 (forward, and the
+gradients of their plain-recompute backward). Marked
 `cuda`: skipped (with a reason) where no GPU is present. Imports no JAX, so
 it runs on the GPU machine with
 
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from diffbindfr_torch.nn import layer_conv as LC
 from diffbindfr_torch.nn import layers as L
 from diffbindfr_torch.nn import trunk_convs as TC
 from diffbindfr_torch.nn.relu_ties import ReluTies
@@ -236,3 +239,129 @@ def test_backward_wrappers_reject_bad_cotangents(dev):
     for bad in (torch.zeros(bsz, na, k.dout - 1, device=dev), torch.zeros(bsz, na, k.dout)):
         with pytest.raises(ValueError):
             TC.knn_bwd(data, x, w_in, beff, w, bad)
+
+
+def _layer_system(dev, na=300, seed=3):
+    """One small trunk layer (out_dim > din) with its graph, counts and
+    parameters: the arguments of layer_conv, some rows fully masked."""
+    rng = np.random.default_rng(seed)
+    cs = L.make_conv_spec(f"{NS}x0e+{NV}x1o", "1x0e+1x1o+1x2e", f"{NS}x0e+{NV}x1o+{NV}x1e")
+    din, wn = cs.dw.in1.dim, cs.dw.weight_numel
+    bsz, nl, edim = 2, 20, 6
+
+    def f(*shape, sc=1.0):
+        return torch.tensor(rng.normal(size=shape) * sc, dtype=torch.float32, device=dev)
+
+    def mlp(i, h, o):
+        return {"l1": {"w": f(i, h, sc=0.3), "b": f(h, sc=0.1)},
+                "l2": {"w": f(h, o, sc=0.3), "b": f(o, sc=0.1)}}
+
+    lig_pos, atm_pos = f(bsz, nl, 3, sc=3), f(bsz, na, 3, sc=7)
+    lig_mask = torch.tensor(rng.random((bsz, nl)) > 0.1, dtype=torch.float32, device=dev)
+    atm_mask = torch.tensor(rng.random((bsz, na)) > 0.1, dtype=torch.float32, device=dev)
+    lig_mask[0, 3] = 0.0
+    cab = torch.tensor(rng.random((bsz, na)) > 0.85, dtype=torch.float32, device=dev)
+    bm = torch.tensor(rng.random((bsz, nl, nl)) > 0.9, dtype=torch.float32, device=dev)
+    bm = torch.maximum(bm, bm.transpose(1, 2)) * (1 - torch.eye(nl, device=dev))
+    bf = f(bsz, nl, nl, edim) * bm[..., None]
+    idx, valid = L.knn_edges(atm_pos, atm_pos, atm_mask, atm_mask, k=8, cutoff=4.5,
+                             exclude_self=True)
+    cut = torch.tensor([9.0, 7.5], device=dev)
+    nw_ = sum(m for m, _ in cs.out.items)
+    params = {"emb_lig": mlp(edim + SED + GSN, NS, NS), "emb_cross": mlp(SED + GSN, NS, NS),
+              "emb_atom": mlp(SED + GSN, NS, NS)}
+    for t in ("lig", "al", "la", "atom"):
+        params.update({f"fc_{t}": mlp(3 * NS, 3 * NS, wn), f"mix_{t}": f(cs.lin.weight_numel,
+                                                                         sc=0.3),
+                       f"ln_{t}": {"weight": 1 + 0.1 * f(nw_), "mean_shift": f(nw_, sc=0.5),
+                                   "bias": 0.05 * f(cs.out.num_scalars)}})
+    lc = LC.LayerConsts(cs, TC.ConvConsts(cs.dw, NS, SED, 6.0, GSN),
+                        TC.ConvConsts(cs.dw, NS, SED, 9.0, GSN),
+                        TC.ConvConsts(cs.dw, NS, SED, 4.5, GSN))
+    d_ll = TC._dist(lig_pos[:, None] - lig_pos[:, :, None])
+    eye = torch.eye(nl, dtype=torch.bool, device=dev)
+    both_l = (lig_mask[:, :, None] > 0) & (lig_mask[:, None] > 0)
+    m_ll = ((((d_ll <= 6.0) & ~eye) | (bm > 0)) & both_l).float()
+    d_c = TC._dist(atm_pos[:, None] - lig_pos[:, :, None])
+    m_c = (((cab[:, None] > 0) | (d_c <= cut[:, None, None])) & (lig_mask[:, :, None] > 0)
+           & (atm_mask[:, None] > 0)).float()
+    args = [lc, lig_pos, atm_pos, f(bsz, nl, din), f(bsz, na, din), lig_mask, atm_mask, cab,
+            f(bsz, SED), cut, bf, bm, idx, valid.float(), m_ll.sum(2), m_c.sum(2), m_c.sum(1),
+            valid.float().sum(2), params]
+    return args
+
+
+def _fin_calls(args):
+    """(wrapper, plain, arguments) of B7, B8 and B9 on the layer system."""
+    lc, lp, ap, lx, ax, lm, am, cab, temb, cut, bf, bm, idx, valid, c_l, c_al, c_la, _, p = args
+    zero = torch.zeros_like(lm)
+
+    def fin(t):
+        return {"mix": p[f"mix_{t}"], "ln": p[f"ln_{t}"]}
+
+    return {
+        "cross_conv_fin": (TC.cross_conv_fin, TC.cross_conv_fin_plain, (
+            lc.cross, lc.fin, lp, ap, lx, ax, lm, am, cab, temb, cut, p["emb_cross"], p["fc_al"],
+            p["fc_la"], fin("al"), fin("la"), c_al, c_la)),
+        "pair_conv_fin": (TC.pair_conv_fin, TC.pair_conv_fin_plain, (
+            lc.lig, lc.fin, lp, lp, lx, lx, lm, lm, zero, zero, temb, 6.0,
+            {**TC.pair_params(p["emb_lig"], p["fc_lig"]), **fin("lig")}, bf, bm, c_l)),
+        "knn_conv_fin": (TC.knn_conv_fin, TC.knn_conv_fin_plain, (
+            lc.atom, lc.fin, ap, ax, am, idx, valid, temb,
+            {"emb": p["emb_atom"], "fc": p["fc_atom"], **fin("atom")})),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na", [300, 700])
+def test_finalize_kernels_match_plain(dev, na):
+    """B7-B9 with fin; na 700 groups several atoms per block of the la pass."""
+    for name, (kernel, plain, a) in _fin_calls(_layer_system(dev, na=na)).items():
+        before = TC.launches[name]
+        got = kernel(*a)
+        torch.cuda.synchronize()
+        assert TC.launches[name] == before + 1
+        ref = plain(*a)
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        for g_, r_ in zip(got, ref):
+            assert _rel(g_, r_) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na", [300, 700])
+def test_layer_kernel_matches_plain(dev, na):
+    args = _layer_system(dev, na=na)
+    before = TC.launches["layer_conv"]
+    lig, atm = LC.layer_conv(*args)
+    torch.cuda.synchronize()
+    assert TC.launches["layer_conv"] == before + 1
+    lig0, atm0 = LC.layer_conv_plain(*args)
+    assert _rel(lig, lig0) <= 1e-4 and _rel(atm, atm0) <= 1e-4
+    # a fully masked ligand row is its residual plus the two 0e LayerNorm biases
+    assert torch.allclose(lig[0, 3], lig0[0, 3], atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_layer_kernel_backward_is_the_plain_gradient(dev):
+    """B10's backward recomputes through the plain version: the gradients
+    equal autograd through layer_conv_plain (1e-5 of max|ref|: the same
+    operations on the same inputs)."""
+    args = _layer_system(dev)
+    x = [_leaf(args[3]), _leaf(args[4])]
+    p = {k: ({kk: {q: _leaf(w) for q, w in v2.items()} if isinstance(v2, dict) else _leaf(v2)
+              for kk, v2 in v.items()} if isinstance(v, dict) else _leaf(v))
+         for k, v in args[18].items()}
+    a = list(args)
+    a[3], a[4], a[18] = x[0], x[1], p
+    leaves = x + [t for v in p.values() for t in (
+        [w for v2 in v.values() for w in (v2.values() if isinstance(v2, dict) else [v2])]
+        if isinstance(v, dict) else [v])]
+    gs = None
+    grads = []
+    for fn in (LC.layer_conv, LC.layer_conv_plain):
+        out = fn(*a)
+        if gs is None:
+            gs = [torch.randn_like(o) for o in out]
+        grads.append(torch.autograd.grad(out, leaves, gs))
+    for g_, r_ in zip(*grads):
+        assert _rel(g_, r_) <= 1e-5

@@ -8,6 +8,7 @@ Small config (ns=8, nv=4, 2 layers), JAX init_params weights, 3 steps on
 the 3dbs prep-cache sample. Tolerance: f32 dynamics over 3 steps ->
 atol 1e-3 A on coordinates and 1e-3 rad on chi.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -110,6 +111,24 @@ def test_dock_engine_replays_its_noise_and_saves_poses(setup, tmp_path):
     data = np.load(path)
     assert data["3dbs_r12|lig_pos"].shape == (3, 128, 3)
     np.testing.assert_array_equal(data["3dbs_r12|pose_idx"], [0, 1, 2])
+
+
+def test_dock_engine_fused_layer_mode_gives_the_cmt_poses(setup):
+    """The whole-layer configuration (B10's plain version here) docks the
+    same poses as the default one on the same noise: 2 steps, atol 1e-5 A."""
+    s, _, tcfg, _, tp, _, _, _, _, _, _ = setup
+    scfg = TSP.SamplerConfig(actual_steps=2)
+    pair = TP.PreparedPair.from_prep_cache(SAMPLE)
+    poses = {}
+    for name, cfg in (("cmt", tcfg), ("layer", dataclasses.replace(
+            tcfg, pallas_layout="rowmajor", fused_layer=True))):
+        eng = TP.DockEngine(tp, cfg, scfg, batch_size=2, device="cpu", verbose=False)
+        assert eng.net_cfg is cfg
+        poses[name] = eng.run([pair], num_poses=2, seed=6)
+    for a, b in zip(poses["cmt"], poses["layer"]):
+        np.testing.assert_allclose(b.lig_pos, a.lig_pos, atol=1e-5)
+        np.testing.assert_allclose(b.atom14_pos, a.atom14_pos, atol=1e-5)
+        np.testing.assert_allclose(b.chi, a.chi, atol=1e-5)
 
 
 def test_import_loads_no_jax():

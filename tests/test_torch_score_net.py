@@ -1,12 +1,15 @@
 """Score network: the PyTorch port against the JAX package.
 
 Small config (ns=8, nv=4, 2 layers) with JAX `init_params` weights carried
-across, both port paths (use_kernels on/off) against JAX use_pallas=False;
+across, the port's plain path and its kernel configurations (cmt, and the
+row-major ones: plain, fused_epilogue, fused_layer) against JAX
+use_pallas=False;
 full width (diff_r2 EMA) against a stored JAX fixture. Tolerances: f32 vs f32
 through ~20 layers of sums in another order -> max|err| <= 1e-4 * max|ref|
 at the small config; 1e-3 of max|ref| at full width (the acceptance bound
 of the card run; what the port reaches is printed by the fixture test).
 """
+import dataclasses
 import os
 
 import jax
@@ -66,11 +69,21 @@ def small():
     return tcfg, tp, tb, tt, jo
 
 
-@pytest.mark.parametrize("use_kernels", [True, False])
+# the kernel configurations of the port (use_kernels=True: ScoreNetConfig's
+# kernel fields) and its plain path, each against the JAX XLA path
+MODES = {"True": {}, "False": None, "rowmajor": dict(pallas_layout="rowmajor"),
+         "rowmajor+fused_epilogue": dict(pallas_layout="rowmajor", fused_epilogue=True),
+         "rowmajor+fused_layer": dict(pallas_layout="rowmajor", fused_layer=True)}
+
+
+@pytest.mark.parametrize("use_kernels", list(MODES))
 def test_small_config_matches_jax(small, use_kernels):
     tcfg, tp, tb, tt, jo = small
+    fields = MODES[use_kernels]
+    cfg = tcfg if fields is None else dataclasses.replace(tcfg, **fields)
     with torch.no_grad():
-        out = tsn.apply(tp, tcfg, tb, tt, tsn.sigmas_from_t(tt, SCHED), use_kernels=use_kernels)
+        out = tsn.apply(tp, cfg, tb, tt, tsn.sigmas_from_t(tt, SCHED),
+                        use_kernels=fields is not None)
     for f in FIELDS:
         got = getattr(out, f).numpy()
         assert np.isfinite(got).all()

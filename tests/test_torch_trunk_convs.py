@@ -184,7 +184,9 @@ def test_wrappers_use_plain_versions_on_cpu(system):
     assert torch.equal(TC.pair_conv(*_pair_args(d)), TC.pair_conv_plain(*_pair_args(d)))
     assert torch.equal(TC.knn_conv(*_knn_args(d)), TC.knn_conv_plain(*_knn_args(d)))
     assert TC.launches == {"cross_conv": 0, "pair_conv": 0, "knn_conv": 0,
-                           "cross_bwd": 0, "pair_bwd": 0, "knn_bwd": 0}
+                           "cross_bwd": 0, "pair_bwd": 0, "knn_bwd": 0,
+                           "cross_conv_fin": 0, "pair_conv_fin": 0, "knn_conv_fin": 0,
+                           "layer_conv": 0}
 
 
 def test_kernel_tables_describe_every_output_column(system):
