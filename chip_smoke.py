@@ -70,6 +70,33 @@ a non-zero exit code):
               fused_layer configuration, kernel path vs plain path: every
               parameter gradient within 1e-3 max|ref| (B10's backward
               recomputes through its plain version)
+  17. probe_bf16  P1 (probes/bf16_chain.py): the madd chain in f32, bf16x2
+              mul/add and bf16x2 fma, each kernel against its plain version
+              at 8 steps (f32 1e-5 relative, mul/add exact, fma 2^-8), then
+              the time per sweep from R = 2000 and 2R steps at the TPU
+              probe's 256 x 1024 and at 8192 x 1024 (which fills the card),
+              GFLOP/s
+  18. bf16_kernels  B11 cross, pair, knn (the bf16 chain) at the 3dbs bucket
+              shapes, layers 0 and 5, B = 16, on the bf16-rounded diff_r2
+              weights: each against its plain bf16 version (max|err| <=
+              BF16_GATE max|ref|, dead rows exactly 0), CUDA-event times;
+              the bound takes the chain's bf16 operations at the card's
+              peak for separately rounded bf16x2 operations (67e12/s; phase
+              17's measured rate printed beside it) and the fp32 operations
+              at 67 TFLOP/s
+  19. bf16_forward  the full-width score net with compute_dtype='bfloat16',
+              kernels on, against the JAX package's bf16 forward
+              (tests/fixtures/torch_bf16_ref.npz; per field, tests/
+              test_torch_bf16.py FULL_WIDTH_TOL), one launch of each B11
+              kernel per layer and none of B1-B3; the control: the f32
+              forward's distance to the same fixture, which must exceed the
+              bound on tr, rot and tor; the distance to the f32 fixture
+              printed
+  20. bf16_dock  16 poses x 20 steps of 3dbs after a warm-up, the f32 cmt
+              dock and the bf16 dock in turns (A B B A): every pose finite,
+              exact launch counts (bf16: B11 120 each, every other kernel 0),
+              poses/s of each, RMSD to the prep-cache pose; then phase 8's
+              profile of the bf16 dock beside phase 8's f32 numbers
 The second-to-last lines are the kernels JSON and the nvidia-smi line; the
 last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -90,15 +117,23 @@ SAMPLE = os.path.join(ROOT, "runs/eval_r5_scsrc/prep_cache/3dbs_r12.npz")
 CKPT = os.path.join(ROOT, "runs/diff_r2/ckpt_best.npz")
 PREP = os.path.join(ROOT, "runs/eval_r5_scsrc/prep_cache")
 FIXTURE = os.path.join(ROOT, "tests/fixtures/torch_port_ref.npz")
+FIXTURE_BF16 = os.path.join(ROOT, "tests/fixtures/torch_bf16_ref.npz")
 DEV = "cuda"
 DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 300,
              "forward": 180, "dock": 300, "profile": 120, "bwd_kernels": 480,
              "train_parity": 180, "train": 300, "rm_kernels": 240, "rm_forward": 120,
-             "rm_dock": 300, "rm_profile": 120, "rm_grad": 180}
+             "rm_dock": 300, "rm_profile": 120, "rm_grad": 180, "probe_bf16": 120,
+             "bf16_kernels": 240, "bf16_forward": 120, "bf16_dock": 300}
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
-# tensor cores, HBM3 bandwidth
+# tensor cores, HBM3 bandwidth; bf16 outside the tensor cores (packed
+# bf16x2, two per fp32 lane: the H100 white paper's non-tensor BF16 rate,
+# an fma counted as 2)
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_BF16X2 = 2 * PEAK_FP32
+# separately rounded bf16 operations (bf16x2 mul.rn and add.rn, one result
+# per lane each, at the fp32 lane rate): half the fma-counted rate
+PEAK_BF16X2_ROUNDED = PEAK_BF16X2 / 2
 KERNELS = {
     "cross_conv": ("diffbindfr_torch/csrc/cross_conv.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:693"),
     "pair_conv": ("diffbindfr_torch/csrc/pair_conv.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:433"),
@@ -126,6 +161,28 @@ RM_MODES = {"cmt": ({}, tuple(KERNELS)),
             "fused_epilogue": (dict(pallas_layout="rowmajor", fused_epilogue=True),
                                ("cross_conv_fin", "pair_conv_fin", "knn_conv_fin")),
             "fused_layer": (dict(pallas_layout="rowmajor", fused_layer=True), ("layer_conv",))}
+# B11, the bf16-chain kernels: launch counter -> (source, replaced TPU kernel, f32 twin)
+BF16_KERNELS = {
+    "cross_conv_bf16": ("diffbindfr_torch/csrc/cross_conv.cu",
+                        "diffbindfr_tpu/nn/pallas_conv_t.py:693", "cross_conv"),
+    "pair_conv_bf16": ("diffbindfr_torch/csrc/pair_conv.cu",
+                       "diffbindfr_tpu/nn/pallas_conv_t.py:433", "pair_conv"),
+    "knn_conv_bf16": ("diffbindfr_torch/csrc/knn_conv.cu",
+                      "diffbindfr_tpu/nn/pallas_conv_t.py:935", "knn_conv"),
+}
+# B11 against its plain bf16 version, max|err| / max|ref|: a TP weight or cb
+# entry that the kernel's and torch's f32 MLP orders put on either side of a
+# bf16 rounding boundary moves one term by one bf16 unit (measured <= 1.1e-3
+# at layers 0 and 5, B = 16, on the H100). The control, the f32 kernel
+# (B1-B3) on the same inputs, must lie beyond the gate.
+BF16_GATE = 2.5e-3
+# the full-width bf16 forward against the JAX fixture, per field (the bounds
+# of tests/test_torch_bf16.py FULL_WIDTH_TOL, which says why); for the
+# fields of BF16_SEPARATING the bound must also lie below the control, the
+# f32 forward's distance to the same fixture in the same run
+BF16_FORWARD_TOL = {"tr": 4e-3, "rot": 3e-3, "tor": 1e-1, "sc_tor": 1e-1}
+BF16_SEPARATING = ("tr", "rot", "tor")
+PROBE = ("diffbindfr_torch/csrc/probe_bf16.cu", "tools/probe_bf16.py:48")
 SCHED = {"tr_sigma_min": 0.1, "tr_sigma_max": 6.0, "rot_sigma_min": 0.03,
          "rot_sigma_max": 1.55, "tor_sigma_min": 0.0314, "tor_sigma_max": 3.14,
          "sc_tor_sigma_min": 0.0314, "sc_tor_sigma_max": 3.14}
@@ -645,7 +702,7 @@ def phase_tables(torch, np, sp, sn, scfg):
             raise AssertionError(f"{name} score-norm table on the card disagrees with the CPU")
 
 
-def phase_profile(torch, sp, params, cfg, s_np):
+def phase_profile(torch, sp, params, cfg, s_np, names=tuple(KERNELS), what="2 steps, B=16"):
     """Device time by kernel over 2 sampler steps of the 16-pose batch."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -662,7 +719,7 @@ def phase_profile(torch, sp, params, cfg, s_np):
             sp.sample(params, cfg, scfg, batch, noise)
             torch.cuda.synchronize()
             wall = time.time() - t0
-    return report_profile(prof, wall, "2 steps, B=16", list(KERNELS), steps=2)
+    return report_profile(prof, wall, what, list(names), steps=2)
 
 
 def report_profile(prof, wall, what, names, steps=None):
@@ -1062,6 +1119,213 @@ def phase_rm_grad(torch, sn, params, s_np):
                              f"{launches} launches")
 
 
+def phase_probe_bf16(torch, results):
+    """P1: each variant's kernel against its plain chain, then the sweep
+    times; returns the bf16x2 mul/add rate (rounded operations per second)
+    at the size that fills the card."""
+    from diffbindfr_torch.probes import bf16_chain as P
+
+    tols = {"f32_fma": 1e-5, "bf16x2_mul_add": 0.0, "bf16x2_fma": 2.0 ** -8}
+    checks = {}
+    for v in P.VARIANTS:
+        x, w = P.inputs(256, 1024, v, DEV)
+        got = P.chain(x, w, 8, v).float()
+        ref = P.chain_plain(x, w, 8, v).float()
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(got, ref), float((got - ref).abs().max())
+        checks[v] = (err, abs_err)
+        print(f"  {v}: kernel vs plain at 8 steps, max|err|/max|ref| {err:.2e}", flush=True)
+        if not bool(torch.isfinite(got).all()) or err > tols[v]:
+            raise AssertionError(f"probe {v}: kernel disagrees with plain ({err:.3e})")
+    rate = None
+    for rows in (256, 8192):
+        P.reset_launches()
+        res = P.measure(rows=rows, lanes=1024, reps=2000, iters=20, device=DEV)
+        launches = dict(P.launches)
+        if not all(launches.values()):
+            raise AssertionError(f"probe kernels not launched: {launches}")
+        for v, r in res.items():
+            elems, dt = rows * 1024, P.dtype_of(v)
+            x, w = P.inputs(rows, 1024, v, DEV)
+            plain_ms = time_ms(lambda: P.chain_plain(x, w, r["reps"], v), 0, 1)
+            # each step: a multiply and two adds per element (an fma counts 2)
+            ops = 3.0 * elems * r["reps"]
+            peak = {"f32_fma": PEAK_FP32, "bf16x2_mul_add": PEAK_BF16X2_ROUNDED,
+                    "bf16x2_fma": PEAK_BF16X2}[v]
+            byts = 3.0 * elems * torch.finfo(dt).bits / 8
+            bound_ms = max(ops / peak, byts / PEAK_BYTES) * 1e3
+            print(f"  {v} {rows} x 1024: {r['ms_r']:.4f} ms at {r['reps']} steps, "
+                  f"{r['ms_2r']:.4f} ms at {2 * r['reps']}: {r['us_per_sweep']:.4f} us per sweep, "
+                  f"{r['gflops']:.0f} GFLOP/s (2 per element), {r['gops']:.0f} G rounded "
+                  f"operations/s; plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms", flush=True)
+            if rows == 8192:
+                results[f"probe_bf16/{v}"] = dict(
+                    r, launches=launches[f"probe_bf16/{v}"], max_rel_err=checks[v][0],
+                    max_abs_err=checks[v][1], ms=r["ms_r"], plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by="operations" if ops / peak >= byts / PEAK_BYTES
+                    else "bytes")
+        rate = res["bf16x2_mul_add"]["gops"] * 1e9
+        f32 = res["f32_fma"]["gflops"]
+        print(f"  {rows} x 1024: bf16x2 mul/add {res['bf16x2_mul_add']['gflops'] / f32:.2f}x, "
+              f"bf16x2 fma {res['bf16x2_fma']['gflops'] / f32:.2f}x the f32 fma rate", flush=True)
+    return rate
+
+
+def chain_ops(c):
+    """Per pair and TP-weight MLP of a conv: (fp32 operations of the f32
+    chain as work() counts them, fp32 operations of the B11 chain: cb =
+    sh @ ck and one add per output column into the pair sums, bf16
+    operations of the B11 chain: per output column d1 products x * w, d1
+    products by cb and d1 - 1 adds)."""
+    ck, meta = c.tables
+    f32_chain = float(sum(2 * int(m[2]) + 2 for m in meta)) + 2 * 9 * ck.shape[1]
+    b11_f32 = 2.0 * 9 * ck.shape[1] + len(meta)
+    b11_bf16 = float(sum(3 * int(m[2]) - 1 for m in meta))
+    return f32_chain, b11_f32, b11_bf16
+
+
+def phase_bf16_kernels(torch, params, s_np, results, bf16_rate):
+    """B11 against its plain bf16 version at the dock shapes, on the
+    bf16-rounded weights the score net hands the kernels. The bound takes
+    the chain's bf16 operations at the card's peak for separately rounded
+    bf16x2 operations; `bf16_rate`, P1's measured mul/add rate, is printed
+    beside it."""
+    from diffbindfr_torch.models import score_net as sn
+    from diffbindfr_torch.nn import trunk_convs as TC
+
+    f32 = {k: getattr(TC, v[2]) for k, v in BF16_KERNELS.items()}
+    wrapper = {k: functools.partial(fn, bf16_chain=True) for k, fn in f32.items()}
+    plain = {k: functools.partial(getattr(TC, v[2] + "_plain"), bf16_chain=True)
+             for k, v in BF16_KERNELS.items()}
+    print(f"  bound rates: fp32 {PEAK_FP32:.3g}/s, bf16 rounded operations "
+          f"{PEAK_BF16X2_ROUNDED:.3g}/s (P1 measured {bf16_rate:.3g}/s)", flush=True)
+    p16 = sn._cast_f32_leaves(params, torch.bfloat16)
+    for layer, bsz in ((0, 16), (5, 16)):
+        args = kernel_inputs(torch, p16, s_np, layer, bsz, seed=layer * 100 + bsz)
+        for name, (_, _, twin) in BF16_KERNELS.items():
+            a = args[twin]
+            with torch.no_grad():
+                got, ref, g32 = (fn(*a) for fn in (wrapper[name], plain[name], f32[name]))
+                torch.cuda.synchronize()
+                got, ref, g32 = ((x if isinstance(x, tuple) else (x,)) for x in (got, ref, g32))
+                err = max(rel_err(g_, r_) for g_, r_ in zip(got, ref))
+                abs_err = max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
+                # the control: the f32 kernel (B1-B3) against the plain bf16 version
+                ctl = max(rel_err(g_, r_) for g_, r_ in zip(g32, ref))
+                finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
+                # rows of masked targets: exactly 0
+                masks = {"pair_conv_bf16": (a[5],), "cross_conv_bf16": (a[5], a[6]),
+                         "knn_conv_bf16": (a[5].sum(-1),)}[name]
+                dead = all(bool((g_[m_ <= 0] == 0).all()) for g_, m_ in zip(got, masks))
+                ms = time_ms(lambda: wrapper[name](*a), 3, 10)
+                plain_ms = time_ms(lambda: plain[name](*a), 1, 2)
+            flops, byts, pairs = work(torch, twin, a)
+            f32_chain, b11_f32, b11_bf16 = chain_ops(a[0])
+            n_tp = 2 if twin == "cross_conv" else 1
+            ops32 = flops - pairs * n_tp * (f32_chain - b11_f32)
+            ops16 = pairs * n_tp * b11_bf16
+            t_ops = ops32 / PEAK_FP32 + ops16 / PEAK_BF16X2_ROUNDED
+            t_bytes = byts / PEAK_BYTES
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            row = dict(layer=layer, batch=bsz, max_rel_err=err, max_abs_err=abs_err,
+                       control=ctl, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, pairs=pairs,
+                       fp32_ops=ops32, bf16_ops=ops16, bytes=byts,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes")
+            results.setdefault(name, []).append(row)
+            print(f"  {name} layer {layer} B={bsz}: max|err|/max|ref| {err:.2e} (control: the "
+                  f"f32 kernel {ctl:.2e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound "
+                  f"{bound_ms:.3f} ms ({row['bound_by']}; {ops32:.3g} fp32 + {ops16:.3g} bf16 "
+                  f"operations) pairs {pairs:.0f}", flush=True)
+            if not finite or not dead or err > BF16_GATE:
+                raise AssertionError(f"{name} layer {layer}: kernel disagrees with plain "
+                                     f"({err:.3e}, dead rows zero: {dead})")
+            if not BF16_GATE < ctl:
+                raise AssertionError(f"{name} layer {layer}: the gate {BF16_GATE:g} cannot tell "
+                                     f"the bf16 chain from f32 (control {ctl:.3e})")
+
+
+def phase_bf16_forward(torch, np, sn, TC, params, s_np):
+    ref, ref32 = np.load(FIXTURE_BF16), np.load(FIXTURE)
+    fs = s_np._replace(lig_pos=(s_np.lig_pos + ref["shift"]) * s_np.lig_mask[:, None])
+    from diffbindfr_torch.data.sample import stack_samples, to_device
+
+    batch = to_device(stack_samples([fs]), DEV)
+    t = torch.tensor([float(ref["t"])], device=DEV)
+    sig = sn.sigmas_from_t(t, SCHED)
+    cfg = sn.ScoreNetConfig(compute_dtype="bfloat16")
+    TC.reset_launches()
+    with torch.no_grad():
+        out = sn.apply(params, cfg, batch, t, sig, use_kernels=True)
+        torch.cuda.synchronize()
+        counts = dict(TC.launches)
+        ms = time_ms(lambda: sn.apply(params, cfg, batch, t, sig, use_kernels=True), 1, 3)
+        # the control: the f32 forward, which is what ignoring compute_dtype gives
+        out32 = sn.apply(params, sn.ScoreNetConfig(), batch, t, sig, use_kernels=True)
+    bad = []
+    for f, tol in BF16_FORWARD_TOL.items():
+        got, ref16 = getattr(out, f)[0], torch.from_numpy(ref[f]).to(DEV)
+        err, ctl = rel_err(got, ref16), rel_err(getattr(out32, f)[0], ref16)
+        err32 = rel_err(got, torch.from_numpy(ref32[f]).to(DEV))
+        print(f"  {f}: vs the JAX bf16 fixture {err:.2e} (bound {tol:g}); the f32 forward vs "
+              f"it (control) {ctl:.2e}; vs the f32 fixture {err32:.2e}", flush=True)
+        if not bool(torch.isfinite(got).all()) or not err <= tol or (
+                f in BF16_SEPARATING and not tol < ctl):
+            bad.append(f)
+    want = {k: cfg.num_conv_layers if k in BF16_KERNELS else 0 for k in TC.launches}
+    print(f"  full-width bf16 forward B=1: {ms:.2f} ms; launches {counts}", flush=True)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    if bad:
+        raise AssertionError(f"bf16 forward disagrees with the JAX fixture on {bad}")
+
+
+def phase_bf16_dock(torch, np, sn, sp, pipeline, TC, params, s_np, smi, cmt_profile):
+    """The f32 cmt dock and the bf16 dock in turns, then phase 8's profile
+    of the bf16 dock (`cmt_profile`: phase 8's f32 numbers); returns the
+    bf16 dock's launch counts."""
+    prepared = [pipeline.PreparedPair.from_prep_cache(SAMPLE)]
+    scfg = sp.SamplerConfig()
+    cfgs = {"f32": sn.ScoreNetConfig(), "bf16": sn.ScoreNetConfig(compute_dtype="bfloat16")}
+    names = {"f32": tuple(KERNELS), "bf16": tuple(BF16_KERNELS)}
+    n_poses, want_n = 16, cfgs["f32"].num_conv_layers * scfg.actual_steps
+    for m, cfg in cfgs.items():  # warm-up: 2 steps of each
+        pipeline.dock(prepared, params, cfg, sp.SamplerConfig(actual_steps=2), num_poses=n_poses,
+                      batch_size=n_poses, seed=1, device=DEV, verbose=False)
+    torch.cuda.synchronize()
+    rates, counts = {m: [] for m in cfgs}, {}
+    mask = s_np.lig_mask > 0
+    for m in ("f32", "bf16", "bf16", "f32"):
+        TC.reset_launches()
+        t0 = time.time()
+        res = pipeline.dock(prepared, params, cfgs[m], scfg, num_poses=n_poses,
+                            batch_size=n_poses, seed=0, device=DEV, verbose=False)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        counts[m] = dict(TC.launches)
+        lig = np.stack([r.lig_pos for r in res])
+        finite = bool(np.isfinite(lig).all() and all(np.isfinite(r.atom14_pos).all() for r in res))
+        rates[m].append(n_poses / dt)
+        rmsd = np.sqrt(((lig[:, mask] - s_np.lig_pos[mask]) ** 2).sum(-1).mean(-1))
+        want = {k: (want_n if k in names[m] else 0) for k in TC.launches}
+        print(f"  {m}: {n_poses} poses, {scfg.actual_steps} steps in {dt:.3f} s: "
+              f"{n_poses / dt:.3f} poses/s; RMSD to the prep-cache pose min {rmsd.min():.3f} A, "
+              f"median {np.median(rmsd):.3f} A; launches {counts[m]}", flush=True)
+        if counts[m] != want:
+            raise AssertionError(f"{m}: launch counts {counts[m]}, expected {want}")
+        if not finite:
+            raise AssertionError(f"{m}: non-finite poses")
+    print("  poses/s on " + smi + ": " + "; ".join(
+        f"{m} " + ", ".join(f"{r:.3f}" for r in v) for m, v in rates.items()), flush=True)
+    prof = {"f32": cmt_profile,
+            "bf16": phase_profile(torch, sp, params, cfgs["bf16"], s_np, BF16_KERNELS,
+                                  "bf16: 2 steps, B=16")}
+    print("  per step (device ms, busy share, trunk share, kernel launches): " + "; ".join(
+        f"{m} " + ("not measured" if v is None else
+                   f"{v[0] / 2:.1f} ms, {100 * v[1]:.1f}%, {100 * v[2]:.1f}%, {v[3]:.0f}")
+        for m, v in prof.items()), flush=True)
+    return counts["bf16"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1095,6 +1359,8 @@ def main() -> int:
         for line in "\n".join(cuda_build.build_log).splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print("  " + line.strip(), flush=True)
+            elif "Compiling entry function" in line:  # the kernel the next lines describe
+                print("  " + line.strip().replace("ptxas info    : ", "")[:100], flush=True)
 
     with Phase("load"):
         params, step = load_checkpoint(CKPT, use_ema=True, device=DEV)
@@ -1202,6 +1468,19 @@ def main() -> int:
     with Phase("rm_grad"):
         phase_rm_grad(torch, sn, params, s_np)
 
+    with Phase("probe_bf16"):
+        bf16_rate = phase_probe_bf16(torch, per_kernel)
+
+    with Phase("bf16_kernels"):
+        phase_bf16_kernels(torch, params, s_np, per_kernel, bf16_rate)
+
+    with Phase("bf16_forward"):
+        phase_bf16_forward(torch, np, sn, TC, params, s_np)
+
+    with Phase("bf16_dock"):
+        bf16_counts = phase_bf16_dock(torch, np, sn, sp, pipeline, TC, params, s_np, smi,
+                                      cmt_profile)
+
     rows = []
     for name, (src, repl) in KERNELS.items():
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]
@@ -1233,6 +1512,23 @@ def main() -> int:
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 16})
+    for name, (src, repl, _) in BF16_KERNELS.items():
+        # the dock shapes at layer 5; launches from the bf16 dock
+        main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                     "launches": bf16_counts[name], "max_abs_err": main_row["max_abs_err"],
+                     "max_rel_err": main_row["max_rel_err"], "ms": main_row["ms"],
+                     "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+                     "bound_by": main_row["bound_by"], "library_ms": None,
+                     "layer": 5, "batch": 16})
+    for name in sorted(k for k in per_kernel if k.startswith("probe_bf16/")):
+        r = per_kernel[name]
+        # 8192 x 1024 elements, 2000 steps; launches from its measurement
+        rows.append({"name": name, "route": "cuda", "source": PROBE[0], "replaces": PROBE[1],
+                     "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                     "max_rel_err": r["max_rel_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                     "rows": r["rows"], "reps": r["reps"], "gflops": r["gflops"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,12 @@
 // diffbindfr_tpu/nn/pallas_conv.py:make_knn_conv(fin=) (the pallas_call at
 // :1225): sums / max(sum of valid, 1) -> irreps Linear -> LayerNorm, as a
 // per-block epilogue (conv_fin.cuh); `cnt` is the valid count per target.
+//
+// B11-knn: dbfr_knn_conv_bf16 is B3 with the bf16 depthwise chain of
+// make_knn_conv_t(dw_dtype='bfloat16') (trunk_conv.cuh conv_sums<., true>):
+// the gathered neighbour rows and the target scalars move rounded to bf16
+// (pallas_conv_t.py:842, :848), so both scalar halves of the TP-weight MLP
+// input are rounded.
 #include "conv_fin.cuh"
 
 namespace {
@@ -20,18 +26,18 @@ __global__ void __launch_bounds__(dbfr::kThreads, 2) knn_conv_kernel(dbfr::ConvA
 __global__ void __launch_bounds__(dbfr::kThreads, 2) knn_conv_fin_kernel(dbfr::ConvArgs a) {
   dbfr::conv_fin_block<dbfr::kKnn>(a);
 }
-}  // namespace
 
-extern "C" int dbfr_knn_conv_fin(
+__global__ void __launch_bounds__(dbfr::kThreads, 2) knn_conv_bf16_kernel(dbfr::ConvArgs a) {
+  dbfr::conv_block<dbfr::kKnn, true>(a);
+}
+
+dbfr::ConvArgs knn_args(
     const void* pos, const void* x, const void* idx, const void* valid,
     const void* cutoff, const void* w1, const void* b1, const void* w2,
     const void* b2, const void* wf1, const void* bf1, const void* wf2,
     const void* bf2, const void* ck, const void* gs_off, const void* out_meta,
-    void* out, int batch, int n, int k, int din, int dout, int ns, int he,
-    int hf, int nw, int kdim, int gs_n, float gs_coeff, const void* cnt,
-    const void* mix_w, const void* ln_w, const void* ln_ms, const void* ln_b,
-    const void* mix_meta, const void* ln_slots, int out_dim, int n_slots, int mix_numel,
-    void* stream) {
+    void* out, int n, int k, int din, int dout, int ns, int he,
+    int hf, int nw, int kdim, int gs_n, float gs_coeff) {
   dbfr::ConvArgs a = {};
   a.tgt_pos = (const float*)pos;
   a.src_pos = (const float*)pos;
@@ -65,6 +71,23 @@ extern "C" int dbfr_knn_conv_fin(
   a.kdim = kdim;
   a.gs_n = gs_n;
   a.gs_coeff = gs_coeff;
+  return a;
+}
+}  // namespace
+
+extern "C" int dbfr_knn_conv_fin(
+    const void* pos, const void* x, const void* idx, const void* valid,
+    const void* cutoff, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* wf1, const void* bf1, const void* wf2,
+    const void* bf2, const void* ck, const void* gs_off, const void* out_meta,
+    void* out, int batch, int n, int k, int din, int dout, int ns, int he,
+    int hf, int nw, int kdim, int gs_n, float gs_coeff, const void* cnt,
+    const void* mix_w, const void* ln_w, const void* ln_ms, const void* ln_b,
+    const void* mix_meta, const void* ln_slots, int out_dim, int n_slots, int mix_numel,
+    void* stream) {
+  dbfr::ConvArgs a = knn_args(pos, x, idx, valid, cutoff, w1, b1, w2, b2, wf1, bf1, wf2, bf2,
+                              ck, gs_off, out_meta, out, n, k, din, dout, ns, he, hf, nw, kdim,
+                              gs_n, gs_coeff);
   dbfr::set_fin(a, cnt, mix_w, ln_w, ln_ms, ln_b, mix_meta, ln_slots, out_dim, n_slots,
                 mix_numel);
   return out_dim > 0
@@ -84,4 +107,21 @@ extern "C" int dbfr_knn_conv(
                            gs_off, out_meta, out, batch, n, k, din, dout, ns, he, hf, nw, kdim,
                            gs_n, gs_coeff, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                            nullptr, 0, 0, 0, stream);
+}
+
+// B11-knn: the sums with the bf16 chain (the arguments of dbfr_knn_conv)
+extern "C" int dbfr_knn_conv_bf16(
+    const void* pos, const void* x, const void* idx, const void* valid,
+    const void* cutoff, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* wf1, const void* bf1, const void* wf2,
+    const void* bf2, const void* ck, const void* gs_off, const void* out_meta,
+    void* out, int batch, int n, int k, int din, int dout, int ns, int he,
+    int hf, int nw, int kdim, int gs_n, float gs_coeff, void* stream) {
+  dbfr::ConvArgs a = knn_args(pos, x, idx, valid, cutoff, w1, b1, w2, b2, wf1, bf1, wf2, bf2,
+                              ck, gs_off, out_meta, out, n, k, din, dout, ns, he, hf, nw, kdim,
+                              gs_n, gs_coeff);
+  a.bf16_chain = 1;
+  a.bf_tgt_sc = 1;
+  a.bf_src_sc = 1;
+  return dbfr::launch<dbfr::kKnn>(knn_conv_bf16_kernel, a, batch, (cudaStream_t)stream);
 }

@@ -11,6 +11,11 @@
 // diffbindfr_tpu/nn/pallas_conv.py:make_pair_conv(fin=) (the pallas_call at
 // :653): sums / max(cnt, 1) -> irreps Linear -> LayerNorm, as a per-block
 // epilogue of the same block loop (conv_fin.cuh); out is [B, nt, out_dim].
+//
+// B11-pair: dbfr_pair_conv_bf16 is B2 with the bf16 depthwise chain of
+// make_pair_conv_t(dw_dtype='bfloat16') (trunk_conv.cuh conv_sums<., true>):
+// the target scalars enter the TP-weight MLP rounded to bf16
+// (pallas_conv_t.py:328), the source scalars exact (:332).
 #include "conv_fin.cuh"
 
 namespace {
@@ -21,20 +26,20 @@ __global__ void __launch_bounds__(dbfr::kThreads, 2) pair_conv_kernel(dbfr::Conv
 __global__ void __launch_bounds__(dbfr::kThreads, 2) pair_conv_fin_kernel(dbfr::ConvArgs a) {
   dbfr::conv_fin_block<dbfr::kDense>(a);
 }
-}  // namespace
 
-extern "C" int dbfr_pair_conv_fin(
+__global__ void __launch_bounds__(dbfr::kThreads, 2) pair_conv_bf16_kernel(dbfr::ConvArgs a) {
+  dbfr::conv_block<dbfr::kDense, true>(a);
+}
+
+dbfr::ConvArgs pair_args(
     const void* tgt_pos, const void* src_pos, const void* tgt_x, const void* src_x,
     const void* tgt_mask, const void* src_mask, const void* cab, int cab_on_tgt,
     const void* cutoff, const void* bond_feat, const void* bond_mask,
     const void* w1, const void* b1, const void* w2, const void* b2,
     const void* wf1, const void* bf1, const void* wf2, const void* bf2,
     const void* ck, const void* gs_off, const void* out_meta, void* out,
-    int batch, int nt, int nsrc, int din, int dout, int nb, int ns, int he,
-    int hf, int nw, int kdim, int gs_n, float gs_coeff, int flip,
-    int exclude_self, const void* cnt, const void* mix_w, const void* ln_w,
-    const void* ln_ms, const void* ln_b, const void* mix_meta, const void* ln_slots,
-    int out_dim, int n_slots, int mix_numel, void* stream) {
+    int nt, int nsrc, int din, int dout, int nb, int ns, int he,
+    int hf, int nw, int kdim, int gs_n, float gs_coeff, int flip, int exclude_self) {
   dbfr::ConvArgs a = {};
   a.tgt_pos = (const float*)tgt_pos;
   a.src_pos = (const float*)src_pos;
@@ -74,6 +79,26 @@ extern "C" int dbfr_pair_conv_fin(
   a.flip = flip;
   a.cab_on_tgt = cab_on_tgt;
   a.exclude_self = exclude_self;
+  return a;
+}
+}  // namespace
+
+extern "C" int dbfr_pair_conv_fin(
+    const void* tgt_pos, const void* src_pos, const void* tgt_x, const void* src_x,
+    const void* tgt_mask, const void* src_mask, const void* cab, int cab_on_tgt,
+    const void* cutoff, const void* bond_feat, const void* bond_mask,
+    const void* w1, const void* b1, const void* w2, const void* b2,
+    const void* wf1, const void* bf1, const void* wf2, const void* bf2,
+    const void* ck, const void* gs_off, const void* out_meta, void* out,
+    int batch, int nt, int nsrc, int din, int dout, int nb, int ns, int he,
+    int hf, int nw, int kdim, int gs_n, float gs_coeff, int flip,
+    int exclude_self, const void* cnt, const void* mix_w, const void* ln_w,
+    const void* ln_ms, const void* ln_b, const void* mix_meta, const void* ln_slots,
+    int out_dim, int n_slots, int mix_numel, void* stream) {
+  dbfr::ConvArgs a = pair_args(tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab,
+                               cab_on_tgt, cutoff, bond_feat, bond_mask, w1, b1, w2, b2, wf1,
+                               bf1, wf2, bf2, ck, gs_off, out_meta, out, nt, nsrc, din, dout,
+                               nb, ns, he, hf, nw, kdim, gs_n, gs_coeff, flip, exclude_self);
   dbfr::set_fin(a, cnt, mix_w, ln_w, ln_ms, ln_b, mix_meta, ln_slots, out_dim, n_slots,
                 mix_numel);
   return out_dim > 0
@@ -97,4 +122,24 @@ extern "C" int dbfr_pair_conv(
                             ck, gs_off, out_meta, out, batch, nt, nsrc, din, dout, nb, ns, he,
                             hf, nw, kdim, gs_n, gs_coeff, flip, exclude_self, nullptr, nullptr,
                             nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, stream);
+}
+
+// B11-pair: the sums with the bf16 chain (the arguments of dbfr_pair_conv)
+extern "C" int dbfr_pair_conv_bf16(
+    const void* tgt_pos, const void* src_pos, const void* tgt_x, const void* src_x,
+    const void* tgt_mask, const void* src_mask, const void* cab, int cab_on_tgt,
+    const void* cutoff, const void* bond_feat, const void* bond_mask,
+    const void* w1, const void* b1, const void* w2, const void* b2,
+    const void* wf1, const void* bf1, const void* wf2, const void* bf2,
+    const void* ck, const void* gs_off, const void* out_meta, void* out,
+    int batch, int nt, int nsrc, int din, int dout, int nb, int ns, int he,
+    int hf, int nw, int kdim, int gs_n, float gs_coeff, int flip,
+    int exclude_self, void* stream) {
+  dbfr::ConvArgs a = pair_args(tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab,
+                               cab_on_tgt, cutoff, bond_feat, bond_mask, w1, b1, w2, b2, wf1,
+                               bf1, wf2, bf2, ck, gs_off, out_meta, out, nt, nsrc, din, dout,
+                               nb, ns, he, hf, nw, kdim, gs_n, gs_coeff, flip, exclude_self);
+  a.bf16_chain = 1;
+  a.bf_tgt_sc = 1;
+  return dbfr::launch<dbfr::kDense>(pair_conv_bf16_kernel, a, batch, (cudaStream_t)stream);
 }

@@ -21,10 +21,24 @@
 // conv_sums() is the pair loop alone, so that the finalize kernels
 // (conv_fin.cuh: B7-B9 with fin, B10) run it and then their epilogue on the
 // block's complete sums.
+//
+// B11, the bf16 chain (conv_sums<MODE, true>; the JAX kernels with
+// dw_dtype='bfloat16', diffbindfr_tpu/nn/pallas_conv_t.py:200-250): the MLPs
+// stay fp32, but the TP weights w and the cb rows leave their products as
+// bf16 tiles, the source rows are staged as bf16 beside them (half the
+// footprint of fp32 tiles: they fit the fp32 plan's regions), the target
+// and/or source scalars enter the TP-weight MLP rounded to bf16 where the
+// reference moves them at one bf16 pass (ConvArgs::bf_tgt_sc, bf_src_sc),
+// and the chain runs two pairs per packed bf16x2 register in the
+// reference's order: bs = x_i * w, t = bs * cb_i, z = z + t over i, each
+// product and sum rounded once (bf16x2.cuh; an fma would round once fewer).
+// Every sum over pairs stays fp32.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bf16x2.cuh"
 
 namespace dbfr {
 
@@ -37,6 +51,8 @@ constexpr int kKnnGroup = 4;   // knn owned nodes per block (4 x 16 = 64 pairs)
 constexpr int kDenseCands = 1024;  // dense mode: at most 1024 candidates per block
 constexpr int kMaxGroup = 8;       // and at most 8 owned nodes, one per 128
 constexpr int kMaxInPaths = 8;     // backward: TP paths reading one input column
+constexpr int kHStride = 36;       // B11: bf16 tiles, pair stride in bf16 elements
+constexpr int kHWords = kHStride / 2;  // and in 32-bit words (two pairs per word)
 
 // kDense: candidates = (owned node, every node of the other side);
 // kKnn: the owned targets' neighbour-list slots; kKnnRev (backward only):
@@ -72,6 +88,9 @@ struct ConvArgs {
   float gs_coeff;
   int flip, cab_on_tgt, exclude_self;
   int g;  // owned nodes per block, set by the launcher
+  // ---- B11 only: the bf16 chain, and which scalar rows of the TP-weight
+  // MLP input are rounded to bf16 (target, source)
+  int bf16_chain, bf_tgt_sc, bf_src_sc;
   // ---- backward only (trunk_conv_bwd.cuh)
   const float* gout;     // [B, nt, dout] cotangent of out
   const float* wf2t;     // [nw, hf] = wf2^T
@@ -140,6 +159,10 @@ __host__ __device__ inline Plan make_plan(const ConvArgs& a, int mode) {
   p.sh = 9 * kStride;
   p.acc = round4(a.g * a.dout);
   p.list = round4(a.g * per_owned(a, mode));
+  if (a.bf16_chain) {  // bf16 tiles: w in r1; cb, then the source rows, in r2
+    p.r1 = imax(p.r1, round4(a.nw * kHWords));
+    p.r2 = imax(p.r2, round4((a.kdim + a.din) * kHWords));
+  }
   p.oacc = 0;
   p.stats = 0;
   if (a.out_dim > 0) {
@@ -173,7 +196,9 @@ __host__ __device__ inline Plan max_plan(const Plan& x, const Plan& y) {
 // out[n][p] = act(sum_k in[k][p] * W[k][n] + bias[n]) for the 32 pairs of a
 // chunk; in/out are [rows][kStride] tiles (never the same rows), W is
 // row-major [K][N] in global memory. Thread (warp w, lane l) owns pairs
-// 4w..4w+3 and columns l + 32 j.
+// 4w..4w+3 and columns l + 32 j. BF_OUT: out is a bf16 [rows][kHStride]
+// tile of the results rounded to nearest even (no activation).
+template <bool BF_OUT = false>
 __device__ __forceinline__ void gemm(const float* in, int K,
                                      const float* __restrict__ W,
                                      const float* __restrict__ bias, int N,
@@ -215,7 +240,12 @@ __device__ __forceinline__ void gemm(const float* in, int K,
 #pragma unroll
   for (int j = 0; j < kMaxJ; ++j) {
     const int n = lane + 32 * j;
-    if (32 * j < N && n < N) {
+    if (BF_OUT && 32 * j < N && n < N) {
+      const uint2 v = make_uint2(
+          (uint32_t)to_bf16_bits(acc[0][j]) | ((uint32_t)to_bf16_bits(acc[1][j]) << 16),
+          (uint32_t)to_bf16_bits(acc[2][j]) | ((uint32_t)to_bf16_bits(acc[3][j]) << 16));
+      *reinterpret_cast<uint2*>(reinterpret_cast<uint16_t*>(out) + n * kHStride + p0) = v;
+    } else if (32 * j < N && n < N) {
       float4 v = make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
       if (relu) {
         v.x = fmaxf(v.x, 0.f);
@@ -379,7 +409,9 @@ __device__ __forceinline__ void load_chunk(const ConvArgs& a, int b, int own0, c
 
 // 3. Edge-MLP input rows [Gaussian (gs_n) | bond features (nb)] -> in_rows,
 // and 4. the scalar rows [tgt (ns) | src (ns)] of the TP-weight MLP input ->
-// sc_rows. Lanes beyond the chunk's n pairs are zero.
+// sc_rows (BF: rounded to bf16 where a.bf_tgt_sc / a.bf_src_sc say). Lanes
+// beyond the chunk's n pairs are zero.
+template <bool BF = false>
 __device__ __forceinline__ void input_rows(const ConvArgs& a, int b, int n, Slots sl,
                                            float* in_rows, float* sc_rows) {
   const int ke = a.gs_n + a.nb;
@@ -403,6 +435,7 @@ __device__ __forceinline__ void input_rows(const ConvArgs& a, int b, int n, Slot
     if (p < n) {
       v = r < a.ns ? a.tgt_x[((size_t)b * a.nt + sl.t[p]) * a.din + r]
                    : a.src_x[((size_t)b * a.nsrc + sl.s[p]) * a.din + (r - a.ns)];
+      if (BF && (r < a.ns ? a.bf_tgt_sc : a.bf_src_sc)) v = __bfloat162float(__float2bfloat16_rn(v));
     }
     sc_rows[r * kStride + p] = v;
   }
@@ -420,6 +453,56 @@ __device__ __forceinline__ void mlp_forward(const ConvArgs& a, int b, float* in_
   gemm(e, 3 * a.ns, a.wf1, a.bf1, a.hf, h, true, ws);
   gemm(h, a.hf, a.wf2, a.bf2, a.nw, w, false, ws);
   gemm(shs, 9, a.ck, nullptr, a.kdim, cb, false, ws);
+}
+
+// B11: the same MLPs, with w and cb written as bf16 tiles
+__device__ __forceinline__ void mlp_forward_bf16(const ConvArgs& a, int b, float* in_rows,
+                                                 float* h1, float* e, float* h, float* w,
+                                                 float* cb, const float* shs, float* ws) {
+  const int ke = a.gs_n + a.nb;
+  gemm(in_rows, ke, a.w1, a.b1 + (size_t)b * a.he, a.he, h1, true, ws);
+  gemm(h1, a.he, a.w2, a.b2, a.ns, e, false, ws);
+  gemm(e, 3 * a.ns, a.wf1, a.bf1, a.hf, h, true, ws);
+  gemm<true>(h, a.hf, a.wf2, a.bf2, a.nw, w, false, ws);
+  gemm<true>(shs, 9, a.ck, nullptr, a.kdim, cb, false, ws);
+}
+
+// B11: the chunk's source rows as a bf16 tile [din][kHStride] (lanes beyond
+// n are zero); the caller synchronises
+__device__ __forceinline__ void stage_src_bf16(const ConvArgs& a, int b, int n, Slots sl,
+                                               uint16_t* xb) {
+  for (int i = threadIdx.x; i < a.din * kPairs; i += kThreads) {
+    const int p = i / a.din, c = i % a.din;
+    const float v = p < n ? a.src_x[((size_t)b * a.nsrc + sl.s[p]) * a.din + c] : 0.f;
+    xb[c * kHStride + p] = to_bf16_bits(v);
+  }
+}
+
+// B11: thread o owns output column o: per pair of pairs, the path's chain
+// z = sum_i (x_i * w) * cb_i in bf16x2, then both halves into the owners'
+// fp32 sums
+__device__ __forceinline__ void chain_bf16(const ConvArgs& a, int n, Slots sl, const float* r1,
+                                           const float* r2, float* acc) {
+  const uint32_t* wb = reinterpret_cast<const uint32_t*>(r1);
+  const uint32_t* cbb = reinterpret_cast<const uint32_t*>(r2);
+  const uint32_t* xb = cbb + a.kdim * kHWords;
+  const int4* meta = reinterpret_cast<const int4*>(a.out_meta);
+  for (int o = threadIdx.x; o < a.dout; o += kThreads) {
+    const int4 m0 = meta[2 * o];      // a_base, mul, d1, w_idx
+    const int4 m1 = meta[2 * o + 1];  // cb_base, d3
+    const uint32_t* wr = wb + m0.w * kHWords;
+    for (int pp = 0; 2 * pp < n; ++pp) {
+      const uint32_t w2 = wr[pp];
+      uint32_t z = 0u;
+      for (int i = 0; i < m0.z; ++i) {
+        const uint32_t bs = mul_bf16x2(xb[(m0.x + i * m0.y) * kHWords + pp], w2);
+        const uint32_t t = mul_bf16x2(bs, cbb[(m1.x + i * m1.y) * kHWords + pp]);
+        z = i == 0 ? t : add_bf16x2(z, t);
+      }
+      acc[sl.own[2 * pp] * a.dout + o] += lo_f32(z);
+      if (2 * pp + 1 < n) acc[sl.own[2 * pp + 1] * a.dout + o] += hi_f32(z);
+    }
+  }
 }
 
 // The block's shared-memory regions, carved from the dynamic allocation.
@@ -451,8 +534,9 @@ __device__ __forceinline__ Regions carve(const Plan& pl) {
 
 // The masked message sums of targets t0 .. t0 + g - 1 of sample b into
 // R.acc [g][dout] (zeroed here). Ends after a barrier when there was a
-// chunk; callers synchronise before reading acc from other threads.
-template <int MODE>
+// chunk; callers synchronise before reading acc from other threads. BF: the
+// B11 chain.
+template <int MODE, bool BF = false>
 __device__ __forceinline__ void conv_sums(const ConvArgs& a, int b, int t0, const Regions& R) {
   const int tid = threadIdx.x;
   const Slots sl = R.sl;
@@ -467,7 +551,16 @@ __device__ __forceinline__ void conv_sums(const ConvArgs& a, int b, int t0, cons
     const int n = min(kPairs, total - c0);
     load_chunk<MODE>(a, b, t0, R.list, c0, n, sl, R.shs);
     __syncthreads();
-    input_rows(a, b, n, sl, r2, r1 + a.ns * kStride);
+    input_rows<BF>(a, b, n, sl, r2, r1 + a.ns * kStride);
+    if constexpr (BF) {
+      // bf16 tiles: weights -> r1, cb -> r2, then the source rows after cb
+      mlp_forward_bf16(a, b, r2, r2 + ke * kStride, r1, r2, r1, r2, R.shs, R.ws);
+      stage_src_bf16(a, b, n, sl, reinterpret_cast<uint16_t*>(r2) + a.kdim * kHStride);
+      __syncthreads();
+      chain_bf16(a, n, sl, r1, r2, acc);
+      __syncthreads();
+      continue;
+    }
     // edge MLP -> r2[ke:], attr -> r1[0:ns]; hidden -> r2, weights -> r1; cb -> r2
     mlp_forward(a, b, r2, r2 + ke * kStride, r1, r2, r1, r2, R.shs, R.ws);
     // 8. depthwise TP, summed per target: thread o owns output column o
@@ -488,13 +581,13 @@ __device__ __forceinline__ void conv_sums(const ConvArgs& a, int b, int t0, cons
 }
 
 // Body of every forward trunk-conv kernel: block = targets t0 .. t0 + g - 1.
-template <int MODE>
+template <int MODE, bool BF = false>
 __device__ __forceinline__ void conv_block(const ConvArgs& a) {
   const Regions R = carve(make_plan(a, MODE));
   const int b = blockIdx.y;
   const int g = a.g;
   const int t0 = blockIdx.x * g;
-  conv_sums<MODE>(a, b, t0, R);
+  conv_sums<MODE, BF>(a, b, t0, R);
 
   // 9. per-target sums -> out
   for (int i = threadIdx.x; i < g * a.dout; i += kThreads) {

@@ -1,4 +1,4 @@
-"""SE(3)-equivariant diffusion score network ('sep' mode, f32), in PyTorch.
+"""SE(3)-equivariant diffusion score network ('sep' mode), in PyTorch.
 
 Counterpart of diffbindfr_tpu/models/score_net.py. Same graphs, trunk and
 heads: dense ligand-ligand and ligand-pocket pair blocks, a 16-neighbour
@@ -23,6 +23,16 @@ the kernels of each layer, with the JAX package's meaning and precedence
 `use_kernels=False` is the plain XLA-path port and reads none of those
 fields. Every mode is differentiable; `init_params` draws a fresh tree with
 the JAX package's initialisers.
+
+`compute_dtype='bfloat16'` mirrors the JAX package's mixed precision
+(score_net.py:313-322, 628-629, 651, 783 there): the f32 parameters, ligand
+features and time embedding are cast to bf16 inside `apply` (the checkpoint
+stays f32), geometry and masks stay f32, and the heads come back to f32
+before the sigma scaling. The plain path runs its whole trunk in bf16; the
+kernel path keeps the trunk f32 on bf16-rounded weights, as the Pallas path
+does, and under 'cmt' its convs run the bf16 depthwise chain (B11, the
+convs' `bf16_chain`), which is what the JAX package's `pallas_dw_dtype=
+'auto'` gives the cmT kernels under bf16 (score_net.py:208-213 there).
 """
 from __future__ import annotations
 
@@ -46,8 +56,8 @@ SH_IRREPS = "1x0e+1x1o+1x2e"
 
 @dataclasses.dataclass(frozen=True)
 class ScoreNetConfig:
-    """The fields of the JAX ScoreNetConfig that the 'sep' f32 path reads,
-    with the same defaults (the flagship model)."""
+    """The fields of the JAX ScoreNetConfig that the 'sep' path reads, with
+    the same defaults (the flagship model)."""
 
     ns: int = 48
     nv: int = 12
@@ -76,6 +86,15 @@ class ScoreNetConfig:
     pallas_layout: str = "cmt"
     fused_epilogue: bool = False
     fused_layer: bool = False
+
+    # 'bfloat16': the trunk in bf16, heads and sigma scaling in f32; under
+    # 'cmt' the kernels' depthwise chain in bf16 too (B11)
+    compute_dtype: str = "float32"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The trunk's dtype (any value but 'bfloat16' is f32, as in JAX)."""
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
 
     @property
     def kernel_mode(self) -> str:
@@ -193,7 +212,12 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
     dev = s.lig_pos.device
     bidx = torch.arange(bsz, device=dev)
 
-    temb = L.sinusoidal_time_emb(t, cfg.sigma_embed_dim, cfg.emb_scale)  # [B, sed]
+    # mixed precision: geometry and masks stay f32, the trunk runs in cd
+    cd = cfg.dtype
+    if cd != torch.float32:
+        params = _cast_f32_leaves(params, cd)
+        s = s._replace(lig_feat=s.lig_feat.to(cd), lig_e_feat=s.lig_e_feat.to(cd))
+    temb = L.sinusoidal_time_emb(t, cfg.sigma_embed_dim, cfg.emb_scale).to(cd)  # [B, sed]
 
     # ---------------- node embeddings
     lig_x = L.mlp_apply(params["lig_node_emb"],
@@ -201,10 +225,10 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
     atom_x = L.atom_encoder_apply(params["atom_node_emb"], s.atm_feat, _bexp(temb, na))
 
     # ---------------- ligand graph: dense masked pair block
-    bond_feat = lig_x.new_zeros(bsz, nl, nl, cfg.lig_edge_dim)
+    bond_feat = torch.zeros(bsz, nl, nl, cfg.lig_edge_dim, dtype=cd, device=dev)
     bond_feat.index_put_((bidx[:, None], s.lig_e_src, s.lig_e_dst),
-                         s.lig_e_feat * s.lig_e_mask[..., None], accumulate=True)
-    bond_mask = lig_x.new_zeros(bsz, nl, nl)
+                         s.lig_e_feat * s.lig_e_mask[..., None].to(cd), accumulate=True)
+    bond_mask = torch.zeros(bsz, nl, nl, device=dev)
     bond_mask.index_put_((bidx[:, None], s.lig_e_src, s.lig_e_dst), s.lig_e_mask,
                          accumulate=True)
     lig_vec = s.lig_pos[:, None, :, :] - s.lig_pos[:, :, None, :]  # i -> j
@@ -221,7 +245,7 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
     atm_vmask = atm_valid.float()
 
     # ---------------- cross graph: dense [NL, NA]; CA/CB atoms always on
-    cabflag = lig_x.new_zeros(bsz, na)
+    cabflag = torch.zeros(bsz, na, device=dev)
     cabflag.index_put_((bidx[:, None], s.cab_idx), s.cab_mask, accumulate=True)
     cabflag = cabflag > 0
     if cfg.dynamic_max_cross:
@@ -247,8 +271,9 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
         cnt_atm = torch.clamp(atm_vmask.sum(2), min=1.0)
         cab_f = cabflag.float()
         zero_l = torch.zeros_like(s.lig_mask)
-        lig_cm = TC.cm_from_irreps(convs[0].dw.in1, lig_x)
-        atom_cm = TC.cm_from_irreps(convs[0].dw.in1, atom_x)
+        # the trunk stays f32 in kernel mode (JAX score_net.py:437-444)
+        lig_cm = TC.cm_from_irreps(convs[0].dw.in1, lig_x.float())
+        atom_cm = TC.cm_from_irreps(convs[0].dw.in1, atom_x.float())
         graph = dict(s=s, zero_l=zero_l, temb=temb, bond_feat=bond_feat, bond_mask=bond_mask,
                      cab_f=cab_f, cross_cutoff=cross_cutoff, atm_idx=atm_idx,
                      atm_vmask=atm_vmask, cnt_lig=cnt_lig, cnt_al=cnt_al, cnt_la=cnt_la,
@@ -263,20 +288,20 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
 
             lig_cm, atom_cm = _remat(cfg, kernel_layer, lig_cm, atom_cm)
         final_ladder = convs[-1].out
-        lig_x = TC.cm_to_irreps(final_ladder, lig_cm)
-        atom_x = TC.cm_to_irreps(final_ladder, atom_cm)
+        lig_x = TC.cm_to_irreps(final_ladder, lig_cm).to(cd)
+        atom_x = TC.cm_to_irreps(final_ladder, atom_cm).to(cd)
     else:
         lig_e_attr = L.mlp_apply(params["lig_edge_emb"], torch.cat(
-            [bond_feat, _bexp(temb, nl, nl), _gs(cfg, lig_len, cfg.lig_cutoff)], dim=-1))
-        lig_sh = L.sh_l2(lig_vec)
+            [bond_feat, _bexp(temb, nl, nl), _gs(cfg, lig_len, cfg.lig_cutoff).to(cd)], dim=-1))
+        lig_sh = L.sh_l2(lig_vec).to(cd)
         atm_vec = _gather_rows(s.atm_pos, atm_idx) - s.atm_pos[:, :, None, :]
         atm_len = torch.linalg.norm(atm_vec + 1e-9, dim=-1)
         atm_e_attr = L.mlp_apply(params["atom_edge_emb"], torch.cat(
-            [_bexp(temb, na, ka), _gs(cfg, atm_len, cfg.atom_cutoff)], dim=-1))
-        atm_sh = L.sh_l2(atm_vec)
+            [_bexp(temb, na, ka), _gs(cfg, atm_len, cfg.atom_cutoff).to(cd)], dim=-1))
+        atm_sh = L.sh_l2(atm_vec).to(cd)
         la_attr = L.mlp_apply(params["la_edge_emb"], torch.cat(
-            [_bexp(temb, nl, na), _gs(cfg, cross_len, cfg.cross_max_distance)], dim=-1))
-        cross_sh = L.sh_l2(cross_vec)
+            [_bexp(temb, nl, na), _gs(cfg, cross_len, cfg.cross_max_distance).to(cd)], dim=-1))
+        cross_sh = L.sh_l2(cross_vec).to(cd)
         for l in range(cfg.num_conv_layers):
             spec = convs[l]
             lp = {k: params[f"{k}_convs"][l] for k in ("lig", "al", "la", "atom")}
@@ -294,31 +319,34 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
     c_vec = s.lig_pos - center[:, None, :]
     c_len = torch.linalg.norm(c_vec + 1e-12, dim=-1)
     c_attr = L.mlp_apply(params["center_edge_emb"], torch.cat(
-        [_bexp(temb, nl), _gs(cfg, c_len, cfg.center_max_distance)], dim=-1))
+        [_bexp(temb, nl), _gs(cfg, c_len, cfg.center_max_distance).to(cd)], dim=-1))
     c_attr = torch.cat([c_attr, lig_x[..., :ns]], dim=-1)
-    m = L.tp_conv_messages(params["final_conv"], final_spec, lig_x, L.sh_l2(c_vec), c_attr)
+    m = L.tp_conv_messages(params["final_conv"], final_spec, lig_x, L.sh_l2(c_vec).to(cd),
+                           c_attr)
     gp = L.tp_conv_finalize(params["final_conv"], final_spec,
-                            L.masked_mean(m, s.lig_mask, dim=1))  # [B, 12]
+                            L.masked_mean(m, s.lig_mask, dim=1)).float()  # [B, 12]
 
     tr_pred = gp[:, 0:3] + gp[:, 6:9]
     rot_pred = gp[:, 3:6] + gp[:, 9:12]
     if "readout_rot" in params:
         # fixed basis rotation of checkpoints imported from e3nn
-        rot_const = params["readout_rot"].detach()
+        rot_const = params["readout_rot"].detach().float()
         tr_pred = tr_pred @ rot_const.T
         rot_pred = rot_pred @ rot_const.T
+    temb32 = temb.float()
     tr_norm = torch.linalg.norm(tr_pred, dim=-1, keepdim=True) + 1e-12
-    tr_pred = tr_pred / tr_norm * L.mlp_apply(params["tr_final"], torch.cat([tr_norm, temb], -1))
+    tr_pred = tr_pred / tr_norm * L.mlp_apply(params["tr_final"],
+                                              torch.cat([tr_norm, temb32], -1))
     rot_norm = torch.linalg.norm(rot_pred, dim=-1, keepdim=True) + 1e-12
     rot_pred = rot_pred / rot_norm * L.mlp_apply(params["rot_final"],
-                                                 torch.cat([rot_norm, temb], -1))
+                                                 torch.cat([rot_norm, temb32], -1))
 
     # ---------------- ligand pseudotorque head
     tor_pred = _pseudotorque(
         params["tor_edge_emb"], params["tor_bond_conv"], params["tor_final"],
         tor_sh_spec, tor_conv_spec, node_x=lig_x, node_pos=s.lig_pos,
         node_mask=s.lig_mask, bond_src=s.tor_src, bond_dst=s.tor_dst,
-        bond_mask=s.tor_mask, k=min(32, nl), cutoff=cfg.lig_cutoff, cfg=cfg)
+        bond_mask=s.tor_mask, k=min(32, nl), cutoff=cfg.lig_cutoff, cfg=cfg, cd=cd)
 
     # ---------------- side-chain pseudotorque head
     if not cfg.no_sc_torsion:
@@ -328,7 +356,7 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
             tor_sh_spec, tor_conv_spec, node_x=atom_x, node_pos=s.atm_pos,
             node_mask=s.atm_mask, bond_src=s.sc_src.reshape(bsz, -1),
             bond_dst=s.sc_dst.reshape(bsz, -1), bond_mask=s.chi_mask.reshape(bsz, -1),
-            k=24, cutoff=cfg.atom_cutoff, cfg=cfg).reshape(bsz, nres, 4)
+            k=24, cutoff=cfg.atom_cutoff, cfg=cfg, cd=cd).reshape(bsz, nres, 4)
     else:
         sc_pred = torch.zeros_like(s.chi_mask)
 
@@ -345,6 +373,15 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
                        sc_tor=sc_pred * s.chi_mask)
 
 
+def _cast_f32_leaves(tree, dtype):
+    """The parameter tree with its f32 leaves cast to `dtype` (JAX castp)."""
+    if isinstance(tree, dict):
+        return {k: _cast_f32_leaves(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_f32_leaves(v, dtype) for v in tree)
+    return tree.to(dtype) if tree.dtype == torch.float32 else tree
+
+
 def _remat(cfg: ScoreNetConfig, layer, lig, atom):
     """layer(lig, atom), recomputed in the backward when cfg.remat is set."""
     if cfg.remat and torch.is_grad_enabled():
@@ -353,22 +390,25 @@ def _remat(cfg: ScoreNetConfig, layer, lig, atom):
 
 
 def _kernel_layer(params, cfg, lc, lp, g, lig_cm, atom_cm):
-    """One trunk layer through B1-B3, component-major layout; the finalize
-    and residual adds in PyTorch."""
+    """One trunk layer through B1-B3 (B11 with the bf16 chain under 'cmt'),
+    component-major layout; the finalize and residual adds in PyTorch."""
     s, temb = g["s"], g["temb"]
     spec, c_lig, c_cross, c_knn = lc.spec, lc.lig, lc.cross, lc.atom
     out_dim = spec.out.dim
+    # the chain follows compute_dtype in the cmt layout only (JAX 'auto' rule)
+    bf16 = cfg.pallas_layout == "cmt" and cfg.dtype == torch.bfloat16
     lig_sum = TC.pair_conv(
         c_lig, s.lig_pos, s.lig_pos, lig_cm, lig_cm, s.lig_mask, s.lig_mask,
         g["zero_l"], g["zero_l"], temb, cfg.lig_cutoff,
-        TC.pair_params(params["lig_edge_emb"], lp["lig"]["fc"]), g["bond_feat"], g["bond_mask"])
+        TC.pair_params(params["lig_edge_emb"], lp["lig"]["fc"]), g["bond_feat"], g["bond_mask"],
+        bf16_chain=bf16)
     al_sum, la_sum = TC.cross_conv(
         c_cross, s.lig_pos, s.atm_pos, lig_cm, atom_cm, s.lig_mask, s.atm_mask,
         g["cab_f"], temb, g["cross_cutoff"], params["la_edge_emb"], lp["al"]["fc"],
-        lp["la"]["fc"])
+        lp["la"]["fc"], bf16_chain=bf16)
     atm_sum = TC.knn_conv(
         c_knn, s.atm_pos, atom_cm, s.atm_mask, g["atm_idx"], g["atm_vmask"], temb,
-        {"emb": params["atom_edge_emb"], "fc": lp["atom"]["fc"]})
+        {"emb": params["atom_edge_emb"], "fc": lp["atom"]["fc"]}, bf16_chain=bf16)
     lig_update = L.tp_conv_finalize_cm(lp["lig"], spec, lig_sum / g["cnt_lig"][..., None])
     al_update = L.tp_conv_finalize_cm(lp["al"], spec, al_sum / g["cnt_al"][..., None])
     la_update = L.tp_conv_finalize_cm(lp["la"], spec, la_sum / g["cnt_la"][..., None])
@@ -452,28 +492,28 @@ def _plain_layer(spec, lp, ns, lig_x, atom_x, lig_e_attr, lig_sh, lig_pair_mask,
 
 
 def _pseudotorque(emb_p, conv_p, final_p, tor_sh_spec, tor_conv_spec, *, node_x,
-                  node_pos, node_mask, bond_src, bond_dst, bond_mask, k, cutoff, cfg):
+                  node_pos, node_mask, bond_src, bond_dst, bond_mask, k, cutoff, cfg, cd):
     """Bond midpoints gather nearby nodes; edge sh = FullTP(sh(edge),
-    sh_2e(bond)); one scalar score per bond. Batched [B, NB]."""
+    sh_2e(bond)); one scalar score per bond, f32. Batched [B, NB]."""
     ns = cfg.ns
     bsz, nb = bond_src.shape
     bond_vec = _gather_rows(node_pos, bond_dst) - _gather_rows(node_pos, bond_src)
-    bond_sh2 = L.sh_l2(bond_vec)[..., 4:9]
+    bond_sh2 = L.sh_l2(bond_vec)[..., 4:9].to(cd)
     bond_attr = _gather_rows(node_x, bond_src) + _gather_rows(node_x, bond_dst)
     mid = 0.5 * (_gather_rows(node_pos, bond_src) + _gather_rows(node_pos, bond_dst))
     idx, valid = L.knn_edges(mid, node_pos, bond_mask, node_mask, k=k, cutoff=cutoff)
     vec = _gather_rows(node_pos, idx) - mid[:, :, None, :]
     length = torch.linalg.norm(vec + 1e-12, dim=-1)
-    e_attr = L.mlp_apply(emb_p, _gs(cfg, length, cutoff))
+    e_attr = L.mlp_apply(emb_p, _gs(cfg, length, cutoff).to(cd))
     nbr = _gather_rows(node_x, idx)
     e_attr = torch.cat([e_attr, nbr[..., :ns],
                         bond_attr[:, :, None, :ns].expand(bsz, nb, k, ns)], dim=-1)
-    tor_sh = apply_full_tensor_product(tor_sh_spec, L.sh_l2(vec),
+    tor_sh = apply_full_tensor_product(tor_sh_spec, L.sh_l2(vec).to(cd),
                                        bond_sh2[:, :, None, :].expand(bsz, nb, k, 5))
     m = L.tp_conv_messages(conv_p, tor_conv_spec, nbr, tor_sh, e_attr)
     agg = L.masked_mean(m, valid.float(), dim=2)
     agg = L.tp_conv_finalize(conv_p, tor_conv_spec, agg)
-    return L.mlp_apply(final_p, agg, act=torch.tanh)[..., 0]
+    return L.mlp_apply(final_p, agg, act=torch.tanh)[..., 0].float()
 
 
 def sigmas_from_t(t, schedule) -> Sigmas:

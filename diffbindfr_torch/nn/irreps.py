@@ -338,8 +338,19 @@ def apply_full_tensor_product(spec: TensorProductSpec, x1, x2):
     return torch.cat(out_parts, dim=-1)
 
 
+def promote(x, w):
+    """(x, w) in their common dtype: JAX's promotion for a product of a bf16
+    and an f32 array (f32, the bf16 values exact), which torch's matmul and
+    einsum do not apply themselves."""
+    if x.dtype == w.dtype:
+        return x, w
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt), w.to(dt)
+
+
 def apply_linear(spec: LinearSpec, x, w):
     """Per-irrep-type channel mixing on irreps-layout features."""
+    x, w = promote(x, w)
     lead = x.shape[:-1]
     outs = {}
     out_slices = spec.out_irreps.slices()
@@ -359,6 +370,7 @@ def apply_linear(spec: LinearSpec, x, w):
 def apply_linear_cm(spec: LinearSpec, x_cm, w):
     """apply_linear on component-major features (each slot stored as d
     contiguous [mul] blocks); same weights as apply_linear."""
+    x_cm, w = promote(x_cm, w)
     lead = x_cm.shape[:-1]
     parts = []
     slot_out = {b[1]: b for b in spec.blocks}

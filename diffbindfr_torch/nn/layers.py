@@ -20,6 +20,7 @@ from .irreps import (
     apply_linear_cm,
     compile_dw_tensor_product,
     compile_linear,
+    promote,
     spherical_harmonics_l2,
 )
 
@@ -29,7 +30,10 @@ from .irreps import (
 
 
 def linear_apply(p, x):
-    y = x @ p["w"]
+    """x @ w + b; a bf16 input with f32 weights (or the reverse) computes in
+    f32, as jnp's promotion does."""
+    x, w = promote(x, p["w"])
+    y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y

@@ -67,9 +67,10 @@ class _TieRelu(torch.autograd.Function):
 
 
 class ReluTies:
-    """Autograd through `fn(*args)` (a trunk conv's plain version) with its
-    ReLU ties recorded; `ref` holds the gradients of `leaves` for the
-    cotangents `gs`, equal to plain autograd through `fn`."""
+    """Autograd through `fn(*args)` (a trunk conv's plain version, or a
+    function that runs them, such as the score net's loss on the CPU) with
+    the trunk convs' ReLU ties recorded; `ref` holds the gradients of
+    `leaves` for the cotangents `gs`, equal to plain autograd through `fn`."""
 
     def __init__(self, fn, args, leaves, gs):
         self.calls = []
@@ -83,7 +84,8 @@ class ReluTies:
         self._recording = True
         self.ref = self.grads([])
         self._recording = False
-        self.scales = [float(r.abs().max().clamp_min(1e-30)) for r in self.ref]
+        self.scales = [float(r.abs().max().clamp_min(1e-30)) if r.numel() else 1.0
+                       for r in self.ref]
 
     @property
     def n_ties(self) -> int:
@@ -160,7 +162,8 @@ class ReluTies:
 
     def grads(self, flips):
         """Gradients of the leaves with the ReLU derivative flipped at each
-        (call, flat position) of `flips`."""
+        (call, flat position) of `flips` (zeros for a leaf `fn` does not
+        read)."""
         masks = {}
         for call, flat in flips:
             c = self.calls[call]
@@ -171,14 +174,17 @@ class ReluTies:
             m[flat] = True
         self._flip_masks = {k: m.reshape(self.calls[k]["shape"]) for k, m in masks.items()}
         try:
-            return torch.autograd.grad(self.out, self.leaves, self.gs, retain_graph=True)
+            grads = torch.autograd.grad(self.out, self.leaves, self.gs, retain_graph=True,
+                                        allow_unused=True)
+            return [torch.zeros_like(t) if g is None else g for t, g in zip(self.leaves, grads)]
         finally:
             self._flip_masks = {}
 
     def errors(self, got, ref=None):
         """max|got - ref| / max|ref| per tensor (ref: the plain gradients)."""
         ref = self.ref if ref is None else ref
-        return [float((g - r).abs().max()) / s for g, r, s in zip(got, ref, self.scales)]
+        return [float((g - r).abs().max()) / s if r.numel() else 0.0
+                for g, r, s in zip(got, ref, self.scales)]
 
     def _misfit(self, got, cur):
         return sum(float((((g - c) / s).double() ** 2).sum())

@@ -12,7 +12,7 @@ on the default `use_pallas` path, with `pallas_bwd`). Each conv has
     which tests and chip_smoke.py hold the kernels against;
   * launch counters, `launches[name]`, raised by one per kernel call.
 
-| wrapper | replaces (TPU kernel) | CUDA source |
+| wrapper (launch counter) | replaces (TPU kernel) | CUDA source |
 | cross_conv (B1) | pallas_conv_t.py:make_cross_conv_t (call :693) | csrc/cross_conv.cu |
 | pair_conv (B2) | pallas_conv_t.py:make_pair_conv_t (call :433) | csrc/pair_conv.cu |
 | knn_conv (B3) | pallas_conv_t.py:make_knn_conv_t (call :935) | csrc/knn_conv.cu |
@@ -22,6 +22,9 @@ on the default `use_pallas` path, with `pallas_bwd`). Each conv has
 | cross_conv_fin (B7) | pallas_conv.py:make_cross_conv, fin= (call :1008) | csrc/cross_conv.cu |
 | pair_conv_fin (B8) | pallas_conv.py:make_pair_conv, fin= (call :653) | csrc/pair_conv.cu |
 | knn_conv_fin (B9) | pallas_conv.py:make_knn_conv, fin= (call :1225) | csrc/knn_conv.cu |
+| cross_conv, bf16_chain (cross_conv_bf16, B11) | make_cross_conv_t, dw_dtype='bfloat16' (call :693) | csrc/cross_conv.cu |
+| pair_conv, bf16_chain (pair_conv_bf16, B11) | make_pair_conv_t, dw_dtype='bfloat16' (call :433) | csrc/pair_conv.cu |
+| knn_conv, bf16_chain (knn_conv_bf16, B11) | make_knn_conv_t, dw_dtype='bfloat16' (call :935) | csrc/knn_conv.cu |
 
 The row-major kernels B7-B9 without `fin` compute exactly B1-B3's contract,
 so B1-B3 serve them. With `fin` (a `FinConsts`), the `*_fin` wrappers return
@@ -30,11 +33,24 @@ irreps Linear and LayerNorm-ed, in one launch (csrc/conv_fin.cuh). Their
 backward recomputes through the plain version with autograd, the JAX
 package's rule for these kernels (`_vjp_wrap`, pallas_conv.py:211-224).
 
+With `bf16_chain=True` the three wrappers launch B11, the same convs with the
+JAX kernels' `dw_dtype='bfloat16'` body (pallas_conv_t.py:200-250 there):
+the depthwise chain in bf16, each product and partial sum rounded once, in
+the reference's order; some MLP input rows rounded to bf16 where the
+reference moves them at one bf16 pass; the MLPs, geometry, masks and every
+sum over pairs f32. The plain versions take the same flag and round at
+exactly those points. The backward is B4-B6 unchanged: the bf16 chain is an
+inference knob whose backward runs f32 (pallas_conv_t.py:283-290 there).
+
 Contract (the twins'): component-major f32 node features in, masked message
 SUM [B, N_target, dout] component-major out; a leading batch axis B
-replaces the vmap. Gradients flow to the node features and every parameter;
+replaces the vmap. Weights and features may be bf16: the kernels and the
+plain versions compute in f32 on their values, as the Pallas kernels cast
+their inputs. Gradients flow to the node features and every parameter;
 positions, time embedding, masks and bond features get none (pure data in
-training, as the JAX package's hand-written backward assumes). The folded
+training, as the JAX package's hand-written backward assumes), and the
+kernel path raises when one of positions, time embedding or cutoff requires
+grad: those gradients come from the plain versions. The folded
 edge input (`_prep_edge`) stays in the autograd graph, so the backward
 kernels return gradients of (w_in, b_eff) and of the MLPs, and autograd maps
 them to the parameter tree. What bounds the kernels on the H100 and what
@@ -55,7 +71,8 @@ from .layers import ConvSpec, sh_l2, tp_conv_finalize_cm
 
 launches = {"cross_conv": 0, "pair_conv": 0, "knn_conv": 0,
             "cross_bwd": 0, "pair_bwd": 0, "knn_bwd": 0,
-            "cross_conv_fin": 0, "pair_conv_fin": 0, "knn_conv_fin": 0, "layer_conv": 0}
+            "cross_conv_fin": 0, "pair_conv_fin": 0, "knn_conv_fin": 0, "layer_conv": 0,
+            "cross_conv_bf16": 0, "pair_conv_bf16": 0, "knn_conv_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -157,6 +174,12 @@ class ConvConsts:
                         m["cb_off"] + k, m["d3"], 0, 0)
         return ck.astype(np.float32), meta
 
+    @functools.cached_property
+    def path_metas(self):
+        """Per TP path (in output-column order): s1, mul, d1, d3, s3, w_off,
+        cb_off (columns of ck)."""
+        return tuple(_path_constants(self.spec)[0])
+
     def device_tables(self, device):
         """(ck, gs_offsets, out_meta) tensors on `device`, cached."""
         return _device_tables(self, str(device))
@@ -239,14 +262,60 @@ def _chunks(idx, width: int):
     return [idx[i : i + step] for i in range(0, idx.shape[0], step)]
 
 
+def _f32(tree):
+    """The tree's bf16 / f16 tensors in f32, as the kernels read them; every
+    other tensor is returned as it is (the same object)."""
+    if isinstance(tree, dict):
+        return {k: _f32(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_f32(v) for v in tree)
+    if torch.is_tensor(tree) and tree.dtype in (torch.bfloat16, torch.float16):
+        return tree.float()
+    return tree
+
+
+def _bf16_round(x):
+    """x rounded to bf16 (round to nearest even), as f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _chain_bf16(c: ConvConsts, src, sh, w, maskf):
+    """Per-pair messages [..., dout] (component-major, f32 values of bf16
+    numbers) of the bf16 depthwise chain (pallas_conv_t._dw_paths_t with
+    dw_dtype='bfloat16'): w = (w * mask) and cb = sh @ ck (alpha folded in)
+    computed in f32 and rounded, the source rows rounded; per path, output
+    column (k, u) = sum over i of (src[i, u] * w[u]) * cb[i, k], each product
+    and each partial sum rounded to bf16, i ascending. A masked pair's
+    message is exactly 0."""
+    ck = c.device_tables(sh.device)[0]
+    cb = (sh @ ck).to(torch.bfloat16)
+    wb = (w * maskf[..., None]).to(torch.bfloat16)
+    xb = src.to(torch.bfloat16)
+    parts = []
+    for m in c.path_metas:
+        d1, d3, mul = m["d1"], m["d3"], m["mul"]
+        a = xb[..., m["s1"] : m["s1"] + d1 * mul].unflatten(-1, (d1, mul))
+        bs = a * wb[..., m["w_off"] : m["w_off"] + mul].unsqueeze(-2)
+        cbp = cb[..., m["cb_off"] : m["cb_off"] + d1 * d3].unflatten(-1, (d1, d3))
+        z = bs[..., 0, :, None] * cbp[..., 0, None, :]  # [..., mul, d3]
+        for i in range(1, d1):
+            z = z + bs[..., i, :, None] * cbp[..., i, None, :]
+        parts.append(z.transpose(-1, -2).flatten(-2))
+    return torch.cat(parts, dim=-1).float()
+
+
 def pair_conv_plain(c: ConvConsts, tgt_pos, src_pos, tgt_x, src_x, tgt_mask,
                     src_mask, cab_t, cab_s, temb, cutoff, params, bond_feat,
-                    bond_mask):
+                    bond_mask, *, bf16_chain: bool = False):
     """Plain B2: make_pair_twin in the score net's configuration (bond
     features, self pairs excluded, cab flags on the source side). Rows and
     columns whose node mask is 0 contribute nothing in the twin either, so
-    only valid nodes are visited."""
-    p = params
+    only valid nodes are visited. With `bf16_chain`, plain B11-pair
+    (make_pair_conv_t(dw_dtype='bfloat16')): the target scalars enter the
+    TP-weight MLP rounded to bf16 (pallas_conv_t.py:328 there), the source
+    scalars exact; the bf16 chain (_chain_bf16)."""
+    p, temb, bond_feat, tgt_x, src_x = _f32((params, temb, bond_feat, tgt_x, src_x))
+    rnd = _bf16_round if bf16_chain else (lambda v: v)
     bsz, nt, ns = tgt_x.shape[0], tgt_x.shape[1], c.ns
     cut = _cutoffs(cutoff, bsz, tgt_x.device)
     out = tgt_x.new_zeros(bsz, nt, c.dout)
@@ -262,18 +331,29 @@ def pair_conv_plain(c: ConvConsts, tgt_pos, src_pos, tgt_x, src_x, tgt_mask,
             attr = _mlp2(p["emb_w1"], p["emb_b1"], p["emb_w2"], p["emb_b2"],
                          torch.cat([bond_feat[b][ti][:, si], temb[b].expand(r, s, -1),
                                     _gauss(c, d)], dim=-1))
-            e = torch.cat([attr, tgt_x[b, ti, None, :ns].expand(r, s, ns),
+            e = torch.cat([attr, rnd(tgt_x[b, ti, None, :ns]).expand(r, s, ns),
                            src_x[b, si, :ns][None].expand(r, s, ns)], dim=-1)
             w = _mlp2(p["fc_w1"], p["fc_b1"], p["fc_w2"], p["fc_b2"], e)
+            if bf16_chain:
+                out[b, ti] = _chain_bf16(c, src_x[b, si][None].expand(r, s, -1), sh_l2(vec), w,
+                                         mask.float()).sum(1)
+                continue
             m = apply_dw_tensor_product(c.spec, src_irr[None].expand(r, s, -1), sh_l2(vec), w)
             out[b, ti] = cm_from_irreps(c.spec.out, (m * mask[..., None].float()).sum(1))
     return out
 
 
 def cross_conv_plain(c: ConvConsts, lig_pos, atm_pos, lig_x, atm_x, lig_mask,
-                     atm_mask, cabflag, temb, cutoff, emb_params, fc_al, fc_la):
-    """Plain B1 (make_cross_twin): returns (al [B, nl, dout], la [B, na, dout])."""
-    e_, ns = emb_params, c.ns
+                     atm_mask, cabflag, temb, cutoff, emb_params, fc_al, fc_la, *,
+                     bf16_chain: bool = False):
+    """Plain B1 (make_cross_twin): returns (al [B, nl, dout], la [B, na, dout]).
+    With `bf16_chain`, plain B11-cross (make_cross_conv_t(dw_dtype=
+    'bfloat16')): the ligand rows move rounded to bf16 (pallas_conv_t.py:
+    584-585 there), so its scalars enter both TP-weight MLPs rounded and the
+    la chain reads them; the atom rows enter the MLPs exact (:590-593); the
+    bf16 chain (_chain_bf16) in both directions, every sum f32."""
+    e_, fc_al, fc_la, temb, lig_x, atm_x = _f32((emb_params, fc_al, fc_la, temb, lig_x, atm_x))
+    ns, rnd = c.ns, _bf16_round if bf16_chain else (lambda v: v)
     bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
     cut = _cutoffs(cutoff, bsz, lig_x.device)
     al = lig_x.new_zeros(bsz, nl, c.dout)
@@ -289,25 +369,37 @@ def cross_conv_plain(c: ConvConsts, lig_pos, atm_pos, lig_x, atm_x, lig_mask,
             r, s = vec.shape[:2]
             attr = _mlp2(e_["l1"]["w"], e_["l1"]["b"], e_["l2"]["w"], e_["l2"]["b"],
                          torch.cat([temb[b].expand(r, s, -1), _gauss(c, d)], dim=-1))
-            lig_sc = lig_x[b, li, None, :ns].expand(r, s, ns)
+            lig_sc = rnd(lig_x[b, li, None, :ns]).expand(r, s, ns)
             atm_sc = atm_x[b, ai, :ns][None].expand(r, s, ns)
             sh = sh_l2(vec)
             w_al = _mlp2(fc_al["l1"]["w"], fc_al["l1"]["b"], fc_al["l2"]["w"],
                          fc_al["l2"]["b"], torch.cat([attr, lig_sc, atm_sc], dim=-1))
-            m_al = apply_dw_tensor_product(c.spec, atm_irr[None].expand(r, s, -1), sh, w_al)
-            al[b, li] = cm_from_irreps(c.spec.out, (m_al * maskf).sum(1))
             w_la = _mlp2(fc_la["l1"]["w"], fc_la["l1"]["b"], fc_la["l2"]["w"],
                          fc_la["l2"]["b"], torch.cat([attr, atm_sc, lig_sc], dim=-1))
+            if bf16_chain:
+                al[b, li] = _chain_bf16(c, atm_x[b, ai][None].expand(r, s, -1), sh, w_al,
+                                        maskf[..., 0]).sum(1)
+                la_sum = la_sum + _chain_bf16(c, lig_x[b, li, None].expand(r, s, -1), sh, w_la,
+                                              maskf[..., 0]).sum(0)
+                continue
+            m_al = apply_dw_tensor_product(c.spec, atm_irr[None].expand(r, s, -1), sh, w_al)
+            al[b, li] = cm_from_irreps(c.spec.out, (m_al * maskf).sum(1))
             lig_irr = cm_to_irreps(c.spec.in1, lig_x[b, li])
             m_la = apply_dw_tensor_product(c.spec, lig_irr[:, None].expand(r, s, -1), sh, w_la)
             la_sum = la_sum + (m_la * maskf).sum(0)
-        la[b, ai] = cm_from_irreps(c.spec.out, la_sum)
+        la[b, ai] = la_sum if bf16_chain else cm_from_irreps(c.spec.out, la_sum)
     return al, la
 
 
-def knn_conv_plain(c: ConvConsts, pos, x, mask, idx, valid, temb, params):
-    """Plain B3 (make_knn_twin): sums over the valid neighbour slots."""
-    e_, fc, ns = params["emb"], params["fc"], c.ns
+def knn_conv_plain(c: ConvConsts, pos, x, mask, idx, valid, temb, params, *,
+                   bf16_chain: bool = False):
+    """Plain B3 (make_knn_twin): sums over the valid neighbour slots. With
+    `bf16_chain`, plain B11-knn (make_knn_conv_t(dw_dtype='bfloat16')): the
+    gathered neighbour rows and the target scalars move rounded to bf16
+    (pallas_conv_t.py:842, :848 there) into the TP-weight MLP and the bf16
+    chain (_chain_bf16); sums over the valid slots f32."""
+    e_, fc, temb, x = _f32((params["emb"], params["fc"], temb, x))
+    ns, rnd = c.ns, _bf16_round if bf16_chain else (lambda v: v)
     bsz, n, k = idx.shape
     out = x.new_zeros(bsz, n, c.dout)
     for b in range(bsz):
@@ -317,8 +409,12 @@ def knn_conv_plain(c: ConvConsts, pos, x, mask, idx, valid, temb, params):
         d = _dist(vec)
         attr = _mlp2(e_["l1"]["w"], e_["l1"]["b"], e_["l2"]["w"], e_["l2"]["b"],
                      torch.cat([temb[b].expand(n, k, -1), _gauss(c, d)], dim=-1))
-        ee = torch.cat([attr, x[b, :, None, :ns].expand(n, k, ns), x[b][nb_idx][..., :ns]], dim=-1)
+        ee = torch.cat([attr, rnd(x[b, :, None, :ns]).expand(n, k, ns),
+                        rnd(x[b][nb_idx][..., :ns])], dim=-1)
         w = _mlp2(fc["l1"]["w"], fc["l1"]["b"], fc["l2"]["w"], fc["l2"]["b"], ee)
+        if bf16_chain:
+            out[b] = _chain_bf16(c, x[b][nb_idx], sh_l2(vec), w, valid[b].float()).sum(1)
+            continue
         m = apply_dw_tensor_product(c.spec, xi[nb_idx], sh_l2(vec), w)
         out[b] = cm_from_irreps(c.spec.out, (m * valid[b].float()[..., None]).sum(1))
     return out
@@ -344,6 +440,9 @@ _ARGTYPES = {
     "dbfr_knn_conv_fin": [_P] * 17 + [_I] * 11 + [_F] + [_P] * 7 + [_I] * 3 + [_P],
     "dbfr_layer_conv": [_P, _I, _P, _I, _P, _I, _P],
 }
+# B11: the same arguments as B1-B3
+for _name in ("pair", "cross", "knn"):
+    _ARGTYPES[f"dbfr_{_name}_conv_bf16"] = _ARGTYPES[f"dbfr_{_name}_conv"]
 # the widest matrix a kernel thread tiles (kMaxJ * 32 columns, trunk_conv.cuh)
 _MAX_COLS = 320
 # persistent blocks of a backward target pass: rows of the parameter-gradient
@@ -446,12 +545,27 @@ def _transposed(*ws):
 class _Data:
     """Non-differentiable inputs of one kernel call (positions, masks, cutoff,
     neighbour lists, bond features), validated and contiguous, with the conv's
-    static tables and sizes. Autograd sees none of them: in training they are
-    pure data, as the JAX package's hand-written backward assumes."""
+    static tables and sizes, and whether the forward runs the bf16 chain
+    (B11). Autograd sees none of them: in training they are pure data, as the
+    JAX package's hand-written backward assumes."""
 
-    def __init__(self, c: ConvConsts, dims, bsz, **tensors):
-        self.c, self.dims, self.bsz = c, dims, bsz
+    def __init__(self, c: ConvConsts, dims, bsz, bf16_chain=False, **tensors):
+        self.c, self.dims, self.bsz, self.bf16_chain = c, dims, bsz, bf16_chain
         self.__dict__.update(tensors)
+
+
+def _no_data_grads(name: str, **tensors):
+    """Raise when autograd would need a gradient the kernels do not give:
+    positions, time embedding and cutoff are data to B4-B6."""
+    if not torch.is_grad_enabled():
+        return
+    need = [k for k, t in tensors.items() if torch.is_tensor(t) and t.requires_grad]
+    if need:
+        raise RuntimeError(
+            f"{name}: {', '.join(need)} require grad, but the CUDA kernel path gives gradients "
+            f"only to node features and parameters; differentiate them through the plain "
+            f"path ({name}_plain on the same inputs, or score_net.apply(..., "
+            f"use_kernels=False))")
 
 
 # ---- B2 pair conv / B5 backward ------------------------------------------
@@ -465,20 +579,25 @@ def pair_params(emb, fc):
 
 
 def pair_conv(c: ConvConsts, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask,
-              cab_t, cab_s, temb, cutoff, params, bond_feat, bond_mask):
+              cab_t, cab_s, temb, cutoff, params, bond_feat, bond_mask, *,
+              bf16_chain: bool = False):
     """B2 ligand-ligand conv, the score net's configuration: self pairs
     excluded, bonded pairs always on, cab flags on the source side.
-    Differentiable in the node features and every parameter (B5 backward)."""
+    Differentiable in the node features and every parameter (B5 backward).
+    With `bf16_chain`, B11-pair (pair_conv_plain's bf16 rounding); its
+    backward is B5, the f32 gradients."""
     if not tgt_x.is_cuda:
         return pair_conv_plain(c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask,
-                               cab_t, cab_s, temb, cutoff, params, bond_feat, bond_mask)
+                               cab_t, cab_s, temb, cutoff, params, bond_feat, bond_mask,
+                               bf16_chain=bf16_chain)
+    _no_data_grads("pair_conv", tgt_pos=tgt_pos, src_pos=src_pos, temb=temb, cutoff=cutoff)
     return _PairConvFn.apply(*_pair_inputs(c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask,
                                            src_mask, cab_s, temb, cutoff, params, bond_feat,
-                                           bond_mask))
+                                           bond_mask, bf16_chain))
 
 
 def _pair_inputs(c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_s, temb, cutoff,
-                 params, bond_feat, bond_mask):
+                 params, bond_feat, bond_mask, bf16_chain=False):
     """Arguments of _PairConvFn: validated data, features, folded edge input
     and the other weights."""
     p, dev = params, tgt_x.device
@@ -487,7 +606,8 @@ def _pair_inputs(c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_s, t
     nb = bond_feat.shape[-1]
     he, hf, nw, kdim = _dims(c, p["emb_w2"], p["fc_w1"])
     w_in, beff = _prep_edge(c, p["emb_w1"], p["emb_b1"], temb, nb, bsz, dev)
-    data = _Data(c, (he, hf, nw, kdim), bsz, nb=nb, **{k: _arg(v, shape, dev) for k, v, shape in (
+    data = _Data(c, (he, hf, nw, kdim), bsz, bf16_chain, nb=nb, **{
+        k: _arg(v, shape, dev) for k, v, shape in (
         ("tgt_pos", tgt_pos, (bsz, nt, 3)), ("src_pos", src_pos, (bsz, nsrc, 3)),
         ("tgt_mask", tgt_mask, (bsz, nt)), ("src_mask", src_mask, (bsz, nsrc)),
         ("cab_s", cab_s, (bsz, nsrc)), ("bond_feat", bond_feat, (bsz, nt, nsrc, nb)),
@@ -521,15 +641,16 @@ def _pair_conv_kernel(lib, data, tgt_x, src_x, w_in, beff, weights, stream):
     he, hf, nw, kdim = d.dims
     ck, gs_off, meta = c.device_tables(tgt_x.device)
     out = torch.zeros(bsz, nt, c.dout, dtype=torch.float32, device=tgt_x.device)
-    rc = lib.dbfr_pair_conv(
+    name = "pair_conv_bf16" if d.bf16_chain else "pair_conv"
+    rc = getattr(lib, "dbfr_" + name)(
         _ptr(d.tgt_pos), _ptr(d.src_pos), _ptr(tgt_x), _ptr(src_x), _ptr(d.tgt_mask),
         _ptr(d.src_mask), _ptr(d.cab_s), 0, _ptr(d.cut), _ptr(d.bond_feat), _ptr(d.bond_mask),
         _ptr(w_in), _ptr(beff), *[_ptr(v) for v in weights],
         _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
         bsz, nt, nsrc, c.din, c.dout, d.nb, c.ns, he, hf, nw, kdim, c.gs_n,
         c.gs_coeff, 0, 1, stream)
-    _check(rc, "pair_conv")
-    launches["pair_conv"] += 1
+    _check(rc, name)
+    launches[name] += 1
     return out
 
 
@@ -565,25 +686,30 @@ def pair_bwd(data, tgt_x, src_x, w_in, beff, weights, g):
 
 
 def cross_conv(c: ConvConsts, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask,
-               cabflag, temb, cutoff, emb_params, fc_al, fc_la):
+               cabflag, temb, cutoff, emb_params, fc_al, fc_la, *, bf16_chain: bool = False):
     """B1 dual cross conv: (al [B, nl, dout], la [B, na, dout]).
-    Differentiable in the node features and every parameter (B4 backward)."""
+    Differentiable in the node features and every parameter (B4 backward).
+    With `bf16_chain`, B11-cross (cross_conv_plain's bf16 rounding); its
+    backward is B4, the f32 gradients."""
     if not lig_x.is_cuda:
         return cross_conv_plain(c, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask,
-                                cabflag, temb, cutoff, emb_params, fc_al, fc_la)
+                                cabflag, temb, cutoff, emb_params, fc_al, fc_la,
+                                bf16_chain=bf16_chain)
+    _no_data_grads("cross_conv", lig_pos=lig_pos, atm_pos=atm_pos, temb=temb, cutoff=cutoff)
     return _CrossConvFn.apply(*_cross_inputs(c, lig_pos, atm_pos, lig_x, atm_x, lig_mask,
                                              atm_mask, cabflag, temb, cutoff, emb_params,
-                                             fc_al, fc_la))
+                                             fc_al, fc_la, bf16_chain))
 
 
 def _cross_inputs(c, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cabflag, temb,
-                  cutoff, emb_params, fc_al, fc_la):
+                  cutoff, emb_params, fc_al, fc_la, bf16_chain=False):
     e_, dev = emb_params, lig_x.device
     bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
     _check_nodes("cross_conv", nl, na)
     he, hf, nw, kdim = _dims(c, e_["l2"]["w"], fc_al["l1"]["w"])
     w_in, beff = _prep_edge(c, e_["l1"]["w"], e_["l1"]["b"], temb, 0, bsz, dev)
-    data = _Data(c, (he, hf, nw, kdim), bsz, **{k: _arg(v, shape, dev) for k, v, shape in (
+    data = _Data(c, (he, hf, nw, kdim), bsz, bf16_chain, **{
+        k: _arg(v, shape, dev) for k, v, shape in (
         ("lig_pos", lig_pos, (bsz, nl, 3)), ("atm_pos", atm_pos, (bsz, na, 3)),
         ("lig_mask", lig_mask, (bsz, nl)), ("atm_mask", atm_mask, (bsz, na)),
         ("cab", cabflag, (bsz, na)))})
@@ -618,13 +744,14 @@ def _cross_conv_kernel(lib, data, lig_x, atm_x, w_in, beff, weights, stream):
     ck, gs_off, meta = c.device_tables(lig_x.device)
     al = torch.zeros(bsz, nl, c.dout, dtype=torch.float32, device=lig_x.device)
     la = torch.zeros(bsz, na, c.dout, dtype=torch.float32, device=lig_x.device)
-    rc = lib.dbfr_cross_conv(
+    name = "cross_conv_bf16" if d.bf16_chain else "cross_conv"
+    rc = getattr(lib, "dbfr_" + name)(
         _ptr(d.lig_pos), _ptr(d.atm_pos), _ptr(lig_x), _ptr(atm_x), _ptr(d.lig_mask),
         _ptr(d.atm_mask), _ptr(d.cab), _ptr(d.cut), _ptr(w_in), _ptr(beff),
         *[_ptr(v) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(al), _ptr(la),
         bsz, nl, na, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, stream)
-    _check(rc, "cross_conv")
-    launches["cross_conv"] += 1
+    _check(rc, name)
+    launches[name] += 1
     return al, la
 
 
@@ -662,15 +789,19 @@ def cross_bwd(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la):
 # ---- B3 knn conv / B6 backward -------------------------------------------
 
 
-def knn_conv(c: ConvConsts, pos, x, mask, idx, valid, temb, params):
+def knn_conv(c: ConvConsts, pos, x, mask, idx, valid, temb, params, *,
+             bf16_chain: bool = False):
     """B3 pocket-atom conv over the neighbour list idx/valid [B, N, k].
-    Differentiable in the node features and every parameter (B6 backward)."""
+    Differentiable in the node features and every parameter (B6 backward).
+    With `bf16_chain`, B11-knn (knn_conv_plain's bf16 rounding); its
+    backward is B6, the f32 gradients."""
     if not x.is_cuda:
-        return knn_conv_plain(c, pos, x, mask, idx, valid, temb, params)
-    return _KnnConvFn.apply(*_knn_inputs(c, pos, x, idx, valid, temb, params))
+        return knn_conv_plain(c, pos, x, mask, idx, valid, temb, params, bf16_chain=bf16_chain)
+    _no_data_grads("knn_conv", pos=pos, temb=temb)
+    return _KnnConvFn.apply(*_knn_inputs(c, pos, x, idx, valid, temb, params, bf16_chain))
 
 
-def _knn_inputs(c, pos, x, idx, valid, temb, params):
+def _knn_inputs(c, pos, x, idx, valid, temb, params, bf16_chain=False):
     e_, fc, dev = params["emb"], params["fc"], x.device
     bsz, n, k = idx.shape
     _check_nodes("knn_conv", n)
@@ -678,7 +809,7 @@ def _knn_inputs(c, pos, x, idx, valid, temb, params):
     w_in, beff = _prep_edge(c, e_["l1"]["w"], e_["l1"]["b"], temb, 0, bsz, dev)
     if idx.device != dev:
         raise ValueError(f"kernel input on {idx.device}; expected {dev}")
-    data = _Data(c, (he, hf, nw, kdim), bsz, pos=_arg(pos, (bsz, n, 3), dev),
+    data = _Data(c, (he, hf, nw, kdim), bsz, bf16_chain, pos=_arg(pos, (bsz, n, 3), dev),
                  valid=_arg(valid, (bsz, n, k), dev), idx=idx.to(torch.int32).contiguous())
     weights = [_arg(e_["l2"]["w"], (he, c.ns), dev), _arg(e_["l2"]["b"], (c.ns,), dev)]
     weights += _mlp_args(fc, 3 * c.ns, hf, nw, dev)
@@ -706,12 +837,13 @@ def _knn_conv_kernel(lib, data, x, w_in, beff, weights, stream):
     he, hf, nw, kdim = d.dims
     ck, gs_off, meta = c.device_tables(x.device)
     out = torch.zeros(bsz, n, c.dout, dtype=torch.float32, device=x.device)
-    rc = lib.dbfr_knn_conv(
+    name = "knn_conv_bf16" if d.bf16_chain else "knn_conv"
+    rc = getattr(lib, "dbfr_" + name)(
         _ptr(d.pos), _ptr(x), _ptr(d.idx), _ptr(d.valid), None, _ptr(w_in), _ptr(beff),
         *[_ptr(v) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
         bsz, n, k, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, stream)
-    _check(rc, "knn_conv")
-    launches["knn_conv"] += 1
+    _check(rc, name)
+    launches[name] += 1
     return out
 
 

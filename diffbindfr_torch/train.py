@@ -249,16 +249,30 @@ def _check_device(state: TrainState, device):
         raise ValueError(f"train state on {p0.device}, step asked for {dev}")
 
 
+def loss_of_leaves(params, batch, noise: TrainNoise, net_cfg: sn.ScoreNetConfig,
+                   scfg: SamplerConfig, tcfg: TrainConfig, use_kernels: bool = True):
+    """(leaves, f): the leaves of `params` in tree_leaves order as fresh
+    autograd leaves, and f(*leaves) -> (loss, detached metrics), the
+    function of them that loss_and_grads differentiates."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+
+    def f(*ls):
+        loss, metrics = loss_fn(tree_unflatten(params, list(ls)), net_cfg, scfg, tcfg, batch,
+                                noise, use_kernels=use_kernels)
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
+    return leaves, f
+
+
 def loss_and_grads(params, batch, noise: TrainNoise, net_cfg: sn.ScoreNetConfig,
                    scfg: SamplerConfig, tcfg: TrainConfig, use_kernels: bool = True):
     """(detached metrics, gradient of the loss for every leaf of `params`
     in tree_leaves order; zeros for leaves the loss does not read)."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    loss, metrics = loss_fn(tree_unflatten(params, leaves), net_cfg, scfg, tcfg, batch, noise,
-                            use_kernels=use_kernels)
+    leaves, f = loss_of_leaves(params, batch, noise, net_cfg, scfg, tcfg, use_kernels)
+    loss, metrics = f(*leaves)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    return {k: v.detach() for k, v in metrics.items()}, grads
+    return metrics, grads
 
 
 def global_norm(grads):

@@ -2,17 +2,25 @@
 the card: the forward kernels B1-B3, the backward kernels B4-B6 (autograd
 through the wrappers against autograd through the plain versions), the
 finalize kernels B7-B9 and the whole-layer kernel B10 (forward, and the
-gradients of their plain-recompute backward). Marked
+gradients of their plain-recompute backward), the bf16-chain kernels B11
+(forward against their plain bf16 versions, backward equal to the f32
+wrappers'), and the kernel path's error for gradients it does not give
+(positions, time embedding, cutoff). Marked
 `cuda`: skipped (with a reason) where no GPU is present. Imports no JAX, so
 it runs on the GPU machine with
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -p no:cacheprovider
 
-Tolerance: f32 sums in another order, max|err| <= 1e-4 * max|ref| forward;
+Tolerance: f32 sums in another order, max|err| <= 1e-4 * max|ref| forward
+(B11: <= 1.5e-3, below the f32 kernels' distance to the same reference; the
+bf16 chain's rounding of a TP weight or cb entry that the two f32 MLP
+orders put on either side of a bf16 rounding boundary moves one term by one
+bf16 unit);
 every gradient max|err| <= 5e-4 * max|ref|, where the plain version may
 take the kernel's decision at a ReLU pre-activation within f32 rounding of 0
 and nowhere else (nn/relu_ties.py).
 """
+import functools
 import numpy as np
 import pytest
 import torch
@@ -365,3 +373,103 @@ def test_layer_kernel_backward_is_the_plain_gradient(dev):
         grads.append(torch.autograd.grad(out, leaves, gs))
     for g_, r_ in zip(*grads):
         assert _rel(g_, r_) <= 1e-5
+
+
+def _b11_calls(dev):
+    """(bf16 wrapper, its plain version, f32 wrapper, args, target masks) of
+    B11-cross, -pair and -knn on the small systems of the tests above."""
+    S = _system(dev)
+    f, bern = S["f"], S["bern"]
+    cut = torch.tensor([6.5, 5.2, 8.0], device=dev)
+    cross = (TC.ConvConsts(S["cs"].dw, NS, SED, 32.0, GSN), S["tgt_pos"], S["src_pos"],
+             S["tgt_x"], S["src_x"], S["tgt_mask"], S["src_mask"], S["cab"], S["temb"], cut,
+             S["emb"], S["fc_a"], S["fc_b"])
+    P = _system(dev, nt=40, nsrc=40, seed=1)
+    bsz, nl = P["tgt_x"].shape[:2]
+    pos = P["f"](bsz, nl, 3, sc=2.5)
+    bm = P["bern"](0.1, bsz, nl, nl)
+    p = {"emb_w1": P["pair_w1"], "emb_b1": P["emb"]["l1"]["b"], "emb_w2": P["emb"]["l2"]["w"],
+         "emb_b2": P["emb"]["l2"]["b"], "fc_w1": P["fc_a"]["l1"]["w"],
+         "fc_b1": P["fc_a"]["l1"]["b"], "fc_w2": P["fc_a"]["l2"]["w"],
+         "fc_b2": P["fc_a"]["l2"]["b"]}
+    zero = torch.zeros(bsz, nl, device=dev)
+    pair = (TC.ConvConsts(P["cs"].dw, NS, SED, 5.0, GSN), pos, pos, P["tgt_x"], P["tgt_x"],
+            P["tgt_mask"], P["tgt_mask"], zero, zero, P["temb"], 5.0, p,
+            P["f"](bsz, nl, nl, 10) * bm[..., None], bm)
+    kpos = f(*S["src_pos"].shape, sc=2.0)
+    idx, valid = L.knn_edges(kpos, kpos, S["src_mask"], S["src_mask"], k=16, cutoff=4.0,
+                             exclude_self=True)
+    knn = (TC.ConvConsts(S["cs"].dw, NS, SED, 4.0, GSN), kpos, S["src_x"], S["src_mask"], idx,
+           valid.float(), S["temb"], {"emb": S["emb"], "fc": S["fc_a"]})
+    calls = {"cross_conv_bf16": (TC.cross_conv, TC.cross_conv_plain, cross,
+                                 (S["tgt_mask"], S["src_mask"])),
+             "pair_conv_bf16": (TC.pair_conv, TC.pair_conv_plain, pair, (P["tgt_mask"],)),
+             "knn_conv_bf16": (TC.knn_conv, TC.knn_conv_plain, knn, (valid.float().sum(-1),))}
+    return {k: (functools.partial(fn, bf16_chain=True), functools.partial(plain, bf16_chain=True),
+                fn, args, masks) for k, (fn, plain, args, masks) in calls.items()}
+
+
+@pytest.mark.cuda
+def test_bf16_chain_kernels_match_plain(dev):
+    """B11 against the plain bf16 versions (1.5e-3 of max|ref|; measured
+    <= 5.6e-4 on the H100); rows of masked targets exactly 0; one launch
+    each, none of B1-B3. The control, the f32 wrapper against the same plain
+    bf16 version, must lie beyond the bound (measured >= 2.3e-3, on the
+    pair conv), so the bound tells the bf16 chain from f32."""
+    for name, (kernel, plain, f32, args, masks) in _b11_calls(dev).items():
+        TC.reset_launches()
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        assert TC.launches == {k: int(k == name) for k in TC.launches}, name
+        ref, g32 = plain(*args), f32(*args)
+        got, ref, g32 = (x if isinstance(x, tuple) else (x,) for x in (got, ref, g32))
+        err = max(_rel(g_, r_) for g_, r_ in zip(got, ref))
+        ctl = max(_rel(g_, r_) for g_, r_ in zip(g32, ref))
+        print(f"{name}: max|err|/max|ref| {err:.2e}, the f32 wrapper's (control) {ctl:.2e}")
+        assert err <= 1.5e-3 < ctl, name
+        assert all(bool((g_[m_ <= 0] == 0).all()) for g_, m_ in zip(got, masks)), name
+
+
+@pytest.mark.cuda
+def test_bf16_chain_backward_is_the_f32_backward(dev):
+    """B11's backward is B4-B6 on the same saved inputs: its gradients equal
+    the f32 wrappers' exactly (the bf16 chain changes the forward only)."""
+    for name, (kernel, _, f32, args, _) in _b11_calls(dev).items():
+        grads = []
+        for fn in (kernel, f32):
+            a = list(args)
+            x_at = {"cross_conv_bf16": (3, 4), "pair_conv_bf16": (3,), "knn_conv_bf16": (2,)}[name]
+            leaves = []
+            for i in x_at:
+                a[i] = _leaf(a[i])
+                leaves.append(a[i])
+            if name == "pair_conv_bf16":
+                a[4] = a[3]
+            out = fn(*a)
+            out = out if isinstance(out, tuple) else (out,)
+            gen = torch.Generator(device=dev).manual_seed(3)
+            gs = [torch.randn(o.shape, generator=gen, device=dev) for o in out]
+            grads.append(torch.autograd.grad(out, leaves, gs))
+        for g_, r_ in zip(*grads):
+            assert torch.equal(g_, r_), name
+
+
+@pytest.mark.cuda
+def test_kernel_path_refuses_position_gradients(dev):
+    """A position, temb or cutoff tensor that requires grad makes the kernel
+    wrappers (f32 and bf16) raise and name the plain path: the backward
+    kernels give gradients to features and parameters only."""
+    calls = _b11_calls(dev)
+    for name, (kernel, _, f32, args, _) in calls.items():
+        data_at = {"cross_conv_bf16": (1, 2, 8, 9), "pair_conv_bf16": (1, 9),
+                   "knn_conv_bf16": (1, 6)}[name]
+        for fn in (kernel, f32):
+            for i in data_at:
+                a = list(args)
+                a[i] = _leaf(a[i])
+                with pytest.raises(RuntimeError, match="plain"):
+                    fn(*a)
+            with torch.no_grad():  # no graph, nothing to refuse
+                a = list(args)
+                a[1] = a[1].clone().requires_grad_(True)
+                fn(*a)

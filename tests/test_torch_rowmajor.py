@@ -276,7 +276,8 @@ def test_score_net_dispatches_the_kernel_configuration(net, monkeypatch, fields,
     calls = []
     for mod, name in ((TC, "pair_conv"), (TC, "pair_conv_fin"), (LC, "layer_conv")):
         fn = getattr(mod, name)
-        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name: calls.append(_n) or _fn(*a))
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **k: calls.append(_n)
+                            or _fn(*a, **k))
     with torch.no_grad():
         out = tsn.apply(params, dataclasses.replace(cfg, **fields), batch, t, sig,
                         use_kernels=use_kernels, scales=scales)

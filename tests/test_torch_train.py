@@ -6,13 +6,17 @@ test), the port's `init_params` weights handed to JAX, the JAX draws (t and the 
 handed to the port as a TrainNoise, and the JAX SO(3)/torus tables handed to
 the port so both sides look up the same values. Tolerances (f32 on both
 sides, sums in another order):
-  * loss terms rtol 2e-5; per parameter-gradient tensor max|err| / max|ref|
-    <= 1e-4 for 90% of the tensors (both port paths reach ~6e-6) and <= 5e-3
-    for every one: the perturbed coordinates differ between the frameworks
-    in the last bit, which can move one pair across a cutoff or one hidden
-    unit across 0, changing that pair's share of a sum (measured 2.1e-3 on
-    al layer 0's fc/l1 for one 3mhw key and other weights, on both port
-    paths alike);
+  * loss terms rtol 2e-5; every parameter-gradient tensor within 5e-4 *
+    max|ref| of JAX's by the tie-aware check of nn/relu_ties.py (the one
+    the card tests and chip_smoke.py use): the port's gradients, with its
+    trunk convs' MLP ReLUs recorded, may take JAX's decision at a
+    pre-activation within f32 rounding of 0, and nowhere else. Such a tie
+    moves one pair's share of a sum (measured 2.1e-3 on al layer 0's fc/l1
+    for one 3mhw key and other weights); the perturbed coordinates also
+    differ between the frameworks in the last bit. Measured without any
+    tie taken: <= 6.4e-6 on the kernel path, <= 1.8e-4 on the plain path
+    (whose MLPs, layers.mlp_apply, are not recorded: its tensors are held
+    raw);
   * three train steps: parameters and EMA within 2e-6 but for at most 1%
     of the entries (a tie, through Adam), grad_norm rtol 5e-4; the
     optimizer alone on the same gradients equals optax to f32 rounding;
@@ -44,6 +48,7 @@ from diffbindfr_torch.data.sample import stack_samples, to_device
 from diffbindfr_torch.geometry import so3 as TSO3
 from diffbindfr_torch.geometry import torus as TTOR
 from diffbindfr_torch.models import score_net as TSN
+from diffbindfr_torch.nn.relu_ties import ReluTies
 from diffbindfr_torch.sampler import SamplerConfig
 from diffbindfr_torch.utils.checkpoint import load_checkpoint
 
@@ -144,13 +149,21 @@ def small():
     return _configs(SMALL)
 
 
-def _grads_close(got, want_tree, template, tol, tol_max):
-    """Per gradient tensor max|err| / max|ref|: 90% of the tensors within
-    `tol`, every one within `tol_max` (see the module docstring)."""
-    want = TTR.tree_leaves(_like(want_tree, template))
-    errs = [_rel(g.numpy(), np.asarray(w)) for g, w in zip(got, want)]
-    assert len(errs) == len(want)
-    assert np.quantile(errs, 0.9) <= tol and max(errs) <= tol_max, sorted(errs)[-5:]
+def _tie_aware_grads(params, batch, noise, cfg, use_kernels):
+    """(metrics, ReluTies): the port's loss gradients (ties.ref, equal to
+    loss_and_grads') from one forward and backward of train.loss_of_leaves,
+    the function loss_and_grads differentiates, with the trunk convs' MLP
+    ReLUs recorded."""
+    leaves, loss_of = TTR.loss_of_leaves(params, batch, noise, cfg, SamplerConfig(),
+                                         TTR.TrainConfig(), use_kernels)
+    metrics = {}
+
+    def loss(*ls):
+        value, m = loss_of(*ls)
+        metrics.update(m)
+        return value
+
+    return metrics, ReluTies(loss, leaves, leaves, [torch.ones(())])
 
 
 @pytest.mark.parametrize("synthetic", [False, True])
@@ -160,12 +173,14 @@ def test_loss_terms_and_gradients_match_jax(small, synthetic):
     key = jax.random.PRNGKey(766 + synthetic)
     (_, jm), jg = JAX_LOSS_AND_GRAD(jp, jcfg, JSamplerConfig(), JTR.TrainConfig(), jb, key)
     noise = jax_noise(key, tb)
+    want = [torch.from_numpy(np.asarray(w)) for w in TTR.tree_leaves(_like(jg, tp))]
     for use_kernels in (True, False):
-        tm, tg = TTR.loss_and_grads(tp, tb, noise, tcfg, SamplerConfig(), TTR.TrainConfig(),
-                                    use_kernels=use_kernels)
+        tm, ties = _tie_aware_grads(tp, tb, noise, tcfg, use_kernels)
         for k in ("loss", "tr_loss", "rot_loss", "tor_loss", "sc_loss"):
             np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=2e-5, atol=1e-7)
-        _grads_close(tg, jg, tp, 1e-4, 5e-3)
+        assert len(ties.ref) == len(want)
+        raw, final, flips = ties.check(want, 5e-4)
+        assert max(final) <= 5e-4, (use_kernels, max(raw), max(final), flips)
         em = TTR.eval_step(tp, tb, noise, tcfg, SamplerConfig(), TTR.TrainConfig(),
                            use_kernels=use_kernels)
         assert all(torch.equal(em[k], tm[k]) for k in tm)

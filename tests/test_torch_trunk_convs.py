@@ -186,7 +186,8 @@ def test_wrappers_use_plain_versions_on_cpu(system):
     assert TC.launches == {"cross_conv": 0, "pair_conv": 0, "knn_conv": 0,
                            "cross_bwd": 0, "pair_bwd": 0, "knn_bwd": 0,
                            "cross_conv_fin": 0, "pair_conv_fin": 0, "knn_conv_fin": 0,
-                           "layer_conv": 0}
+                           "layer_conv": 0, "cross_conv_bf16": 0, "pair_conv_bf16": 0,
+                           "knn_conv_bf16": 0}
 
 
 def test_kernel_tables_describe_every_output_column(system):
