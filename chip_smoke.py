@@ -97,7 +97,30 @@ a non-zero exit code):
               exact launch counts (bf16: B11 120 each, every other kernel 0),
               poses/s of each, RMSD to the prep-cache pose; then phase 8's
               profile of the bf16 dock beside phase 8's f32 numbers
-The second-to-last lines are the kernels JSON and the nvidia-smi line; the
+  21. probe_mlp  P4 (probes/mlp.py, and P3's mlps): the fused MLP kernel
+              against its plain version at R = 1024 and 32 (<= 1e-5), its
+              device time beside addmm + relu + mm (a reading); the entry
+              point `python -m diffbindfr_torch.probes.mlp` run in process
+              with exact launch counts
+  22. probe_mxu_ops  P2 (probes/mxu_ops.py): legality (1e-6), the bf16 chain
+              on CUDA cores (chain_vpu, 1e-6) and on the tensor cores
+              (chain_mxu: d3 = 5 rows 1e-5, the bf16-rounded rows within one
+              bf16 unit) at the tool's 4096 grid steps over 64 input
+              blocks, the tool's rates; the entry point with exact counts
+  23. probe_mosaic  P3 (probes/mosaic.py): the ten probes at the tool's
+              shapes (exact for the layout probes, onehot and precision bit
+              for bit; mosaic.TOL otherwise), the library call beside each
+              that has one (TF32 off, stated; events and graph replay);
+              probe_precision's control: the one-hot matmul with TF32 on;
+              each probe's entry point with exact counts
+Kernel times: `ms` is the wrapper's time by CUDA events around 10 calls
+(its host set-up included), `device_ms` the kernel's own device time per
+call (phases 5, 9, 12, 17, 18, 21-23): from torch.profiler's
+key_averages() by the CUDA kernel's symbol, or, where the profiler sees
+none of the kernel's launches, from CUDA events around replays of a CUDA
+graph of 20 calls (no host work between the kernels); each row names its
+`device_ms_method`. The probes' library calls are timed both ways. The
+second-to-last lines are the kernels JSON and the nvidia-smi line; the
 last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import contextlib
@@ -123,7 +146,8 @@ DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 
              "forward": 180, "dock": 300, "profile": 120, "bwd_kernels": 480,
              "train_parity": 180, "train": 300, "rm_kernels": 240, "rm_forward": 120,
              "rm_dock": 300, "rm_profile": 120, "rm_grad": 180, "probe_bf16": 120,
-             "bf16_kernels": 240, "bf16_forward": 120, "bf16_dock": 300}
+             "bf16_kernels": 240, "bf16_forward": 120, "bf16_dock": 300, "probe_mlp": 120,
+             "probe_mxu_ops": 180, "probe_mosaic": 180}
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, HBM3 bandwidth; bf16 outside the tensor cores (packed
 # bf16x2, two per fp32 lane: the H100 white paper's non-tensor BF16 rate,
@@ -183,6 +207,48 @@ BF16_GATE = 2.5e-3
 BF16_FORWARD_TOL = {"tr": 4e-3, "rot": 3e-3, "tor": 1e-1, "sc_tor": 1e-1}
 BF16_SEPARATING = ("tr", "rot", "tor")
 PROBE = ("diffbindfr_torch/csrc/probe_bf16.cu", "tools/probe_bf16.py:48")
+# the probes P2-P4: row name -> (source, replaced TPU kernel)
+PROBE_KERNELS = {
+    "probe_mlp": ("diffbindfr_torch/csrc/probe_mlp.cu", "tools/probe_timing.py:22"),
+    "probe_mxu_ops/legality": ("diffbindfr_torch/csrc/probe_mxu_ops.cu",
+                               "tools/probe_mxu_ops.py:80"),
+    "probe_mxu_ops/chain_vpu": ("diffbindfr_torch/csrc/probe_mxu_ops.cu",
+                                "tools/probe_mxu_ops.py:194"),
+    "probe_mxu_ops/chain_mxu": ("diffbindfr_torch/csrc/probe_mxu_ops.cu",
+                                "tools/probe_mxu_ops.py:207"),
+}
+# P3: argv word -> (row name, line of the replaced TPU kernel in
+# tools/probe_mosaic.py); mlps runs the P4 kernel
+MOSAIC_SOURCE = "diffbindfr_torch/csrc/probe_mosaic.cu"
+MOSAIC_ROWS = {"3d": ("3d_accum", ":40"), "onehot": ("onehot", ":68"),
+               "tile": ("tile_lanes", ":91"), "bcast": ("bcast2d", ":109"),
+               "4d": ("4d_block", ":129"), "msel": ("msel", ":154"),
+               "prec": ("precision", ":199"), "dw": ("dwloop", ":243"), "mlp": ("mlps", ":291"),
+               "abt": ("abt", ":343")}
+# CUDA kernel symbols of each launch counter, for the profiler's device time
+SYMBOLS = {
+    "cross_conv": ("cross_conv_kernel(",), "pair_conv": ("pair_conv_kernel(",),
+    "knn_conv": ("knn_conv_kernel(",),
+    "cross_bwd": ("cross_bwd_kernel(", "reduce_rows_kernel("),
+    "pair_bwd": ("pair_bwd_kernel(", "reduce_rows_kernel("),
+    "knn_bwd": ("knn_bwd_kernel(", "knn_bwd_rev_kernel(", "reduce_rows_kernel("),
+    "cross_conv_fin": ("cross_conv_fin_kernel(",), "pair_conv_fin": ("pair_conv_fin_kernel(",),
+    "knn_conv_fin": ("knn_conv_fin_kernel(",), "layer_conv": ("layer_conv_kernel(",),
+    "cross_conv_bf16": ("cross_conv_bf16_kernel(",), "pair_conv_bf16": ("pair_conv_bf16_kernel(",),
+    "knn_conv_bf16": ("knn_conv_bf16_kernel(",),
+    "probe_bf16/f32_fma": ("probe_f32_kernel(",),
+    "probe_bf16/bf16x2_mul_add": ("probe_bf16_kernel<false>(",),
+    "probe_bf16/bf16x2_fma": ("probe_bf16_kernel<true>(",),
+    "probe_mlp": ("probe_mlp_kernel(",), "probe_mxu_ops/legality": ("legality_kernel(",),
+    "probe_mxu_ops/chain_vpu": ("chain_vpu_kernel(",),
+    "probe_mxu_ops/chain_mxu": ("chain_mxu_kernel(",),
+    "3d": ("accum3d_kernel(",), "onehot": ("gather_kernel(",), "prec": ("gather_kernel(",),
+    "tile": ("tile_kernel(",), "bcast": ("bcast2d_kernel(",), "4d": ("block4d_kernel(",),
+    "msel": ("msel_kernel(",), "dw": ("dwloop_kernel(",), "mlp": ("probe_mlp_kernel(",),
+    "abt": ("abt_kernel(",),
+}
+# bf16 dense rate of the tensor cores (data sheet, 700 W)
+PEAK_BF16_TC = 989e12
 SCHED = {"tr_sigma_min": 0.1, "tr_sigma_max": 6.0, "rot_sigma_min": 0.03,
          "rot_sigma_max": 1.55, "tor_sigma_min": 0.0314, "tor_sigma_max": 3.14,
          "sc_tor_sigma_min": 0.0314, "sc_tor_sigma_max": 3.14}
@@ -231,6 +297,73 @@ def time_ms(fn, warmup, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, symbols, calls=5):
+    """A kernel's own device time per call of `fn`, without the host set-up
+    that CUDA events around the wrapper include, and how it was measured:
+    "profiler", torch.profiler's key_averages() over `calls` calls (after a
+    warm-up), the device time of the CUDA kernels whose names contain one of
+    `symbols`, over `calls`; where the profiler saw none of them (it misses
+    lone ctypes launches in a long process), "graph replay", CUDA events
+    around replays of a CUDA graph of 20 calls, so no host work separates
+    the launches. (None, "not measured") if both fail."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, seen = 0.0, 0
+    for e in prof.key_averages():
+        if any(sym in e.key for sym in symbols):
+            us = getattr(e, "self_device_time_total", None)
+            total += getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+            seen += e.count
+    if seen:
+        return total / 1e3 / calls, "profiler"
+    ms = graph_ms_or_none(torch, fn)
+    return ms, "not measured" if ms is None else "graph replay"
+
+
+def graph_ms_or_none(torch, fn):
+    """graph_ms, or None (printed) where the calls cannot be captured: a
+    measurement, not a gate."""
+    try:
+        return graph_ms(torch, fn)
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        print(f"  graph replay not measured: {exc}", flush=True)
+        return None
+
+
+def graph_ms(torch, fn, calls=20, replays=5):
+    """ms per call of `fn` from CUDA events around replays of a CUDA graph
+    that holds `calls` calls: the kernels run back to back."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def fmt_ms(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 def nbytes(*ts):
@@ -358,17 +491,19 @@ def phase_kernels(torch, params, s_np, results):
                 abs_err = max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
                 finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
                 ms = time_ms(lambda: wrapper[name](*a), 3, 10)
+                dev_ms, dev_how = device_ms(torch, lambda: wrapper[name](*a), SYMBOLS[name])
                 plain_ms = time_ms(lambda: plain[name](*a), 1, 2)
             flops, byts, pairs = work(torch, name, a)
             bound_ms = max(flops / PEAK_FP32, byts / PEAK_BYTES) * 1e3
             row = dict(layer=layer, batch=bsz, max_rel_err=err, max_abs_err=abs_err,
-                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, pairs=pairs,
-                       flops=flops, bytes=byts,
+                       ms=ms, device_ms=dev_ms, device_ms_method=dev_how, plain_ms=plain_ms,
+                       bound_ms=bound_ms, pairs=pairs, flops=flops, bytes=byts,
                        bound_by="operations" if flops / PEAK_FP32 >= byts / PEAK_BYTES else "bytes")
             results.setdefault(name, []).append(row)
             print(f"  {name} layer {layer} B={bsz}: max|err|/max|ref| {err:.2e} "
-                  f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.3f} ms "
-                  f"({row['bound_by']}) pairs {pairs:.0f}", flush=True)
+                  f"kernel {fmt_ms(dev_ms)} ({dev_how}; wrapper {ms:.3f} ms) "
+                  f"plain {plain_ms:.3f} ms "
+                  f"bound {bound_ms:.3f} ms ({row['bound_by']}) pairs {pairs:.0f}", flush=True)
             if not finite or err > 1e-4:
                 raise AssertionError(f"{name} layer {layer}: kernel disagrees with plain ({err:.3e})")
 
@@ -488,7 +623,9 @@ def phase_bwd_kernels(torch, params, s_np, results):
             err, tie_err = max(raw), max(final)
             abs_err = max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
             finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
-            ms = time_ms(bwd_launcher(torch, TC, name, args[name], gs), 2, 5)
+            launch = bwd_launcher(torch, TC, name, args[name], gs)
+            ms = time_ms(launch, 2, 5)
+            dev_ms, dev_how = device_ms(torch, launch, SYMBOLS[bname])
             out_p = plain[name](*diff)
             out_p = out_p if isinstance(out_p, tuple) else (out_p,)
             plain_ms = time_ms(lambda: torch.autograd.grad(out_p, leaves, gs, retain_graph=True),
@@ -502,14 +639,16 @@ def phase_bwd_kernels(torch, params, s_np, results):
             byts += nbytes(*gs) + nbytes(*leaves)
             bound_ms = max(flops / PEAK_FP32, byts / PEAK_BYTES) * 1e3
             row = dict(layer=layer, batch=bsz, max_rel_err=err, tie_rel_err=tie_err,
-                       ties_taken=len(flips), max_abs_err=abs_err, ms=ms,
-                       plain_ms=plain_ms, bound_ms=bound_ms, pairs=pairs, flops=flops,
+                       ties_taken=len(flips), max_abs_err=abs_err, ms=ms, device_ms=dev_ms,
+                       device_ms_method=dev_how, plain_ms=plain_ms, bound_ms=bound_ms,
+                       pairs=pairs, flops=flops,
                        bytes=byts,
                        bound_by="operations" if flops / PEAK_FP32 >= byts / PEAK_BYTES else "bytes")
             results.setdefault(bname, []).append(row)
             print(f"  {bname} layer {layer} B={bsz}: {len(got)} gradients, max|err|/max|ref| "
                   f"{err:.2e} ({tie_err:.2e} with {len(flips)} of {n_ties} ReLU ties "
-                  f"in {n_values} pre-activations taken the other way) kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound "
+                  f"in {n_values} pre-activations taken the other way) kernel {fmt_ms(dev_ms)} "
+                  f"({dev_how}; wrapper {ms:.3f} ms) plain {plain_ms:.3f} ms bound "
                   f"{bound_ms:.3f} ms ({row['bound_by']}) pairs {pairs:.0f}", flush=True)
             if not finite or not tie_err <= 5e-4:
                 for e in explain:
@@ -847,17 +986,19 @@ def phase_rm_kernels(torch, params, s_np, results):
                 abs_err = max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
                 finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
                 ms = time_ms(lambda: wrapper[name](*a), 3, 10)
+                dev_ms, dev_how = device_ms(torch, lambda: wrapper[name](*a), SYMBOLS[name])
                 plain_ms = time_ms(lambda: plain[name](*a), 1, 2)
             flops, byts, pairs = rm_work(torch, name, a, args)
             bound_ms = max(flops / PEAK_FP32, byts / PEAK_BYTES) * 1e3
             row = dict(layer=layer, batch=bsz, max_rel_err=err, max_abs_err=abs_err, ms=ms,
-                       plain_ms=plain_ms, bound_ms=bound_ms, pairs=pairs, flops=flops,
-                       bytes=byts,
+                       device_ms=dev_ms, device_ms_method=dev_how, plain_ms=plain_ms,
+                       bound_ms=bound_ms, pairs=pairs, flops=flops, bytes=byts,
                        bound_by="operations" if flops / PEAK_FP32 >= byts / PEAK_BYTES else "bytes")
             results.setdefault(name, []).append(row)
             print(f"  {name} layer {layer} B={bsz}: max|err|/max|ref| {err:.2e} "
-                  f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound {bound_ms:.3f} ms "
-                  f"({row['bound_by']}) pairs {pairs:.0f}", flush=True)
+                  f"kernel {fmt_ms(dev_ms)} ({dev_how}; wrapper {ms:.3f} ms) "
+                  f"plain {plain_ms:.3f} ms "
+                  f"bound {bound_ms:.3f} ms ({row['bound_by']}) pairs {pairs:.0f}", flush=True)
             if not finite or err > 1e-4:
                 raise AssertionError(f"{name} layer {layer}: kernel disagrees with plain ({err:.3e})")
 
@@ -1159,9 +1300,14 @@ def phase_probe_bf16(torch, results):
                   f"{r['gflops']:.0f} GFLOP/s (2 per element), {r['gops']:.0f} G rounded "
                   f"operations/s; plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms", flush=True)
             if rows == 8192:
+                dev_ms, dev_how = device_ms(torch, lambda: P.chain(x, w, r["reps"], v),
+                                   SYMBOLS[f"probe_bf16/{v}"])
+                print(f"  {v} {rows} x 1024 at {r['reps']} steps: kernel {fmt_ms(dev_ms)} "
+                      f"({dev_how})", flush=True)
                 results[f"probe_bf16/{v}"] = dict(
                     r, launches=launches[f"probe_bf16/{v}"], max_rel_err=checks[v][0],
-                    max_abs_err=checks[v][1], ms=r["ms_r"], plain_ms=plain_ms,
+                    max_abs_err=checks[v][1], ms=r["ms_r"], device_ms=dev_ms,
+                    device_ms_method=dev_how, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by="operations" if ops / peak >= byts / PEAK_BYTES
                     else "bytes")
         rate = res["bf16x2_mul_add"]["gops"] * 1e9
@@ -1218,6 +1364,7 @@ def phase_bf16_kernels(torch, params, s_np, results, bf16_rate):
                          "knn_conv_bf16": (a[5].sum(-1),)}[name]
                 dead = all(bool((g_[m_ <= 0] == 0).all()) for g_, m_ in zip(got, masks))
                 ms = time_ms(lambda: wrapper[name](*a), 3, 10)
+                dev_ms, dev_how = device_ms(torch, lambda: wrapper[name](*a), SYMBOLS[name])
                 plain_ms = time_ms(lambda: plain[name](*a), 1, 2)
             flops, byts, pairs = work(torch, twin, a)
             f32_chain, b11_f32, b11_bf16 = chain_ops(a[0])
@@ -1228,12 +1375,15 @@ def phase_bf16_kernels(torch, params, s_np, results, bf16_rate):
             t_bytes = byts / PEAK_BYTES
             bound_ms = max(t_ops, t_bytes) * 1e3
             row = dict(layer=layer, batch=bsz, max_rel_err=err, max_abs_err=abs_err,
-                       control=ctl, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, pairs=pairs,
-                       fp32_ops=ops32, bf16_ops=ops16, bytes=byts,
+                       control=ctl, ms=ms, device_ms=dev_ms, device_ms_method=dev_how,
+                       plain_ms=plain_ms,
+                       bound_ms=bound_ms, pairs=pairs, fp32_ops=ops32, bf16_ops=ops16, bytes=byts,
                        bound_by="operations" if t_ops >= t_bytes else "bytes")
             results.setdefault(name, []).append(row)
             print(f"  {name} layer {layer} B={bsz}: max|err|/max|ref| {err:.2e} (control: the "
-                  f"f32 kernel {ctl:.2e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound "
+                  f"f32 kernel {ctl:.2e}) kernel {fmt_ms(dev_ms)} ({dev_how}; wrapper {ms:.3f} ms) "
+                  f"plain "
+                  f"{plain_ms:.3f} ms bound "
                   f"{bound_ms:.3f} ms ({row['bound_by']}; {ops32:.3g} fp32 + {ops16:.3g} bf16 "
                   f"operations) pairs {pairs:.0f}", flush=True)
             if not finite or not dead or err > BF16_GATE:
@@ -1324,6 +1474,237 @@ def phase_bf16_dock(torch, np, sn, sp, pipeline, TC, params, s_np, smi, cmt_prof
                    f"{v[0] / 2:.1f} ms, {100 * v[1]:.1f}%, {100 * v[2]:.1f}%, {v[3]:.0f}")
         for m, v in prof.items()), flush=True)
     return counts["bf16"]
+
+def probe_row(torch, results, name, got, ref, ms, dev, plain_ms, ops, peak, byts,
+              library_ms=None, err=None, **extra):
+    """Record one probe kernel's row (`dev`: device_ms's (ms, method)); the
+    bound is the larger of `ops` at `peak` (a number, or a list of (ops,
+    peak)) and `byts` at the HBM rate."""
+    dev_ms, dev_how = dev
+    parts = ops if isinstance(ops, list) else [(ops, peak)]
+    t_ops = sum(o / p for o, p in parts)
+    t_bytes = byts / PEAK_BYTES
+    abs_err = float((got.double() - ref.double()).abs().max())
+    row = dict(max_abs_err=abs_err, max_rel_err=rel_err(got.double(), ref.double()) if err is None
+               else err, ms=ms, device_ms=dev_ms, device_ms_method=dev_how, plain_ms=plain_ms,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=library_ms,
+               **extra)
+    results[name] = row
+    print(f"  {name}: max|err|/max|ref| {row['max_rel_err']:.2e} kernel {fmt_ms(dev_ms)} "
+          f"({dev_how}; wrapper {ms:.4f} ms) plain {plain_ms:.4f} ms "
+          f"bound {row['bound_ms']:.5f} ms "
+          f"({row['bound_by']}) library {fmt_ms(library_ms)}"
+          + (f" ({fmt_ms(extra.get('library_device_ms'))} by graph replay)"
+             if library_ms is not None else ""), flush=True)
+    return row
+
+
+def drive(torch, mods, main, argv, want):
+    """Run a probe's entry point (`main(argv)`, what `python -m
+    diffbindfr_torch.probes.<name>` runs) with every count of `mods` set to 0
+    just before; the counts must equal `want` (counter -> launches; all others
+    0). Returns the counts."""
+    for m in mods:
+        m.reset_launches()
+    rc = main(argv)
+    torch.cuda.synchronize()
+    counts = {k: v for m in mods for k, v in m.launches.items()}
+    expect = {k: want.get(k, 0) for k in counts}
+    print(f"  entry point {main.__module__} {' '.join(argv)}: rc {rc}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if rc != 0 or counts != expect:
+        raise AssertionError(f"{main.__module__} {argv}: rc {rc}, launches {counts}, "
+                             f"expected {expect}")
+    return counts
+
+
+def phase_probe_mlp(torch, results):
+    """P4 (and P3's mlps): the fused MLP kernel against its plain version
+    at R = 1024 and R = 32; the entry point's launches."""
+    from diffbindfr_torch.probes import mlp
+
+    for R in (mlp.R_BLOCK, mlp.R_CHUNK):
+        e, w1, b1, w2, b2 = args = mlp.inputs(R, DEV)
+        got, ref = mlp.mlp(*args), mlp.mlp_plain(*args)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        if not bool(torch.isfinite(got).all()) or not err <= 1e-5:
+            raise AssertionError(f"probe_mlp R={R}: kernel disagrees with plain ({err:.3e})")
+        ms = time_ms(lambda: mlp.mlp(*args), 3, 20)
+        dev = device_ms(torch, lambda: mlp.mlp(*args), SYMBOLS["probe_mlp"])
+        dev_ms = dev[0]
+        plain_ms = time_ms(lambda: mlp.mlp_plain(*args), 3, 20)
+        # no single library call computes it: addmm, relu, mm as a reading
+        calls3 = lambda: torch.mm(w2, torch.relu(torch.addmm(b1, w1, e)))  # noqa: E731
+        three, three_dev = time_ms(calls3, 3, 20), graph_ms_or_none(torch, calls3)
+        ops, byts = mlp.work(R)
+        print(f"  R={R}: addmm + relu + mm {three:.4f} ms, {fmt_ms(three_dev)} by graph replay "
+              "(a reading, not a library call)", flush=True)
+        row = probe_row(torch, results, "probe_mlp" if R == mlp.R_BLOCK else "probe_mlp/R32",
+                        got, ref, ms, dev, plain_ms, ops, PEAK_FP32, byts, R=R,
+                        three_calls_ms=three, three_calls_device_ms=three_dev)
+        if dev_ms:
+            print(f"  R={R}: {ops / (dev_ms * 1e-3) / 1e9:.0f} GFLOP/s on the kernel's device "
+                  f"time, {row['bound_ms'] / dev_ms:.1%} of its bound", flush=True)
+    want = 8 + 2 * (mlp.MEASURE_ITERS + 1)  # 8 timed calls, then measure() at 2 widths
+    results["probe_mlp"]["launches"] = drive(torch, [mlp], mlp.main, [], {"probe_mlp": want})[
+        "probe_mlp"]
+
+
+def phase_probe_mxu_ops(torch, results):
+    """P2: legality, and both chain forms at the tool's 4096 grid steps over
+    64 input blocks, each against its plain version; the tool's rates; the
+    entry point's launches."""
+    from diffbindfr_torch.probes import mxu_ops as M
+
+    a = M.legality_inputs(DEV)
+    got, ref = M.legality(a), M.legality_plain(a)
+    err = rel_err(got, ref)
+    if not err <= 1e-6 or bool(got[:, 10:].any()):
+        raise AssertionError(f"legality: kernel disagrees with plain ({err:.3e})")
+    probe_row(torch, results, "probe_mxu_ops/legality", got, ref,
+              time_ms(lambda: M.legality(a), 3, 20),
+              device_ms(torch, lambda: M.legality(a), SYMBOLS["probe_mxu_ops/legality"]),
+              time_ms(lambda: M.legality_plain(a), 3, 20), 128 * (6 + 15), PEAK_FP32,
+              4.0 * 128 * (8 + 16))
+    metas, wn_p, din_p, dout_p, kdim, d3max = M.plan()
+    src, w, cb = M.chain_inputs(M.NBLK, DEV)
+    cbT = M.transpose_cb(cb)
+    madds, flops = M.counts()
+    in_bytes = nbytes(src, w, cb)
+    # vpu: the tool's rounded bf16 operations per step (Σ mul_p·128·d1·(1 + 2 d3))
+    got, ref = M.chain_vpu(src, w, cb, M.REPS), M.chain_vpu_plain(src, w, cb, M.REPS)
+    torch.cuda.synchronize()
+    err = rel_err(got, ref)
+    if not err <= 1e-6 or bool(got[..., 4:].any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"chain_vpu: kernel disagrees with plain ({err:.3e})")
+    vpu = probe_row(torch, results, "probe_mxu_ops/chain_vpu", got, ref,
+                    time_ms(lambda: M.chain_vpu(src, w, cb, M.REPS), 1, 5),
+                    device_ms(torch, lambda: M.chain_vpu(src, w, cb, M.REPS),
+                              SYMBOLS["probe_mxu_ops/chain_vpu"]),
+                    time_ms(lambda: M.chain_vpu_plain(src, w, cb, M.REPS), 0, 1),
+                    float(madds) * M.REPS, PEAK_BF16X2_ROUNDED, in_bytes + nbytes(got),
+                    reps=M.REPS, nblk=M.NBLK)
+    del got, ref
+    # mxu: the tensor-core FLOPs plus the lhs products (rounded bf16)
+    got, ref = M.chain_mxu(src, w, cbT, M.REPS), M.chain_mxu_plain(src, w, cbT, M.REPS)
+    torch.cuda.synchronize()
+    e5, ratio = M.mxu_errors(got, ref)
+    print(f"  chain_mxu: d3 = {d3max} rows max|err|/max|ref| {e5:.2e} (gate 1e-5); other rows "
+          f"at {ratio:.2f} of one bf16 unit + 1e-5 max|ref| (gate 1)", flush=True)
+    if not (e5 <= 1e-5 and ratio <= 1.0) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"chain_mxu: kernel disagrees with plain ({e5:.3e}, {ratio:.3f})")
+    lhs_ops = float(sum(m["mul_p"] * m["d1"] * M.LANES for m in metas)) * M.REPS
+    mxu = probe_row(torch, results, "probe_mxu_ops/chain_mxu", got, ref,
+                    time_ms(lambda: M.chain_mxu(src, w, cbT, M.REPS), 1, 5),
+                    device_ms(torch, lambda: M.chain_mxu(src, w, cbT, M.REPS),
+                              SYMBOLS["probe_mxu_ops/chain_mxu"]),
+                    time_ms(lambda: M.chain_mxu_plain(src, w, cbT, M.REPS), 0, 1),
+                    [(float(flops) * M.REPS, PEAK_BF16_TC), (lhs_ops, PEAK_BF16X2_ROUNDED)], None,
+                    in_bytes + nbytes(got), err=e5, bf16_unit_ratio=ratio, reps=M.REPS,
+                    nblk=M.NBLK)
+    del got, ref
+    for what, key in (("wrapper", "ms"), ("kernel", "device_ms")):
+        ta, tb = vpu[key], mxu[key]
+        if ta and tb:
+            print(f"  the tool's rates on the {what} times: VPU-form {ta:.4f} ms "
+                  f"({madds * M.REPS / (ta * 1e-3) / 1e12:.2f} Tmadd/s), MXU-form {tb:.4f} ms "
+                  f"({flops * M.REPS / (tb * 1e-3) / 1e12:.2f} TF/s eff): speedup x{ta / tb:.2f}",
+                  flush=True)
+    counts = drive(torch, [M], M.main, ["both"],
+                   {"probe_mxu_ops/legality": 1, "probe_mxu_ops/chain_vpu": 1 + M.RUNS,
+                    "probe_mxu_ops/chain_mxu": 1 + M.RUNS})
+    for k, v in counts.items():
+        results[k]["launches"] = v
+
+
+def mosaic_work(word, args, out):
+    """(fp32 operations, bytes) of one P3 probe on these inputs: each input
+    read once, the output written once."""
+    from diffbindfr_torch.probes import cm_layout, mlp, mosaic
+
+    byts = float(nbytes(*args, out))
+    if word == "mlp":
+        return mlp.work(args[0].shape[1])[0], byts
+    if word == "dw":
+        metas = cm_layout.tmetas(mosaic.dw_spec())[0]
+        per_lane = sum(m["mul_p"] * (1 + m["d1"] + 2 * m["d1"] * m["d3"]) for m in metas)
+        return float(out.shape[0] * args[0].shape[1] * per_lane), byts
+    if word == "abt":
+        (m, k), n = args[0].shape, args[1].shape[0]
+        return 2.0 * m * n * k, byts
+    # 3d: 2 products and 2 sums per written element; bcast: 4 operations per
+    # element (exp counted once); 4d: 1; msel: 1 sum per input; copies: 0
+    ops = {"3d": 4 * 16 * 8 * 2, "bcast": 4 * out.numel(), "4d": out.numel(),
+           "msel": args[0].numel()}
+    return float(ops.get(word, 0)), byts
+
+
+def phase_probe_mosaic(torch, results):
+    """P3: each probe's kernel against its plain version (exact where a copy
+    or one rounding, else mosaic.TOL), the library call beside it where one
+    computes the same function, the Hopper form of probe_precision; the entry
+    point's launches per probe."""
+    from diffbindfr_torch.probes import mlp, mosaic
+
+    tf = mosaic.onehot_matrix(64, 1024, 128, True, DEV)
+    m8 = mosaic.onehot_matrix(1024, 8, 128, device=DEV)
+    library = {"onehot": lambda a: torch.matmul(a, tf), "abt": lambda a, b: torch.matmul(a, b.t()),
+               "msel": lambda z: torch.matmul(z, m8), "tile": lambda a: a.repeat(1, 8),
+               "4d": lambda b: b[1, 1] * 2}
+    library["prec"] = library["onehot"]
+    for word in mosaic.WORDS:
+        fn, plain, _ = mosaic.FUNCS[word]
+        args = mosaic.inputs(word, DEV)
+        got, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        tol = mosaic.TOL[word]
+        ok = torch.equal(got, ref) if tol == 0 else rel_err(got, ref) <= tol
+        if not ok or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"probe {word}: kernel disagrees with plain "
+                                 f"({rel_err(got, ref):.3e}, tolerance {tol})")
+        if word in ("onehot", "prec"):
+            moved = args[0][:, torch.arange(1024, device=DEV) // 128]
+            if not torch.equal(got, moved) or not torch.equal(ref, moved):
+                raise AssertionError(f"{word}: the movement is not bit-exact")
+        ops, byts = mosaic_work(word, args, got)
+        lib = library.get(word)
+        lib_ms = lib_dev = None
+        if lib:
+            if tol == 0 and not torch.equal(lib(*args), ref):
+                raise AssertionError(f"{word}: the library call is not exact with TF32 off")
+            lib_ms = time_ms(lambda: lib(*args), 3, 20)
+            lib_dev = graph_ms_or_none(torch, lambda: lib(*args))  # beside device_ms
+        name = "probe_mosaic/" + MOSAIC_ROWS[word][0]
+        probe_row(torch, results, name, got, ref, time_ms(lambda: fn(*args), 3, 20),
+                  device_ms(torch, lambda: fn(*args), SYMBOLS[word]),
+                  time_ms(lambda: plain(*args), 3, 20), ops, PEAK_FP32, byts, lib_ms,
+                  library_device_ms=lib_dev)
+    # probe_precision on this card: TF32 in a movement dot. The gather and
+    # the fp32 matmul (TF32 off) were exact above; the control turns TF32 on
+    a = mosaic.inputs("prec", DEV)[0]
+    tf = mosaic.onehot_matrix(64, 1024, 128, True, DEV)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.matmul(a, tf)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    moved = a[:, torch.arange(1024, device=DEV) // 128]
+    d = float((tf32 - moved).abs().max())
+    print(f"  precision: the gather and the fp32 matmul (TF32 off) move a[:, p // 128] bit "
+          f"for bit; control, the same matmul with TF32 on: "
+          + ("also exact at these values (the check cannot tell TF32 here)" if d == 0 else
+             f"max|err| {d:.3e} ({d / float(moved.abs().max()):.2e} of max|ref|): TF32 rounds "
+             "the moved values, which the check sees"), flush=True)
+    results["probe_mosaic/precision"]["tf32_control_max_abs_err"] = d
+    for word in mosaic.WORDS:
+        key = "probe_mlp" if word == "mlp" else "probe_mosaic/" + (
+            "onehot" if word == "prec" else MOSAIC_ROWS[word][0])
+        counts = drive(torch, [mosaic, mlp], mosaic.main, [word], {key: 1 + mosaic.RUNS})
+        results["probe_mosaic/" + MOSAIC_ROWS[word][0]]["launches"] = counts[key]
+
 
 
 def main() -> int:
@@ -1481,12 +1862,28 @@ def main() -> int:
         bf16_counts = phase_bf16_dock(torch, np, sn, sp, pipeline, TC, params, s_np, smi,
                                       cmt_profile)
 
+    # the probes' plain versions and library yardsticks run fp32 matmuls in
+    # full fp32: TF32 off, stated
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}",
+          flush=True)
+    with Phase("probe_mlp"):
+        phase_probe_mlp(torch, per_kernel)
+
+    with Phase("probe_mxu_ops"):
+        phase_probe_mxu_ops(torch, per_kernel)
+
+    with Phase("probe_mosaic"):
+        phase_probe_mosaic(torch, per_kernel)
+
     rows = []
     for name, (src, repl) in KERNELS.items():
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                      "launches": counts[name], "max_abs_err": main_row["max_abs_err"],
                      "max_rel_err": main_row["max_rel_err"], "ms": main_row["ms"],
+                     "device_ms": main_row["device_ms"],
+                     "device_ms_method": main_row["device_ms_method"],
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 16})
@@ -1498,9 +1895,11 @@ def main() -> int:
                      "max_rel_err": main_row["max_rel_err"],
                      "tie_rel_err": main_row["tie_rel_err"],
                      "ties_taken": main_row["ties_taken"], "ms": main_row["ms"],
-                     "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-                     "bound_by": main_row["bound_by"], "library_ms": None,
-                     "layer": 5, "batch": 4})
+                     "device_ms": main_row["device_ms"],
+                     "device_ms_method": main_row["device_ms_method"],
+                     "plain_ms": main_row["plain_ms"],
+                     "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+                     "library_ms": None, "layer": 5, "batch": 4})
     for name, (src, repl) in RM_KERNELS.items():
         # the dock shapes at layer 5; launches from the dock in the
         # configuration that runs the kernel
@@ -1509,6 +1908,8 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                      "launches": rm_counts[mode][name], "max_abs_err": main_row["max_abs_err"],
                      "max_rel_err": main_row["max_rel_err"], "ms": main_row["ms"],
+                     "device_ms": main_row["device_ms"],
+                     "device_ms_method": main_row["device_ms_method"],
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 16})
@@ -1518,6 +1919,8 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                      "launches": bf16_counts[name], "max_abs_err": main_row["max_abs_err"],
                      "max_rel_err": main_row["max_rel_err"], "ms": main_row["ms"],
+                     "device_ms": main_row["device_ms"],
+                     "device_ms_method": main_row["device_ms_method"],
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 16})
@@ -1526,9 +1929,31 @@ def main() -> int:
         # 8192 x 1024 elements, 2000 steps; launches from its measurement
         rows.append({"name": name, "route": "cuda", "source": PROBE[0], "replaces": PROBE[1],
                      "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-                     "max_rel_err": r["max_rel_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                     "max_rel_err": r["max_rel_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+                     "device_ms_method": r["device_ms_method"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None,
                      "rows": r["rows"], "reps": r["reps"], "gflops": r["gflops"]})
+    keys = ("launches", "max_abs_err", "max_rel_err", "ms", "device_ms", "device_ms_method",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    probes = dict(PROBE_KERNELS)
+    for word, (row, line) in MOSAIC_ROWS.items():
+        src = PROBE_KERNELS["probe_mlp"][0] if word == "mlp" else MOSAIC_SOURCE
+        probes["probe_mosaic/" + row] = (src, "tools/probe_mosaic.py" + line)
+    served = {"probe_mosaic/mlps": "probe_mlp", "probe_mosaic/precision": "probe_mosaic/onehot"}
+    for name, (src, repl) in probes.items():
+        r = per_kernel[name]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                     **{k: r[k] for k in keys},
+                     **{k: v for k, v in r.items() if k in (
+                         "reps", "nblk", "bf16_unit_ratio", "tf32_control_max_abs_err",
+                         "library_device_ms", "three_calls_ms", "three_calls_device_ms")}})
+        if name in served:
+            rows[-1]["served_by"] = served[name]
+        if name == "probe_mlp":
+            r32 = per_kernel["probe_mlp/R32"]
+            rows[-1].update(R=1024, r32_ms=r32["ms"], r32_device_ms=r32["device_ms"],
+                            r32_bound_ms=r32["bound_ms"], r32_plain_ms=r32["plain_ms"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

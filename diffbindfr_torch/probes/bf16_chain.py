@@ -20,10 +20,10 @@ step). `chain` is the wrapper: the kernel for CUDA tensors (counted in
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
+
+from . import _cuda
 
 VARIANTS = ("f32_fma", "bf16x2_mul_add", "bf16x2_fma")
 launches = {f"probe_bf16/{v}": 0 for v in VARIANTS}
@@ -73,18 +73,6 @@ def chain_plain(x, w, reps: int, variant: str):
     return acc
 
 
-def _library():
-    from ..utils import cuda_build
-
-    lib = cuda_build.load()
-    fn = lib.dbfr_probe_bf16
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, I, I, I, P]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def chain(x, w, reps: int, variant: str):
     """The chain on x, w [rows, lanes] (the variant's dtype; rows * lanes a
     multiple of 8): the CUDA kernel for CUDA tensors, else chain_plain."""
@@ -99,25 +87,10 @@ def chain(x, w, reps: int, variant: str):
                          f"a multiple of {_VEC[variant]} elements")
     x, w = x.contiguous(), w.contiguous()
     out = torch.empty_like(x)
-    rc = _library().dbfr_probe_bf16(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                    x.numel() // _VEC[variant], reps, VARIANTS.index(variant),
-                                    torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"probe_bf16 {variant}: CUDA error {rc} at launch")
+    _cuda.launch("dbfr_probe_bf16", (x, w, out),
+                 (x.numel() // _VEC[variant], reps, VARIANTS.index(variant)))
     launches[f"probe_bf16/{variant}"] += 1
     return out
-
-
-def _time_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def measure(rows: int = 256, lanes: int = 1024, reps: int = 2000, iters: int = 20,
@@ -126,15 +99,13 @@ def measure(rows: int = 256, lanes: int = 1024, reps: int = 2000, iters: int = 2
     per-sweep time (us) from their difference, GFLOP/s (2 per element and
     step) and gops (3 rounded operations per element and step). CUDA only:
     a measurement without a card fails."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        raise RuntimeError("the probe measures the card: pass a CUDA device")
+    dev = _cuda.require_cuda(device)
     out = {}
     elems = rows * lanes
     for v in VARIANTS:
         x, w = inputs(rows, lanes, v, dev)
-        t1 = _time_ms(lambda: chain(x, w, reps, v), iters)
-        t2 = _time_ms(lambda: chain(x, w, 2 * reps, v), iters)
+        t1 = _cuda.time_ms(lambda: chain(x, w, reps, v), iters)
+        t2 = _cuda.time_ms(lambda: chain(x, w, 2 * reps, v), iters)
         sweep_s = (t2 - t1) * 1e-3 / reps
         out[v] = dict(rows=rows, lanes=lanes, reps=reps, ms_r=t1, ms_2r=t2,
                       us_per_sweep=sweep_s * 1e6,

@@ -4,8 +4,8 @@ through the wrappers against autograd through the plain versions), the
 finalize kernels B7-B9 and the whole-layer kernel B10 (forward, and the
 gradients of their plain-recompute backward), the bf16-chain kernels B11
 (forward against their plain bf16 versions, backward equal to the f32
-wrappers'), and the kernel path's error for gradients it does not give
-(positions, time embedding, cutoff). Marked
+wrappers'), the kernel path's error for gradients it does not give
+(positions, time embedding, cutoff), and the probes' kernels P2-P4. Marked
 `cuda`: skipped (with a reason) where no GPU is present. Imports no JAX, so
 it runs on the GPU machine with
 
@@ -473,3 +473,75 @@ def test_kernel_path_refuses_position_gradients(dev):
                 a = list(args)
                 a[1] = a[1].clone().requires_grad_(True)
                 fn(*a)
+
+
+# ---------------------------------------------------------------------------
+# the probes P2-P4 (diffbindfr_torch/probes): each kernel against its plain
+# version at the TPU probes' shapes (P2's chains at 64 grid steps over 8 input
+# blocks), with the tolerances of tests/test_torch_probes.py (mosaic.TOL: exact
+# for the layout probes, onehot and precision bit for bit, 1e-6 of max|ref|
+# for bcast2d, 1e-5 for msel, abt, the MLP and dwloop; 1e-6 for legality and
+# chain_vpu; chain_mxu by mxu_ops.mxu_errors: d3 = 5 rows 1e-5, the
+# bf16-rounded rows within one bf16 unit plus 1e-5)
+# ---------------------------------------------------------------------------
+
+PROBE_WORDS = ("3d", "onehot", "tile", "bcast", "4d", "msel", "prec", "dw", "mlp", "abt")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word", PROBE_WORDS)
+def test_probe_mosaic_kernel_matches_plain(dev, word):
+    from diffbindfr_torch.probes import mlp, mosaic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fn, plain, _ = mosaic.FUNCS[word]
+    args = mosaic.inputs(word, dev)
+    counts = {**mosaic.launches, **mlp.launches}
+    got = fn(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert sum({**mosaic.launches, **mlp.launches}.values()) == sum(counts.values()) + 1
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    if mosaic.TOL[word] == 0:
+        assert torch.equal(got, ref), word
+    else:
+        assert _rel(got, ref) <= mosaic.TOL[word], (word, _rel(got, ref))
+    if word in ("onehot", "prec"):  # the gather is the exact movement
+        assert torch.equal(got, args[0][:, torch.arange(1024, device=dev) // 128])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1024, 32, 200])
+def test_probe_mlp_kernel_matches_plain(dev, R):
+    from diffbindfr_torch.probes import mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = mlp.inputs(R, dev)
+    before = mlp.launches["probe_mlp"]
+    got = mlp.mlp(*args)
+    ref = mlp.mlp_plain(*args)
+    torch.cuda.synchronize()
+    assert mlp.launches["probe_mlp"] == before + 1
+    assert got.shape == (480, R) and _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_probe_mxu_ops_kernels_match_plain(dev):
+    from diffbindfr_torch.probes import mxu_ops as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = dict(M.launches)
+    a = M.legality_inputs(dev)
+    got, ref = M.legality(a), M.legality_plain(a)
+    assert _rel(got, ref) <= 1e-6 and not bool(got[:, 10:].any())
+    src, w, cb = M.chain_inputs(8, dev)
+    got, ref = M.chain_vpu(src, w, cb, 64), M.chain_vpu_plain(src, w, cb, 64)
+    torch.cuda.synchronize()
+    assert got.shape == (64, 1216, 8) and _rel(got, ref) <= 1e-6
+    assert not bool(got[..., 4:].any())
+    cbT = M.transpose_cb(cb)
+    got, ref = M.chain_mxu(src, w, cbT, 64), M.chain_mxu_plain(src, w, cbT, 64)
+    torch.cuda.synchronize()
+    e5, ratio = M.mxu_errors(got, ref)
+    assert got.shape == (64, 384, 40) and e5 <= 1e-5 and ratio <= 1.0, (e5, ratio)
+    assert M.launches == {k: v + 1 for k, v in before.items()}
