@@ -116,12 +116,17 @@ a non-zero exit code):
 Kernel times: `ms` is the wrapper's time by CUDA events around 10 calls
 (its host set-up included), `device_ms` the kernel's own device time per
 call (phases 5, 9, 12, 17, 18, 21-23): from torch.profiler's
-key_averages() by the CUDA kernel's symbol, or, where the profiler sees
-none of the kernel's launches, from CUDA events around replays of a CUDA
+key_averages() by the CUDA kernel's symbol, taken only where the profiler
+recorded one event of the kernel for each of its grids launched (its
+counter's launches x GRIDS); else from CUDA events around replays of a CUDA
 graph of 20 calls (no host work between the kernels); each row names its
-`device_ms_method`. The probes' library calls are timed both ways. The
-second-to-last lines are the kernels JSON and the nvidia-smi line; the
-last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+`device_ms_method` (and, for graph replay, what the profiler missed).
+Phase 21 also prints what the profiler records of the P4 kernel's launches
+made bare, with 20 ms host pauses at the ends of its window, each in a
+record_function span, and beside an aten kernel (PERF.md section 7). The
+probes' library calls are timed both ways. The second-to-last lines are
+the kernels JSON and the nvidia-smi line; the last line is {"ok": true,
+"device": {...}}. Imports nothing of JAX.
 """
 import contextlib
 import functools
@@ -225,7 +230,8 @@ MOSAIC_ROWS = {"3d": ("3d_accum", ":40"), "onehot": ("onehot", ":68"),
                "4d": ("4d_block", ":129"), "msel": ("msel", ":154"),
                "prec": ("precision", ":199"), "dw": ("dwloop", ":243"), "mlp": ("mlps", ":291"),
                "abt": ("abt", ":343")}
-# CUDA kernel symbols of each launch counter, for the profiler's device time
+# CUDA kernel symbols of each launch counter, for the profiler's device time;
+# the first is the kernel that the counter counts
 SYMBOLS = {
     "cross_conv": ("cross_conv_kernel(",), "pair_conv": ("pair_conv_kernel(",),
     "knn_conv": ("knn_conv_kernel(",),
@@ -242,11 +248,17 @@ SYMBOLS = {
     "probe_mlp": ("probe_mlp_kernel(",), "probe_mxu_ops/legality": ("legality_kernel(",),
     "probe_mxu_ops/chain_vpu": ("chain_vpu_kernel(",),
     "probe_mxu_ops/chain_mxu": ("chain_mxu_kernel(",),
-    "3d": ("accum3d_kernel(",), "onehot": ("gather_kernel(",), "prec": ("gather_kernel(",),
-    "tile": ("tile_kernel(",), "bcast": ("bcast2d_kernel(",), "4d": ("block4d_kernel(",),
-    "msel": ("msel_kernel(",), "dw": ("dwloop_kernel(",), "mlp": ("probe_mlp_kernel(",),
-    "abt": ("abt_kernel(",),
+    "probe_mosaic/3d_accum": ("accum3d_kernel(",), "probe_mosaic/onehot": ("gather_kernel(",),
+    "probe_mosaic/tile_lanes": ("tile_kernel(",), "probe_mosaic/bcast2d": ("bcast2d_kernel(",),
+    "probe_mosaic/4d_block": ("block4d_kernel(",), "probe_mosaic/msel": ("msel_kernel(",),
+    "probe_mosaic/dwloop": ("dwloop_kernel(",), "probe_mosaic/abt": ("abt_kernel(",),
 }
+# grids of the counted kernel (SYMBOLS[key][0]) that one counted launch runs,
+# where more than one: the cross convs run an al and an la pass
+# (csrc/cross_conv.cu), B4 four passes (csrc/cross_bwd.cu), B5 a target and
+# a source pass (csrc/pair_bwd.cu)
+GRIDS = {"cross_conv": 2, "cross_conv_fin": 2, "cross_conv_bf16": 2, "cross_bwd": 4,
+         "pair_bwd": 2}
 # bf16 dense rate of the tensor cores (data sheet, 700 W)
 PEAK_BF16_TC = 989e12
 SCHED = {"tr_sigma_min": 0.1, "tr_sigma_max": 6.0, "rot_sigma_min": 0.03,
@@ -299,33 +311,71 @@ def time_ms(fn, warmup, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, symbols, calls=5):
-    """A kernel's own device time per call of `fn`, without the host set-up
-    that CUDA events around the wrapper include, and how it was measured:
-    "profiler", torch.profiler's key_averages() over `calls` calls (after a
-    warm-up), the device time of the CUDA kernels whose names contain one of
-    `symbols`, over `calls`; where the profiler saw none of them (it misses
-    lone ctypes launches in a long process), "graph replay", CUDA events
-    around replays of a CUDA graph of 20 calls, so no host work separates
-    the launches. (None, "not measured") if both fail."""
-    from torch.profiler import ProfilerActivity, profile
+def launch_count(key):
+    """The launch counter `key` of whichever port module keeps it."""
+    from diffbindfr_torch.nn import trunk_convs
+    from diffbindfr_torch.probes import bf16_chain, mlp, mosaic, mxu_ops
 
+    for m in (trunk_convs, bf16_chain, mlp, mosaic, mxu_ops):
+        if key in m.launches:
+            return m.launches[key]
+    raise KeyError(key)
+
+
+def profile_kernel(torch, fn, key, calls, span=False, pause=0.0):
+    """Run `fn` `calls` times under torch.profiler, each call inside a
+    record_function span when `span`, with a host pause of `pause` s after
+    the profiler starts and after the last kernel ends (it may drop device
+    events near the ends of its window). Returns (device us of the kernels
+    of SYMBOLS[key], events of the counted kernel SYMBOLS[key][0], its grids
+    launched (the launches the counter `key` counted x GRIDS), the names of
+    up to 6 device kernels the profiler saw)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    symbols = SYMBOLS[key]
+    before = launch_count(key)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pause)
+        for _ in range(calls):
+            with record_function("probe_call") if span else contextlib.nullcontext():
+                fn()
+        torch.cuda.synchronize()
+        time.sleep(pause)
+    launched = (launch_count(key) - before) * GRIDS.get(key, 1)
+    total, main, names = 0.0, 0, []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+        if us > 0 and len(names) < 6:
+            names.append(e.key[:60])
+        if any(sym in e.key for sym in symbols):
+            total += us
+        if symbols[0] in e.key:
+            main += e.count
+    return total, main, launched, names
+
+
+def device_ms(torch, fn, key, calls=5):
+    """A kernel's own device time per call of `fn`, without the host set-up
+    that CUDA events around the wrapper include, and how it was measured.
+    "profiler": torch.profiler's key_averages() over `calls` calls after a
+    warm-up (profile_kernel), the device time of the
+    CUDA kernels whose names contain one of SYMBOLS[key], over `calls`. It
+    is taken only where the profiler recorded one event of the counted
+    kernel (SYMBOLS[key][0]) for each of its grids launched in those calls
+    (the counter `key`'s launches x GRIDS). Else "graph replay": CUDA events
+    around replays of a CUDA graph of 20 calls, so no host work separates
+    the launches; the method then says why the profiler's reading was
+    refused. (None, "not measured ...") if both fail."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, seen = 0.0, 0
-    for e in prof.key_averages():
-        if any(sym in e.key for sym in symbols):
-            us = getattr(e, "self_device_time_total", None)
-            total += getattr(e, "self_cuda_time_total", 0.0) if us is None else us
-            seen += e.count
-    if seen:
+    total, main, launched, names = profile_kernel(torch, fn, key, calls)
+    if launched and main == launched:
         return total / 1e3 / calls, "profiler"
+    why = f"the profiler recorded {main} events of {SYMBOLS[key][0][:-1]} for {launched} grids"
+    print(f"  {key}: profiler reading refused, {why}; device kernels it saw: {names}", flush=True)
     ms = graph_ms_or_none(torch, fn)
-    return ms, "not measured" if ms is None else "graph replay"
+    return ms, ("not measured" if ms is None else "graph replay") + f" ({why})"
 
 
 def graph_ms_or_none(torch, fn):
@@ -491,7 +541,7 @@ def phase_kernels(torch, params, s_np, results):
                 abs_err = max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
                 finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
                 ms = time_ms(lambda: wrapper[name](*a), 3, 10)
-                dev_ms, dev_how = device_ms(torch, lambda: wrapper[name](*a), SYMBOLS[name])
+                dev_ms, dev_how = device_ms(torch, lambda: wrapper[name](*a), name)
                 plain_ms = time_ms(lambda: plain[name](*a), 1, 2)
             flops, byts, pairs = work(torch, name, a)
             bound_ms = max(flops / PEAK_FP32, byts / PEAK_BYTES) * 1e3
@@ -625,7 +675,7 @@ def phase_bwd_kernels(torch, params, s_np, results):
             finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
             launch = bwd_launcher(torch, TC, name, args[name], gs)
             ms = time_ms(launch, 2, 5)
-            dev_ms, dev_how = device_ms(torch, launch, SYMBOLS[bname])
+            dev_ms, dev_how = device_ms(torch, launch, bname)
             out_p = plain[name](*diff)
             out_p = out_p if isinstance(out_p, tuple) else (out_p,)
             plain_ms = time_ms(lambda: torch.autograd.grad(out_p, leaves, gs, retain_graph=True),
@@ -986,7 +1036,7 @@ def phase_rm_kernels(torch, params, s_np, results):
                 abs_err = max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
                 finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
                 ms = time_ms(lambda: wrapper[name](*a), 3, 10)
-                dev_ms, dev_how = device_ms(torch, lambda: wrapper[name](*a), SYMBOLS[name])
+                dev_ms, dev_how = device_ms(torch, lambda: wrapper[name](*a), name)
                 plain_ms = time_ms(lambda: plain[name](*a), 1, 2)
             flops, byts, pairs = rm_work(torch, name, a, args)
             bound_ms = max(flops / PEAK_FP32, byts / PEAK_BYTES) * 1e3
@@ -1301,7 +1351,7 @@ def phase_probe_bf16(torch, results):
                   f"operations/s; plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms", flush=True)
             if rows == 8192:
                 dev_ms, dev_how = device_ms(torch, lambda: P.chain(x, w, r["reps"], v),
-                                   SYMBOLS[f"probe_bf16/{v}"])
+                                                   f"probe_bf16/{v}")
                 print(f"  {v} {rows} x 1024 at {r['reps']} steps: kernel {fmt_ms(dev_ms)} "
                       f"({dev_how})", flush=True)
                 results[f"probe_bf16/{v}"] = dict(
@@ -1364,7 +1414,7 @@ def phase_bf16_kernels(torch, params, s_np, results, bf16_rate):
                          "knn_conv_bf16": (a[5].sum(-1),)}[name]
                 dead = all(bool((g_[m_ <= 0] == 0).all()) for g_, m_ in zip(got, masks))
                 ms = time_ms(lambda: wrapper[name](*a), 3, 10)
-                dev_ms, dev_how = device_ms(torch, lambda: wrapper[name](*a), SYMBOLS[name])
+                dev_ms, dev_how = device_ms(torch, lambda: wrapper[name](*a), name)
                 plain_ms = time_ms(lambda: plain[name](*a), 1, 2)
             flops, byts, pairs = work(torch, twin, a)
             f32_chain, b11_f32, b11_bf16 = chain_ops(a[0])
@@ -1532,7 +1582,7 @@ def phase_probe_mlp(torch, results):
         if not bool(torch.isfinite(got).all()) or not err <= 1e-5:
             raise AssertionError(f"probe_mlp R={R}: kernel disagrees with plain ({err:.3e})")
         ms = time_ms(lambda: mlp.mlp(*args), 3, 20)
-        dev = device_ms(torch, lambda: mlp.mlp(*args), SYMBOLS["probe_mlp"])
+        dev = device_ms(torch, lambda: mlp.mlp(*args), "probe_mlp")
         dev_ms = dev[0]
         plain_ms = time_ms(lambda: mlp.mlp_plain(*args), 3, 20)
         # no single library call computes it: addmm, relu, mm as a reading
@@ -1547,6 +1597,24 @@ def phase_probe_mlp(torch, results):
         if dev_ms:
             print(f"  R={R}: {ops / (dev_ms * 1e-3) / 1e9:.0f} GFLOP/s on the kernel's device "
                   f"time, {row['bound_ms'] / dev_ms:.1%} of its bound", flush=True)
+    # what the profiler records of the kernel's launches over 5 calls: made
+    # bare (as device_ms makes them), with 20 ms host pauses at the ends of
+    # the profiler's window, each inside a record_function span, and beside
+    # one aten kernel per call
+    args = mlp.inputs(mlp.R_BLOCK, DEV)
+
+    def beside_aten():
+        torch.zeros(1, device=DEV)
+        return mlp.mlp(*args)
+
+    bare = lambda: mlp.mlp(*args)  # noqa: E731
+    for how, fn, span, pause in (("bare", bare, False, 0.0), ("pause", bare, False, 0.02),
+                                 ("in_span", bare, True, 0.0),
+                                 ("beside_aten", beside_aten, False, 0.0)):
+        _, seen, launched, names = profile_kernel(torch, fn, "probe_mlp", 5, span, pause)
+        print(f"  profiler, 5 calls {how}: {seen} events of probe_mlp_kernel for {launched} "
+              f"grids; device kernels seen: {names}", flush=True)
+        results["probe_mlp"]["profiler_events_" + how] = [seen, launched]
     want = 8 + 2 * (mlp.MEASURE_ITERS + 1)  # 8 timed calls, then measure() at 2 widths
     results["probe_mlp"]["launches"] = drive(torch, [mlp], mlp.main, [], {"probe_mlp": want})[
         "probe_mlp"]
@@ -1565,14 +1633,14 @@ def phase_probe_mxu_ops(torch, results):
         raise AssertionError(f"legality: kernel disagrees with plain ({err:.3e})")
     probe_row(torch, results, "probe_mxu_ops/legality", got, ref,
               time_ms(lambda: M.legality(a), 3, 20),
-              device_ms(torch, lambda: M.legality(a), SYMBOLS["probe_mxu_ops/legality"]),
+              device_ms(torch, lambda: M.legality(a), "probe_mxu_ops/legality"),
               time_ms(lambda: M.legality_plain(a), 3, 20), 128 * (6 + 15), PEAK_FP32,
               4.0 * 128 * (8 + 16))
     metas, wn_p, din_p, dout_p, kdim, d3max = M.plan()
     src, w, cb = M.chain_inputs(M.NBLK, DEV)
     cbT = M.transpose_cb(cb)
     madds, flops = M.counts()
-    in_bytes = nbytes(src, w, cb)
+    in_bytes = 4.0 * M.NBLK * M.LANES * sum(chain_rows_read(metas))  # each input block once
     # vpu: the tool's rounded bf16 operations per step (Σ mul_p·128·d1·(1 + 2 d3))
     got, ref = M.chain_vpu(src, w, cb, M.REPS), M.chain_vpu_plain(src, w, cb, M.REPS)
     torch.cuda.synchronize()
@@ -1582,7 +1650,7 @@ def phase_probe_mxu_ops(torch, results):
     vpu = probe_row(torch, results, "probe_mxu_ops/chain_vpu", got, ref,
                     time_ms(lambda: M.chain_vpu(src, w, cb, M.REPS), 1, 5),
                     device_ms(torch, lambda: M.chain_vpu(src, w, cb, M.REPS),
-                              SYMBOLS["probe_mxu_ops/chain_vpu"]),
+                              "probe_mxu_ops/chain_vpu"),
                     time_ms(lambda: M.chain_vpu_plain(src, w, cb, M.REPS), 0, 1),
                     float(madds) * M.REPS, PEAK_BF16X2_ROUNDED, in_bytes + nbytes(got),
                     reps=M.REPS, nblk=M.NBLK)
@@ -1599,7 +1667,7 @@ def phase_probe_mxu_ops(torch, results):
     mxu = probe_row(torch, results, "probe_mxu_ops/chain_mxu", got, ref,
                     time_ms(lambda: M.chain_mxu(src, w, cbT, M.REPS), 1, 5),
                     device_ms(torch, lambda: M.chain_mxu(src, w, cbT, M.REPS),
-                              SYMBOLS["probe_mxu_ops/chain_mxu"]),
+                              "probe_mxu_ops/chain_mxu"),
                     time_ms(lambda: M.chain_mxu_plain(src, w, cbT, M.REPS), 0, 1),
                     [(float(flops) * M.REPS, PEAK_BF16_TC), (lhs_ops, PEAK_BF16X2_ROUNDED)], None,
                     in_bytes + nbytes(got), err=e5, bf16_unit_ratio=ratio, reps=M.REPS,
@@ -1619,26 +1687,58 @@ def phase_probe_mxu_ops(torch, results):
         results[k]["launches"] = v
 
 
+def chain_rows_read(metas):
+    """(src, w, cb) rows that a depthwise chain over the path metas reads:
+    the union of its paths' rows."""
+    src, w, cb = set(), set(), set()
+    for m in metas:
+        for r0 in m["src_rows"]:
+            src.update(range(r0, r0 + m["mul_p"]))
+        w.update(range(m["w_row"], m["w_row"] + m["mul_p"]))
+        cb.update(range(m["cb_off"], m["cb_off"] + m["d1"] * m["d3"]))
+    return len(src), len(w), len(cb)
+
+
+def mosaic_counter(word):
+    """The launch counter of the kernel that serves the P3 probe `word`."""
+    if word == "mlp":
+        return "probe_mlp"
+    return "probe_mosaic/" + MOSAIC_ROWS["onehot" if word == "prec" else word][0]
+
+
 def mosaic_work(word, args, out):
     """(fp32 operations, bytes) of one P3 probe on these inputs: each input
-    read once, the output written once."""
+    element that its function reads, read once, and the output written
+    once."""
     from diffbindfr_torch.probes import cm_layout, mlp, mosaic
 
-    byts = float(nbytes(*args, out))
     if word == "mlp":
-        return mlp.work(args[0].shape[1])[0], byts
+        return mlp.work(args[0].shape[1])
+    out_bytes = float(nbytes(out))
     if word == "dw":
         metas = cm_layout.tmetas(mosaic.dw_spec())[0]
         per_lane = sum(m["mul_p"] * (1 + m["d1"] + 2 * m["d1"] * m["d3"]) for m in metas)
-        return float(out.shape[0] * args[0].shape[1] * per_lane), byts
+        R = args[0].shape[1]
+        read = (sum(chain_rows_read(metas)) + 1) * R * 4.0  # + the mask
+        return float(out.shape[0] * R * per_lane), read + out_bytes
     if word == "abt":
         (m, k), n = args[0].shape, args[1].shape[0]
-        return 2.0 * m * n * k, byts
+        return 2.0 * m * n * k, nbytes(*args) + out_bytes
+    # the elements read: 3d x[:, 0:8] and x[:, 128:136]; onehot/prec the 8
+    # columns a[:, :8] (p // 128 < 8); 4d b[1, 1]; the others all of each input
+    if word == "3d":
+        byts = 4.0 * 2 * args[0].shape[0] * 8
+    elif word in ("onehot", "prec"):
+        byts = 4.0 * args[0].shape[0] * 8
+    elif word == "4d":
+        byts = float(nbytes(args[0][1, 1]))
+    else:
+        byts = float(nbytes(*args))
     # 3d: 2 products and 2 sums per written element; bcast: 4 operations per
     # element (exp counted once); 4d: 1; msel: 1 sum per input; copies: 0
     ops = {"3d": 4 * 16 * 8 * 2, "bcast": 4 * out.numel(), "4d": out.numel(),
            "msel": args[0].numel()}
-    return float(ops.get(word, 0)), byts
+    return float(ops.get(word, 0)), byts + out_bytes
 
 
 def phase_probe_mosaic(torch, results):
@@ -1678,7 +1778,7 @@ def phase_probe_mosaic(torch, results):
             lib_dev = graph_ms_or_none(torch, lambda: lib(*args))  # beside device_ms
         name = "probe_mosaic/" + MOSAIC_ROWS[word][0]
         probe_row(torch, results, name, got, ref, time_ms(lambda: fn(*args), 3, 20),
-                  device_ms(torch, lambda: fn(*args), SYMBOLS[word]),
+                  device_ms(torch, lambda: fn(*args), mosaic_counter(word)),
                   time_ms(lambda: plain(*args), 3, 20), ops, PEAK_FP32, byts, lib_ms,
                   library_device_ms=lib_dev)
     # probe_precision on this card: TF32 in a movement dot. The gather and
@@ -1700,8 +1800,7 @@ def phase_probe_mosaic(torch, results):
              "the moved values, which the check sees"), flush=True)
     results["probe_mosaic/precision"]["tf32_control_max_abs_err"] = d
     for word in mosaic.WORDS:
-        key = "probe_mlp" if word == "mlp" else "probe_mosaic/" + (
-            "onehot" if word == "prec" else MOSAIC_ROWS[word][0])
+        key = mosaic_counter(word)
         counts = drive(torch, [mosaic, mlp], mosaic.main, [word], {key: 1 + mosaic.RUNS})
         results["probe_mosaic/" + MOSAIC_ROWS[word][0]]["launches"] = counts[key]
 

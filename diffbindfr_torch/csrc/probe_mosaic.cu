@@ -33,7 +33,13 @@
 // 2 x 2 outputs per thread from shared-memory tiles of 32 K columns.
 #include <cuda_runtime.h>
 
+#include "probe_path.cuh"
+
 namespace {
+
+using dbfr::load_path;
+using dbfr::Path;
+using dbfr::warp_sum;
 
 constexpr int kThreads = 256;
 
@@ -80,12 +86,6 @@ __global__ void block4d_kernel(const float* __restrict__ b, float* __restrict__ 
   out[i] = __fmul_rn(b[3 * mn + i], 2.f);  // b[1, 1] of [2, 2, m, n]
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // one block per row of 1024 lanes, 256 threads: thread t holds lanes 4t..4t+3,
 // so warp w covers the 128-lane group w
 __global__ void __launch_bounds__(kThreads) msel_kernel(const float* __restrict__ z,
@@ -96,27 +96,7 @@ __global__ void __launch_bounds__(kThreads) msel_kernel(const float* __restrict_
 }
 
 constexpr int kLanes = 128;
-constexpr int kMaxD1 = 5;
-constexpr int kPathCols = 16;  // path table row: mul_p, d1, d3, w_row, out_row, cb_off, src[5]
 constexpr int kMaxDout = 1024;
-
-struct Path {
-  int mp, d1, d3, w_row, out_row, cb_off, src[kMaxD1];
-};
-
-__device__ __forceinline__ Path load_path(const int* __restrict__ t, int p) {
-  const int* r = t + p * kPathCols;
-  Path q;
-  q.mp = r[0];
-  q.d1 = r[1];
-  q.d3 = r[2];
-  q.w_row = r[3];
-  q.out_row = r[4];
-  q.cb_off = r[5];
-#pragma unroll
-  for (int i = 0; i < kMaxD1; ++i) q.src[i] = r[6 + i];
-  return q;
-}
 
 // one path's f32 chain for pair `col`; each warp's sums go to part[row * 4 + warp]
 template <int D1, int D3>

@@ -44,31 +44,16 @@
 #include <stdint.h>
 
 #include "bf16x2.cuh"
+#include "probe_path.cuh"
 
 namespace {
 
+using dbfr::load_path;
+using dbfr::Path;
+using dbfr::warp_sum;
+
 constexpr int kLanes = 128;
 constexpr int kMaxPaths = 64;
-constexpr int kMaxD1 = 5;
-constexpr int kPathCols = 16;  // path table row: mul_p, d1, d3, w_row, out_row, cb_off, src[5]
-
-struct Path {
-  int mp, d1, d3, w_row, out_row, cb_off, src[kMaxD1];
-};
-
-__device__ __forceinline__ Path load_path(const int* __restrict__ t, int p) {
-  const int* r = t + p * kPathCols;
-  Path q;
-  q.mp = r[0];
-  q.d1 = r[1];
-  q.d3 = r[2];
-  q.w_row = r[3];
-  q.out_row = r[4];
-  q.cb_off = r[5];
-#pragma unroll
-  for (int i = 0; i < kMaxD1; ++i) q.src[i] = r[6 + i];
-  return q;
-}
 
 __global__ void legality_kernel(const float* __restrict__ a, float* __restrict__ out) {
   const int r = threadIdx.x;
@@ -90,12 +75,6 @@ __global__ void legality_kernel(const float* __restrict__ a, float* __restrict__
   o[9] = s;
 #pragma unroll
   for (int k = 10; k < 16; ++k) o[k] = 0.f;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {

@@ -6,13 +6,14 @@ the port's `_path_constants` (nn/trunk_convs.py). The cmT layout stores
 features transposed, [rows, pairs], with every (irreps slot, component)
 block padded to a multiple of 8 rows. The probes P2 and P3 run their
 depthwise chains over that layout, so their kernels and plain versions take
-the path table from here.
+the path table from here (`path_table`, and `device_table` for the card).
 """
 from __future__ import annotations
 
 import functools
 
 import numpy as np
+import torch
 
 from ..nn.irreps import Irreps, TensorProductSpec
 from ..nn.trunk_convs import _path_constants
@@ -73,3 +74,16 @@ def path_table(metas) -> np.ndarray:
         t[i, :len(PATH_COLS)] = (m["mul_p"], m["d1"], m["d3"], m["w_row"], m["out_row"],
                                  m["cb_off"], *src)
     return t
+
+
+_DEVICE_TABLES: dict = {}
+
+
+def device_table(metas, device) -> torch.Tensor:
+    """path_table(metas) as an int32 tensor on `device`, copied there once
+    per table and device."""
+    t = path_table(metas)
+    key = (t.tobytes(), str(device))
+    if key not in _DEVICE_TABLES:
+        _DEVICE_TABLES[key] = torch.tensor(t, device=device)
+    return _DEVICE_TABLES[key]

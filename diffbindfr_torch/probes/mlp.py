@@ -65,9 +65,10 @@ def mlp(e, w1, b1, w2, b2):
 
 def work(R: int):
     """(fp32 operations, bytes) of one call: both products, the bias add and
-    the ReLU; each input read once (b2 included), the output written once."""
+    the ReLU; each input it reads read once (e, w1, b1, w2: b2 is never
+    read), the output written once."""
     ops = 2.0 * H * H * R + 2.0 * WN_P * H * R + 2.0 * H * R
-    byts = 4.0 * (H * R + H * H + H + WN_P * H + WN_P + WN_P * R)
+    byts = 4.0 * (H * R + H * H + H + WN_P * H + WN_P * R)
     return ops, byts
 
 

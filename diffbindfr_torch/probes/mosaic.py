@@ -211,17 +211,6 @@ def abt_plain(a, b):
 # wrappers: the kernel for CUDA tensors, the plain version for CPU tensors
 # ---------------------------------------------------------------------------
 
-_PATHS: dict = {}
-
-
-def _path_table(device):
-    key = str(device)
-    if key not in _PATHS:
-        metas, _ = _dw_tables()
-        _PATHS[key] = torch.tensor(cm_layout.path_table(metas), device=device)
-    return _PATHS[key]
-
-
 def _new(shape, like):
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
@@ -303,7 +292,7 @@ def dwloop(src, w, cb, mask, reps: int = DW_REPS):
     src = _cuda.check("src", src, (din_p, R))
     w, cb = _cuda.check("w", w, (wn_p, R)), _cuda.check("cb", cb, (ck.shape[1], R))
     mask = _cuda.check("mask", mask, (1, R))
-    paths = _path_table(src.device)
+    paths = cm_layout.device_table(_dw_tables()[0], src.device)
     out = _new((reps, dout_p, R // 128), src)
     _cuda.launch("dbfr_probe_dwloop", (src, w, cb, mask, paths, out),
                  (paths.shape[0], reps, R, dout_p))

@@ -170,20 +170,14 @@ def mxu_errors(got, ref):
 # wrappers
 # ---------------------------------------------------------------------------
 
-_PATHS: dict = {}
-
-
 def _path_table(device):
-    key = str(device)
-    if key not in _PATHS:
-        metas = plan()[0]
-        for m in metas:
-            if m["d1"] not in (1, 3, 5) or m["d3"] not in (1, 3, 5) or m["mul_p"] % 16 \
-                    or m["mul_p"] > 48:
-                raise ValueError(f"path {m}: the kernels take d1, d3 in (1, 3, 5) and mul_p "
-                                 "a multiple of 16 up to 48")
-        _PATHS[key] = torch.tensor(cm_layout.path_table(metas), device=device)
-    return _PATHS[key]
+    metas = plan()[0]
+    for m in metas:
+        if m["d1"] not in (1, 3, 5) or m["d3"] not in (1, 3, 5) or m["mul_p"] % 16 \
+                or m["mul_p"] > 48:
+            raise ValueError(f"path {m}: the kernels take d1, d3 in (1, 3, 5) and mul_p "
+                             "a multiple of 16 up to 48")
+    return cm_layout.device_table(metas, device)
 
 
 def legality(a):

@@ -85,15 +85,29 @@ def jax_out():
         for p in ("3d_accum", "onehot_matmul", "tile_lanes", "bcast2d", "4d_block", "msel",
                   "precision", "abt"):
             getattr(pm, "probe_" + p)()
-        # probe_dwloop and probe_mlps return nothing: rerun their recorded
-        # kernels eagerly on the tool's inputs (the port draws the same)
-        for p, word in (("dwloop", "dw"), ("mlps", "mlp")):
+        # probe_dwloop and probe_mlps return nothing and pass their inputs
+        # straight from jax.jit to the pallas_call: the tool module's `jax`
+        # is replaced by one whose jit records the last call's arguments and
+        # output
+        jits = []
+
+        class RecordingJax:
+            def __getattr__(self, name):
+                return getattr(jax, name)
+
+            @staticmethod
+            def jit(fn):
+                def call(*args):
+                    res = jax.jit(fn)(*args)
+                    jits.append(([np.asarray(a) for a in args], np.asarray(res)))
+                    return res
+                return call
+
+        mp.setattr(pm, "jax", RecordingJax())
+        for p in ("dwloop", "mlps"):
             getattr(pm, "probe_" + p)()
-            kernel, kw = records[-1]
-            args = [a.numpy() for a in mosaic.inputs(word)]
-            if word == "dw":
-                args.append(mosaic.onehot_matrix(1024, 8, 128).numpy())
-            out[p] = (np.asarray(orig(kernel, interpret=True, **kw)(*args)), args)
+            args, res = jits[-1]
+            out[p] = (res, args)
 
         mx = _load("probe_mxu_ops")
         mx.legality()
@@ -168,6 +182,8 @@ def test_mosaic_plain_matches_jax_probe(jax_out, probe):
     want, tool_args = jax_out[probe]
     args = mosaic.inputs(word)
     _same_inputs(args, tool_args[:len(args)])
+    if word == "dw":  # the tool's fifth input: the group-sum one-hot
+        np.testing.assert_array_equal(tool_args[4], mosaic.onehot_matrix(1024, 8, 128).numpy())
     got = mosaic.FUNCS[word][1](*args).numpy()
     assert got.shape == want.shape
     if tol == 0:
