@@ -36,7 +36,10 @@ a non-zero exit code):
               plain version may take the kernel's decision at a ReLU
               pre-activation within f32 rounding of 0 and nowhere else
               (nn/relu_ties.py); each such tie is printed with |z| and its
-              rounding bound
+              rounding bound. B4 also: two more calls give the same bits; its
+              pair list holds the pairs the mask keeps; its device time by
+              part (pair list, pair passes, contractions, node sums), the
+              pair count and the scratch bytes of a call
   10. train_parity  one full-width train step (diff_r2 params, a fixed 3dbs
               batch of 4, fixed TrainNoise) on the kernel path and on the
               plain path: loss terms within 1e-5, grad_norm within 1e-4
@@ -116,11 +119,12 @@ a non-zero exit code):
 Kernel times: `ms` is the wrapper's time by CUDA events around 10 calls
 (its host set-up included), `device_ms` the kernel's own device time per
 call (phases 5, 9, 12, 17, 18, 21-23): from torch.profiler's
-key_averages() by the CUDA kernel's symbol, taken only where the profiler
-recorded one event of the kernel for each of its grids launched (its
-counter's launches x GRIDS); else from CUDA events around replays of a CUDA
-graph of 20 calls (no host work between the kernels); each row names its
-`device_ms_method` (and, for graph replay, what the profiler missed).
+key_averages(), summed over the CUDA kernel symbols the call launches
+(SYMBOLS), taken only where the profiler recorded, for every symbol, one
+event for each of its grids launched (its counter's launches x GRIDS); else
+from CUDA events around replays of a CUDA graph of 20 calls (no host work
+between the kernels); each row names its `device_ms_method` (and, for graph
+replay, what the profiler missed).
 Phase 21 also prints what the profiler records of the P4 kernel's launches
 made bare, with 20 ms host pauses at the ends of its window, each in a
 record_function span, and beside an aten kernel (PERF.md section 7). The
@@ -235,7 +239,9 @@ MOSAIC_ROWS = {"3d": ("3d_accum", ":40"), "onehot": ("onehot", ":68"),
 SYMBOLS = {
     "cross_conv": ("cross_conv_kernel(",), "pair_conv": ("pair_conv_kernel(",),
     "knn_conv": ("knn_conv_kernel(",),
-    "cross_bwd": ("cross_bwd_kernel(", "reduce_rows_kernel("),
+    "cross_bwd": ("cross_wide_kernel(", "cross_pairs_count_kernel(", "exclusive_scan_kernel(",
+                  "cross_atom_count_kernel(", "cross_pairs_fill_kernel(", "abt_kernel<",
+                  "abt_reduce_kernel(", "segment_sum_kernel<8>(", "segment_sum_kernel<2>("),
     "pair_bwd": ("pair_bwd_kernel(", "reduce_rows_kernel("),
     "knn_bwd": ("knn_bwd_kernel(", "knn_bwd_rev_kernel(", "reduce_rows_kernel("),
     "cross_conv_fin": ("cross_conv_fin_kernel(",), "pair_conv_fin": ("pair_conv_fin_kernel(",),
@@ -251,14 +257,28 @@ SYMBOLS = {
     "probe_mosaic/3d_accum": ("accum3d_kernel(",), "probe_mosaic/onehot": ("gather_kernel(",),
     "probe_mosaic/tile_lanes": ("tile_kernel(",), "probe_mosaic/bcast2d": ("bcast2d_kernel(",),
     "probe_mosaic/4d_block": ("block4d_kernel(",), "probe_mosaic/msel": ("msel_kernel(",),
-    "probe_mosaic/dwloop": ("dwloop_kernel(",), "probe_mosaic/abt": ("abt_kernel(",),
+    "probe_mosaic/dwloop": ("dwloop_kernel(",), "probe_mosaic/abt": ("abt_kernel<", "abt_reduce_kernel("),
 }
-# grids of the counted kernel (SYMBOLS[key][0]) that one counted launch runs,
+# grids of each kernel symbol (SYMBOLS[key]) that one counted launch runs,
 # where more than one: the cross convs run an al and an la pass
-# (csrc/cross_conv.cu), B4 four passes (csrc/cross_bwd.cu), B5 a target and
-# a source pass (csrc/pair_bwd.cu)
-GRIDS = {"cross_conv": 2, "cross_conv_fin": 2, "cross_conv_bf16": 2, "cross_bwd": 4,
-         "pair_bwd": 2}
+# (csrc/cross_conv.cu); B4 (csrc/cross_bwd.cu) two prefix sums (ligand rows,
+# atoms) and per direction a pair pass, a contraction and its reduction; B5
+# a target and a source pass (csrc/pair_bwd.cu)
+GRIDS = {"cross_conv": {"cross_conv_kernel(": 2}, "cross_conv_fin": {"cross_conv_fin_kernel(": 2},
+         "cross_conv_bf16": {"cross_conv_bf16_kernel(": 2},
+         "cross_bwd": {"cross_wide_kernel(": 2, "exclusive_scan_kernel(": 2, "abt_kernel<": 2,
+                       "abt_reduce_kernel(": 2},
+         "pair_bwd": {"pair_bwd_kernel(": 2}}
+# calls that read to the host (B4 reads its pair count to size its scratch):
+# no CUDA graph can capture them, so device_ms's fallback for them is CUDA
+# events around the calls
+NO_GRAPH = ("cross_bwd",)
+# B4's kernels by the part of its work they do (phase 9 prints each part)
+B4_PARTS = {"pair list": ("cross_pairs_count_kernel(", "exclusive_scan_kernel(",
+                          "cross_atom_count_kernel(", "cross_pairs_fill_kernel("),
+            "pair passes": ("cross_wide_kernel(",),
+            "contractions": ("abt_kernel<", "abt_reduce_kernel("),
+            "node sums": ("segment_sum_kernel<8>(", "segment_sum_kernel<2>(")}
 # bf16 dense rate of the tensor cores (data sheet, 700 W)
 PEAK_BF16_TC = 989e12
 SCHED = {"tr_sigma_min": 0.1, "tr_sigma_max": 6.0, "rot_sigma_min": 0.03,
@@ -323,57 +343,72 @@ def launch_count(key):
 
 
 def profile_kernel(torch, fn, key, calls, span=False, pause=0.0):
-    """Run `fn` `calls` times under torch.profiler, each call inside a
-    record_function span when `span`, with a host pause of `pause` s after
-    the profiler starts and after the last kernel ends (it may drop device
-    events near the ends of its window). Returns (device us of the kernels
-    of SYMBOLS[key], events of the counted kernel SYMBOLS[key][0], its grids
-    launched (the launches the counter `key` counted x GRIDS), the names of
-    up to 6 device kernels the profiler saw)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """Run `fn` under torch.profiler: one warm-up call in the profiler's
+    warm-up step (its events are discarded: the profiler drops events at
+    the start of a session), then `calls` calls in its active step, each
+    inside a record_function span when `span`, with a host pause of `pause`
+    s before the first and after the last. Returns, per kernel symbol of
+    SYMBOLS[key], (device us, events recorded, grids launched: the launches
+    the counter `key` counted in the active step x GRIDS), and the names of
+    up to 6 device kernels the profiler saw."""
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     symbols = SYMBOLS[key]
-    before = launch_count(key)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        before = launch_count(key)
         time.sleep(pause)
         for _ in range(calls):
             with record_function("probe_call") if span else contextlib.nullcontext():
                 fn()
         torch.cuda.synchronize()
         time.sleep(pause)
-    launched = (launch_count(key) - before) * GRIDS.get(key, 1)
-    total, main, names = 0.0, 0, []
+        launched = launch_count(key) - before
+        prof.step()
+    per = {sym: [0.0, 0, launched * GRIDS.get(key, {}).get(sym, 1)] for sym in symbols}
+    names = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
         if us > 0 and len(names) < 6:
             names.append(e.key[:60])
-        if any(sym in e.key for sym in symbols):
-            total += us
-        if symbols[0] in e.key:
-            main += e.count
-    return total, main, launched, names
+        for sym in symbols:
+            if sym in e.key:
+                per[sym][0] += us
+                per[sym][1] += e.count
+    return {sym: tuple(v) for sym, v in per.items()}, names
 
 
-def device_ms(torch, fn, key, calls=5):
+def device_ms(torch, fn, key, calls=5, parts=None):
     """A kernel's own device time per call of `fn`, without the host set-up
     that CUDA events around the wrapper include, and how it was measured.
     "profiler": torch.profiler's key_averages() over `calls` calls after a
-    warm-up (profile_kernel), the device time of the
-    CUDA kernels whose names contain one of SYMBOLS[key], over `calls`. It
-    is taken only where the profiler recorded one event of the counted
-    kernel (SYMBOLS[key][0]) for each of its grids launched in those calls
-    (the counter `key`'s launches x GRIDS). Else "graph replay": CUDA events
-    around replays of a CUDA graph of 20 calls, so no host work separates
-    the launches; the method then says why the profiler's reading was
-    refused. (None, "not measured ...") if both fail."""
+    warm-up call in the profiler's warm-up step (profile_kernel), the device
+    time of the CUDA kernels whose names contain one of SYMBOLS[key], over
+    `calls`; `parts`, if given, receives each symbol's ms per call. It is
+    taken only where the profiler recorded, for every symbol, one event per
+    grid launched in those calls (the counter `key`'s launches x GRIDS).
+    Else "graph replay": CUDA events around replays of a CUDA graph of 20
+    calls, so no host work separates the launches, or, for calls that read
+    to the host (NO_GRAPH), CUDA events around 10 calls; the method then
+    says why the profiler's reading was refused. (None, "not measured ...")
+    if both fail."""
     fn()
     torch.cuda.synchronize()
-    total, main, launched, names = profile_kernel(torch, fn, key, calls)
-    if launched and main == launched:
-        return total / 1e3 / calls, "profiler"
-    why = f"the profiler recorded {main} events of {SYMBOLS[key][0][:-1]} for {launched} grids"
+    per, names = profile_kernel(torch, fn, key, calls)
+    missed = [f"{ev} events of {sym[:-1]} for {grids} grids" for sym, (_, ev, grids) in per.items()
+              if not (grids and ev == grids)]
+    if not missed:
+        if parts is not None:
+            parts.update({sym: us / 1e3 / calls for sym, (us, _, _) in per.items()})
+        return sum(us for us, _, _ in per.values()) / 1e3 / calls, "profiler"
+    why = "the profiler recorded " + "; ".join(missed)
     print(f"  {key}: profiler reading refused, {why}; device kernels it saw: {names}", flush=True)
+    if key in NO_GRAPH:
+        return time_ms(fn, 1, 10), f"events around 10 calls, host gaps included ({why})"
     ms = graph_ms_or_none(torch, fn)
     return ms, ("not measured" if ms is None else "graph replay") + f" ({why})"
 
@@ -675,7 +710,11 @@ def phase_bwd_kernels(torch, params, s_np, results):
             finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
             launch = bwd_launcher(torch, TC, name, args[name], gs)
             ms = time_ms(launch, 2, 5)
-            dev_ms, dev_how = device_ms(torch, launch, bname)
+            parts = {}
+            dev_ms, dev_how = device_ms(torch, launch, bname, parts=parts)
+            b4 = {}
+            if bname == "cross_bwd":
+                b4 = cross_bwd_report(torch, TC, launch, parts, layer, bsz)
             out_p = plain[name](*diff)
             out_p = out_p if isinstance(out_p, tuple) else (out_p,)
             plain_ms = time_ms(lambda: torch.autograd.grad(out_p, leaves, gs, retain_graph=True),
@@ -693,7 +732,11 @@ def phase_bwd_kernels(torch, params, s_np, results):
                        device_ms_method=dev_how, plain_ms=plain_ms, bound_ms=bound_ms,
                        pairs=pairs, flops=flops,
                        bytes=byts,
-                       bound_by="operations" if flops / PEAK_FP32 >= byts / PEAK_BYTES else "bytes")
+                       bound_by="operations" if flops / PEAK_FP32 >= byts / PEAK_BYTES else "bytes",
+                       **b4)
+            if b4 and b4["pairs_listed"] != pairs:
+                raise AssertionError(f"cross_bwd layer {layer} B={bsz}: the pair list holds "
+                                     f"{b4['pairs_listed']} pairs, the mask {pairs:.0f}")
             results.setdefault(bname, []).append(row)
             print(f"  {bname} layer {layer} B={bsz}: {len(got)} gradients, max|err|/max|ref| "
                   f"{err:.2e} ({tie_err:.2e} with {len(flips)} of {n_ties} ReLU ties "
@@ -710,6 +753,30 @@ def phase_bwd_kernels(torch, params, s_np, results):
                 raise AssertionError(f"{bname} layer {layer} B={bsz}: kernel gradients disagree "
                                      f"with autograd through the plain version ({err:.3e}; "
                                      f"{tie_err:.3e} with {len(flips)} ties flipped)")
+
+
+def cross_bwd_report(torch, TC, launch, parts, layer, bsz):
+    """B4 after its timing: two more calls must give the same bits; prints
+    the device time of each part of its work (B4_PARTS, from the profiler's
+    per-symbol reading), the pair count and the scratch bytes of a call."""
+    first, second = launch(), launch()
+    torch.cuda.synchronize()
+    flat = lambda r: [r[0], r[1], *r[2].values(), *r[3].values()]  # noqa: E731
+    if not all(torch.equal(a, b) for a, b in zip(flat(first), flat(second))):
+        raise AssertionError(f"cross_bwd layer {layer} B={bsz}: two calls differ")
+    stats = dict(TC.cross_bwd_stats)
+    by_part = ({part: sum(parts[sym] for sym in syms) for part, syms in B4_PARTS.items()}
+               if parts else None)
+    print(f"  cross_bwd layer {layer} B={bsz}: two calls bit-identical; {stats['pairs']} pairs "
+          f"in the list, {stats['splits']} K chunks per contraction, scratch "
+          f"{stats['scratch_bytes'] / 2**20:.1f} MiB; device time by part: "
+          + (", ".join(f"{k} {v:.4f} ms" for k, v in by_part.items()) if by_part
+             else "not measured (the profiler's reading was refused)"), flush=True)
+    if parts:
+        print("    by kernel: " + ", ".join(f"{k[:-1]} {v:.4f} ms" for k, v in parts.items()),
+              flush=True)
+    return dict(pairs_listed=stats["pairs"], splits=stats["splits"],
+                scratch_bytes=stats["scratch_bytes"], parts_ms=by_part)
 
 
 def param_paths(tree, prefix=""):
@@ -927,9 +994,9 @@ def report_profile(prof, wall, what, names, steps=None):
         return None
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    bwd = any(k.endswith("_bwd") for k in names)
-    ours = sum(r[1] for r in rows if any(f"{k}_kernel" in r[0] or f"{k}_rev_kernel" in r[0]
-                                         for k in names) or (bwd and "reduce_rows" in r[0]))
+    by_name = {k: sum(r[1] for r in rows if any(sym in r[0] for sym in SYMBOLS[k]))
+               for k in names}
+    ours = sum(r[1] for r in rows if any(sym in r[0] for k in names for sym in SYMBOLS[k]))
     # kernels only: copies and fills are device work but no kernel launch
     kernels = sum(r[2] for r in rows if not r[0].startswith(("Memcpy", "Memset")))
     per_step = kernels / steps if steps else None
@@ -937,6 +1004,8 @@ def report_profile(prof, wall, what, names, steps=None):
           f"{total:.1f} ms ({100 * total / (wall * 1e3):.1f}% busy), trunk kernels "
           f"{ours:.1f} ms ({100 * ours / total:.1f}% of device time)"
           + (f", {per_step:.0f} kernel launches per step" if steps else ""), flush=True)
+    print("  trunk kernels' device time: " + ", ".join(
+        f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in by_name.items()), flush=True)
     for key, ms, cnt in rows[:12]:
         print(f"    {ms:9.3f} ms  x{cnt:<5d} {key[:90]}", flush=True)
     return total, total / (wall * 1e3), ours / total, per_step
@@ -1611,7 +1680,8 @@ def phase_probe_mlp(torch, results):
     for how, fn, span, pause in (("bare", bare, False, 0.0), ("pause", bare, False, 0.02),
                                  ("in_span", bare, True, 0.0),
                                  ("beside_aten", beside_aten, False, 0.0)):
-        _, seen, launched, names = profile_kernel(torch, fn, "probe_mlp", 5, span, pause)
+        per, names = profile_kernel(torch, fn, "probe_mlp", 5, span, pause)
+        _, seen, launched = per["probe_mlp_kernel("]
         print(f"  profiler, 5 calls {how}: {seen} events of probe_mlp_kernel for {launched} "
               f"grids; device kernels seen: {names}", flush=True)
         results["probe_mlp"]["profiler_events_" + how] = [seen, launched]
@@ -1998,7 +2068,9 @@ def main() -> int:
                      "device_ms_method": main_row["device_ms_method"],
                      "plain_ms": main_row["plain_ms"],
                      "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-                     "library_ms": None, "layer": 5, "batch": 4})
+                     "library_ms": None, "layer": 5, "batch": 4,
+                     **{k: main_row[k] for k in ("pairs_listed", "splits", "scratch_bytes",
+                                                 "parts_ms") if k in main_row}})
     for name, (src, repl) in RM_KERNELS.items():
         # the dock shapes at layer 5; launches from the dock in the
         # configuration that runs the kernel

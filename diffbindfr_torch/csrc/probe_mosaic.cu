@@ -29,10 +29,12 @@
 // thread per output element, neighbouring threads on neighbouring addresses.
 // msel and dwloop are small reductions (bytes); abt's 1.42e8 fp32 operations
 // take 2.1 us at 67 TFLOP/s against 0.85 us for its 2.8 MB, so operations
-// bind it: a 32 x 16 output tile per block (135 blocks, about one per SM),
-// 2 x 2 outputs per thread from shared-memory tiles of 32 K columns.
+// bind it. abt runs the split-K contraction of abt_gemm.cuh, the one B4's
+// parameter gradients run: its 8 x 3 output tiles of 64 x 64 alone would
+// leave most SMs idle, so K = 1024 is cut into chunks summed in order.
 #include <cuda_runtime.h>
 
+#include "abt_gemm.cuh"
 #include "probe_path.cuh"
 
 namespace {
@@ -156,47 +158,6 @@ __global__ void __launch_bounds__(kLanes) dwloop_kernel(
   }
 }
 
-constexpr int kBM = 32, kBN = 16, kBK = 32;
-
-// out [M, N] = a [M, K] @ b [N, K]^T; 128 threads, 2 x 2 outputs each
-__global__ void __launch_bounds__(128) abt_kernel(const float* __restrict__ a,
-                                                  const float* __restrict__ b,
-                                                  float* __restrict__ out, int M, int N, int K) {
-  __shared__ float as[kBM][kBK + 1];
-  __shared__ float bs[kBN][kBK + 1];
-  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int i = tid; i < kBM * kBK; i += 128) {
-      const int r = i / kBK, k = i % kBK;
-      as[r][k] = m0 + r < M && k0 + k < K ? a[(size_t)(m0 + r) * K + k0 + k] : 0.f;
-    }
-    for (int i = tid; i < kBN * kBK; i += 128) {
-      const int r = i / kBK, k = i % kBK;
-      bs[r][k] = n0 + r < N && k0 + k < K ? b[(size_t)(n0 + r) * K + k0 + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float a0 = as[2 * ty][k], a1 = as[2 * ty + 1][k];
-      const float b0 = bs[2 * tx][k], b1 = bs[2 * tx + 1][k];
-      acc[0][0] = fmaf(a0, b0, acc[0][0]);
-      acc[0][1] = fmaf(a0, b1, acc[0][1]);
-      acc[1][0] = fmaf(a1, b0, acc[1][0]);
-      acc[1][1] = fmaf(a1, b1, acc[1][1]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int r = m0 + 2 * ty + i, c = n0 + 2 * tx + j;
-      if (r < M && c < N) out[(size_t)r * N + c] = acc[i][j];
-    }
-}
-
 inline int blocks(long n) { return (int)((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -250,10 +211,20 @@ extern "C" int dbfr_probe_dwloop(const float* src, const float* w, const float* 
   return (int)cudaGetLastError();
 }
 
-// a [M, K], b [N, K] -> out [M, N] = a @ b^T
-extern "C" int dbfr_probe_abt(const float* a, const float* b, float* out, int M, int N, int K,
-                              void* stream) {
-  abt_kernel<<<dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM), 128, 0, (cudaStream_t)stream>>>(
-      a, b, out, M, N, K);
-  return (int)cudaGetLastError();
+// a [M, K], b [N, K] -> out [M, N] = a @ b^T, through at most `splits` K
+// chunks whose partial sums go to part [splits, M * N]
+extern "C" int dbfr_probe_abt(const float* a, const float* b, float* part, float* out, int M,
+                              int N, int K, int splits, void* stream) {
+  dbfr::AbtGroup g = {};
+  g.n = 1;
+  g.K = K;
+  g.stride = M * N;
+  g.part = part;
+  g.p[0].a = a;
+  g.p[0].b = b;
+  g.p[0].M = M;
+  g.p[0].N = N;
+  g.p[0].lda = K;
+  g.p[0].ldb = K;
+  return dbfr::abt_launch(g, splits, out, (cudaStream_t)stream);
 }

@@ -1,5 +1,6 @@
 // Shared device code of the trunk-conv kernels (forward B1 cross, B2 pair,
-// B3 knn; the backward kernels B4-B6 build on it in trunk_conv_bwd.cuh):
+// B3 knn; the backward kernels B5-B6 build on it in trunk_conv_bwd.cuh, B4
+// takes its geometry and mask decisions in conv_bwd_wide.cuh / cross_bwd.cu):
 // one block gathers the valid (target, source) pairs of its g owned nodes,
 // then runs the whole per-pair chain on chunks of 32 pairs in shared memory
 // and sums per owned node. A chunk is latency-bound (weight tiles stream

@@ -1,7 +1,8 @@
-// Shared device code of the trunk-conv backward kernels (B4 cross, B5 pair,
-// B6 knn). Replaces the hand-written Pallas backward kernels of
-// diffbindfr_tpu/nn/pallas_conv_t.py (make_pair_bwd_t, make_cross_bwd_t,
-// make_knn_bwd_t): like them, a kernel recomputes each pair's forward chain
+// Shared device code of the pair and knn convs' backward kernels (B5, B6;
+// B4, the cross conv's, runs the wide-tile pass of conv_bwd_wide.cuh).
+// Replaces the hand-written Pallas backward kernels of
+// diffbindfr_tpu/nn/pallas_conv_t.py (make_pair_bwd_t, make_knn_bwd_t):
+// like them, a kernel recomputes each pair's forward chain
 // (geometry, mask, edge MLP, TP-weight MLP, spherical harmonics) from the
 // node features and returns only feature and parameter gradients;
 // positions, time embedding, masks and bond features get none (pure data

@@ -55,7 +55,11 @@ edge input (`_prep_edge`) stays in the autograd graph, so the backward
 kernels return gradients of (w_in, b_eff) and of the MLPs, and autograd maps
 them to the parameter tree. What bounds the kernels on the H100 and what
 their design does about it is in csrc/trunk_conv.cuh, csrc/trunk_conv_bwd.cuh
-and the kernel sources.
+(B5, B6), csrc/conv_bwd_wide.cuh and csrc/abt_gemm.cuh (B4) and the kernel
+sources. B4's plain version, cross_bwd_plain, is a model of its kernels'
+decomposition (pair list, per-pair rows, contractions, node sums) that
+cross_bwd runs on CPU tensors; the other backward kernels are held to
+autograd through the plain forward.
 """
 from __future__ import annotations
 
@@ -66,6 +70,7 @@ import functools
 import numpy as np
 import torch
 
+from . import contraction
 from .irreps import Irreps, TensorProductSpec, apply_dw_tensor_product, clebsch_gordan
 from .layers import ConvSpec, sh_l2, tp_conv_finalize_cm
 
@@ -211,6 +216,37 @@ class ConvConsts:
         """(w_meta, in_meta) tensors on `device`, cached."""
         return _device_bwd_tables(self, str(device))
 
+    @functools.cached_property
+    def wide_tables(self):
+        """(w_meta [nw, 4], in_off [din + 1], in_ent [n_in, 4]) int32, the
+        wide-tile backward pass's views of the paths (csrc/conv_bwd_wide.cuh).
+        w_meta row j = w_off + u: a_base = s1 + u, mul, o_base = s3 + u,
+        cb_off | d1 << 16 | d3 << 24. Input column c = s1 + i * mul + u has
+        the entries in_ent[in_off[c] : in_off[c + 1]], one per path reading
+        it, in path order: o_base = s3 + u, mul, w_idx = w_off + u,
+        cb_base = cb_off + i * d3 | d3 << 16."""
+        metas, ck = _path_constants(self.spec)
+        if ck.shape[1] >= 1 << 16 or max(max(m["d1"], m["d3"]) for m in metas) > 5:
+            raise ValueError("the wide backward pass takes cb offsets below 2^16 and paths of "
+                             "l <= 2 (d1, d3 <= 5, kTpD)")
+        w_meta = np.zeros((self.spec.weight_numel, 4), np.int32)
+        ents = [[] for _ in range(self.din)]
+        for m in metas:
+            for u in range(m["mul"]):
+                w_meta[m["w_off"] + u] = (m["s1"] + u, m["mul"], m["s3"] + u,
+                                          m["cb_off"] | m["d1"] << 16 | m["d3"] << 24)
+                for i in range(m["d1"]):
+                    ents[m["s1"] + i * m["mul"] + u].append(
+                        (m["s3"] + u, m["mul"], m["w_off"] + u,
+                         (m["cb_off"] + i * m["d3"]) | m["d3"] << 16))
+        in_off = np.cumsum([0] + [len(e) for e in ents]).astype(np.int32)
+        in_ent = np.array([x for e in ents for x in e], np.int32).reshape(-1, 4)
+        return w_meta, in_off, in_ent
+
+    def device_wide_tables(self, device):
+        """wide_tables as tensors on `device`, cached."""
+        return _device_wide_tables(self, str(device))
+
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(c: ConvConsts, device: str):
@@ -223,6 +259,11 @@ def _device_tables(c: ConvConsts, device: str):
 @functools.lru_cache(maxsize=None)
 def _device_bwd_tables(c: ConvConsts, device: str):
     return tuple(torch.from_numpy(t).to(device) for t in c.bwd_tables)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_wide_tables(c: ConvConsts, device: str):
+    return tuple(torch.from_numpy(t).to(device) for t in c.wide_tables)
 
 
 # ---------------------------------------------------------------------------
@@ -432,7 +473,8 @@ _ARGTYPES = {
     "dbfr_cross_conv": [_P] * 25 + [_I] * 11 + [_F, _P],
     "dbfr_knn_conv": [_P] * 17 + [_I] * 11 + [_F, _P],
     "dbfr_pair_bwd": [_P] * 7 + [_I] + [_P] * 23 + [_I] * 12 + [_F, _I, _I, _P],
-    "dbfr_cross_bwd": [_P] * 37 + [_I] * 11 + [_F, _P],
+    "dbfr_cross_pairs": [_P] * 11 + [_I] * 3 + [_P],
+    "dbfr_cross_bwd": [_P] * 46 + [_I] * 20 + [_F, _P],
     "dbfr_knn_bwd": [_P] * 26 + [_I] * 11 + [_F, _P],
     "dbfr_pair_conv_fin": [_P] * 7 + [_I] + [_P] * 15 + [_I] * 12 + [_F, _I, _I]
                           + [_P] * 7 + [_I] * 3 + [_P],
@@ -445,9 +487,12 @@ for _name in ("pair", "cross", "knn"):
     _ARGTYPES[f"dbfr_{_name}_conv_bf16"] = _ARGTYPES[f"dbfr_{_name}_conv"]
 # the widest matrix a kernel thread tiles (kMaxJ * 32 columns, trunk_conv.cuh)
 _MAX_COLS = 320
-# persistent blocks of a backward target pass: rows of the parameter-gradient
-# scratch (kBwdBlocks, trunk_conv_bwd.cuh)
+# persistent blocks of B5's and B6's target passes: rows of their
+# parameter-gradient scratch (kBwdBlocks, trunk_conv_bwd.cuh)
 _BWD_BLOCKS = 264
+# pairs per block of B4's wide-tile pass; its scratch rows are a multiple of
+# this apart (kWideTile, conv_bwd_wide.cuh)
+WIDE_TILE = 64
 
 
 def _library():
@@ -725,13 +770,19 @@ class _CrossConvFn(torch.autograd.Function):
     def forward(ctx, data, lig_x, atm_x, w_in, beff, *weights):
         ctx.data = data
         ctx.save_for_backward(lig_x, atm_x, w_in, beff, *weights)
-        return _cross_conv_kernel(_library(), data, lig_x, atm_x, w_in, beff, weights,
-                                  _stream())
+        lib, st = _library(), _stream()
+        out = _cross_conv_kernel(lib, data, lig_x, atm_x, w_in, beff, weights, st)
+        # B4's pair counts start here, so that its backward reads the count
+        # it sizes its scratch by without waiting for the queue to drain
+        ctx.pairs = (_cross_pairs(lib, st, data, lig_x.shape[0], lig_x.shape[1], atm_x.shape[1])
+                     if any(ctx.needs_input_grad) else None)
+        return out
 
     @staticmethod
     def backward(ctx, g_al, g_la):
         lig_x, atm_x, w_in, beff, *weights = ctx.saved_tensors
-        d_lig, d_atm, ga, gl = cross_bwd(ctx.data, lig_x, atm_x, w_in, beff, weights, g_al, g_la)
+        d_lig, d_atm, ga, gl = cross_bwd(ctx.data, lig_x, atm_x, w_in, beff, weights, g_al, g_la,
+                                         pairs=ctx.pairs)
         edge = [ga[k] + gl[k] for k in ("w_in", "beff", "w2", "b2")]
         fc = [gr[k] for gr in (ga, gl) for k in ("wf1", "bf1", "wf2", "bf2")]
         return (None, d_lig, d_atm, *edge, *fc)
@@ -755,35 +806,244 @@ def _cross_conv_kernel(lib, data, lig_x, atm_x, w_in, beff, weights, stream):
     return al, la
 
 
-def cross_bwd(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la):
+# what the last cross_bwd call on the card allocated: its pair count and
+# scratch bytes (chip_smoke.py reports them)
+cross_bwd_stats: dict = {}
+
+
+def _aligned(t):
+    """t, or a copy of it whose data starts on a 16-byte boundary (the
+    kernels stage weights with 16-byte cp.async copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def cross_bwd(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la, pairs=None):
     """B4: (d_lig, d_atm, al gradients, la gradients) of cross_conv; the edge-
-    MLP entries of the two gradient dicts are the two directions' shares."""
+    MLP entries of the two gradient dicts are the two directions' shares.
+    On CUDA tensors the kernels of csrc/cross_bwd.cu: the valid pairs as one
+    list (their count read to the host, to size the scratch: counted here,
+    or, from the autograd forward, by `pairs`), per direction a wide-tile
+    pair pass writing feature-major rows and one grouped launch of the
+    split-K contraction that turns them into every parameter gradient, then
+    the per-node sums of the pairs' rows. On CPU tensors the plain model of
+    that decomposition, cross_bwd_plain."""
+    c, d, dev = data.c, data, lig_x.device
+    bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
+    g_al = lig_x.new_zeros(bsz, nl, c.dout) if g_al is None else _arg(g_al, (bsz, nl, c.dout), dev)
+    g_la = atm_x.new_zeros(bsz, na, c.dout) if g_la is None else _arg(g_la, (bsz, na, c.dout), dev)
+    if not lig_x.is_cuda:
+        return cross_bwd_plain(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la)
+    lib, st = _library(), _stream()
+    if pairs is None:
+        pairs = _cross_pairs(lib, st, data, bsz, nl, na)
+    return _cross_bwd_kernel(lib, st, data, lig_x, atm_x, w_in, beff, weights, g_al, g_la, pairs)
+
+
+@dataclasses.dataclass
+class _CrossPairs:
+    """B4's pair counts (dbfr_cross_pairs): per ligand row the rank of each
+    valid atom (pid) and the rows' and atoms' exclusive prefix sums; the
+    total copied to pinned host memory, complete when `done` is."""
+
+    pid: torch.Tensor
+    lig_off: torch.Tensor
+    atm_off: torch.Tensor
+    keep: tuple
+    total: torch.Tensor
+    done: torch.cuda.Event
+
+    def count(self) -> int:
+        if self.done is not None:
+            self.done.synchronize()
+        return int(self.total[0])
+
+
+def _cross_pairs(lib, st, data, bsz, nl, na):
+    d, dev = data, data.lig_pos.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    pid = torch.empty(bsz, nl, na, **i32)
+    cnt_l, lig_off = torch.empty(bsz * nl, **i32), torch.empty(bsz * nl + 1, **i32)
+    cnt_a, atm_off = torch.empty(bsz * na, **i32), torch.empty(bsz * na + 1, **i32)
+    _check(lib.dbfr_cross_pairs(
+        _ptr(d.lig_pos), _ptr(d.atm_pos), _ptr(d.lig_mask), _ptr(d.atm_mask), _ptr(d.cab),
+        _ptr(d.cut), _ptr(pid), _ptr(cnt_l), _ptr(lig_off), _ptr(cnt_a), _ptr(atm_off),
+        bsz, nl, na, st), "cross_pairs")
+    total = torch.empty(1, dtype=torch.int32, pin_memory=dev.type == "cuda")
+    total.copy_(lig_off[-1:], non_blocking=True)
+    done = torch.cuda.Event() if dev.type == "cuda" else None
+    if done is not None:
+        done.record()
+    return _CrossPairs(pid, lig_off, atm_off, (cnt_l, cnt_a), total, done)
+
+
+def _cross_bwd_kernel(lib, st, data, lig_x, atm_x, w_in, beff, weights, g_al, g_la, pairs):
     c, d, dev = data.c, data, lig_x.device
     bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
     he, hf, nw, kdim = d.dims
+    ns, din = c.ns, c.din
+    weights = [_aligned(w) for w in weights]
     w2, b2, al_w1, al_b1, al_w2, al_b2, la_w1, la_b1, la_w2, la_b2 = weights
-    layout, stride = _grad_layout(c.gs_n, he, c.ns, hf, nw, bsz)
-    part_al, flat_al = _grad_scratch(stride, dev)
-    part_la, flat_la = _grad_scratch(stride, dev)
+    w_in = _aligned(w_in)
+    layout, stride = _grad_layout(c.gs_n, he, ns, hf, nw, bsz)
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    pid, lig_off, atm_off = pairs.pid, pairs.lig_off, pairs.atm_off
+    n_pairs = pairs.count()  # the scratch is sized by it
+    ld = -(-n_pairs // WIDE_TILE) * WIDE_TILE
+    pair_l, pair_a, pair_b = (torch.empty(ld, **i32) for _ in range(3))
+    at_atom, sample_off = torch.empty(n_pairs, **i32), torch.empty(bsz + 1, **i32)
+    rows = torch.empty(_wide_row_count(c.gs_n, he, ns, hf, nw), ld, **f32)
+    al_tgt, la_tgt = torch.empty(ld, ns, **f32), torch.empty(ld, ns, **f32)
+    al_src, la_src = torch.empty(ld, din, **f32), torch.empty(ld, din, **f32)
+    n_tiles = sum(contraction.tiles(m, n) for m, n in _wide_problems(c.gs_n, he, ns, hf, nw, bsz))
+    splits = contraction.max_splits(n_tiles, ld, contraction.sm_count(str(dev)))
+    part = torch.empty(splits, stride, **f32)
+    flat_al, flat_la = torch.empty(stride, **f32), torch.empty(stride, **f32)
+    d_lig, d_atm = torch.empty(bsz, nl, din, **f32), torch.empty(bsz, na, din, **f32)
     ck, gs_off, _ = c.device_tables(dev)
-    w_meta, in_meta = c.device_bwd_tables(dev)
-    g_al = lig_x.new_zeros(bsz, nl, c.dout) if g_al is None else _arg(g_al, (bsz, nl, c.dout), dev)
-    g_la = atm_x.new_zeros(bsz, na, c.dout) if g_la is None else _arg(g_la, (bsz, na, c.dout), dev)
-    d_lig = torch.empty(bsz, nl, c.din, dtype=torch.float32, device=dev)
-    d_atm = torch.empty(bsz, na, c.din, dtype=torch.float32, device=dev)
-    w2t, al_w1t, al_w2t, la_w1t, la_w2t = _transposed(w2, al_w1, al_w2, la_w1, la_w2)
-    rc = _library().dbfr_cross_bwd(
-        _ptr(d.lig_pos), _ptr(d.atm_pos), _ptr(lig_x), _ptr(atm_x), _ptr(d.lig_mask),
-        _ptr(d.atm_mask), _ptr(d.cab), _ptr(d.cut), _ptr(w_in), _ptr(beff), _ptr(w2), _ptr(b2),
-        _ptr(w2t), _ptr(al_w1), _ptr(al_b1), _ptr(al_w2), _ptr(al_b2), _ptr(al_w1t),
-        _ptr(al_w2t), _ptr(la_w1), _ptr(la_b1), _ptr(la_w2), _ptr(la_b2), _ptr(la_w1t),
-        _ptr(la_w2t), _ptr(ck), _ptr(gs_off), _ptr(w_meta), _ptr(in_meta), _ptr(g_al),
-        _ptr(g_la), _ptr(d_lig), _ptr(d_atm), _ptr(part_al), _ptr(part_la), _ptr(flat_al),
-        _ptr(flat_la), bsz, nl, na, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n,
-        c.gs_coeff, _stream())
+    w_meta, in_off, in_ent = c.device_wide_tables(dev)
+    w2t, al_w1t, al_w2t, la_w1t, la_w2t = [_aligned(t) for t in
+                                           _transposed(w2, al_w1, al_w2, la_w1, la_w2)]
+    rc = lib.dbfr_cross_bwd(
+        _ptr(d.lig_pos), _ptr(d.atm_pos), _ptr(lig_x), _ptr(atm_x), _ptr(w_in), _ptr(beff),
+        _ptr(w2), _ptr(b2), _ptr(w2t), _ptr(al_w1), _ptr(al_b1), _ptr(al_w2), _ptr(al_b2),
+        _ptr(al_w1t), _ptr(al_w2t), _ptr(la_w1), _ptr(la_b1), _ptr(la_w2), _ptr(la_b2),
+        _ptr(la_w1t), _ptr(la_w2t), _ptr(ck), _ptr(gs_off), _ptr(w_meta), _ptr(in_off),
+        _ptr(in_ent), _ptr(g_al), _ptr(g_la), _ptr(pid), _ptr(lig_off), _ptr(atm_off),
+        _ptr(pair_l), _ptr(pair_a), _ptr(pair_b), _ptr(at_atom), _ptr(sample_off), _ptr(rows),
+        _ptr(al_tgt), _ptr(al_src), _ptr(la_tgt), _ptr(la_src), _ptr(part), _ptr(flat_al),
+        _ptr(flat_la), _ptr(d_lig), _ptr(d_atm), bsz, nl, na, din, c.dout, ns, he, hf, nw,
+        kdim, c.gs_n, in_ent.shape[0], n_pairs, ld, layout["w_in"][0], layout["w2"][0],
+        layout["wf1"][0], layout["wf2"][0], stride, splits, c.gs_coeff, st)
     _check(rc, "cross_bwd")
     launches["cross_bwd"] += 1
+    scratch = (pid, *pairs.keep, lig_off, atm_off, pair_l, pair_a, pair_b, at_atom, sample_off,
+               rows, al_tgt, la_tgt, al_src, la_src, part)
+    cross_bwd_stats.update(pairs=n_pairs, splits=splits, scratch_bytes=sum(
+        t.numel() * t.element_size() for t in scratch))
     return d_lig, d_atm, _split_grads(flat_al, layout), _split_grads(flat_la, layout)
+
+
+def _wide_row_count(ke, he, ns, hf, nw):
+    """Feature rows of one direction's scratch (WideRows, conv_bwd_wide.cuh):
+    in, h1, dh1, de[0:ns], e, dh, h, dw."""
+    return ke + 2 * he + ns + 3 * ns + 2 * hf + nw
+
+
+def _wide_problems(ke, he, ns, hf, nw, bsz):
+    """[rows, cols] of B4's four contractions per direction, bias rows
+    included: dW1 + db1_eff (a row per sample), dW2 + db2, dWf1 + dbf1,
+    dWf2 + dbf2."""
+    return ((ke + bsz, he), (he + 1, ns), (3 * ns + 1, hf), (hf + 1, nw))
+
+
+# ---- B4's decomposition, plain -------------------------------------------
+
+
+def cross_pairs_plain(lig_pos, atm_pos, lig_mask, atm_mask, cab, cut):
+    """The pair list of B4 (csrc/cross_bwd.cu): the valid (ligand, atom)
+    pairs of every sample in ligand-major order (b, l, a ascending), as
+    (pair_l, pair_a, pair_b); sample_off [B + 1] (the first pair of each
+    sample), lig_off [B * nl + 1] (of each ligand row), atm_off [B * na + 1]
+    (of each atom, in the atom-major permutation) and perm, the list indices
+    in atom-major order, list order kept within an atom. The mask is
+    cross_conv_plain's."""
+    bsz, nl, na = lig_pos.shape[0], lig_pos.shape[1], atm_pos.shape[1]
+    d = _dist(atm_pos[:, None, :, :] - lig_pos[:, :, None, :])
+    valid = ((cab[:, None, :] > 0) | (d <= cut[:, None, None])) & (lig_mask[:, :, None] > 0) \
+        & (atm_mask[:, None, :] > 0)
+    pair_b, pair_l, pair_a = torch.nonzero(valid, as_tuple=True)
+    zero = torch.zeros(1, dtype=torch.long, device=lig_pos.device)
+
+    def offsets(counts):
+        return torch.cat([zero, torch.cumsum(counts.reshape(-1), 0)])
+
+    perm = torch.sort(pair_b * na + pair_a, stable=True).indices
+    return (pair_l, pair_a, pair_b, offsets(valid.sum((1, 2))), offsets(valid.sum(2)),
+            offsets(valid.sum(1)), perm)
+
+
+def _tp_bwd_plain(c: ConvConsts, x, cb, w, g):
+    """Per pair, the depthwise TP's gradients: (dw [P, nw], dx [P, din]) for
+    the source rows x, cb = sh @ ck, the TP weights w and the target's
+    cotangent g, component-major: out[s3 + k mul + u] = w[w_off + u] sum_i
+    x[s1 + i mul + u] cb[cb_off + i d3 + k]."""
+    dw, dx = torch.zeros_like(w), torch.zeros_like(x)
+    for m in c.path_metas:
+        d1, d3, mul, s1, wo = m["d1"], m["d3"], m["mul"], m["s1"], m["w_off"]
+        xp = x[:, s1 : s1 + d1 * mul].unflatten(-1, (d1, mul))
+        cp = cb[:, m["cb_off"] : m["cb_off"] + d1 * d3].unflatten(-1, (d1, d3))
+        gp = g[:, m["s3"] : m["s3"] + d3 * mul].unflatten(-1, (d3, mul))
+        dw[:, wo : wo + mul] = (gp * torch.einsum("pim,pik->pkm", xp, cp)).sum(1)
+        dx[:, s1 : s1 + d1 * mul] += (torch.einsum("pkm,pik->pim", gp, cp)
+                                      * w[:, None, wo : wo + mul]).flatten(1)
+    return dw, dx
+
+
+def cross_pass_plain(c: ConvConsts, pairs, vec, tgt_x, src_x, gout, w_in, beff, w2, b2, wf1,
+                     bf1, wf2, bf2):
+    """One direction's wide-tile pass, plain (csrc/conv_bwd_wide.cuh): pairs
+    = (target, source, sample) index tensors, vec [P, 3] = atom - ligand.
+    Returns the feature-major rows that the parameter gradients contract
+    ({in, h1, dh1, dea, e, dh, h, dw}, each [features, P]), the pairs' rows
+    of d / d target scalars [P, ns] and of d / d source features [P, din]."""
+    t, s, b = pairs
+    ns = c.ns
+    inp = _gauss(c, _dist(vec))
+    h1 = torch.relu(inp @ w_in + beff[b])
+    e = torch.cat([h1 @ w2 + b2, tgt_x[b, t, :ns], src_x[b, s, :ns]], dim=-1)
+    h = torch.relu(e @ wf1 + bf1)
+    w = h @ wf2 + bf2
+    cb = sh_l2(vec) @ c.device_tables(vec.device)[0]
+    dw, dx = _tp_bwd_plain(c, src_x[b, s], cb, w, gout[b, t])
+    dh = (dw @ wf2.t()) * (h > 0)
+    de = dh @ wf1.t()
+    dh1 = (de[:, :ns] @ w2.t()) * (h1 > 0)
+    dx[:, :ns] += de[:, 2 * ns:]
+    rows = {"in": inp, "h1": h1, "dh1": dh1, "dea": de[:, :ns], "e": e, "dh": dh, "h": h,
+            "dw": dw}
+    return {k: v.t() for k, v in rows.items()}, de[:, ns : 2 * ns], dx
+
+
+def cross_bwd_plain(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la):
+    """cross_bwd's plain version, a model of its decomposition: the pair list
+    (cross_pairs_plain), per direction the pass's rows (cross_pass_plain)
+    contracted over the pairs into each parameter gradient with its bias rows
+    (contraction.contract_plain; db1_eff per sample segment), and the pairs'
+    node rows summed per ligand row and, through the atom-major permutation,
+    per atom. Same returns as cross_bwd."""
+    c, d = data.c, data
+    bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
+    he, hf, nw, _ = d.dims
+    ns, din = c.ns, c.din
+    w2, b2, *fcs = weights
+    pl, pa, pb, sample_off, lig_off, atm_off, perm = cross_pairs_plain(
+        d.lig_pos, d.atm_pos, d.lig_mask, d.atm_mask, d.cab, d.cut)
+    vec = d.atm_pos[pb, pa] - d.lig_pos[pb, pl]
+    dirs = {"al": ((pl, pa, pb), lig_x, atm_x, g_al, fcs[:4]),
+            "la": ((pa, pl, pb), atm_x, lig_x, g_la, fcs[4:])}
+    grads, node_rows = {}, {}
+    for name, (pairs, tx, sx, g, fc) in dirs.items():
+        rows, node_rows[name + "_tgt"], node_rows[name + "_src"] = cross_pass_plain(
+            c, pairs, vec, tx, sx, g, w_in, beff, w2, b2, *fc)
+        w_in_b = contraction.contract_plain(rows["in"], rows["dh1"], sample_off)
+        w2_b = contraction.contract_plain(rows["h1"], rows["dea"])
+        wf1_b = contraction.contract_plain(rows["e"], rows["dh"])
+        wf2_b = contraction.contract_plain(rows["h"], rows["dw"])
+        grads[name] = {"w_in": w_in_b[: c.gs_n], "beff": w_in_b[c.gs_n :], "w2": w2_b[:he],
+                       "b2": w2_b[he], "wf1": wf1_b[: 3 * ns], "bf1": wf1_b[3 * ns],
+                       "wf2": wf2_b[:hf], "bf2": wf2_b[hf]}
+
+    def seg_sum(rows, off, n):
+        seg = torch.repeat_interleave(torch.arange(n, device=rows.device), off[1:] - off[:-1])
+        return rows.new_zeros(n, din).index_add_(0, seg, rows)
+
+    pad = (0, din - ns)
+    lig_rows = node_rows["la_src"] + torch.nn.functional.pad(node_rows["al_tgt"], pad)
+    atm_rows = node_rows["al_src"] + torch.nn.functional.pad(node_rows["la_tgt"], pad)
+    d_lig = seg_sum(lig_rows, lig_off, bsz * nl).view(bsz, nl, din)
+    d_atm = seg_sum(atm_rows[perm], atm_off, bsz * na).view(bsz, na, din)
+    return d_lig, d_atm, grads["al"], grads["la"]
 
 
 # ---- B3 knn conv / B6 backward -------------------------------------------

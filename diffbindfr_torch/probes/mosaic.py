@@ -15,7 +15,7 @@ at the tool's shapes and on the tool's inputs (numpy default_rng(0)):
 | prec   | precision (probe_precision, :199)   | the onehot gather (one kernel serves both) |
 | dw     | dwloop (probe_dwloop, :243)         | the f32 depthwise chain of the sep spec, masked, group sums |
 | mlp    | mlps (probe_mlps, :291)             | the P4 kernel (probes/mlp.py) |
-| abt    | abt (probe_abt, :343)               | a @ b^T, fp32 on CUDA cores   |
+| abt    | abt (probe_abt, :343)               | a @ b^T, fp32 on CUDA cores, split-K (B4's contraction) |
 
 Each wrapper runs its kernel for CUDA tensors (counted in `launches`) and
 its plain version for CPU tensors. The plain versions of onehot and
@@ -33,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from ..nn import contraction
 from . import _cuda, cm_layout, mlp as P4
 
 WORDS = ("3d", "onehot", "tile", "bcast", "4d", "msel", "prec", "dw", "mlp", "abt")
@@ -306,12 +307,17 @@ def mlps(e, w1, b1, w2, b2):
 
 
 def abt(a, b):
+    """a @ b^T by the split-K contraction that B4's parameter gradients run
+    (csrc/abt_gemm.cuh): K cut into chunks whose partial sums (a slab
+    allocated here) are added in order."""
     if not a.is_cuda:
         return abt_plain(a, b)
     (m, k), n = a.shape, b.shape[0]
     a, b = _cuda.check("a", a, (m, k)), _cuda.check("b", b, (n, k))
+    splits = contraction.max_splits(contraction.tiles(m, n), k, contraction.sm_count(str(a.device)))
+    part = _new((splits, m * n), a)
     out = _new((m, n), a)
-    _cuda.launch("dbfr_probe_abt", (a, b, out), (m, n, k))
+    _cuda.launch("dbfr_probe_abt", (a, b, part, out), (m, n, k, splits))
     launches["probe_mosaic/abt"] += 1
     return out
 

@@ -37,6 +37,10 @@ from diffbindfr_torch.nn import trunk_convs as TC
 from diffbindfr_torch.probes import bf16_chain
 from diffbindfr_torch.utils.checkpoint import load_checkpoint, params_from_numpy
 
+# one intra-op thread: tier-1 runs six test processes on the machine's cores,
+# and a torch OpenMP pool in each spins against the others
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLE = os.path.join(ROOT, "runs/eval_r5_scsrc/prep_cache/3dbs_r12.npz")
 CKPT = os.path.join(ROOT, "runs/diff_r2/ckpt_best.npz")

@@ -29,6 +29,10 @@ from diffbindfr_torch.geometry import so3 as TSO3
 from diffbindfr_torch.geometry import torsion as TT
 from diffbindfr_torch.geometry import torus as TTOR
 
+# one intra-op thread: tier-1 runs six test processes on the machine's cores,
+# and a torch OpenMP pool in each spins against the others
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLE = os.path.join(ROOT, "runs/eval_r5_scsrc/prep_cache/3dbs_r12.npz")
 

@@ -5,7 +5,9 @@ finalize kernels B7-B9 and the whole-layer kernel B10 (forward, and the
 gradients of their plain-recompute backward), the bf16-chain kernels B11
 (forward against their plain bf16 versions, backward equal to the f32
 wrappers'), the kernel path's error for gradients it does not give
-(positions, time embedding, cutoff), and the probes' kernels P2-P4. Marked
+(positions, time embedding, cutoff), the probes' kernels P2-P4, the split-K
+contraction at ragged shapes, and B4 at a ragged pair count (bit-identical
+across two calls) and with no valid pair. Marked
 `cuda`: skipped (with a reason) where no GPU is present. Imports no JAX, so
 it runs on the GPU machine with
 
@@ -545,3 +547,72 @@ def test_probe_mxu_ops_kernels_match_plain(dev):
     e5, ratio = M.mxu_errors(got, ref)
     assert got.shape == (64, 384, 40) and e5 <= 1e-5 and ratio <= 1.0, (e5, ratio)
     assert M.launches == {k: v + 1 for k, v in before.items()}
+
+
+# ---------------------------------------------------------------------------
+# the split-K contraction (P3-abt; B4's parameter gradients run the same
+# kernel) and B4's wide-tile pass at the edges of its pair list
+# ---------------------------------------------------------------------------
+
+# the tool's shape; M, N, K off the 64 x 64 x 32 tiling (K not a multiple of
+# 4: the 4-byte copy path); K within one slice, hence one chunk
+ABT_SHAPES = [(480, 144, 1024), (70, 33, 130), (97, 200, 51), (7, 5, 3), (64, 130, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", ABT_SHAPES)
+def test_abt_kernel_matches_plain(dev, m, n, k):
+    from diffbindfr_torch.probes import mosaic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=gen, device=dev)
+    b = torch.randn(n, k, generator=gen, device=dev)
+    before = mosaic.launches["probe_mosaic/abt"]
+    got = mosaic.abt(a, b)
+    ref = mosaic.abt_plain(a, b)
+    torch.cuda.synchronize()
+    assert mosaic.launches["probe_mosaic/abt"] == before + 1
+    assert got.shape == (m, n) and _rel(got, ref) <= 1e-5
+    assert torch.equal(got, mosaic.abt(a, b))  # the chunks are added in a fixed order
+
+
+def _cross_grads(S, c, cut, lig_mask):
+    lx, ax = _leaf(S["tgt_x"]), _leaf(S["src_x"])
+    emb, fa, fb = _mlp_leaves(S["emb"]), _mlp_leaves(S["fc_a"]), _mlp_leaves(S["fc_b"])
+    args = (c, S["tgt_pos"], S["src_pos"], lx, ax, lig_mask, S["src_mask"], S["cab"], S["temb"],
+            cut, emb, fa, fb)
+    leaves = [lx, ax] + _flat(emb) + _flat(fa) + _flat(fb)
+    out = TC.cross_conv(*args)
+    gs = [torch.randn_like(o) for o in out]
+    return args, leaves, gs, [torch.autograd.grad(out, leaves, gs, retain_graph=True)
+                              for _ in range(2)]
+
+
+@pytest.mark.cuda
+def test_cross_backward_kernel_ragged_pair_count_is_deterministic(dev):
+    """5971 valid pairs (not a multiple of the 64-pair tile): the gradients
+    match autograd through the plain version and two backward calls give
+    the same bits."""
+    S = _system(dev)
+    c = TC.ConvConsts(S["cs"].dw, NS, SED, 32.0, GSN)
+    cut = torch.tensor([6.5, 5.2, 8.0], device=dev)
+    args, leaves, gs, (got, again) = _cross_grads(S, c, cut, S["tgt_mask"])
+    torch.cuda.synchronize()
+    assert TC.cross_bwd_stats["pairs"] == 5971
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _grad_close(TC.cross_conv_plain, args, leaves, gs, got)
+
+
+@pytest.mark.cuda
+def test_cross_backward_kernel_without_valid_pairs(dev):
+    """A B = 1 sample whose ligand rows are all masked: no pair, every
+    gradient exactly 0 (the plain version's output depends on nothing)."""
+    S = _system(dev, bsz=1, seed=5)
+    c = TC.ConvConsts(S["cs"].dw, NS, SED, 32.0, GSN)
+    mask = torch.zeros_like(S["tgt_mask"])
+    args, leaves, gs, (got, again) = _cross_grads(S, c, torch.tensor([6.0], device=dev), mask)
+    torch.cuda.synchronize()
+    assert TC.cross_bwd_stats["pairs"] == 0
+    assert not any(o.requires_grad for o in TC.cross_conv_plain(*args))
+    assert all(not bool(g.abs().max()) and torch.equal(g, h) for g, h in zip(got, again))

@@ -22,6 +22,10 @@ from diffbindfr_torch.nn import irreps as TI
 from diffbindfr_torch.nn import layers as TL
 from diffbindfr_torch.utils import checkpoint as TCK
 
+# one intra-op thread: tier-1 runs six test processes on the machine's cores,
+# and a torch OpenMP pool in each spins against the others
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LADDER = "8x0e+4x1o+4x1e+8x0o"
 SH = "1x0e+1x1o+1x2e"

@@ -40,6 +40,10 @@ from diffbindfr_tpu.nn.pallas_conv_t import _tmetas
 from diffbindfr_torch.nn import irreps as TIR
 from diffbindfr_torch.probes import cm_layout, mlp, mosaic, mxu_ops
 
+# one intra-op thread: tier-1 runs six test processes on the machine's cores,
+# and a torch OpenMP pool in each spins against the others
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LADDER = "48x0e+12x1o+12x1e+12x0o"
 SH = "1x0e+1x1o+1x2e"

@@ -34,6 +34,10 @@ from diffbindfr_torch.nn import layers as TL
 from diffbindfr_torch.nn import trunk_convs as TC
 from diffbindfr_torch.utils.checkpoint import params_from_numpy
 
+# one intra-op thread: tier-1 runs six test processes on the machine's cores,
+# and a torch OpenMP pool in each spins against the others
+torch.set_num_threads(1)
+
 NS, NV = 8, 4
 IN = f"{NS}x0e+{NV}x1o"
 OUT = f"{NS}x0e+{NV}x1o+{NV}x1e"

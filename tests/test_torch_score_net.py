@@ -25,6 +25,10 @@ from diffbindfr_torch.data.sample import _load_sample_npz, stack_samples, to_dev
 from diffbindfr_torch.models import score_net as tsn
 from diffbindfr_torch.utils.checkpoint import load_checkpoint, params_from_numpy
 
+# one intra-op thread: tier-1 runs six test processes on the machine's cores,
+# and a torch OpenMP pool in each spins against the others
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLE = os.path.join(ROOT, "runs/eval_r5_scsrc/prep_cache/3dbs_r12.npz")
 CKPT = os.path.join(ROOT, "runs/diff_r2/ckpt_best.npz")

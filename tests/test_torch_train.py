@@ -52,6 +52,10 @@ from diffbindfr_torch.nn.relu_ties import ReluTies
 from diffbindfr_torch.sampler import SamplerConfig
 from diffbindfr_torch.utils.checkpoint import load_checkpoint
 
+# one intra-op thread: tier-1 runs six test processes on the machine's cores,
+# and a torch OpenMP pool in each spins against the others
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PREP = os.path.join(ROOT, "runs/eval_r5_scsrc/prep_cache")
 CKPT = os.path.join(ROOT, "runs/diff_r2/ckpt_best.npz")

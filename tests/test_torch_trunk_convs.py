@@ -19,6 +19,10 @@ from diffbindfr_tpu.nn import pallas_conv_t as PT
 from diffbindfr_torch.nn import layers as TL
 from diffbindfr_torch.nn import trunk_convs as TC
 
+# one intra-op thread: tier-1 runs six test processes on the machine's cores,
+# and a torch OpenMP pool in each spins against the others
+torch.set_num_threads(1)
+
 NS, NV, SED, GSN = 8, 4, 16, 16
 LADDER = f"{NS}x0e+{NV}x1o+{NV}x1e+{NS}x0o"
 SH = "1x0e+1x1o+1x2e"
