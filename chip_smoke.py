@@ -36,10 +36,11 @@ a non-zero exit code):
               plain version may take the kernel's decision at a ReLU
               pre-activation within f32 rounding of 0 and nowhere else
               (nn/relu_ties.py); each such tie is printed with |z| and its
-              rounding bound. B4 also: two more calls give the same bits; its
-              pair list holds the pairs the mask keeps; its device time by
-              part (pair list, pair passes, contractions, node sums), the
-              pair count and the scratch bytes of a call
+              rounding bound. B4 and B6 also: two more calls give the same
+              bits; the pair list holds the pairs the mask keeps; the device
+              time by part (pair list, pair passes, contractions, node sums),
+              the pair count (B6: of its neighbour slots) and the scratch
+              bytes of a call
   10. train_parity  one full-width train step (diff_r2 params, a fixed 3dbs
               batch of 4, fixed TrainNoise) on the kernel path and on the
               plain path: loss terms within 1e-5, grad_norm within 1e-4
@@ -57,7 +58,9 @@ a non-zero exit code):
               whole layer), at the 3dbs bucket shapes, layers 0 and 5, B = 16,
               on diff_r2 weights and phase 5's kernel inputs, against their
               plain versions (max|err| <= 1e-4 max|ref|); CUDA-event times,
-              bounds and plain times
+              bounds and plain times; B10's two kinds of block (ligand rows,
+              atoms): blocks, 64-pair tiles and their fill, each kind's share
+              of the blocks' cycles
   13. rm_forward  the full-width score net in the row-major configurations
               (rowmajor, +fused_epilogue, +fused_layer) against the JAX fixture
               (<= 1e-3, as phase 6)
@@ -243,7 +246,8 @@ SYMBOLS = {
                   "cross_atom_count_kernel(", "cross_pairs_fill_kernel(", "abt_kernel<",
                   "abt_reduce_kernel(", "segment_sum_kernel<8>(", "segment_sum_kernel<2>("),
     "pair_bwd": ("pair_bwd_kernel(", "reduce_rows_kernel("),
-    "knn_bwd": ("knn_bwd_kernel(", "knn_bwd_rev_kernel(", "reduce_rows_kernel("),
+    "knn_bwd": ("knn_wide_kernel(", "knn_count_kernel(", "knn_scan_kernel(", "knn_rev_kernel(",
+                "abt_kernel<", "abt_reduce_kernel(", "knn_node_sum_kernel("),
     "cross_conv_fin": ("cross_conv_fin_kernel(",), "pair_conv_fin": ("pair_conv_fin_kernel(",),
     "knn_conv_fin": ("knn_conv_fin_kernel(",), "layer_conv": ("layer_conv_kernel(",),
     "cross_conv_bf16": ("cross_conv_bf16_kernel(",), "pair_conv_bf16": ("pair_conv_bf16_kernel(",),
@@ -273,12 +277,18 @@ GRIDS = {"cross_conv": {"cross_conv_kernel(": 2}, "cross_conv_fin": {"cross_conv
 # no CUDA graph can capture them, so device_ms's fallback for them is CUDA
 # events around the calls
 NO_GRAPH = ("cross_bwd",)
-# B4's kernels by the part of its work they do (phase 9 prints each part)
-B4_PARTS = {"pair list": ("cross_pairs_count_kernel(", "exclusive_scan_kernel(",
-                          "cross_atom_count_kernel(", "cross_pairs_fill_kernel("),
-            "pair passes": ("cross_wide_kernel(",),
-            "contractions": ("abt_kernel<", "abt_reduce_kernel("),
-            "node sums": ("segment_sum_kernel<8>(", "segment_sum_kernel<2>(")}
+# B4's and B6's kernels by the part of their work they do (phase 9 prints
+# each part)
+BWD_PARTS = {
+    "cross_bwd": {"pair list": ("cross_pairs_count_kernel(", "exclusive_scan_kernel(",
+                                "cross_atom_count_kernel(", "cross_pairs_fill_kernel("),
+                  "pair passes": ("cross_wide_kernel(",),
+                  "contractions": ("abt_kernel<", "abt_reduce_kernel("),
+                  "node sums": ("segment_sum_kernel<8>(", "segment_sum_kernel<2>(")},
+    "knn_bwd": {"pair list": ("knn_count_kernel(", "knn_scan_kernel(", "knn_rev_kernel("),
+                "pair pass": ("knn_wide_kernel(",),
+                "contractions": ("abt_kernel<", "abt_reduce_kernel("),
+                "node sums": ("knn_node_sum_kernel(",)}}
 # bf16 dense rate of the tensor cores (data sheet, 700 W)
 PEAK_BF16_TC = 989e12
 SCHED = {"tr_sigma_min": 0.1, "tr_sigma_max": 6.0, "rot_sigma_min": 0.03,
@@ -712,9 +722,9 @@ def phase_bwd_kernels(torch, params, s_np, results):
             ms = time_ms(launch, 2, 5)
             parts = {}
             dev_ms, dev_how = device_ms(torch, launch, bname, parts=parts)
-            b4 = {}
-            if bname == "cross_bwd":
-                b4 = cross_bwd_report(torch, TC, launch, parts, layer, bsz)
+            wide = {}
+            if bname in BWD_PARTS:
+                wide = wide_bwd_report(torch, TC, bname, launch, parts, layer, bsz)
             out_p = plain[name](*diff)
             out_p = out_p if isinstance(out_p, tuple) else (out_p,)
             plain_ms = time_ms(lambda: torch.autograd.grad(out_p, leaves, gs, retain_graph=True),
@@ -733,10 +743,10 @@ def phase_bwd_kernels(torch, params, s_np, results):
                        pairs=pairs, flops=flops,
                        bytes=byts,
                        bound_by="operations" if flops / PEAK_FP32 >= byts / PEAK_BYTES else "bytes",
-                       **b4)
-            if b4 and b4["pairs_listed"] != pairs:
-                raise AssertionError(f"cross_bwd layer {layer} B={bsz}: the pair list holds "
-                                     f"{b4['pairs_listed']} pairs, the mask {pairs:.0f}")
+                       **wide)
+            if wide and wide["pairs_listed"] != pairs:
+                raise AssertionError(f"{bname} layer {layer} B={bsz}: the pair list holds "
+                                     f"{wide['pairs_listed']} pairs, the mask {pairs:.0f}")
             results.setdefault(bname, []).append(row)
             print(f"  {bname} layer {layer} B={bsz}: {len(got)} gradients, max|err|/max|ref| "
                   f"{err:.2e} ({tie_err:.2e} with {len(flips)} of {n_ties} ReLU ties "
@@ -755,20 +765,32 @@ def phase_bwd_kernels(torch, params, s_np, results):
                                      f"{tie_err:.3e} with {len(flips)} ties flipped)")
 
 
-def cross_bwd_report(torch, TC, launch, parts, layer, bsz):
-    """B4 after its timing: two more calls must give the same bits; prints
-    the device time of each part of its work (B4_PARTS, from the profiler's
-    per-symbol reading), the pair count and the scratch bytes of a call."""
+def wide_bwd_report(torch, TC, bname, launch, parts, layer, bsz):
+    """B4 or B6 after its timing: two more calls must give the same bits;
+    prints the device time of each part of its work (BWD_PARTS, from the
+    profiler's per-symbol reading), the pair count (B6: and its neighbour
+    slots, by which it sizes its scratch and grid) and the scratch bytes of
+    a call."""
     first, second = launch(), launch()
     torch.cuda.synchronize()
-    flat = lambda r: [r[0], r[1], *r[2].values(), *r[3].values()]  # noqa: E731
+
+    def flat(r):
+        return [t for x in r for t in (x.values() if isinstance(x, dict) else [x])]
+
     if not all(torch.equal(a, b) for a, b in zip(flat(first), flat(second))):
-        raise AssertionError(f"cross_bwd layer {layer} B={bsz}: two calls differ")
-    stats = dict(TC.cross_bwd_stats)
-    by_part = ({part: sum(parts[sym] for sym in syms) for part, syms in B4_PARTS.items()}
+        raise AssertionError(f"{bname} layer {layer} B={bsz}: two calls differ")
+    if bname == "cross_bwd":
+        stats = dict(TC.cross_bwd_stats)
+        listed = f"{stats['pairs']} pairs in the list"
+    else:
+        stats = dict(TC.knn_bwd_stats, pairs=int(TC.knn_bwd_stats["count"]))
+        listed = (f"{stats['pairs']} pairs of {stats['slots']} neighbour slots "
+                  f"({100 * stats['pairs'] / max(stats['slots'], 1):.1f}% valid; the scratch and "
+                  f"the pass's grid are sized by the slots, no host read)")
+    by_part = ({part: sum(parts[sym] for sym in syms) for part, syms in BWD_PARTS[bname].items()}
                if parts else None)
-    print(f"  cross_bwd layer {layer} B={bsz}: two calls bit-identical; {stats['pairs']} pairs "
-          f"in the list, {stats['splits']} K chunks per contraction, scratch "
+    print(f"  {bname} layer {layer} B={bsz}: two calls bit-identical; {listed}, "
+          f"{stats['splits']} K chunks per contraction, scratch "
           f"{stats['scratch_bytes'] / 2**20:.1f} MiB; device time by part: "
           + (", ".join(f"{k} {v:.4f} ms" for k, v in by_part.items()) if by_part
              else "not measured (the profiler's reading was refused)"), flush=True)
@@ -776,7 +798,8 @@ def cross_bwd_report(torch, TC, launch, parts, layer, bsz):
         print("    by kernel: " + ", ".join(f"{k[:-1]} {v:.4f} ms" for k, v in parts.items()),
               flush=True)
     return dict(pairs_listed=stats["pairs"], splits=stats["splits"],
-                scratch_bytes=stats["scratch_bytes"], parts_ms=by_part)
+                scratch_bytes=stats["scratch_bytes"], parts_ms=by_part,
+                **({"slots": stats["slots"]} if "slots" in stats else {}))
 
 
 def param_paths(tree, prefix=""):
@@ -994,8 +1017,16 @@ def report_profile(prof, wall, what, names, steps=None):
         return None
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    by_name = {k: sum(r[1] for r in rows if any(sym in r[0] for sym in SYMBOLS[k]))
-               for k in names}
+    # a symbol that several of `names` launch (B4's and B6's split-K
+    # contraction) is counted once, under the names that share it
+    owners = {sym: tuple(k for k in names if sym in SYMBOLS[k]) for k in names
+              for sym in SYMBOLS[k]}
+    by_name = {k: sum(r[1] for r in rows if any(sym in r[0] for sym in SYMBOLS[k]
+                                                if len(owners[sym]) == 1)) for k in names}
+    for sym, ks in owners.items():
+        if len(ks) > 1:
+            label = f"{sym.rstrip('(<')} (shared by {', '.join(ks)})"
+            by_name[label] = sum(r[1] for r in rows if sym in r[0])
     ours = sum(r[1] for r in rows if any(sym in r[0] for k in names for sym in SYMBOLS[k]))
     # kernels only: copies and fills are device work but no kernel launch
     kernels = sum(r[2] for r in rows if not r[0].startswith(("Memcpy", "Memset")))
@@ -1120,6 +1151,44 @@ def phase_rm_kernels(torch, params, s_np, results):
                   f"bound {bound_ms:.3f} ms ({row['bound_by']}) pairs {pairs:.0f}", flush=True)
             if not finite or err > 1e-4:
                 raise AssertionError(f"{name} layer {layer}: kernel disagrees with plain ({err:.3e})")
+            if name == "layer_conv":
+                row["blocks"] = layer_block_report(torch, LC, a, layer, bsz)
+
+
+def layer_block_report(torch, LC, a, layer, bsz):
+    """B10's two kinds of block (ligand rows: pair conv + al; atoms: knn
+    conv + la): per kind the blocks, their 64-pair tiles and how full they
+    are (the plan model, layer_tile_plan, on these inputs), and the share
+    of the blocks' clock64() cycles (one launch with `cycles`) and the
+    longest block against the mean; each block's cycles are its SM's time
+    on it, so the shares say where the card's time goes."""
+    lc, lig_pos, atm_pos, _, _, lig_mask, atm_mask, cab, _, cut, _, bm, idx, valid = a[:14]
+    with torch.no_grad():
+        LC._layer_kernel(*a)
+        g_l, g_a = LC.layer_conv_stats["groups"]
+        plan = LC.layer_tile_plan(lig_pos, atm_pos, lig_mask, atm_mask, cab, lc.lig.gs_stop, cut,
+                                  bm, idx, valid, g_l, g_a)
+        cycles = torch.zeros(len(plan), dtype=torch.int64, device=DEV)
+        LC._layer_kernel(*a, cycles=cycles)
+        torch.cuda.synchronize()
+    cyc = cycles.double().cpu()
+    out = {}
+    for kind, what in (("lig", f"ligand-row blocks ({g_l} rows: pair conv, al)"),
+                       ("atom", f"atom-row blocks ({g_a} atoms: knn conv, la)")):
+        sel = [i for i, blk in enumerate(plan) if blk.kind == kind]
+        tiles = sum(len(t) for i in sel for t in plan[i].tiles.values())
+        pairs = sum(len(p) for i in sel for t in plan[i].tiles.values() for p in t)
+        c = cyc[sel]
+        out[kind] = dict(blocks=len(sel), tiles=tiles, pairs=pairs,
+                         tile_fill=pairs / max(1, tiles * LC.WIDE_TILE),
+                         cycle_share=float(c.sum() / cyc.sum()),
+                         longest_over_mean=float(c.max() / c.mean()))
+        print(f"    {what}: {len(sel)} blocks, {tiles} tiles of {pairs} pairs "
+              f"({100 * out[kind]['tile_fill']:.1f}% full), "
+              f"{100 * out[kind]['cycle_share']:.1f}% of the block cycles, longest block "
+              f"{out[kind]['longest_over_mean']:.2f}x the mean", flush=True)
+    out["smem_bytes"] = LC.layer_conv_stats["smem_bytes"]
+    return out
 
 
 def rm_config(sn, mode, **kw):
@@ -2069,8 +2138,8 @@ def main() -> int:
                      "plain_ms": main_row["plain_ms"],
                      "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                      "library_ms": None, "layer": 5, "batch": 4,
-                     **{k: main_row[k] for k in ("pairs_listed", "splits", "scratch_bytes",
-                                                 "parts_ms") if k in main_row}})
+                     **{k: main_row[k] for k in ("pairs_listed", "slots", "splits",
+                                                 "scratch_bytes", "parts_ms") if k in main_row}})
     for name, (src, repl) in RM_KERNELS.items():
         # the dock shapes at layer 5; launches from the dock in the
         # configuration that runs the kernel
@@ -2083,7 +2152,8 @@ def main() -> int:
                      "device_ms_method": main_row["device_ms_method"],
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
-                     "layer": 5, "batch": 16})
+                     "layer": 5, "batch": 16,
+                     **({"blocks": main_row["blocks"]} if "blocks" in main_row else {})})
     for name, (src, repl, _) in BF16_KERNELS.items():
         # the dock shapes at layer 5; launches from the bf16 dock
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]

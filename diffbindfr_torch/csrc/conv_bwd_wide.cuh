@@ -1,8 +1,12 @@
-// The wide-tile pair pass of a trunk conv's backward (B4, cross_bwd.cu; B5
-// and B6 still run trunk_conv_bwd.cuh). It replaces the Pallas backward
-// kernels' per-pair chain (diffbindfr_tpu/nn/pallas_conv_t.py,
-// make_cross_bwd_t) for one direction of the conv, given a list of the
-// valid pairs (target, source, sample) built by the caller.
+// The wide-tile pair pass of a trunk conv's backward (B4, cross_bwd.cu, for
+// each direction of the cross conv; B6, knn_bwd.cu, for the knn conv). It
+// replaces the Pallas backward kernels' per-pair chain
+// (diffbindfr_tpu/nn/pallas_conv_t.py, make_cross_bwd_t, make_knn_bwd_t)
+// for one direction of a conv, given a list of the valid pairs (target,
+// source, sample) built by the caller. The pair count is a host integer
+// (B4, which reads it) or a device word (B6, whose list and grid are sized
+// by every neighbour slot): tiles at and beyond a device count write zero
+// columns, so that the contractions over the whole scratch see zeros there.
 //
 // A block takes 64 consecutive pairs of the list and, per pair, recomputes
 // the forward chain (geometry, Gaussian rows, edge MLP, TP-weight MLP, sh,
@@ -76,6 +80,7 @@ struct WideArgs {
   const int* pair_s;
   const int* pair_b;
   int P, ld;  // pairs; row stride of the scratch (a multiple of kWideTile)
+  const int* P_dev;  // the pair count on the device, read in place of P (null: P)
   const float* tgt_pos;  // [B, nt, 3]
   const float* src_pos;  // [B, nsrc, 3]
   int flip;              // vec = src - tgt, negated with flip
@@ -297,8 +302,17 @@ __device__ __forceinline__ void store_rows(const float* tile, int n, float* __re
 // The pass over pairs 64 b .. 64 b + 63 (b = blockIdx.x) of one direction.
 __device__ __forceinline__ void wide_pass(const WideArgs& a) {
   const int tile0 = blockIdx.x * kWideTile;
-  const int nvalid = imin(kWideTile, a.P - tile0);
-  if (nvalid <= 0) return;
+  const int nvalid = imin(kWideTile, (a.P_dev ? *a.P_dev : a.P) - tile0);
+  if (nvalid <= 0) {
+    if (a.P_dev && tile0 < a.ld) {  // beyond a device count: zero columns of every row
+      const int rows = wide_rows(a.gs_n, a.he, a.ns, a.hf, a.nw).total;
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = threadIdx.x; i < rows * (kWideTile / 4); i += kThreads)
+        *reinterpret_cast<float4*>(a.rows + (size_t)(i / (kWideTile / 4)) * a.ld + tile0 +
+                                   4 * (i % (kWideTile / 4))) = z;
+    }
+    return;
+  }
   const WidePlan pl = wide_plan(a);
   extern __shared__ float4 smem_f4[];
   float* A = reinterpret_cast<float*>(smem_f4);

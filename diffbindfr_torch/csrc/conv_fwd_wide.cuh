@@ -1,0 +1,287 @@
+// The forward chain of a trunk conv over 64-pair wide tiles, for blocks
+// that own their targets (B10, layer_conv.cu). Replaces, for B10, the
+// per-pair chain of the Pallas whole-layer kernel
+// (diffbindfr_tpu/nn/pallas_layer.py:make_layer_conv, the pallas_call at
+// :552): a block compacts the valid candidates of its g owned targets into
+// a list in candidate order (trunk_conv.cuh compact_pairs: target-major,
+// then source index or neighbour slot), walks the list in tiles of 64
+// pairs, and per tile computes
+//   pair_geo (exact fp32) -> sh, Gaussian rows [| bond features]
+//   -> edge MLP h1 = relu(W1^T in + b1[sample]), attr = W2^T h1 + b2
+//   -> [attr | tgt scalars | src scalars] -> h = relu(Wf1^T e + bf1)
+//   -> w = Wf2^T h + bf2, cb = ck^T sh -> the depthwise TP message,
+// and adds each pair's message to its target's sum in list order (thread o
+// owns output column o, so every sum has one fixed order): the block ends
+// with the complete sums of its targets in shared memory, for the
+// finalize epilogue (conv_fin.cuh). Activations are feature-major tiles
+// [rows][kWideS]; the MLPs are conv_bwd_wide.cuh's register-tiled products
+// (warp w: pairs 8w .. 8w + 7, lane l: columns l + 32 j), so a staged
+// weight element feeds 64 pairs, with the weights streamed in 16-row
+// cp.async stages, two deep.
+// Bound on the H100: fp32 FMA in the MLPs (operations); the TP is ~2% of
+// them, its source rows staged in shared memory 32 pairs at a time.
+#pragma once
+
+#include "conv_bwd_wide.cuh"
+#include "conv_fin.cuh"
+
+namespace dbfr {
+
+constexpr int kSmemWords = 232448 / 4;  // the H100's shared memory per block
+constexpr int kTpPairs = 32;  // source rows staged per step of the TP
+
+// Shared-memory plan of a forward wide block, in 4-byte words. p1: h1, h,
+// then cb (and the finalize's output rows); p2: the edge input, e, then w
+// (and the finalize's mix weights); ws: the weight stages, then the TP's
+// staged source rows.
+struct FwdPlan {
+  int p1, p2, sh, ws, ck, acc, oacc, stats, list, misc, words;
+};
+
+__host__ __device__ inline FwdPlan fwd_plan(const ConvArgs& a, int mode) {
+  FwdPlan p;
+  const int ke = a.gs_n + a.nb;
+  p.p1 = imax(imax(imax(a.he, a.hf), a.kdim) * kWideS, round4(a.g * a.out_dim));
+  p.p2 = imax(imax(imax(ke, 3 * a.ns), a.nw) * kWideS, round4(a.mix_numel));
+  p.sh = 9 * kWideS;
+  p.ws = imax(round4(2 * kWideKT * 32 * ((imax(imax(a.he, a.ns), imax(a.hf, a.nw)) + 31) / 32)),
+              kTpPairs * round4(a.din));
+  p.ck = round4(9 * a.kdim);
+  p.acc = round4(a.g * a.dout);
+  p.oacc = round4(a.g * a.out_dim);
+  p.stats = round4(a.g * a.n_slots * kStat);
+  p.list = round4(a.g * per_owned(a, mode));
+  p.misc = 4 * kWideTile + 8;
+  p.words = p.p1 + p.p2 + p.sh + p.ws + p.ck + p.acc + p.oacc + p.stats + p.list + p.misc;
+  return p;
+}
+
+// the larger of two plans, region by region (B10: one layout for its convs)
+__host__ __device__ inline FwdPlan max_fwd_plan(const FwdPlan& x, const FwdPlan& y) {
+  FwdPlan p;
+  p.p1 = imax(x.p1, y.p1);
+  p.p2 = imax(x.p2, y.p2);
+  p.sh = imax(x.sh, y.sh);
+  p.ws = imax(x.ws, y.ws);
+  p.ck = imax(x.ck, y.ck);
+  p.acc = imax(x.acc, y.acc);
+  p.oacc = imax(x.oacc, y.oacc);
+  p.stats = imax(x.stats, y.stats);
+  p.list = imax(x.list, y.list);
+  p.misc = imax(x.misc, y.misc);
+  p.words = p.p1 + p.p2 + p.sh + p.ws + p.ck + p.acc + p.oacc + p.stats + p.list + p.misc;
+  return p;
+}
+
+// The regions of a forward wide block; R holds the finalize's view of them
+// (conv_fin.cuh: r1 the mix weights, r2 the mixed rows, acc, oacc, stats).
+struct FwdRegions {
+  float *p1, *p2, *shs, *ws, *ck;
+  int* list;
+  int *sl_t, *sl_s, *sl_own, *wcnt;
+  float* sl_d;
+  Regions R;
+};
+
+__device__ __forceinline__ FwdRegions carve_fwd(const FwdPlan& pl) {
+  extern __shared__ float4 smem_f4[];
+  FwdRegions F;
+  F.p1 = reinterpret_cast<float*>(smem_f4);
+  F.p2 = F.p1 + pl.p1;
+  F.shs = F.p2 + pl.p2;
+  F.ws = F.shs + pl.sh;
+  F.ck = F.ws + pl.ws;
+  F.R = {};
+  F.R.r1 = F.p2;
+  F.R.r2 = F.p1;
+  F.R.acc = F.ck + pl.ck;
+  F.R.oacc = F.R.acc + pl.acc;
+  F.R.stats = F.R.oacc + pl.oacc;
+  F.list = reinterpret_cast<int*>(F.R.stats + pl.stats);
+  F.sl_t = F.list + pl.list;
+  F.sl_s = F.sl_t + kWideTile;
+  F.sl_own = F.sl_s + kWideTile;
+  F.sl_d = reinterpret_cast<float*>(F.sl_own + kWideTile);
+  F.wcnt = reinterpret_cast<int*>(F.sl_d + kWideTile);
+  return F;
+}
+
+// The messages of the tile's pairs 0 .. nvalid - 1, added in order to
+// their targets' sums. The source rows of kTpPairs pairs at a time are
+// staged in the weight-stage region (coalesced, free here: L1 cannot hold
+// the tile's rows beside the shared memory); then thread o owns output
+// column o, keeps a running sum while consecutive pairs share a target, and
+// adds it to acc[target][o] when the target changes or the step ends.
+__device__ __forceinline__ void tile_messages(const ConvArgs& a, int b, int nvalid,
+                                              const FwdRegions& F) {
+  const float* cb = F.p1;
+  const float* w = F.p2;
+  float* xs = F.ws;
+  const int ldx = round4(a.din);
+  const int4* meta = reinterpret_cast<const int4*>(a.out_meta);
+  const float* xb = a.src_x + (size_t)b * a.nsrc * a.din;
+  const bool vec = a.din % 4 == 0 && ((uintptr_t)a.src_x & 15) == 0;
+  for (int c0 = 0; c0 < nvalid; c0 += kTpPairs) {
+    const int n = imin(kTpPairs, nvalid - c0);
+    if (vec) {
+      const int q4 = a.din / 4;
+      for (int i = threadIdx.x; i < n * q4; i += kThreads) {
+        const int p = i / q4, q = i % q4;
+        reinterpret_cast<float4*>(xs + p * ldx)[q] =
+            __ldg(reinterpret_cast<const float4*>(xb + (size_t)F.sl_s[c0 + p] * a.din) + q);
+      }
+    } else {
+      for (int i = threadIdx.x; i < n * a.din; i += kThreads) {
+        const int p = i / a.din, q = i % a.din;
+        xs[p * ldx + q] = __ldg(xb + (size_t)F.sl_s[c0 + p] * a.din + q);
+      }
+    }
+    __syncthreads();
+    for (int o = threadIdx.x; o < a.dout; o += kThreads) {
+      const int4 m0 = meta[2 * o];      // a_base, mul, d1, w_idx
+      const int4 m1 = meta[2 * o + 1];  // cb_base, d3
+      int cur = F.sl_own[c0];
+      float run = 0.f;
+      for (int j0 = 0; j0 < n; j0 += 4) {
+        // four pairs: w and cb as float4 along the pair axis (a quarter-warp's
+        // rows then fill the 32 banks once), x clamped into the staged rows
+        const int p0 = c0 + j0;
+        const float4 wv = *reinterpret_cast<const float4*>(w + m0.w * kWideS + p0);
+        float z[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < kTpD; ++i) {
+          if (i >= m0.z) break;
+          const float4 c = *reinterpret_cast<const float4*>(cb + (m1.x + i * m1.y) * kWideS + p0);
+          const float* x = xs + m0.x + i * m0.y;
+          z[0] = fmaf(x[j0 * ldx], c.x, z[0]);
+          z[1] = fmaf(x[imin(j0 + 1, n - 1) * ldx], c.y, z[1]);
+          z[2] = fmaf(x[imin(j0 + 2, n - 1) * ldx], c.z, z[2]);
+          z[3] = fmaf(x[imin(j0 + 3, n - 1) * ldx], c.w, z[3]);
+        }
+        const float wq[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (j0 + u >= n) break;
+          const int own = F.sl_own[p0 + u];
+          if (own != cur) {
+            F.R.acc[cur * a.dout + o] += run;
+            run = 0.f;
+            cur = own;
+          }
+          run = fmaf(z[u], wq[u], run);
+        }
+      }
+      F.R.acc[cur * a.dout + o] += run;
+    }
+    __syncthreads();
+  }
+}
+
+// The masked message sums of targets t0 .. t0 + g - 1 of sample b into
+// F.R.acc [g][dout] (zeroed here). MODE: kDense (every source of the other
+// side, the ConvArgs' mask rules) or kKnn (the neighbour slots). Ends after
+// a barrier. Inlined into its kernel, so that the block's pointers and
+// sizes stay in registers: through a call they live in local memory and are
+// reloaded after every store to shared memory.
+template <int MODE>
+__device__ __forceinline__ void wide_conv_sums(const ConvArgs& a, int b, int t0,
+                                               const FwdRegions& F) {
+  const int tid = threadIdx.x;
+  const int ns = a.ns, he = a.he, ke = a.gs_n + a.nb;
+  float* acc = F.R.acc;
+  for (int i = tid; i < a.g * a.dout; i += kThreads) acc[i] = 0.f;
+  for (int i = tid; i < 9 * a.kdim; i += kThreads) F.ck[i] = __ldg(a.ck + i);
+  const int total = compact_pairs<MODE>(a, b, t0, F.list, F.wcnt);
+  __syncthreads();
+  for (int c0 = 0; c0 < total; c0 += kWideTile) {
+    const int nvalid = imin(kWideTile, total - c0);
+    // 1. the tile's pairs: nodes, distance, spherical harmonics (0 beyond nvalid)
+    if (tid < kWideTile) {
+      const int p = tid;
+      int t = 0, s = 0, gl = 0;
+      float x = 0.f, y = 0.f, z = 0.f, d = 0.f, on = 0.f;
+      if (p < nvalid) {
+        const int e = F.list[c0 + p];
+        gl = e >> 16;
+        t = t0 + gl;
+        s = e & 0xffff;
+        const PairGeo g = pair_geo(a.tgt_pos + ((size_t)b * a.nt + t) * 3,
+                                   a.src_pos + ((size_t)b * a.nsrc + s) * 3, a.flip);
+        const float nrm = sqrtf(g.vx * g.vx + g.vy * g.vy + g.vz * g.vz);
+        const float den = fmaxf(nrm, 1e-9f);
+        x = g.vx / den;
+        y = g.vy / den;
+        z = g.vz / den;
+        d = g.d;
+        on = 1.f;
+      }
+      F.sl_t[p] = t;
+      F.sl_s[p] = s;
+      F.sl_own[p] = gl;
+      F.sl_d[p] = d;
+      float* sh = F.shs;
+      sh[0 * kWideS + p] = on;
+      sh[1 * kWideS + p] = x * kSqrt3;
+      sh[2 * kWideS + p] = y * kSqrt3;
+      sh[3 * kWideS + p] = z * kSqrt3;
+      sh[4 * kWideS + p] = kSqrt15 * x * y;
+      sh[5 * kWideS + p] = kSqrt15 * y * z;
+      sh[6 * kWideS + p] = on * kSqrt5Half * (3.f * z * z - 1.f);
+      sh[7 * kWideS + p] = kSqrt15 * x * z;
+      sh[8 * kWideS + p] = 0.5f * kSqrt15 * (x * x - y * y);
+    }
+    __syncthreads();
+    // 2. edge input rows [Gaussian | bond features] -> p2
+    for (int i = tid; i < ke * kWideTile; i += kThreads) {
+      const int r = i / kWideTile, p = i % kWideTile;
+      float v = 0.f;
+      if (p < nvalid) {
+        if (r < a.gs_n) {
+          const float diff = F.sl_d[p] - a.gs_off[r];
+          v = expf(a.gs_coeff * (diff * diff));
+        } else {
+          const size_t e = ((size_t)b * a.nt + F.sl_t[p]) * a.nsrc + F.sl_s[p];
+          v = a.bond_feat[e * a.nb + (r - a.gs_n)];
+        }
+      }
+      F.p2[r * kWideS + p] = v;
+    }
+    // 3. edge MLP: h1 -> p1[0:he], attr -> p2[0:ns]
+    wide_gemm(F.p2, ke, a.w1, he, a.b1 + (size_t)b * he, nullptr, 1, nullptr, F.p1, nvalid,
+              F.ws);
+    wide_gemm(F.p1, he, a.w2, ns, a.b2, nullptr, 0, nullptr, F.p2, nvalid, F.ws);
+    // 4. the target and source scalar rows -> p2[ns:3ns]
+    for (int i0 = 0; i0 < 2 * ns * kWideTile; i0 += kWideU * kThreads) {
+      float v[kWideU];  // unconditional loads (pair clamped), all in flight together
+#pragma unroll
+      for (int u = 0; u < kWideU; ++u) {
+        const int i = imin(i0 + u * kThreads + tid, 2 * ns * kWideTile - 1);
+        const int p = imin(i / (2 * ns), nvalid - 1), r = i % (2 * ns);
+        v[u] = r < ns ? a.tgt_x[((size_t)b * a.nt + F.sl_t[p]) * a.din + r]
+                      : a.src_x[((size_t)b * a.nsrc + F.sl_s[p]) * a.din + (r - ns)];
+      }
+#pragma unroll
+      for (int u = 0; u < kWideU; ++u) {
+        const int i = i0 + u * kThreads + tid;
+        const int p = i / (2 * ns), r = i % (2 * ns);
+        if (i < 2 * ns * kWideTile) F.p2[(ns + r) * kWideS + p] = p < nvalid ? v[u] : 0.f;
+      }
+    }
+    // 5. TP-weight MLP: h -> p1, w -> p2
+    wide_gemm(F.p2, 3 * ns, a.wf1, a.hf, a.bf1, nullptr, 1, nullptr, F.p1, nvalid, F.ws);
+    wide_gemm(F.p1, a.hf, a.wf2, a.nw, a.bf2, nullptr, 0, nullptr, F.p2, nvalid, F.ws);
+    // 6. cb = ck^T sh -> p1 (h is used up)
+    for (int i = tid; i < a.kdim * kWideTile; i += kThreads) {
+      const int r = i / kWideTile, p = i % kWideTile;
+      float v = 0.f;
+#pragma unroll
+      for (int m = 0; m < 9; ++m) v = fmaf(F.shs[m * kWideS + p], F.ck[m * a.kdim + r], v);
+      F.p1[r * kWideS + p] = v;
+    }
+    __syncthreads();
+    // 7. the messages, summed per target in list order
+    tile_messages(a, b, nvalid, F);
+  }
+}
+
+}  // namespace dbfr

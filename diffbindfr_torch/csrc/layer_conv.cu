@@ -10,25 +10,37 @@
 // (the irreps ladder only appends slots).
 //
 // Two kinds of block, one grid, one shared-memory layout (the largest of
-// the four convs' plans):
+// the four convs' plans, conv_fwd_wide.cuh):
 //  * ligand-row blocks own g_l ligand rows: the pair conv over every ligand
 //    source (bond features, self excluded, cutoff or bonded), its finalize,
-//    then the al direction over the atoms (B1's al pass) and its finalize;
+//    then the al direction over the atoms and its finalize;
 //  * atom-row blocks own g_a atoms: the knn conv over their neighbour
-//    slots, its finalize, then the la direction over the ligand rows (B1's
-//    flipped-edge pass) and its finalize.
-// Each block holds its rows' complete sums, so every finalize and residual
-// add is a per-block epilogue and the four update tensors never leave
-// shared memory. The TPU kernel had to carry the atom-side sums across its
-// sequential grid and finalize them on the last program, and gathered the
-// knn neighbours by one-hot MXU products; neither is needed here. The
-// pair chains are B1-B3's device code (trunk_conv.cuh), unchanged.
-// Bound on the H100: fp32 FMA in the four TP-weight MLPs (operations), as
-// B1-B3; the launch saves the glue between them, not pair work.
+//    slots, its finalize, then the la direction over the ligand rows
+//    (flipped edges) and its finalize.
+// Each conv runs conv_fwd_wide.cuh's chain: the block's valid pairs in
+// candidate order, walked in 64-pair tiles whose MLPs are register-tiled
+// products with 16-row cp.async weight stages, each pair's message added
+// to its target's sum in list order. Each block holds its rows' complete
+// sums, so every finalize and residual add is a per-block epilogue and the
+// four update tensors never leave shared memory. The TPU kernel had to
+// carry the atom-side sums across its sequential grid and finalize them on
+// the last program, and gathered the knn neighbours by one-hot MXU
+// products; neither is needed here.
+// Rows per block (the host picks them, nn/layer_conv.py row_groups):
+// g_l = 4 ligand rows fill a tile with the pair conv's ~14 pairs a row (the
+// al pass has ~230 a row); g_a = 16 atoms fill ~3 tiles of knn pairs (~10 a
+// row) and ~3 of la pairs, as many as the shared memory holds (one block per
+// SM: the tile's rows, the weight stages and g_a rows of sums, mixed rows
+// and statistics take 224 KB at flagship width). Ligand-row blocks come
+// first in the grid: a ligand row has ~16x an atom's pairs, so the blocks
+// that hold real ligand rows are the longest, and they start first.
+// Bound on the H100: fp32 FMA in the four TP-weight MLPs (operations).
+// With `cycles` set, thread 0 of each block writes the block's clock64()
+// cycles there (in grid order), for the share of each kind of block.
 //
 // Arguments come as arrays indexed by the enums below, which
 // diffbindfr_torch/nn/layer_conv.py (PTRS, INTS, FLOATS) mirrors name for name.
-#include "conv_fin.cuh"
+#include "conv_fwd_wide.cuh"
 
 namespace {
 
@@ -38,11 +50,12 @@ enum LayerPtr {
   P_GS_LIG, P_GS_CROSS, P_GS_ATOM, P_MIX_META, P_LN_SLOTS, P_OUT_LIG, P_OUT_ATM,
   P_EMB,                // edge MLPs lig, cross, atom: w_in, beff, w2, b2 each
   P_CONV = P_EMB + 12,  // convs lig, al, la, atom: w1, b1, w2, b2, cnt, mix, ln_w, ln_ms, ln_b
-  P_COUNT = P_CONV + 36
+  P_CYCLES = P_CONV + 36,  // [grid] int64 or null
+  P_COUNT
 };
 enum LayerInt {
   I_BATCH, I_NL, I_NA, I_K, I_DIN, I_DOUT, I_NB, I_NS, I_HE_LIG, I_HE_CROSS, I_HE_ATOM,
-  I_HF, I_NW, I_KDIM, I_GS_N, I_OUT_DIM, I_N_SLOTS, I_MIX_NUMEL, I_COUNT
+  I_HF, I_NW, I_KDIM, I_GS_N, I_OUT_DIM, I_N_SLOTS, I_MIX_NUMEL, I_LIG_ROWS, I_ATOM_ROWS, I_COUNT
 };
 enum LayerFloat { F_GS_LIG, F_GS_CROSS, F_GS_ATOM, F_COUNT };
 enum Edge { E_LIG, E_CROSS, E_ATOM };
@@ -50,36 +63,44 @@ enum Conv { C_LIG, C_AL, C_LA, C_ATOM };
 
 struct LayerArgs {
   dbfr::ConvArgs pair, al, knn, la;
-  int n_lig_blocks;
+  int batch, n_lig_blocks, n_atm_blocks;  // per sample
+  long long* cycles;
 };
 
-__host__ __device__ inline dbfr::Plan layer_plan(const LayerArgs& L) {
+__host__ __device__ inline dbfr::FwdPlan layer_plan(const LayerArgs& L) {
   using namespace dbfr;
-  return max_plan(max_plan(make_plan(L.pair, kDense), make_plan(L.al, kDense)),
-                  max_plan(make_plan(L.knn, kKnn), make_plan(L.la, kDense)));
+  return max_fwd_plan(max_fwd_plan(fwd_plan(L.pair, kDense), fwd_plan(L.al, kDense)),
+                      max_fwd_plan(fwd_plan(L.knn, kKnn), fwd_plan(L.la, kDense)));
 }
 
-__global__ void __launch_bounds__(dbfr::kThreads, 2) layer_conv_kernel(LayerArgs L) {
+// One 1-D grid: the ligand-row blocks of every sample, then the atom-row
+// blocks of every sample, so the long ligand-row blocks start first.
+__global__ void __launch_bounds__(dbfr::kThreads, 1) layer_conv_kernel(LayerArgs L) {
   using namespace dbfr;
-  const Regions R = carve(layer_plan(L));
-  const int b = blockIdx.y;
-  if ((int)blockIdx.x < L.n_lig_blocks) {
-    const int t0 = blockIdx.x * L.pair.g;
-    init_oacc(L.pair, b, t0, L.pair.tgt_x, R);
-    conv_sums<kDense>(L.pair, b, t0, R);
-    fin_epilogue(L.pair, b, t0, R);
-    conv_sums<kDense>(L.al, b, t0, R);
-    fin_epilogue(L.al, b, t0, R);
-    store_oacc(L.pair, b, t0, L.pair.out, R);
+  const long long c0 = clock64();
+  const FwdRegions F = carve_fwd(layer_plan(L));
+  const int lig_blocks = L.batch * L.n_lig_blocks;
+  if ((int)blockIdx.x < lig_blocks) {
+    const int b = blockIdx.x / L.n_lig_blocks;
+    const int t0 = (blockIdx.x % L.n_lig_blocks) * L.pair.g;
+    init_oacc(L.pair, b, t0, L.pair.tgt_x, F.R);
+    wide_conv_sums<kDense>(L.pair, b, t0, F);
+    fin_epilogue(L.pair, b, t0, F.R);
+    wide_conv_sums<kDense>(L.al, b, t0, F);
+    fin_epilogue(L.al, b, t0, F.R);
+    store_oacc(L.pair, b, t0, L.pair.out, F.R);
   } else {
-    const int t0 = (blockIdx.x - L.n_lig_blocks) * L.knn.g;
-    init_oacc(L.knn, b, t0, L.knn.tgt_x, R);
-    conv_sums<kKnn>(L.knn, b, t0, R);
-    fin_epilogue(L.knn, b, t0, R);
-    conv_sums<kDense>(L.la, b, t0, R);
-    fin_epilogue(L.la, b, t0, R);
-    store_oacc(L.knn, b, t0, L.knn.out, R);
+    const int i = blockIdx.x - lig_blocks;
+    const int b = i / L.n_atm_blocks;
+    const int t0 = (i % L.n_atm_blocks) * L.knn.g;
+    init_oacc(L.knn, b, t0, L.knn.tgt_x, F.R);
+    wide_conv_sums<kKnn>(L.knn, b, t0, F);
+    fin_epilogue(L.knn, b, t0, F.R);
+    wide_conv_sums<kDense>(L.la, b, t0, F);
+    fin_epilogue(L.la, b, t0, F.R);
+    store_oacc(L.knn, b, t0, L.knn.out, F.R);
   }
+  if (L.cycles != nullptr && threadIdx.x == 0) L.cycles[blockIdx.x] = clock64() - c0;
 }
 
 const float* fp(const void* const* p, int i) { return (const float*)p[i]; }
@@ -169,20 +190,21 @@ extern "C" int dbfr_layer_conv(const void* const* p, int n_ptrs, const int* n, i
   L.knn.k = n[I_K];
   L.knn.nt = L.knn.nsrc = na;
   L.knn.out = (float*)p[P_OUT_ATM];
-  // rows per block: the dense passes' grouping (trunk_conv.cuh group_size);
-  // the knn pass takes the la pass's atoms
-  L.pair.g = L.al.g = imin(group_size(L.pair, kDense), group_size(L.al, kDense));
-  L.la.g = L.knn.g = group_size(L.la, kDense);
+  // rows per block: the host's choice, checked against the shared memory
+  L.pair.g = L.al.g = n[I_LIG_ROWS];
+  L.la.g = L.knn.g = n[I_ATOM_ROWS];
+  if (L.pair.g < 1 || L.knn.g < 1 || nl >= 1 << 16 || na >= 1 << 16) return -1;
+  L.batch = batch;
   L.n_lig_blocks = (nl + L.pair.g - 1) / L.pair.g;
-  const int n_atm_blocks = (na + L.knn.g - 1) / L.knn.g;
-
+  L.n_atm_blocks = (na + L.knn.g - 1) / L.knn.g;
+  L.cycles = (long long*)p[P_CYCLES];
   const int bytes = layer_plan(L).words * 4;
+  if (bytes > kSmemWords * 4) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(layer_conv_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  if (batch > 0 && L.n_lig_blocks + n_atm_blocks > 0) {
-    layer_conv_kernel<<<dim3(L.n_lig_blocks + n_atm_blocks, batch), kThreads, bytes,
-                        (cudaStream_t)stream>>>(L);
-  }
+  const long blocks = (long)batch * (L.n_lig_blocks + L.n_atm_blocks);
+  if (blocks > 0)
+    layer_conv_kernel<<<(unsigned)blocks, kThreads, bytes, (cudaStream_t)stream>>>(L);
   return (int)cudaGetLastError();
 }

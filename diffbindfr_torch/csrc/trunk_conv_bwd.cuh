@@ -1,8 +1,8 @@
-// Shared device code of the pair and knn convs' backward kernels (B5, B6;
-// B4, the cross conv's, runs the wide-tile pass of conv_bwd_wide.cuh).
-// Replaces the hand-written Pallas backward kernels of
-// diffbindfr_tpu/nn/pallas_conv_t.py (make_pair_bwd_t, make_knn_bwd_t):
-// like them, a kernel recomputes each pair's forward chain
+// Device code of the pair conv's backward kernel (B5, pair_bwd.cu; B4 and
+// B6, the cross and knn convs' backward, run the wide-tile pass of
+// conv_bwd_wide.cuh). Replaces the hand-written Pallas backward kernel of
+// diffbindfr_tpu/nn/pallas_conv_t.py (make_pair_bwd_t): like it, a kernel
+// recomputes each pair's forward chain
 // (geometry, mask, edge MLP, TP-weight MLP, spherical harmonics) from the
 // node features and returns only feature and parameter gradients;
 // positions, time embedding, masks and bond features get none (pure data
@@ -22,9 +22,8 @@
 //    its own row i of a scratch array; reduce_rows then sums the rows in
 //    order (deterministic, no atomics);
 //  * the source pass (own_src = 1) owns the sources and recomputes the chain
-//    for their pairs (roles swapped, as B1's forward does for la; the knn
-//    conv walks a reverse neighbour list built by the wrapper), adding the
-//    TP-input and source-scalar gradients per owned source.
+//    for their pairs (roles swapped, as B1's forward does for la), adding
+//    the TP-input and source-scalar gradients per owned source.
 // Bound on the H100: fp32 FMA in the per-pair MLPs (operations), about
 // three times the forward's MLP work per pair plus the source pass's
 // recompute; masked pairs are skipped.
@@ -55,7 +54,7 @@ __host__ __device__ inline BwdPlan make_bwd_plan(const ConvArgs& a, int mode) {
   p.dh = a.hf * kStride;
   p.ws = round4(kKTile * maxn);
   p.acc = round4(a.g * a.din);
-  p.list = mode == kKnnRev ? 0 : round4(a.g * per_owned(a, mode));
+  p.list = round4(a.g * per_owned(a, mode));
   p.misc = 4 * kPairs + 8;
   p.words = p.in + p.h1 + p.e + p.h + p.w + p.cb + p.sh + p.dh + p.ws + p.acc + p.list + p.misc;
   return p;
@@ -238,17 +237,10 @@ __device__ __forceinline__ void bwd_tile(const ConvArgs& a, const BwdPlan& pl, f
   float* part = a.own_src ? nullptr : a.part + (size_t)blockIdx.x * a.part_stride;
   for (int i = tid; i < a.g * a.din; i += kThreads) acc[i] = 0.f;
 
-  int base = 0, total;
-  if (MODE == kKnnRev) {
-    const int* off = a.rev_off + (size_t)b * (a.nsrc + 1);
-    base = off[own0];
-    total = off[imin(own0 + a.g, a.nsrc)] - base;
-  } else {
-    total = compact_pairs<MODE>(a, b, own0, list, sl.wcnt);
-  }
+  const int total = compact_pairs<MODE>(a, b, own0, list, sl.wcnt);
   for (int c0 = 0; c0 < total; c0 += kPairs) {
     const int n = imin(kPairs, total - c0);
-    load_chunk<MODE>(a, b, own0, list, base + c0, n, sl, shs);
+    load_chunk<MODE>(a, b, own0, list, c0, n, sl, shs);
     __syncthreads();
     input_rows(a, b, n, sl, in_rows, e + ns * kStride);
     mlp_forward(a, b, in_rows, h1, e, h, w, cb, shs, ws);

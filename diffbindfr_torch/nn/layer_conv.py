@@ -15,6 +15,13 @@ tensors it runs `layer_conv_plain`, the port of the twin at
 pallas_layer.py:581-686, composed of the three convs' plain versions and
 the plain finalize. Its backward recomputes through the plain version with
 autograd (pallas_layer.py:688-697 differentiates the twin the same way).
+
+The kernel's blocks own target rows (`row_groups`: g_l ligand rows or g_a
+atoms each) and walk their valid pairs in 64-pair tiles
+(csrc/conv_fwd_wide.cuh). `layer_tile_plan` is the plain model of that plan
+(which block owns which targets, how each conv's candidates fall into
+tiles) and `layer_conv_tiled_plain` computes the layer by walking it, for
+the CPU tests to hold against `layer_conv_plain` and the JAX twin.
 """
 from __future__ import annotations
 
@@ -37,9 +44,10 @@ PTRS = (
       for w in ("w_in", "beff", "w2", "b2")],
     *[f"{t}_{w}" for t in ("lig", "al", "la", "atom")
       for w in ("w1", "b1", "w2", "b2", "cnt", "mix", "ln_w", "ln_ms", "ln_b")],
+    "cycles",
 )
 INTS = ("batch", "nl", "na", "k", "din", "dout", "nb", "ns", "he_lig", "he_cross", "he_atom",
-        "hf", "nw", "kdim", "gs_n", "out_dim", "n_slots", "mix_numel")
+        "hf", "nw", "kdim", "gs_n", "out_dim", "n_slots", "mix_numel", "lig_rows", "atom_rows")
 FLOATS = ("gs_coeff_lig", "gs_coeff_cross", "gs_coeff_atom")
 
 
@@ -90,6 +98,170 @@ def layer_conv_plain(lc: LayerConsts, lig_pos, atm_pos, lig_cm, atm_cm, lig_mask
     return lig_next, atm_next
 
 
+# ---- the kernel's block plan (csrc/conv_fwd_wide.cuh, layer_conv.cu) -----
+
+WIDE_TILE = TC.WIDE_TILE  # pairs per tile
+_WIDE_S = WIDE_TILE + 4  # pair stride of the feature-major tiles (kWideS)
+_WIDE_KT = 16  # weight rows per cp.async stage (kWideKT)
+_STAT = 8  # LayerNorm statistics per (row, slot) (kStat)
+_TP_PAIRS = 32  # source rows the TP stages at a time (kTpPairs)
+SMEM_WORDS = 232448 // 4  # the H100's shared memory per block, 4-byte words
+LIG_ROWS, ATOM_ROWS = 4, 16  # rows per block, as many as fit (row_groups)
+
+
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _fwd_regions(ke, ns, he, hf, nw, kdim, din, dout, out_dim, mix_numel, n_slots, g, per):
+    """FwdPlan's regions (fwd_plan, conv_fwd_wide.cuh) in 4-byte words."""
+    return (max(max(he, hf, kdim) * _WIDE_S, _r4(g * out_dim)),
+            max(max(ke, 3 * ns, nw) * _WIDE_S, _r4(mix_numel)), 9 * _WIDE_S,
+            max(_r4(2 * _WIDE_KT * 32 * -(-max(he, ns, hf, nw) // 32)), _TP_PAIRS * _r4(din)),
+            _r4(9 * kdim),
+            _r4(g * dout), _r4(g * out_dim), _r4(g * n_slots * _STAT), _r4(g * per),
+            4 * WIDE_TILE + 8)
+
+
+def plan_words(ints: dict, g_l: int, g_a: int) -> int:
+    """Shared memory of a B10 block in 4-byte words (layer_plan: the four
+    convs' plans, region by region the largest), from the kernel's INTS."""
+    n = ints
+    common = (n["ns"], None, n["hf"], n["nw"], n["kdim"], n["din"], n["dout"], n["out_dim"],
+              n["mix_numel"], n["n_slots"])
+
+    def conv(ke, he, g, per):
+        c = list(common)
+        c[1] = he
+        return _fwd_regions(ke, *c, g, per)
+
+    plans = (conv(n["gs_n"] + n["nb"], n["he_lig"], g_l, n["nl"]),
+             conv(n["gs_n"], n["he_cross"], g_l, n["na"]),
+             conv(n["gs_n"], n["he_atom"], g_a, n["k"]),
+             conv(n["gs_n"], n["he_cross"], g_a, n["nl"]))
+    return sum(max(r) for r in zip(*plans))
+
+
+def row_groups(ints: dict):
+    """(g_l, g_a): ligand rows per ligand-row block and atoms per atom-row
+    block; LIG_ROWS and ATOM_ROWS, halved (atoms first) until the block's
+    shared memory fits the card's."""
+    g_l, g_a = LIG_ROWS, ATOM_ROWS
+    while plan_words(ints, g_l, g_a) > SMEM_WORDS and g_a > 1:
+        g_a //= 2
+    while plan_words(ints, g_l, g_a) > SMEM_WORDS and g_l > 1:
+        g_l //= 2
+    if plan_words(ints, g_l, g_a) > SMEM_WORDS:
+        raise ValueError("layer_conv: one trunk layer's tile does not fit the shared memory")
+    return g_l, g_a
+
+
+@dataclasses.dataclass
+class TileBlock:
+    """One block of B10's grid: its kind ("lig": the pair conv, then al;
+    "atom": the knn conv, then la), sample, first owned target and count,
+    and per conv its pairs in list order cut into 64-pair tiles, each a
+    [n, 2] tensor of (target, source)."""
+
+    kind: str
+    b: int
+    t0: int
+    g: int
+    tiles: dict
+
+
+def _dense_masks(lig_pos, atm_pos, lig_mask, atm_mask, cab, lig_cut, cross_cutoff, bond_mask):
+    """The pair conv's and the cross conv's valid pairs, [B, nl, nl] and
+    [B, nl, na], as the kernel decides them (compact_pairs, dense_valid):
+    target and source unmasked, and (CA/CB flag or within the cutoff, self
+    excluded for the pair conv) or bonded."""
+    nl = lig_pos.shape[1]
+    lm, am = lig_mask > 0, atm_mask > 0
+    eye = torch.eye(nl, dtype=torch.bool, device=lig_pos.device)
+    d_ll = TC._dist(lig_pos[:, None, :, :] - lig_pos[:, :, None, :])
+    pair = (((d_ll <= lig_cut) & ~eye) | (bond_mask > 0)) & lm[:, :, None] & lm[:, None, :]
+    cut = TC._cutoffs(cross_cutoff, lig_pos.shape[0], lig_pos.device)
+    d_c = TC._dist(atm_pos[:, None, :, :] - lig_pos[:, :, None, :])
+    cross = ((cab[:, None, :] > 0) | (d_c <= cut[:, None, None])) & lm[:, :, None] & am[:, None, :]
+    return pair, cross
+
+
+def layer_tile_plan(lig_pos, atm_pos, lig_mask, atm_mask, cab, lig_cut, cross_cutoff, bond_mask,
+                    atm_idx, atm_valid, g_l=LIG_ROWS, g_a=ATOM_ROWS):
+    """B10's blocks in grid order (the ligand-row blocks of every sample,
+    then the atom-row blocks), each with its targets' valid pairs in
+    candidate order (target-major; then source index, or neighbour slot for
+    the knn conv) cut into tiles of WIDE_TILE."""
+    bsz, nl, na = lig_pos.shape[0], lig_pos.shape[1], atm_pos.shape[1]
+    pair, cross = _dense_masks(lig_pos, atm_pos, lig_mask, atm_mask, cab, lig_cut, cross_cutoff,
+                               bond_mask)
+    idx = atm_idx.long()
+    knn = (atm_valid > 0) & (idx >= 0) & (idx < na)
+    masks = {"lig": pair, "al": cross, "la": cross.transpose(1, 2), "atom": knn}
+    blocks = []
+    for kind, convs, n, g in (("lig", ("lig", "al"), nl, g_l), ("atom", ("atom", "la"), na, g_a)):
+        for b in range(bsz):
+            for t0 in range(0, n, g):
+                tiles = {}
+                for tag in convs:
+                    t, o = torch.nonzero(masks[tag][b, t0 : t0 + g], as_tuple=True)
+                    t = t + t0
+                    s = idx[b, t, o] if tag == "atom" else o
+                    pairs = torch.stack([t, s], dim=1)
+                    tiles[tag] = list(pairs.split(WIDE_TILE)) if len(pairs) else []
+                blocks.append(TileBlock(kind, b, t0, g, tiles))
+    return blocks
+
+
+def layer_conv_tiled_plain(lc: LayerConsts, lig_pos, atm_pos, lig_cm, atm_cm, lig_mask, atm_mask,
+                           cab, temb, cross_cutoff, bond_feat, bond_mask, atm_idx, atm_valid,
+                           cnt_lig, cnt_al, cnt_la, cnt_atm, params, groups=(LIG_ROWS, ATOM_ROWS)):
+    """B10's decomposition, plain: the blocks of layer_tile_plan, each conv's
+    tiles in list order, every pair's message (trunk_convs.pair_chain_plain
+    and the TP, on the kernel's folded edge inputs) added to its target's sum
+    tile by tile; then the finalizes and the residual ladder of layer_conv_plain.
+    Same returns as layer_conv_plain."""
+    bsz, nl, na = lig_cm.shape[0], lig_cm.shape[1], atm_cm.shape[1]
+    nb = bond_feat.shape[-1]
+    p = {k: TC._f32(v) for k, v in params.items()}
+    temb = temb.float()
+    edges = {"lig": (lc.lig, "emb_lig", nb), "al": (lc.cross, "emb_cross", 0),
+             "la": (lc.cross, "emb_cross", 0), "atom": (lc.atom, "emb_atom", 0)}
+    sides = {"lig": (lig_pos, lig_pos, lig_cm, lig_cm, nl), "al": (lig_pos, atm_pos, lig_cm,
+                                                                   atm_cm, nl),
+             "la": (atm_pos, lig_pos, atm_cm, lig_cm, na), "atom": (atm_pos, atm_pos, atm_cm,
+                                                                    atm_cm, na)}
+    folded = {tag: TC._prep_edge(c, p[e]["l1"]["w"], p[e]["l1"]["b"], temb, extra, bsz,
+                                 lig_cm.device) for tag, (c, e, extra) in edges.items()}
+    sums = {tag: lig_cm.new_zeros(bsz, sides[tag][4], lc.lig.dout) for tag in edges}
+    for blk in layer_tile_plan(lig_pos, atm_pos, lig_mask, atm_mask, cab, lc.lig.gs_stop,
+                               cross_cutoff, bond_mask, atm_idx, atm_valid, *groups):
+        b = blk.b
+        for tag, tiles in blk.tiles.items():
+            c, e, _ = edges[tag]
+            tp, sp, tx, sx, _ = sides[tag]
+            w_in, beff = folded[tag]
+            for tile in tiles:
+                t, s = tile[:, 0], tile[:, 1]
+                extra = bond_feat[b, t, s].float() if tag == "lig" else None
+                vec = sp[b, s] - tp[b, t]
+                vec = -vec if tag == "la" else vec  # the kernel's flip: atom - ligand
+                fc = p[f"fc_{tag}"]
+                *_, w, cb = TC.pair_chain_plain(
+                    c, vec, tx[b, t], sx[b, s], extra, w_in, beff[b], p[e]["l2"]["w"],
+                    p[e]["l2"]["b"], fc["l1"]["w"], fc["l1"]["b"], fc["l2"]["w"], fc["l2"]["b"])
+                m = TC._tp_plain(c, sx[b, s], cb, w)
+                sums[tag][b].index_add_(0, t, m)
+    fin = lc.fin
+
+    def f(tag, cnt):
+        return TC.finalize_plain(fin, _fin_params(params, tag), sums[tag], cnt)
+
+    lig_next = pad_to_dim(lig_cm, fin.out_dim) + f("lig", cnt_lig) + f("al", cnt_al)
+    atm_next = pad_to_dim(atm_cm, fin.out_dim) + f("atom", cnt_atm) + f("la", cnt_la)
+    return lig_next, atm_next
+
+
 def layer_conv(lc: LayerConsts, lig_pos, atm_pos, lig_cm, atm_cm, lig_mask, atm_mask, cab, temb,
                cross_cutoff, bond_feat, bond_mask, atm_idx, atm_valid, cnt_lig, cnt_al, cnt_la,
                cnt_atm, params):
@@ -102,9 +274,17 @@ def layer_conv(lc: LayerConsts, lig_pos, atm_pos, lig_cm, atm_cm, lig_mask, atm_
     return TC._with_plain_backward(_layer_kernel, layer_conv_plain, *args)
 
 
+# what the last layer_conv launch on the card used: rows per block (g_l,
+# g_a) and the block's shared memory (chip_smoke.py reports them)
+layer_conv_stats: dict = {}
+
+
 def _layer_kernel(lc, lig_pos, atm_pos, lig_cm, atm_cm, lig_mask, atm_mask, cab, temb,
                   cross_cutoff, bond_feat, bond_mask, atm_idx, atm_valid, cnt_lig, cnt_al, cnt_la,
-                  cnt_atm, params):
+                  cnt_atm, params, cycles=None):
+    """One launch of csrc/layer_conv.cu. `cycles`, an int64 tensor of one
+    entry per block (layer_tile_plan's order), receives each block's
+    clock64() cycles (chip_smoke.py's share of each kind of block)."""
     fin, dev = lc.fin, lig_cm.device
     zero = torch.zeros_like(lig_mask)
     # the three convs' validated inputs and folded edge MLPs (trunk_convs)
@@ -135,7 +315,7 @@ def _layer_kernel(lc, lig_pos, atm_pos, lig_cm, atm_cm, lig_mask, atm_mask, cab,
          "knn_idx": kd.idx, "knn_valid": kd.valid, "ck": ck, "out_meta": out_meta,
          "gs_lig": lc.lig.device_tables(dev)[1], "gs_cross": lc.cross.device_tables(dev)[1],
          "gs_atom": lc.atom.device_tables(dev)[1], "mix_meta": mix_meta, "ln_slots": ln_slots,
-         "out_lig": out_lig, "out_atm": out_atm}
+         "out_lig": out_lig, "out_atm": out_atm, "cycles": cycles}
     for e, ws in (("emb_lig", (p_win, p_beff, p_w2, p_b2)), ("emb_cross", (c_win, c_beff, c_w2,
                                                                           c_b2)),
                   ("emb_atom", (k_win, k_beff, k_w2, k_b2))):
@@ -152,6 +332,11 @@ def _layer_kernel(lc, lig_pos, atm_pos, lig_cm, atm_cm, lig_mask, atm_mask, cab,
             "he_atom": kd.dims[0], "hf": hf, "nw": nw, "kdim": kdim, "gs_n": lc.lig.gs_n,
             "out_dim": fin.out_dim, "n_slots": len(fin.spec.out.items),
             "mix_numel": fin.spec.lin.weight_numel}
+    g_l, g_a = ints["lig_rows"], ints["atom_rows"] = row_groups(ints)
+    layer_conv_stats.update(groups=(g_l, g_a), smem_bytes=4 * plan_words(ints, g_l, g_a))
+    if cycles is not None and (cycles.dtype != torch.int64 or cycles.device != dev
+                               or cycles.numel() != bsz * (-(-nl // g_l) - (-na // g_a))):
+        raise ValueError("layer_conv: cycles takes one int64 per block on the kernel's device")
     floats = {"gs_coeff_lig": lc.lig.gs_coeff, "gs_coeff_cross": lc.cross.gs_coeff,
               "gs_coeff_atom": lc.atom.gs_coeff}
     ptr_arr = (ctypes.c_void_p * len(PTRS))(*[TC._ptr(t[n]) for n in PTRS])

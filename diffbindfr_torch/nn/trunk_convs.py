@@ -55,11 +55,11 @@ edge input (`_prep_edge`) stays in the autograd graph, so the backward
 kernels return gradients of (w_in, b_eff) and of the MLPs, and autograd maps
 them to the parameter tree. What bounds the kernels on the H100 and what
 their design does about it is in csrc/trunk_conv.cuh, csrc/trunk_conv_bwd.cuh
-(B5, B6), csrc/conv_bwd_wide.cuh and csrc/abt_gemm.cuh (B4) and the kernel
-sources. B4's plain version, cross_bwd_plain, is a model of its kernels'
-decomposition (pair list, per-pair rows, contractions, node sums) that
-cross_bwd runs on CPU tensors; the other backward kernels are held to
-autograd through the plain forward.
+(B5), csrc/conv_bwd_wide.cuh and csrc/abt_gemm.cuh (B4, B6) and the kernel
+sources. B4's and B6's plain versions, cross_bwd_plain and knn_bwd_plain,
+are models of their kernels' decomposition (pair list, per-pair rows,
+contractions, node sums) that cross_bwd and knn_bwd run on CPU tensors; B5
+is held to autograd through the plain forward.
 """
 from __future__ import annotations
 
@@ -475,7 +475,7 @@ _ARGTYPES = {
     "dbfr_pair_bwd": [_P] * 7 + [_I] + [_P] * 23 + [_I] * 12 + [_F, _I, _I, _P],
     "dbfr_cross_pairs": [_P] * 11 + [_I] * 3 + [_P],
     "dbfr_cross_bwd": [_P] * 46 + [_I] * 20 + [_F, _P],
-    "dbfr_knn_bwd": [_P] * 26 + [_I] * 11 + [_F, _P],
+    "dbfr_knn_bwd": [_P] * 35 + [_I] * 19 + [_F, _P],
     "dbfr_pair_conv_fin": [_P] * 7 + [_I] + [_P] * 15 + [_I] * 12 + [_F, _I, _I]
                           + [_P] * 7 + [_I] * 3 + [_P],
     "dbfr_cross_conv_fin": [_P] * 25 + [_I] * 11 + [_F] + [_P] * 12 + [_I] * 3 + [_P],
@@ -487,11 +487,11 @@ for _name in ("pair", "cross", "knn"):
     _ARGTYPES[f"dbfr_{_name}_conv_bf16"] = _ARGTYPES[f"dbfr_{_name}_conv"]
 # the widest matrix a kernel thread tiles (kMaxJ * 32 columns, trunk_conv.cuh)
 _MAX_COLS = 320
-# persistent blocks of B5's and B6's target passes: rows of their
-# parameter-gradient scratch (kBwdBlocks, trunk_conv_bwd.cuh)
+# persistent blocks of B5's target pass: rows of its parameter-gradient
+# scratch (kBwdBlocks, trunk_conv_bwd.cuh)
 _BWD_BLOCKS = 264
-# pairs per block of B4's wide-tile pass; its scratch rows are a multiple of
-# this apart (kWideTile, conv_bwd_wide.cuh)
+# pairs per block of B4's and B6's wide-tile pass; their scratch rows are a
+# multiple of this apart (kWideTile, conv_bwd_wide.cuh)
 WIDE_TILE = 64
 
 
@@ -963,6 +963,39 @@ def cross_pairs_plain(lig_pos, atm_pos, lig_mask, atm_mask, cab, cut):
             offsets(valid.sum(1)), perm)
 
 
+def _tp_plain(c: ConvConsts, x, cb, w):
+    """Per pair, the depthwise TP's message [P, dout] for the source rows x,
+    cb = sh @ ck and the TP weights w, component-major: out[s3 + k mul + u]
+    = w[w_off + u] sum_i x[s1 + i mul + u] cb[cb_off + i d3 + k]."""
+    out = x.new_zeros(x.shape[0], c.dout)
+    for m in c.path_metas:
+        d1, d3, mul, s1, wo = m["d1"], m["d3"], m["mul"], m["s1"], m["w_off"]
+        xp = x[:, s1 : s1 + d1 * mul].unflatten(-1, (d1, mul))
+        cp = cb[:, m["cb_off"] : m["cb_off"] + d1 * d3].unflatten(-1, (d1, d3))
+        z = torch.einsum("pim,pik->pkm", xp, cp) * w[:, None, wo : wo + mul]
+        out[:, m["s3"] : m["s3"] + d3 * mul] = z.flatten(1)
+    return out
+
+
+def pair_chain_plain(c: ConvConsts, vec, tgt_x, src_x, extra, w_in, beff, w2, b2, wf1, bf1,
+                     wf2, bf2):
+    """The per-pair forward chain of the wide-tile kernels (csrc/
+    conv_fwd_wide.cuh, and the recompute in conv_bwd_wide.cuh): vec [P, 3] =
+    the geometry's source - target, the pairs' target and source feature
+    rows (component-major), the edge input's extra rows (bond features, or
+    None), the folded edge MLP (w_in over [Gaussian | extra], beff for the
+    pairs' samples), W2, b2 and the TP-weight MLP. Returns the edge input,
+    h1, e = [attr | tgt scalars | src scalars], h, the TP weights w and
+    cb = sh @ ck, each [P, features]."""
+    inp = _gauss(c, _dist(vec))
+    if extra is not None:
+        inp = torch.cat([inp, extra], dim=-1)
+    h1 = torch.relu(inp @ w_in + beff)
+    e = torch.cat([h1 @ w2 + b2, tgt_x[:, : c.ns], src_x[:, : c.ns]], dim=-1)
+    h = torch.relu(e @ wf1 + bf1)
+    return inp, h1, e, h, h @ wf2 + bf2, sh_l2(vec) @ c.device_tables(vec.device)[0]
+
+
 def _tp_bwd_plain(c: ConvConsts, x, cb, w, g):
     """Per pair, the depthwise TP's gradients: (dw [P, nw], dx [P, din]) for
     the source rows x, cb = sh @ ck, the TP weights w and the target's
@@ -980,21 +1013,18 @@ def _tp_bwd_plain(c: ConvConsts, x, cb, w, g):
     return dw, dx
 
 
-def cross_pass_plain(c: ConvConsts, pairs, vec, tgt_x, src_x, gout, w_in, beff, w2, b2, wf1,
-                     bf1, wf2, bf2):
-    """One direction's wide-tile pass, plain (csrc/conv_bwd_wide.cuh): pairs
-    = (target, source, sample) index tensors, vec [P, 3] = atom - ligand.
+def wide_pass_plain(c: ConvConsts, pairs, vec, tgt_x, src_x, gout, w_in, beff, w2, b2, wf1,
+                    bf1, wf2, bf2):
+    """One direction's wide-tile pass, plain (csrc/conv_bwd_wide.cuh; B4 per
+    direction, B6): pairs = (target, source, sample) index tensors, vec
+    [P, 3] = the geometry's source - target (B4: atom - ligand in both).
     Returns the feature-major rows that the parameter gradients contract
     ({in, h1, dh1, dea, e, dh, h, dw}, each [features, P]), the pairs' rows
     of d / d target scalars [P, ns] and of d / d source features [P, din]."""
     t, s, b = pairs
     ns = c.ns
-    inp = _gauss(c, _dist(vec))
-    h1 = torch.relu(inp @ w_in + beff[b])
-    e = torch.cat([h1 @ w2 + b2, tgt_x[b, t, :ns], src_x[b, s, :ns]], dim=-1)
-    h = torch.relu(e @ wf1 + bf1)
-    w = h @ wf2 + bf2
-    cb = sh_l2(vec) @ c.device_tables(vec.device)[0]
+    inp, h1, e, h, w, cb = pair_chain_plain(c, vec, tgt_x[b, t], src_x[b, s], None, w_in,
+                                            beff[b], w2, b2, wf1, bf1, wf2, bf2)
     dw, dx = _tp_bwd_plain(c, src_x[b, s], cb, w, gout[b, t])
     dh = (dw @ wf2.t()) * (h > 0)
     de = dh @ wf1.t()
@@ -1007,7 +1037,7 @@ def cross_pass_plain(c: ConvConsts, pairs, vec, tgt_x, src_x, gout, w_in, beff, 
 
 def cross_bwd_plain(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la):
     """cross_bwd's plain version, a model of its decomposition: the pair list
-    (cross_pairs_plain), per direction the pass's rows (cross_pass_plain)
+    (cross_pairs_plain), per direction the pass's rows (wide_pass_plain)
     contracted over the pairs into each parameter gradient with its bias rows
     (contraction.contract_plain; db1_eff per sample segment), and the pairs'
     node rows summed per ligand row and, through the atom-major permutation,
@@ -1024,7 +1054,7 @@ def cross_bwd_plain(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la):
             "la": ((pa, pl, pb), atm_x, lig_x, g_la, fcs[4:])}
     grads, node_rows = {}, {}
     for name, (pairs, tx, sx, g, fc) in dirs.items():
-        rows, node_rows[name + "_tgt"], node_rows[name + "_src"] = cross_pass_plain(
+        rows, node_rows[name + "_tgt"], node_rows[name + "_src"] = wide_pass_plain(
             c, pairs, vec, tx, sx, g, w_in, beff, w2, b2, *fc)
         w_in_b = contraction.contract_plain(rows["in"], rows["dh1"], sample_off)
         w2_b = contraction.contract_plain(rows["h1"], rows["dea"])
@@ -1034,15 +1064,11 @@ def cross_bwd_plain(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la):
                        "b2": w2_b[he], "wf1": wf1_b[: 3 * ns], "bf1": wf1_b[3 * ns],
                        "wf2": wf2_b[:hf], "bf2": wf2_b[hf]}
 
-    def seg_sum(rows, off, n):
-        seg = torch.repeat_interleave(torch.arange(n, device=rows.device), off[1:] - off[:-1])
-        return rows.new_zeros(n, din).index_add_(0, seg, rows)
-
     pad = (0, din - ns)
     lig_rows = node_rows["la_src"] + torch.nn.functional.pad(node_rows["al_tgt"], pad)
     atm_rows = node_rows["al_src"] + torch.nn.functional.pad(node_rows["la_tgt"], pad)
-    d_lig = seg_sum(lig_rows, lig_off, bsz * nl).view(bsz, nl, din)
-    d_atm = seg_sum(atm_rows[perm], atm_off, bsz * na).view(bsz, na, din)
+    d_lig = _segment_sum(lig_rows, lig_off, bsz * nl).view(bsz, nl, din)
+    d_atm = _segment_sum(atm_rows[perm], atm_off, bsz * na).view(bsz, na, din)
     return d_lig, d_atm, grads["al"], grads["la"]
 
 
@@ -1110,8 +1136,9 @@ def _knn_conv_kernel(lib, data, x, w_in, beff, weights, stream):
 def reverse_neighbours(idx, valid):
     """Reverse neighbour list of idx/valid [B, n, k]: (rev_off [B, n + 1],
     rev_tgt, rev_src) with the entries of source s of sample b at
-    rev_off[b, s] .. rev_off[b, s + 1], in (target, slot) order. Device ops
-    only (a stable sort and a search), no host read."""
+    rev_off[b, s] .. rev_off[b, s + 1], in (target, slot) order: the
+    source-major order of B6's pair list (knn_pairs_plain). Device ops only
+    (a stable sort and a search), no host read."""
     bsz, n, k = idx.shape
     dev = idx.device
     idx = idx.long()
@@ -1127,29 +1154,128 @@ def reverse_neighbours(idx, valid):
     return rev_off.contiguous(), rev_tgt.contiguous(), rev_src.contiguous()
 
 
+# what the last knn_bwd call on the card allocated: its neighbour slots, the
+# device word holding its pair count, K chunks and scratch bytes
+# (chip_smoke.py reports them)
+knn_bwd_stats: dict = {}
+
+
 def knn_bwd(data, x, w_in, beff, weights, g):
-    """B6: (d_x, parameter gradients) of knn_conv for the output cotangent g."""
+    """B6: (d_x, parameter gradients) of knn_conv for the output cotangent g.
+    On CUDA tensors the kernels of csrc/knn_bwd.cu: the valid neighbour slots
+    as one list with each pair's source-major place, one wide-tile pair pass
+    writing feature-major rows, one grouped launch of the split-K contraction
+    that turns them into every parameter gradient, then the per-atom sums of
+    the pairs' rows; sized by the B n k slots, so no host read. On CPU
+    tensors the plain model of that decomposition, knn_bwd_plain."""
+    c, dev = data.c, x.device
+    bsz, n, _ = data.idx.shape
+    g = _arg(g, (bsz, n, c.dout), dev)
+    if not x.is_cuda:
+        return knn_bwd_plain(data, x, w_in, beff, weights, g)
+    return _knn_bwd_kernel(_library(), _stream(), data, x, w_in, beff, weights, g)
+
+
+def _knn_bwd_kernel(lib, st, data, x, w_in, beff, weights, g):
     c, d, dev = data.c, data, x.device
     bsz, n, k = d.idx.shape
     he, hf, nw, kdim = d.dims
+    ns, din = c.ns, c.din
+    weights = [_aligned(w) for w in weights]
     w2, b2, wf1, bf1, wf2, bf2 = weights
-    layout, stride = _grad_layout(c.gs_n, he, c.ns, hf, nw, bsz)
-    part, flat = _grad_scratch(stride, dev)
+    w_in = _aligned(w_in)
+    layout, stride = _grad_layout(c.gs_n, he, ns, hf, nw, bsz)
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    slots = bsz * n * k
+    ld = -(-slots // WIDE_TILE) * WIDE_TILE
+    cnt_t, tgt_off, src_off = (torch.empty(bsz * n + (i > 0), **i32) for i in range(3))
+    sample_off = torch.empty(bsz + 1, **i32)
+    pair_t, pair_s, pair_b, at_src = (torch.empty(ld, **i32) for _ in range(4))
+    rows = torch.empty(_wide_row_count(c.gs_n, he, ns, hf, nw), ld, **f32)
+    tgt_rows, src_rows = torch.empty(ld, ns, **f32), torch.empty(ld, din, **f32)
+    n_tiles = sum(contraction.tiles(m, q) for m, q in _wide_problems(c.gs_n, he, ns, hf, nw, bsz))
+    splits = contraction.max_splits(n_tiles, ld, contraction.sm_count(str(dev)))
+    part = torch.empty(splits, stride, **f32)
+    flat, d_x = torch.empty(stride, **f32), torch.empty(bsz, n, din, **f32)
     ck, gs_off, _ = c.device_tables(dev)
-    w_meta, in_meta = c.device_bwd_tables(dev)
-    rev_off, rev_tgt, rev_src = reverse_neighbours(d.idx, d.valid)
-    g = _arg(g, (bsz, n, c.dout), dev)
-    d_x = torch.empty(bsz, n, c.din, dtype=torch.float32, device=dev)
-    w2t, wf1t, wf2t = _transposed(w2, wf1, wf2)
-    rc = _library().dbfr_knn_bwd(
+    w_meta, in_off, in_ent = c.device_wide_tables(dev)
+    w2t, wf1t, wf2t = [_aligned(t) for t in _transposed(w2, wf1, wf2)]
+    rc = lib.dbfr_knn_bwd(
         _ptr(d.pos), _ptr(x), _ptr(d.idx), _ptr(d.valid), _ptr(w_in), _ptr(beff), _ptr(w2),
-        _ptr(b2), _ptr(w2t), _ptr(wf1), _ptr(bf1), _ptr(wf2), _ptr(bf2), _ptr(wf1t),
-        _ptr(wf2t), _ptr(ck), _ptr(gs_off), _ptr(w_meta), _ptr(in_meta), _ptr(rev_off),
-        _ptr(rev_tgt), _ptr(rev_src), _ptr(g), _ptr(d_x), _ptr(part), _ptr(flat),
-        bsz, n, k, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, _stream())
+        _ptr(b2), _ptr(w2t), _ptr(wf1), _ptr(bf1), _ptr(wf2), _ptr(bf2), _ptr(wf1t), _ptr(wf2t),
+        _ptr(ck), _ptr(gs_off), _ptr(w_meta), _ptr(in_off), _ptr(in_ent), _ptr(g), _ptr(cnt_t),
+        _ptr(tgt_off), _ptr(src_off), _ptr(sample_off), _ptr(pair_t), _ptr(pair_s),
+        _ptr(pair_b), _ptr(at_src), _ptr(rows), _ptr(tgt_rows), _ptr(src_rows), _ptr(part),
+        _ptr(flat), _ptr(d_x), bsz, n, k, din, c.dout, ns, he, hf, nw, kdim, c.gs_n,
+        in_ent.shape[0], ld, layout["w_in"][0], layout["w2"][0], layout["wf1"][0],
+        layout["wf2"][0], stride, splits, c.gs_coeff, st)
     _check(rc, "knn_bwd")
     launches["knn_bwd"] += 1
+    scratch = (cnt_t, tgt_off, src_off, sample_off, pair_t, pair_s, pair_b, at_src, rows,
+               tgt_rows, src_rows, part)
+    knn_bwd_stats.update(slots=slots, count=tgt_off[-1:], splits=splits, scratch_bytes=sum(
+        t.numel() * t.element_size() for t in scratch))
     return d_x, _split_grads(flat, layout)
+
+
+# ---- B6's decomposition, plain -------------------------------------------
+
+
+def knn_pairs_plain(idx, valid):
+    """The pair list of B6 (csrc/knn_bwd.cu): the valid neighbour slots
+    (valid > 0, 0 <= idx < n) of every sample in (sample, target, slot)
+    order, as (pair_t, pair_s, pair_b); sample_off [B + 1] (the first pair
+    of each sample), tgt_off [B n + 1] (of each target row), src_off
+    [B n + 1] (of each source, in the source-major permutation) and perm,
+    the list indices in source-major order, (target, slot) order kept within
+    a source: the order of reverse_neighbours."""
+    bsz, n, k = idx.shape
+    idx = idx.long()
+    ok = (valid > 0) & (idx >= 0) & (idx < n)
+    pair_b, pair_t, slot = torch.nonzero(ok, as_tuple=True)
+    pair_s = idx[pair_b, pair_t, slot]
+    zero = torch.zeros(1, dtype=torch.long, device=idx.device)
+    rev_off = reverse_neighbours(idx, valid)[0].long()
+    src_off = torch.cat([rev_off[:, :n].reshape(-1), rev_off[-1:, n]])
+    perm = torch.sort(pair_b * n + pair_s, stable=True).indices
+    return (pair_t, pair_s, pair_b, torch.cat([zero, torch.cumsum(ok.sum((1, 2)), 0)]),
+            torch.cat([zero, torch.cumsum(ok.sum(2).reshape(-1), 0)]), src_off, perm)
+
+
+def knn_bwd_plain(data, x, w_in, beff, weights, g, ld=None):
+    """knn_bwd's plain version, a model of its decomposition: the pair list
+    (knn_pairs_plain), the pass's rows (wide_pass_plain) zero-padded to `ld`
+    columns (the kernels' B n k slots rounded up to a 64-pair tile; None:
+    that) and contracted over them into each parameter gradient with its
+    bias rows (contraction.contract_plain; db1_eff per sample segment), and
+    per atom its target rows summed in list order plus its source rows in
+    source-major order. Same returns as knn_bwd."""
+    c, d = data.c, data
+    bsz, n, k = d.idx.shape
+    he, hf, _, _ = d.dims
+    ns, din = c.ns, c.din
+    pt, ps, pb, sample_off, tgt_off, src_off, perm = knn_pairs_plain(d.idx, d.valid)
+    vec = d.pos[pb, ps] - d.pos[pb, pt]
+    rows, tgt_rows, src_rows = wide_pass_plain(c, (pt, ps, pb), vec, x, x, g, w_in, beff,
+                                               *weights)
+    ld = -(-bsz * n * k // WIDE_TILE) * WIDE_TILE if ld is None else ld
+    rows = {r: torch.nn.functional.pad(v, (0, ld - v.shape[1])) for r, v in rows.items()}
+    w_in_b = contraction.contract_plain(rows["in"], rows["dh1"], sample_off)
+    w2_b = contraction.contract_plain(rows["h1"], rows["dea"])
+    wf1_b = contraction.contract_plain(rows["e"], rows["dh"])
+    wf2_b = contraction.contract_plain(rows["h"], rows["dw"])
+    grads = {"w_in": w_in_b[: c.gs_n], "beff": w_in_b[c.gs_n :], "w2": w2_b[:he], "b2": w2_b[he],
+             "wf1": wf1_b[: 3 * ns], "bf1": wf1_b[3 * ns], "wf2": wf2_b[:hf], "bf2": wf2_b[hf]}
+    d_x = (_segment_sum(torch.nn.functional.pad(tgt_rows, (0, din - ns)), tgt_off, bsz * n)
+           + _segment_sum(src_rows[perm], src_off, bsz * n))
+    return d_x.view(bsz, n, din), grads
+
+
+def _segment_sum(rows, off, n):
+    """[n, width]: row i sums rows off[i] .. off[i + 1] - 1."""
+    seg = torch.repeat_interleave(torch.arange(n, device=rows.device), off[1:] - off[:-1])
+    return rows.new_zeros(n, rows.shape[1]).index_add_(0, seg, rows)
 
 
 # ---------------------------------------------------------------------------
