@@ -14,7 +14,13 @@ a non-zero exit code):
   5. kernels  B1 cross, B2 pair, B3 knn at the 3dbs bucket shapes (nl 128,
               na 1024, k 16) with diff_r2 weights, layers 0 and 5, B = 4 and
               the dock batch B = 16: each kernel against its plain PyTorch
-              version (max|err| <= 1e-4 max|ref|), CUDA-event times
+              version (max|err| <= 1e-4 max|ref|), CUDA-event times; B1
+              (one wide-tile grid, csrc/cross_conv.cu): two more calls give
+              the same bits, and its two kinds of block (al: g_l ligand
+              rows; la: g_a atoms): blocks, working blocks, 64-pair tiles
+              and their fill, each kind's share of the blocks' cycles, the
+              longest block against the working mean; g_l, g_a and the
+              block's shared memory
   6. forward  full-width score net with the kernels on 3dbs, against the JAX
               package's numbers (tests/fixtures/torch_port_ref.npz, <= 1e-3)
               and against the port's plain path on the card
@@ -60,7 +66,8 @@ a non-zero exit code):
               plain versions (max|err| <= 1e-4 max|ref|); CUDA-event times,
               bounds and plain times; B10's two kinds of block (ligand rows,
               atoms): blocks, 64-pair tiles and their fill, each kind's share
-              of the blocks' cycles
+              of the blocks' cycles; B7 as phase 5's B1 (same bits, its al
+              and la blocks, g_l, g_a, shared memory)
   13. rm_forward  the full-width score net in the row-major configurations
               (rowmajor, +fused_epilogue, +fused_layer) against the JAX fixture
               (<= 1e-3, as phase 6)
@@ -240,7 +247,7 @@ MOSAIC_ROWS = {"3d": ("3d_accum", ":40"), "onehot": ("onehot", ":68"),
 # CUDA kernel symbols of each launch counter, for the profiler's device time;
 # the first is the kernel that the counter counts
 SYMBOLS = {
-    "cross_conv": ("cross_conv_kernel(",), "pair_conv": ("pair_conv_kernel(",),
+    "cross_conv": ("cross_conv_wide_kernel(",), "pair_conv": ("pair_conv_kernel(",),
     "knn_conv": ("knn_conv_kernel(",),
     "cross_bwd": ("cross_wide_kernel(", "cross_pairs_count_kernel(", "exclusive_scan_kernel(",
                   "cross_atom_count_kernel(", "cross_pairs_fill_kernel(", "abt_kernel<",
@@ -248,7 +255,8 @@ SYMBOLS = {
     "pair_bwd": ("pair_bwd_kernel(", "reduce_rows_kernel("),
     "knn_bwd": ("knn_wide_kernel(", "knn_count_kernel(", "knn_scan_kernel(", "knn_rev_kernel(",
                 "abt_kernel<", "abt_reduce_kernel(", "knn_node_sum_kernel("),
-    "cross_conv_fin": ("cross_conv_fin_kernel(",), "pair_conv_fin": ("pair_conv_fin_kernel(",),
+    "cross_conv_fin": ("cross_conv_fin_wide_kernel(",),
+    "pair_conv_fin": ("pair_conv_fin_kernel(",),
     "knn_conv_fin": ("knn_conv_fin_kernel(",), "layer_conv": ("layer_conv_kernel(",),
     "cross_conv_bf16": ("cross_conv_bf16_kernel(",), "pair_conv_bf16": ("pair_conv_bf16_kernel(",),
     "knn_conv_bf16": ("knn_conv_bf16_kernel(",),
@@ -264,12 +272,12 @@ SYMBOLS = {
     "probe_mosaic/dwloop": ("dwloop_kernel(",), "probe_mosaic/abt": ("abt_kernel<", "abt_reduce_kernel("),
 }
 # grids of each kernel symbol (SYMBOLS[key]) that one counted launch runs,
-# where more than one: the cross convs run an al and an la pass
-# (csrc/cross_conv.cu); B4 (csrc/cross_bwd.cu) two prefix sums (ligand rows,
-# atoms) and per direction a pair pass, a contraction and its reduction; B5
-# a target and a source pass (csrc/pair_bwd.cu)
-GRIDS = {"cross_conv": {"cross_conv_kernel(": 2}, "cross_conv_fin": {"cross_conv_fin_kernel(": 2},
-         "cross_conv_bf16": {"cross_conv_bf16_kernel(": 2},
+# where more than one (B1 and B7 run both directions in one grid): B11-cross
+# runs an al and an la pass (csrc/cross_conv.cu); B4 (csrc/cross_bwd.cu) two
+# prefix sums (ligand rows, atoms) and per direction a pair pass, a
+# contraction and its reduction; B5 a target and a source pass
+# (csrc/pair_bwd.cu)
+GRIDS = {"cross_conv_bf16": {"cross_conv_bf16_kernel(": 2},
          "cross_bwd": {"cross_wide_kernel(": 2, "exclusive_scan_kernel(": 2, "abt_kernel<": 2,
                        "abt_reduce_kernel(": 2},
          "pair_bwd": {"pair_bwd_kernel(": 2}}
@@ -601,6 +609,55 @@ def phase_kernels(torch, params, s_np, results):
                   f"bound {bound_ms:.3f} ms ({row['bound_by']}) pairs {pairs:.0f}", flush=True)
             if not finite or err > 1e-4:
                 raise AssertionError(f"{name} layer {layer}: kernel disagrees with plain ({err:.3e})")
+            if name == "cross_conv":
+                row["blocks"] = cross_block_report(torch, TC, name, wrapper[name], a)
+
+
+def cross_block_report(torch, TC, name, wrapper, a):
+    """B1 (name "cross_conv") or B7 ("cross_conv_fin") after its timing: two
+    more calls must give the same bits; then its two kinds of block (al: g_l
+    ligand rows; la: g_a atoms): per kind the blocks, those with a pair
+    (working), their 64-pair tiles and how full they are (the plan model,
+    cross_tile_plan, on these inputs), the share of the blocks' clock64()
+    cycles (one launch with `cycles`) and the longest block against the mean
+    of the working blocks (each block's cycles are its SM's time on it); the
+    rows per block and the block's shared memory."""
+    x = (a[0],) + tuple(a[2:]) if name == "cross_conv_fin" else a
+    with torch.no_grad():
+        one, two = wrapper(*a), wrapper(*a)
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(one, two)):
+            raise AssertionError(f"{name}: two calls gave different bits")
+        g_l, g_a = TC.cross_conv_stats[name]["groups"]
+        plan = TC.cross_tile_plan(x[1], x[2], x[5], x[6], x[7], x[9], g_l, g_a)
+        cycles = torch.zeros(len(plan), dtype=torch.int64, device=DEV)
+        if name == "cross_conv_fin":
+            TC._cross_fin_kernel(*a, cycles=cycles)
+        else:
+            d = TC._cross_inputs(*a)
+            TC._cross_conv_kernel(TC._library(), *d[:5], d[5:], TC._stream(), cycles=cycles)
+        torch.cuda.synchronize()
+    cyc = cycles.double().cpu()
+    out = {"groups": [g_l, g_a], "smem_bytes": TC.cross_conv_stats[name]["smem_bytes"],
+           "same_bits": True}
+    print(f"    g_l {g_l} ligand rows, g_a {g_a} atoms per block, {out['smem_bytes']} bytes of "
+          f"shared memory; two calls bit-identical", flush=True)
+    for kind, what in (("al", f"al blocks ({g_l} ligand rows)"),
+                       ("la", f"la blocks ({g_a} atoms)")):
+        sel = [i for i, blk in enumerate(plan) if blk.kind == kind]
+        work = [i for i in sel if plan[i].tiles[kind]]
+        tiles = sum(len(plan[i].tiles[kind]) for i in sel)
+        pairs = sum(len(t) for i in sel for t in plan[i].tiles[kind])
+        c = cyc[work] if work else cyc[sel]
+        out[kind] = dict(blocks=len(sel), working=len(work), tiles=tiles, pairs=pairs,
+                         tile_fill=pairs / max(1, tiles * TC.WIDE_TILE),
+                         cycle_share=float(cyc[sel].sum() / cyc.sum()),
+                         longest_over_working_mean=float(c.max() / c.mean()))
+        print(f"    {what}: {len(sel)} blocks ({len(work)} working), {tiles} tiles of {pairs} "
+              f"pairs ({100 * out[kind]['tile_fill']:.1f}% full), "
+              f"{100 * out[kind]['cycle_share']:.1f}% of the block cycles, longest block "
+              f"{out[kind]['longest_over_working_mean']:.2f}x the working mean", flush=True)
+    return out
 
 
 def grad_inputs(name, args, names=None):
@@ -1153,6 +1210,8 @@ def phase_rm_kernels(torch, params, s_np, results):
                 raise AssertionError(f"{name} layer {layer}: kernel disagrees with plain ({err:.3e})")
             if name == "layer_conv":
                 row["blocks"] = layer_block_report(torch, LC, a, layer, bsz)
+            if name == "cross_conv_fin":
+                row["blocks"] = cross_block_report(torch, TC, name, wrapper[name], a)
 
 
 def layer_block_report(torch, LC, a, layer, bsz):
@@ -2124,7 +2183,8 @@ def main() -> int:
                      "device_ms_method": main_row["device_ms_method"],
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
-                     "layer": 5, "batch": 16})
+                     "layer": 5, "batch": 16,
+                     **({"blocks": main_row["blocks"]} if "blocks" in main_row else {})})
     for name, (src, repl, _) in BWD_KERNELS.items():
         # the training shapes: layer 5, the 128/1024 batch of 4
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 4][0]

@@ -4,8 +4,9 @@
 // Counterpart of the in-kernel finalize of diffbindfr_tpu/nn/pallas_conv.py
 // (dense_mix_cm, make_ln_cm; kernel at :436-441) and of pallas_layer.py.
 //
-// A block owns its target rows and the pair loop (conv_sums) leaves each
-// row's complete sums in shared memory, so the finalize is a per-block
+// A block owns its target rows and the pair loop (conv_sums, or
+// conv_fwd_wide.cuh's wide_conv_sums for B7 and B10) leaves each row's
+// complete sums in shared memory, so the finalize is a per-block
 // epilogue: no second pass, no grid-wide reduction, no atomics, and the
 // result is the same from run to run. The TPU kernels expanded the Linear
 // into a dense [dout, out_dim] matrix for the MXU (419 KB at layers 3-5,

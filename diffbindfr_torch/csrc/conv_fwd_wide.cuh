@@ -1,11 +1,13 @@
 // The forward chain of a trunk conv over 64-pair wide tiles, for blocks
-// that own their targets (B10, layer_conv.cu). Replaces, for B10, the
-// per-pair chain of the Pallas whole-layer kernel
+// that own their targets (B10, layer_conv.cu; B1 and B7, cross_conv.cu).
+// Replaces the per-pair chain of the Pallas whole-layer kernel
 // (diffbindfr_tpu/nn/pallas_layer.py:make_layer_conv, the pallas_call at
-// :552): a block compacts the valid candidates of its g owned targets into
-// a list in candidate order (trunk_conv.cuh compact_pairs: target-major,
-// then source index or neighbour slot), walks the list in tiles of 64
-// pairs, and per tile computes
+// :552) and of the cross conv kernels (nn/pallas_conv_t.py:
+// make_cross_conv_t, :693; nn/pallas_conv.py:make_cross_conv, :1008): a
+// block compacts the valid candidates of its g owned targets into a list in
+// candidate order (trunk_conv.cuh compact_pairs: target-major, then source
+// index or neighbour slot), walks the list in tiles of 64 pairs, and per
+// tile computes
 //   pair_geo (exact fp32) -> sh, Gaussian rows [| bond features]
 //   -> edge MLP h1 = relu(W1^T in + b1[sample]), attr = W2^T h1 + b2
 //   -> [attr | tgt scalars | src scalars] -> h = relu(Wf1^T e + bf1)
@@ -56,7 +58,8 @@ __host__ __device__ inline FwdPlan fwd_plan(const ConvArgs& a, int mode) {
   return p;
 }
 
-// the larger of two plans, region by region (B10: one layout for its convs)
+// the larger of two plans, region by region (B10, B1 and B7: one layout for
+// the convs or directions of one grid)
 __host__ __device__ inline FwdPlan max_fwd_plan(const FwdPlan& x, const FwdPlan& y) {
   FwdPlan p;
   p.p1 = imax(x.p1, y.p1);

@@ -4,50 +4,146 @@
 // (nn/pallas_conv.py:295-356). Mask: CA/CB atom or d <= 0.2 sigma_tr + 5,
 // and both nodes valid. Outputs the masked message sums `al` [B, nl, dout]
 // (atoms -> ligand rows, fc_al) and `la` [B, na, dout] (ligand -> atom
-// columns, fc_la; same edge features and spherical harmonics).
-// Blocks run in no order, so `la` gets its own launch with the atoms as
-// targets, which recomputes the shared edge MLP (about 6% of the pair work)
-// instead of reducing partial sums across blocks or using atomics: both
-// outputs are deterministic.
-// Bound on the H100: fp32 FMA in the two TP-weight MLPs (operations);
-// masked pairs are skipped, so the work follows the cutoff, not nl x na.
+// columns, fc_la; same edge features and spherical harmonics, vec = atom -
+// ligand in both).
 //
 // B7: dbfr_cross_conv_fin is the same conv with the finalize of
 // diffbindfr_tpu/nn/pallas_conv.py:make_cross_conv(fin=) (the pallas_call at
 // :1008) on both outputs: al / max(cnt_al, 1) and la / max(cnt_la, 1), each
-// through its own irreps Linear and LayerNorm, as a per-block epilogue of
-// each pass (conv_fin.cuh); the TPU kernel finalized the atom side on its
-// last grid step, here the la pass's blocks own their atoms.
+// through its own irreps Linear and LayerNorm (conv_fin.cuh), as a per-block
+// epilogue; the TPU kernel finalized the atom side on its last grid step,
+// here the blocks that own the atoms hold their complete sums.
+//
+// One launch, one 1-D grid, two kinds of block (csrc/conv_fwd_wide.cuh's
+// chain in each, as B10 runs it):
+//  * al blocks own g_l ligand rows of one sample and walk their valid atoms;
+//  * la blocks own g_a atoms and walk their valid ligand rows.
+// A block compacts its candidates in candidate order, runs them in 64-pair
+// tiles (register-tiled MLPs over 16-row cp.async weight stages, the TP's
+// source rows staged in shared memory) and sums each pair's message into
+// its target in list order: every sum is the block's own, in one fixed
+// order, with no atomics, so two calls give the same bits. The la direction
+// recomputes the edge MLP and geometry the al direction computed (~6% of
+// the pair work) rather than reduce partial sums across blocks.
+// At the 3dbs bucket a real ligand row has ~230 cross pairs (~3.6 tiles)
+// and an atom ~9, so the al blocks that hold real rows are the grid's
+// longest: they come first (every sample's al blocks, then the la blocks),
+// and the la blocks fill the SMs behind them. The host picks g_l from the
+// batch so that one al block stays within the mean tiles per SM, and g_a as
+// large as the shared memory holds, so that la tiles fill
+// (nn/trunk_convs.py cross_row_groups says why).
+// Shared memory: the larger of the two directions' plans, region by region
+// (fwd_plan). B7 finalizes once, after the sums, so its output rows and
+// LayerNorm statistics take the weight-stage region, free by then, and the
+// la blocks hold as many atoms as B1's.
+// Bound on the H100: fp32 FMA in the two TP-weight MLPs (operations); masked
+// pairs are skipped, so the work follows the cutoff, not nl x na.
+// With `cycles` set, thread 0 of each block writes the block's clock64()
+// cycles there (grid order), for the share of each kind of block.
 //
 // B11-cross: dbfr_cross_conv_bf16 is B1 with the bf16 depthwise chain of
-// make_cross_conv_t(dw_dtype='bfloat16') (trunk_conv.cuh conv_sums<., true>)
-// in both passes: the ligand rows move rounded to bf16
-// (pallas_conv_t.py:584-585), so their scalars enter both TP-weight MLPs
-// rounded (the al pass's targets, the la pass's sources), the atom rows
-// exact (:590-593); the la sums stay fp32 (:640-649).
-#include "conv_fin.cuh"
+// make_cross_conv_t(dw_dtype='bfloat16') on the 32-pair body
+// (trunk_conv.cuh conv_sums<., true>), one launch per direction: the ligand
+// rows move rounded to bf16 (pallas_conv_t.py:584-585), so their scalars
+// enter both TP-weight MLPs rounded (the al pass's targets, the la pass's
+// sources), the atom rows exact (:590-593); the la sums stay fp32
+// (:640-649).
+//
+// B1's and B7's arguments come as arrays indexed by the enums below, which
+// diffbindfr_torch/nn/trunk_convs.py (CROSS_PTRS, CROSS_INTS) mirrors name
+// for name.
+#include "conv_fwd_wide.cuh"
 
 namespace {
-__global__ void __launch_bounds__(dbfr::kThreads, 2) cross_conv_kernel(dbfr::ConvArgs a) {
-  dbfr::conv_block<dbfr::kDense>(a);
+
+enum CrossPtr {
+  P_LIG_POS, P_ATM_POS, P_LIG_X, P_ATM_X, P_LIG_MASK, P_ATM_MASK, P_CAB, P_CUT,
+  P_W_IN, P_BEFF, P_W2, P_B2, P_AL_W1, P_AL_B1, P_AL_W2, P_AL_B2, P_LA_W1, P_LA_B1,
+  P_LA_W2, P_LA_B2, P_CK, P_GS_OFF, P_OUT_META, P_OUT_AL, P_OUT_LA,
+  P_AL_FIN,               // al finalize: cnt, mix, ln_w, ln_ms, ln_b (B7)
+  P_LA_FIN = P_AL_FIN + 5,  // la finalize, the same five (B7)
+  P_MIX_META = P_LA_FIN + 5, P_LN_SLOTS, P_CYCLES, P_COUNT
+};
+enum CrossInt {
+  I_BATCH, I_NL, I_NA, I_DIN, I_DOUT, I_NS, I_HE, I_HF, I_NW, I_KDIM, I_GS_N, I_OUT_DIM,
+  I_N_SLOTS, I_MIX_NUMEL, I_LIG_ROWS, I_ATOM_ROWS, I_COUNT
+};
+enum CrossFloat { F_GS_COEFF, F_COUNT };
+
+struct CrossArgs {
+  dbfr::ConvArgs al, la;
+  int batch, n_al_blocks, n_la_blocks;  // per sample
+  long long* cycles;
+};
+
+// the two directions' plans, region by region the larger; with a finalize,
+// its output rows and statistics moved into the weight stages
+__host__ __device__ inline dbfr::FwdPlan cross_plan(const CrossArgs& C) {
+  using namespace dbfr;
+  FwdPlan p = max_fwd_plan(fwd_plan(C.al, kDense), fwd_plan(C.la, kDense));
+  if (C.al.out_dim > 0) {
+    p.ws = imax(p.ws, p.oacc + p.stats);
+    p.oacc = p.stats = 0;
+    p.words = p.p1 + p.p2 + p.sh + p.ws + p.ck + p.acc + p.list + p.misc;
+  }
+  return p;
 }
 
-__global__ void __launch_bounds__(dbfr::kThreads, 2) cross_conv_fin_kernel(dbfr::ConvArgs a) {
-  dbfr::conv_fin_block<dbfr::kDense>(a);
+// The sums of targets t0 .. t0 + g - 1 of sample b in direction a, then
+// (FIN) their finalize, written to a.out. Inlined per direction, so that
+// the kernel parameters stay where the compiler can address them statically.
+template <bool FIN>
+__device__ __forceinline__ void cross_rows(const dbfr::ConvArgs& a, int b, int t0,
+                                           dbfr::FwdRegions F) {
+  using namespace dbfr;
+  wide_conv_sums<kDense>(a, b, t0, F);  // ends after a barrier: acc complete, ws free
+  if constexpr (FIN) {
+    F.R.oacc = F.ws;
+    F.R.stats = F.ws + round4(a.g * a.out_dim);
+    init_oacc(a, b, t0, nullptr, F.R);
+    fin_epilogue(a, b, t0, F.R);
+    store_oacc(a, b, t0, a.out, F.R);
+  } else {
+    for (int i = threadIdx.x; i < a.g * a.dout; i += kThreads) {
+      const int t = t0 + i / a.dout;
+      if (t < a.nt) a.out[((size_t)b * a.nt + t) * a.dout + (i % a.dout)] = F.R.acc[i];
+    }
+  }
 }
 
+// One 1-D grid: the al blocks of every sample, then the la blocks.
+template <bool FIN>
+__device__ __forceinline__ void cross_block(const CrossArgs& C) {
+  using namespace dbfr;
+  const long long c0 = clock64();
+  const FwdRegions F = carve_fwd(cross_plan(C));
+  const int al_blocks = C.batch * C.n_al_blocks;
+  if ((int)blockIdx.x < al_blocks) {
+    const int b = blockIdx.x / C.n_al_blocks;
+    cross_rows<FIN>(C.al, b, (blockIdx.x % C.n_al_blocks) * C.al.g, F);
+  } else {
+    const int i = blockIdx.x - al_blocks;
+    cross_rows<FIN>(C.la, i / C.n_la_blocks, (i % C.n_la_blocks) * C.la.g, F);
+  }
+  if (C.cycles != nullptr && threadIdx.x == 0) C.cycles[blockIdx.x] = clock64() - c0;
+}
+
+__global__ void __launch_bounds__(dbfr::kThreads, 1) cross_conv_wide_kernel(CrossArgs C) {
+  cross_block<false>(C);
+}
+
+__global__ void __launch_bounds__(dbfr::kThreads, 1) cross_conv_fin_wide_kernel(CrossArgs C) {
+  cross_block<true>(C);
+}
+
+// B11-cross: one 32-pair-body launch per direction
 __global__ void __launch_bounds__(dbfr::kThreads, 2) cross_conv_bf16_kernel(dbfr::ConvArgs a) {
   dbfr::conv_block<dbfr::kDense, true>(a);
 }
 
-int launch_pass(const dbfr::ConvArgs& a, int batch, cudaStream_t st) {
-  if (a.bf16_chain) return dbfr::launch<dbfr::kDense>(cross_conv_bf16_kernel, a, batch, st);
-  return a.out_dim > 0 ? dbfr::launch<dbfr::kDense>(cross_conv_fin_kernel, a, batch, st)
-                       : dbfr::launch<dbfr::kDense>(cross_conv_kernel, a, batch, st);
-}
-
-// the al pass (ligand rows are the targets, atoms the sources) and the la
-// pass (atoms are the targets, ligand rows the sources), without finalize
+// the al direction (ligand rows are the targets, atoms the sources) and the
+// la direction (atoms are the targets, ligand rows the sources), without
+// finalize
 void cross_passes(
     const void* lig_pos, const void* atm_pos, const void* lig_x, const void* atm_x,
     const void* lig_mask, const void* atm_mask, const void* cabflag,
@@ -101,7 +197,7 @@ void cross_passes(
   *al_out = al;
 
   // la: atoms are the targets, ligand rows the sources; flip keeps
-  // vec = atom - ligand, so distances, masks and sh match the al pass
+  // vec = atom - ligand, so distances, masks and sh match the al direction
   dbfr::ConvArgs la = a;
   la.tgt_pos = (const float*)atm_pos;
   la.src_pos = (const float*)lig_pos;
@@ -120,55 +216,62 @@ void cross_passes(
   la.out = (float*)out_la;
   *la_out = la;
 }
+
+// B1 (FIN false) or B7: one launch of the wide-tile grid
+int launch_wide(const void* const* p, int n_ptrs, const int* n, int n_ints, const float* f,
+                int n_floats, void* stream, bool fin) {
+  using namespace dbfr;
+  if (n_ptrs != P_COUNT || n_ints != I_COUNT || n_floats != F_COUNT) return -1;
+  const int batch = n[I_BATCH], nl = n[I_NL], na = n[I_NA];
+  CrossArgs C;
+  cross_passes(p[P_LIG_POS], p[P_ATM_POS], p[P_LIG_X], p[P_ATM_X], p[P_LIG_MASK], p[P_ATM_MASK],
+               p[P_CAB], p[P_CUT], p[P_W_IN], p[P_BEFF], p[P_W2], p[P_B2], p[P_AL_W1],
+               p[P_AL_B1], p[P_AL_W2], p[P_AL_B2], p[P_LA_W1], p[P_LA_B1], p[P_LA_W2],
+               p[P_LA_B2], p[P_CK], p[P_GS_OFF], p[P_OUT_META], (void*)p[P_OUT_AL],
+               (void*)p[P_OUT_LA], nl, na, n[I_DIN], n[I_DOUT], n[I_NS], n[I_HE], n[I_HF],
+               n[I_NW], n[I_KDIM], n[I_GS_N], f[F_GS_COEFF], &C.al, &C.la);
+  if (fin) {
+    if (n[I_OUT_DIM] < 1) return -1;
+    set_fin(C.al, p[P_AL_FIN], p[P_AL_FIN + 1], p[P_AL_FIN + 2], p[P_AL_FIN + 3],
+            p[P_AL_FIN + 4], p[P_MIX_META], p[P_LN_SLOTS], n[I_OUT_DIM], n[I_N_SLOTS],
+            n[I_MIX_NUMEL]);
+    set_fin(C.la, p[P_LA_FIN], p[P_LA_FIN + 1], p[P_LA_FIN + 2], p[P_LA_FIN + 3],
+            p[P_LA_FIN + 4], p[P_MIX_META], p[P_LN_SLOTS], n[I_OUT_DIM], n[I_N_SLOTS],
+            n[I_MIX_NUMEL]);
+  }
+  // rows per block: the host's choice, checked against the shared memory
+  C.al.g = n[I_LIG_ROWS];
+  C.la.g = n[I_ATOM_ROWS];
+  if (C.al.g < 1 || C.la.g < 1 || nl >= 1 << 16 || na >= 1 << 16) return -1;
+  C.batch = batch;
+  C.n_al_blocks = (nl + C.al.g - 1) / C.al.g;
+  C.n_la_blocks = (na + C.la.g - 1) / C.la.g;
+  C.cycles = (long long*)p[P_CYCLES];
+  const int bytes = cross_plan(C).words * 4;
+  if (bytes > kSmemWords * 4) return (int)cudaErrorInvalidValue;
+  void (*kernel)(CrossArgs) = fin ? cross_conv_fin_wide_kernel : cross_conv_wide_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long blocks = (long)batch * (C.n_al_blocks + C.n_la_blocks);
+  if (blocks > 0) kernel<<<(unsigned)blocks, kThreads, bytes, (cudaStream_t)stream>>>(C);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
-extern "C" int dbfr_cross_conv_fin(
-    const void* lig_pos, const void* atm_pos, const void* lig_x, const void* atm_x,
-    const void* lig_mask, const void* atm_mask, const void* cabflag,
-    const void* cutoff, const void* w1, const void* b1, const void* w2,
-    const void* b2, const void* al_w1, const void* al_b1, const void* al_w2,
-    const void* al_b2, const void* la_w1, const void* la_b1, const void* la_w2,
-    const void* la_b2, const void* ck, const void* gs_off, const void* out_meta,
-    void* out_al, void* out_la, int batch, int nl, int na, int din, int dout,
-    int ns, int he, int hf, int nw, int kdim, int gs_n, float gs_coeff,
-    const void* al_cnt, const void* al_mix, const void* al_ln_w, const void* al_ln_ms,
-    const void* al_ln_b, const void* la_cnt, const void* la_mix, const void* la_ln_w,
-    const void* la_ln_ms, const void* la_ln_b, const void* mix_meta, const void* ln_slots,
-    int out_dim, int n_slots, int mix_numel, void* stream) {
-  dbfr::ConvArgs al, la;
-  cross_passes(lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cabflag, cutoff, w1, b1, w2,
-               b2, al_w1, al_b1, al_w2, al_b2, la_w1, la_b1, la_w2, la_b2, ck, gs_off, out_meta,
-               out_al, out_la, nl, na, din, dout, ns, he, hf, nw, kdim, gs_n, gs_coeff, &al, &la);
-  cudaStream_t st = (cudaStream_t)stream;
-  dbfr::set_fin(al, al_cnt, al_mix, al_ln_w, al_ln_ms, al_ln_b, mix_meta, ln_slots, out_dim,
-                n_slots, mix_numel);
-  int rc = launch_pass(al, batch, st);
-  if (rc != 0) return rc;
-  dbfr::set_fin(la, la_cnt, la_mix, la_ln_w, la_ln_ms, la_ln_b, mix_meta, ln_slots, out_dim,
-                n_slots, mix_numel);
-  return launch_pass(la, batch, st);
+// B1: the two directions' sums
+extern "C" int dbfr_cross_conv(const void* const* p, int n_ptrs, const int* n, int n_ints,
+                               const float* f, int n_floats, void* stream) {
+  return launch_wide(p, n_ptrs, n, n_ints, f, n_floats, stream, false);
 }
 
-// B1: the sums alone (no finalize)
-extern "C" int dbfr_cross_conv(
-    const void* lig_pos, const void* atm_pos, const void* lig_x, const void* atm_x,
-    const void* lig_mask, const void* atm_mask, const void* cabflag,
-    const void* cutoff, const void* w1, const void* b1, const void* w2,
-    const void* b2, const void* al_w1, const void* al_b1, const void* al_w2,
-    const void* al_b2, const void* la_w1, const void* la_b1, const void* la_w2,
-    const void* la_b2, const void* ck, const void* gs_off, const void* out_meta,
-    void* out_al, void* out_la, int batch, int nl, int na, int din, int dout,
-    int ns, int he, int hf, int nw, int kdim, int gs_n, float gs_coeff,
-    void* stream) {
-  return dbfr_cross_conv_fin(lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cabflag, cutoff,
-                             w1, b1, w2, b2, al_w1, al_b1, al_w2, al_b2, la_w1, la_b1, la_w2,
-                             la_b2, ck, gs_off, out_meta, out_al, out_la, batch, nl, na, din,
-                             dout, ns, he, hf, nw, kdim, gs_n, gs_coeff, nullptr, nullptr,
-                             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                             nullptr, nullptr, nullptr, 0, 0, 0, stream);
+// B7: the two directions' sums, finalized
+extern "C" int dbfr_cross_conv_fin(const void* const* p, int n_ptrs, const int* n, int n_ints,
+                                   const float* f, int n_floats, void* stream) {
+  return launch_wide(p, n_ptrs, n, n_ints, f, n_floats, stream, true);
 }
 
-// B11-cross: both passes with the bf16 chain (the arguments of dbfr_cross_conv)
+// B11-cross: both passes with the bf16 chain
 extern "C" int dbfr_cross_conv_bf16(
     const void* lig_pos, const void* atm_pos, const void* lig_x, const void* atm_x,
     const void* lig_mask, const void* atm_mask, const void* cabflag,
@@ -187,7 +290,7 @@ extern "C" int dbfr_cross_conv_bf16(
   al.bf16_chain = la.bf16_chain = 1;
   al.bf_tgt_sc = 1;  // the ligand rows: targets of al, sources of la
   la.bf_src_sc = 1;
-  int rc = launch_pass(al, batch, st);
+  const int rc = dbfr::launch<dbfr::kDense>(cross_conv_bf16_kernel, al, batch, st);
   if (rc != 0) return rc;
-  return launch_pass(la, batch, st);
+  return dbfr::launch<dbfr::kDense>(cross_conv_bf16_kernel, la, batch, st);
 }

@@ -101,26 +101,8 @@ def layer_conv_plain(lc: LayerConsts, lig_pos, atm_pos, lig_cm, atm_cm, lig_mask
 # ---- the kernel's block plan (csrc/conv_fwd_wide.cuh, layer_conv.cu) -----
 
 WIDE_TILE = TC.WIDE_TILE  # pairs per tile
-_WIDE_S = WIDE_TILE + 4  # pair stride of the feature-major tiles (kWideS)
-_WIDE_KT = 16  # weight rows per cp.async stage (kWideKT)
-_STAT = 8  # LayerNorm statistics per (row, slot) (kStat)
-_TP_PAIRS = 32  # source rows the TP stages at a time (kTpPairs)
-SMEM_WORDS = 232448 // 4  # the H100's shared memory per block, 4-byte words
+SMEM_WORDS = TC.SMEM_WORDS  # the H100's shared memory per block, 4-byte words
 LIG_ROWS, ATOM_ROWS = 4, 16  # rows per block, as many as fit (row_groups)
-
-
-def _r4(n: int) -> int:
-    return (n + 3) & ~3
-
-
-def _fwd_regions(ke, ns, he, hf, nw, kdim, din, dout, out_dim, mix_numel, n_slots, g, per):
-    """FwdPlan's regions (fwd_plan, conv_fwd_wide.cuh) in 4-byte words."""
-    return (max(max(he, hf, kdim) * _WIDE_S, _r4(g * out_dim)),
-            max(max(ke, 3 * ns, nw) * _WIDE_S, _r4(mix_numel)), 9 * _WIDE_S,
-            max(_r4(2 * _WIDE_KT * 32 * -(-max(he, ns, hf, nw) // 32)), _TP_PAIRS * _r4(din)),
-            _r4(9 * kdim),
-            _r4(g * dout), _r4(g * out_dim), _r4(g * n_slots * _STAT), _r4(g * per),
-            4 * WIDE_TILE + 8)
 
 
 def plan_words(ints: dict, g_l: int, g_a: int) -> int:
@@ -133,7 +115,7 @@ def plan_words(ints: dict, g_l: int, g_a: int) -> int:
     def conv(ke, he, g, per):
         c = list(common)
         c[1] = he
-        return _fwd_regions(ke, *c, g, per)
+        return TC.fwd_regions(ke, *c, g, per)
 
     plans = (conv(n["gs_n"] + n["nb"], n["he_lig"], g_l, n["nl"]),
              conv(n["gs_n"], n["he_cross"], g_l, n["na"]),
@@ -156,34 +138,18 @@ def row_groups(ints: dict):
     return g_l, g_a
 
 
-@dataclasses.dataclass
-class TileBlock:
-    """One block of B10's grid: its kind ("lig": the pair conv, then al;
-    "atom": the knn conv, then la), sample, first owned target and count,
-    and per conv its pairs in list order cut into 64-pair tiles, each a
-    [n, 2] tensor of (target, source)."""
-
-    kind: str
-    b: int
-    t0: int
-    g: int
-    tiles: dict
-
-
 def _dense_masks(lig_pos, atm_pos, lig_mask, atm_mask, cab, lig_cut, cross_cutoff, bond_mask):
     """The pair conv's and the cross conv's valid pairs, [B, nl, nl] and
     [B, nl, na], as the kernel decides them (compact_pairs, dense_valid):
     target and source unmasked, and (CA/CB flag or within the cutoff, self
     excluded for the pair conv) or bonded."""
     nl = lig_pos.shape[1]
-    lm, am = lig_mask > 0, atm_mask > 0
+    lm = lig_mask > 0
     eye = torch.eye(nl, dtype=torch.bool, device=lig_pos.device)
     d_ll = TC._dist(lig_pos[:, None, :, :] - lig_pos[:, :, None, :])
     pair = (((d_ll <= lig_cut) & ~eye) | (bond_mask > 0)) & lm[:, :, None] & lm[:, None, :]
     cut = TC._cutoffs(cross_cutoff, lig_pos.shape[0], lig_pos.device)
-    d_c = TC._dist(atm_pos[:, None, :, :] - lig_pos[:, :, None, :])
-    cross = ((cab[:, None, :] > 0) | (d_c <= cut[:, None, None])) & lm[:, :, None] & am[:, None, :]
-    return pair, cross
+    return pair, TC.cross_valid(lig_pos, atm_pos, lig_mask, atm_mask, cab, cut)
 
 
 def layer_tile_plan(lig_pos, atm_pos, lig_mask, atm_mask, cab, lig_cut, cross_cutoff, bond_mask,
@@ -202,14 +168,10 @@ def layer_tile_plan(lig_pos, atm_pos, lig_mask, atm_mask, cab, lig_cut, cross_cu
     for kind, convs, n, g in (("lig", ("lig", "al"), nl, g_l), ("atom", ("atom", "la"), na, g_a)):
         for b in range(bsz):
             for t0 in range(0, n, g):
-                tiles = {}
-                for tag in convs:
-                    t, o = torch.nonzero(masks[tag][b, t0 : t0 + g], as_tuple=True)
-                    t = t + t0
-                    s = idx[b, t, o] if tag == "atom" else o
-                    pairs = torch.stack([t, s], dim=1)
-                    tiles[tag] = list(pairs.split(WIDE_TILE)) if len(pairs) else []
-                blocks.append(TileBlock(kind, b, t0, g, tiles))
+                tiles = {tag: TC.block_tiles(masks[tag][b, t0 : t0 + g], t0,
+                                             idx[b, t0 : t0 + g] if tag == "atom" else None)
+                         for tag in convs}
+                blocks.append(TC.TileBlock(kind, b, t0, g, tiles))
     return blocks
 
 
@@ -217,9 +179,9 @@ def layer_conv_tiled_plain(lc: LayerConsts, lig_pos, atm_pos, lig_cm, atm_cm, li
                            cab, temb, cross_cutoff, bond_feat, bond_mask, atm_idx, atm_valid,
                            cnt_lig, cnt_al, cnt_la, cnt_atm, params, groups=(LIG_ROWS, ATOM_ROWS)):
     """B10's decomposition, plain: the blocks of layer_tile_plan, each conv's
-    tiles in list order, every pair's message (trunk_convs.pair_chain_plain
-    and the TP, on the kernel's folded edge inputs) added to its target's sum
-    tile by tile; then the finalizes and the residual ladder of layer_conv_plain.
+    tiles in list order, every pair's message (trunk_convs.wide_tile_plain,
+    on the kernel's folded edge inputs) added to its target's sum tile by
+    tile; then the finalizes and the residual ladder of layer_conv_plain.
     Same returns as layer_conv_plain."""
     bsz, nl, na = lig_cm.shape[0], lig_cm.shape[1], atm_cm.shape[1]
     nb = bond_feat.shape[-1]
@@ -246,12 +208,8 @@ def layer_conv_tiled_plain(lc: LayerConsts, lig_pos, atm_pos, lig_cm, atm_cm, li
                 extra = bond_feat[b, t, s].float() if tag == "lig" else None
                 vec = sp[b, s] - tp[b, t]
                 vec = -vec if tag == "la" else vec  # the kernel's flip: atom - ligand
-                fc = p[f"fc_{tag}"]
-                *_, w, cb = TC.pair_chain_plain(
-                    c, vec, tx[b, t], sx[b, s], extra, w_in, beff[b], p[e]["l2"]["w"],
-                    p[e]["l2"]["b"], fc["l1"]["w"], fc["l1"]["b"], fc["l2"]["w"], fc["l2"]["b"])
-                m = TC._tp_plain(c, sx[b, s], cb, w)
-                sums[tag][b].index_add_(0, t, m)
+                sums[tag][b].index_add_(0, t, TC.wide_tile_plain(
+                    c, vec, tx[b, t], sx[b, s], extra, w_in, beff[b], p[e], p[f"fc_{tag}"]))
     fin = lc.fin
 
     def f(tag, cnt):

@@ -55,11 +55,15 @@ edge input (`_prep_edge`) stays in the autograd graph, so the backward
 kernels return gradients of (w_in, b_eff) and of the MLPs, and autograd maps
 them to the parameter tree. What bounds the kernels on the H100 and what
 their design does about it is in csrc/trunk_conv.cuh, csrc/trunk_conv_bwd.cuh
-(B5), csrc/conv_bwd_wide.cuh and csrc/abt_gemm.cuh (B4, B6) and the kernel
-sources. B4's and B6's plain versions, cross_bwd_plain and knn_bwd_plain,
-are models of their kernels' decomposition (pair list, per-pair rows,
-contractions, node sums) that cross_bwd and knn_bwd run on CPU tensors; B5
-is held to autograd through the plain forward.
+(B5), csrc/conv_fwd_wide.cuh (B1, B7: one grid of 64-pair tiles for both
+directions, rows per block from cross_row_groups), csrc/conv_bwd_wide.cuh
+and csrc/abt_gemm.cuh (B4, B6) and the kernel sources. B4's and B6's plain
+versions, cross_bwd_plain and knn_bwd_plain, are models of their kernels'
+decomposition (pair list, per-pair rows, contractions, node sums) that
+cross_bwd and knn_bwd run on CPU tensors; B5 is held to autograd through the
+plain forward. B1's and B7's block and tile plan has its plain model in
+cross_tile_plan and cross_conv_tiled_plain / cross_conv_fin_tiled_plain,
+which the CPU tests hold against the plain versions and the JAX twin.
 """
 from __future__ import annotations
 
@@ -470,7 +474,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
     "dbfr_pair_conv": [_P] * 7 + [_I] + [_P] * 15 + [_I] * 12 + [_F, _I, _I, _P],
-    "dbfr_cross_conv": [_P] * 25 + [_I] * 11 + [_F, _P],
+    "dbfr_cross_conv": [_P, _I, _P, _I, _P, _I, _P],
+    "dbfr_cross_conv_bf16": [_P] * 25 + [_I] * 11 + [_F, _P],
     "dbfr_knn_conv": [_P] * 17 + [_I] * 11 + [_F, _P],
     "dbfr_pair_bwd": [_P] * 7 + [_I] + [_P] * 23 + [_I] * 12 + [_F, _I, _I, _P],
     "dbfr_cross_pairs": [_P] * 11 + [_I] * 3 + [_P],
@@ -478,12 +483,12 @@ _ARGTYPES = {
     "dbfr_knn_bwd": [_P] * 35 + [_I] * 19 + [_F, _P],
     "dbfr_pair_conv_fin": [_P] * 7 + [_I] + [_P] * 15 + [_I] * 12 + [_F, _I, _I]
                           + [_P] * 7 + [_I] * 3 + [_P],
-    "dbfr_cross_conv_fin": [_P] * 25 + [_I] * 11 + [_F] + [_P] * 12 + [_I] * 3 + [_P],
+    "dbfr_cross_conv_fin": [_P, _I, _P, _I, _P, _I, _P],
     "dbfr_knn_conv_fin": [_P] * 17 + [_I] * 11 + [_F] + [_P] * 7 + [_I] * 3 + [_P],
     "dbfr_layer_conv": [_P, _I, _P, _I, _P, _I, _P],
 }
-# B11: the same arguments as B1-B3
-for _name in ("pair", "cross", "knn"):
+# B11-pair and B11-knn: the same arguments as B2 and B3
+for _name in ("pair", "knn"):
     _ARGTYPES[f"dbfr_{_name}_conv_bf16"] = _ARGTYPES[f"dbfr_{_name}_conv"]
 # the widest matrix a kernel thread tiles (kMaxJ * 32 columns, trunk_conv.cuh)
 _MAX_COLS = 320
@@ -788,19 +793,87 @@ class _CrossConvFn(torch.autograd.Function):
         return (None, d_lig, d_atm, *edge, *fc)
 
 
-def _cross_conv_kernel(lib, data, lig_x, atm_x, w_in, beff, weights, stream):
+def _cross_conv_kernel(lib, data, lig_x, atm_x, w_in, beff, weights, stream, cycles=None):
+    """B1: one launch of the wide-tile grid (_cross_wide); with the data's
+    bf16_chain, B11-cross: the 32-pair body, one launch per direction."""
     c, d = data.c, data
+    if not d.bf16_chain:
+        return _cross_wide(lib, "cross_conv", data, lig_x, atm_x, w_in, beff, weights, stream,
+                           cycles=cycles)
     bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
     he, hf, nw, kdim = d.dims
     ck, gs_off, meta = c.device_tables(lig_x.device)
     al = torch.zeros(bsz, nl, c.dout, dtype=torch.float32, device=lig_x.device)
     la = torch.zeros(bsz, na, c.dout, dtype=torch.float32, device=lig_x.device)
-    name = "cross_conv_bf16" if d.bf16_chain else "cross_conv"
-    rc = getattr(lib, "dbfr_" + name)(
+    rc = lib.dbfr_cross_conv_bf16(
         _ptr(d.lig_pos), _ptr(d.atm_pos), _ptr(lig_x), _ptr(atm_x), _ptr(d.lig_mask),
         _ptr(d.atm_mask), _ptr(d.cab), _ptr(d.cut), _ptr(w_in), _ptr(beff),
         *[_ptr(v) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(al), _ptr(la),
         bsz, nl, na, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, stream)
+    _check(rc, "cross_conv_bf16")
+    launches["cross_conv_bf16"] += 1
+    return al, la
+
+
+# Order of B1's and B7's pointer and int arguments: the enums CrossPtr and
+# CrossInt of csrc/cross_conv.cu, name for name.
+_FIN_KEYS = ("cnt", "mix", "ln_w", "ln_ms", "ln_b")
+_CROSS_WEIGHTS = ("w2", "b2", *[f"{d}_{w}" for d in ("al", "la") for w in ("w1", "b1", "w2", "b2")])
+CROSS_PTRS = (
+    "lig_pos", "atm_pos", "lig_x", "atm_x", "lig_mask", "atm_mask", "cab", "cut", "w_in", "beff",
+    *_CROSS_WEIGHTS, "ck", "gs_off", "out_meta", "out_al", "out_la",
+    *[f"{d}_{k}" for d in ("al", "la") for k in _FIN_KEYS], "mix_meta", "ln_slots", "cycles")
+CROSS_INTS = ("batch", "nl", "na", "din", "dout", "ns", "he", "hf", "nw", "kdim", "gs_n",
+              "out_dim", "n_slots", "mix_numel", "lig_rows", "atom_rows")
+
+# what the last B1 / B7 launch on the card used, by launch counter: rows per
+# block (g_l, g_a) and the block's shared memory (chip_smoke.py reports them)
+cross_conv_stats: dict = {}
+
+
+def _cross_wide(lib, name, data, lig_x, atm_x, w_in, beff, weights, stream, fin=None,
+                fin_ts=(), cycles=None):
+    """One launch of csrc/cross_conv.cu's wide-tile grid: B1 (name
+    "cross_conv": the two directions' sums) or B7 ("cross_conv_fin": fin a
+    FinConsts, fin_ts the al and la finalize tensors of _fin_ptrs), the rows
+    per block from cross_row_groups. `cycles`, an int64 tensor of one entry
+    per block (cross_tile_plan's order), receives each block's clock64()
+    cycles (chip_smoke.py's share of each kind of block)."""
+    c, d, dev = data.c, data, lig_x.device
+    bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
+    he, hf, nw, kdim = d.dims
+    ck, gs_off, meta = c.device_tables(dev)
+    width = c.dout if fin is None else fin.out_dim
+    al = torch.empty(bsz, nl, width, dtype=torch.float32, device=dev)
+    la = torch.empty(bsz, na, width, dtype=torch.float32, device=dev)
+    ints = {"batch": bsz, "nl": nl, "na": na, "din": c.din, "dout": c.dout, "ns": c.ns,
+            "he": he, "hf": hf, "nw": nw, "kdim": kdim, "gs_n": c.gs_n, "out_dim": 0,
+            "n_slots": 0, "mix_numel": 0}
+    # cp.async stages the MLP weights 16 bytes at a time
+    t = {"lig_pos": d.lig_pos, "atm_pos": d.atm_pos, "lig_x": lig_x, "atm_x": atm_x,
+         "lig_mask": d.lig_mask, "atm_mask": d.atm_mask, "cab": d.cab, "cut": d.cut,
+         "w_in": _aligned(w_in), "beff": beff, "ck": ck, "gs_off": gs_off, "out_meta": meta,
+         "out_al": al, "out_la": la, "cycles": cycles}
+    t.update(zip(_CROSS_WEIGHTS, [_aligned(w) for w in weights]))
+    if fin is not None:
+        mix_meta, ln_slots = fin.device_tables(dev)
+        ints.update(out_dim=fin.out_dim, n_slots=len(fin.spec.out.items),
+                    mix_numel=fin.spec.lin.weight_numel)
+        t.update(mix_meta=mix_meta, ln_slots=ln_slots)
+        for side, ts in zip(("al", "la"), fin_ts):
+            t.update({f"{side}_{k}": v for k, v in zip(_FIN_KEYS, ts)})
+    g_l, g_a = ints["lig_rows"], ints["atom_rows"] = cross_row_groups(
+        ints, contraction.sm_count(str(dev)))
+    cross_conv_stats[name] = dict(groups=(g_l, g_a), smem_bytes=4 * cross_plan_words(ints, g_l,
+                                                                                     g_a))
+    if cycles is not None and (cycles.dtype != torch.int64 or cycles.device != dev
+                               or cycles.numel() != bsz * (-(-nl // g_l) + -(-na // g_a))):
+        raise ValueError(f"{name}: cycles takes one int64 per block on the kernel's device")
+    ptr_arr = (ctypes.c_void_p * len(CROSS_PTRS))(*[_ptr(t.get(k)) for k in CROSS_PTRS])
+    int_arr = (ctypes.c_int * len(CROSS_INTS))(*[int(ints[k]) for k in CROSS_INTS])
+    float_arr = (ctypes.c_float * 1)(c.gs_coeff)
+    rc = getattr(lib, "dbfr_" + name)(ptr_arr, len(CROSS_PTRS), int_arr, len(CROSS_INTS),
+                                      float_arr, 1, stream)
     _check(rc, name)
     launches[name] += 1
     return al, la
@@ -948,10 +1021,8 @@ def cross_pairs_plain(lig_pos, atm_pos, lig_mask, atm_mask, cab, cut):
     (of each atom, in the atom-major permutation) and perm, the list indices
     in atom-major order, list order kept within an atom. The mask is
     cross_conv_plain's."""
-    bsz, nl, na = lig_pos.shape[0], lig_pos.shape[1], atm_pos.shape[1]
-    d = _dist(atm_pos[:, None, :, :] - lig_pos[:, :, None, :])
-    valid = ((cab[:, None, :] > 0) | (d <= cut[:, None, None])) & (lig_mask[:, :, None] > 0) \
-        & (atm_mask[:, None, :] > 0)
+    na = atm_pos.shape[1]
+    valid = cross_valid(lig_pos, atm_pos, lig_mask, atm_mask, cab, cut)
     pair_b, pair_l, pair_a = torch.nonzero(valid, as_tuple=True)
     zero = torch.zeros(1, dtype=torch.long, device=lig_pos.device)
 
@@ -1070,6 +1141,171 @@ def cross_bwd_plain(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la):
     d_lig = _segment_sum(lig_rows, lig_off, bsz * nl).view(bsz, nl, din)
     d_atm = _segment_sum(atm_rows[perm], atm_off, bsz * na).view(bsz, na, din)
     return d_lig, d_atm, grads["al"], grads["la"]
+
+
+# ---- the forward wide-tile plan (csrc/conv_fwd_wide.cuh): B1, B7, B10 ---
+
+_WIDE_S = WIDE_TILE + 4  # pair stride of the feature-major tiles (kWideS)
+_WIDE_KT = 16  # weight rows per cp.async stage (kWideKT)
+_STAT = 8  # LayerNorm statistics per (row, slot) (kStat)
+_TP_PAIRS = 32  # source rows the TP stages at a time (kTpPairs)
+SMEM_WORDS = 232448 // 4  # the H100's shared memory per block, 4-byte words
+CROSS_ATOM_ROWS = 32  # the most atoms a B1 / B7 la block owns (cross_row_groups)
+
+
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def fwd_regions(ke, ns, he, hf, nw, kdim, din, dout, out_dim, mix_numel, n_slots, g, per):
+    """FwdPlan's regions (fwd_plan, conv_fwd_wide.cuh) in 4-byte words: p1,
+    p2, sh, ws, ck, acc, oacc, stats, list, misc."""
+    return (max(max(he, hf, kdim) * _WIDE_S, _r4(g * out_dim)),
+            max(max(ke, 3 * ns, nw) * _WIDE_S, _r4(mix_numel)), 9 * _WIDE_S,
+            max(_r4(2 * _WIDE_KT * 32 * -(-max(he, ns, hf, nw) // 32)), _TP_PAIRS * _r4(din)),
+            _r4(9 * kdim),
+            _r4(g * dout), _r4(g * out_dim), _r4(g * n_slots * _STAT), _r4(g * per),
+            4 * WIDE_TILE + 8)
+
+
+def cross_plan_words(ints: dict, g_l: int, g_a: int) -> int:
+    """Shared memory of a B1 / B7 block in 4-byte words (cross_plan,
+    csrc/cross_conv.cu: the al and la plans, region by region the larger;
+    with a finalize, out_dim > 0, its output rows and statistics in the
+    weight stages), from the kernel's CROSS_INTS."""
+    n = ints
+
+    def conv(g, per):
+        return fwd_regions(n["gs_n"], n["ns"], n["he"], n["hf"], n["nw"], n["kdim"], n["din"],
+                           n["dout"], n["out_dim"], n["mix_numel"], n["n_slots"], g, per)
+
+    r = [max(x) for x in zip(conv(g_l, n["na"]), conv(g_a, n["nl"]))]
+    if n["out_dim"] > 0:
+        r[3], r[6], r[7] = max(r[3], r[6] + r[7]), 0, 0
+    return sum(r)
+
+
+def cross_row_groups(ints: dict, sms: int):
+    """(g_l, g_a): ligand rows per al block and atoms per la block of B1 /
+    B7, picked on the host from the batch and the shapes; the masks are
+    not read (no wait for the device: a CUDA graph captures the call).
+
+    A real ligand row has ~230 cross pairs at the 3dbs bucket (~3.6 tiles),
+    an atom ~9: the CA/CB atoms pair with every ligand row, the others only
+    within the cutoff. So the al blocks that hold real rows are the grid's
+    longest, and no block should outlast the SMs' mean share of the grid's
+    tiles. The al and la directions have about as many tiles each, so the
+    mean share is 2 B n_real / sms rows' worth, and g_l is the largest of
+    4, 2, 1 with g_l <= 2 B n_real / sms. The host does not know n_real
+    without reading the mask; it takes a quarter of the bucket, nl / 4 (the
+    3dbs ligand fills 35 rows of 128), which errs toward smaller groups,
+    whose cost is a few per cent of tile fill: g_l = 4 at B = 16, 1 at
+    B = 4 and below, at nl = 128 on 132 SMs.
+    An atom's few pairs fill a tile only over many atoms (3dbs: 79% at 16
+    atoms, 85% at 22, 90% at 32), so g_a is as large as the shared memory
+    holds, at most CROSS_ATOM_ROWS; then g_l halves until the block fits."""
+    g_l = next(g for g in (4, 2, 1) if g == 1 or 2 * g * sms <= ints["batch"] * ints["nl"])
+    g_a = CROSS_ATOM_ROWS
+    while cross_plan_words(ints, g_l, g_a) > SMEM_WORDS and g_a > 1:
+        g_a -= 1
+    while cross_plan_words(ints, g_l, g_a) > SMEM_WORDS and g_l > 1:
+        g_l //= 2
+    if cross_plan_words(ints, g_l, g_a) > SMEM_WORDS:
+        raise ValueError("cross_conv: one block's tile does not fit the shared memory")
+    return g_l, g_a
+
+
+@dataclasses.dataclass
+class TileBlock:
+    """One block of a wide-tile forward grid (B1, B7, B10): its kind, sample,
+    first owned target and count, and per conv its pairs in list order cut
+    into 64-pair tiles, each a [n, 2] tensor of (target, source)."""
+
+    kind: str
+    b: int
+    t0: int
+    g: int
+    tiles: dict
+
+
+def block_tiles(valid_rows, t0: int, src=None):
+    """The valid candidates of a block's owned targets t0 .. (valid_rows
+    [g, candidates], its rows of a conv's mask) in candidate order (target-
+    major, then candidate index), as the kernel compacts them
+    (trunk_conv.cuh compact_pairs), cut into tiles of WIDE_TILE (target,
+    source) pairs; src maps a candidate to its source (knn: the neighbour
+    list [g, k]), else the candidate index is the source."""
+    t, o = torch.nonzero(valid_rows, as_tuple=True)
+    s = o if src is None else src[t, o]
+    pairs = torch.stack([t + t0, s], dim=1)
+    return list(pairs.split(WIDE_TILE)) if len(pairs) else []
+
+
+def cross_valid(lig_pos, atm_pos, lig_mask, atm_mask, cab, cut):
+    """The cross conv's valid (ligand row, atom) pairs [B, nl, na]: both
+    nodes valid and the atom a CA/CB atom or within the sample's cutoff."""
+    d = _dist(atm_pos[:, None, :, :] - lig_pos[:, :, None, :])
+    return ((cab[:, None, :] > 0) | (d <= cut[:, None, None])) & (lig_mask[:, :, None] > 0) \
+        & (atm_mask[:, None, :] > 0)
+
+
+def cross_tile_plan(lig_pos, atm_pos, lig_mask, atm_mask, cab, cutoff, g_l, g_a):
+    """B1's and B7's blocks in grid order (the al blocks of every sample,
+    g_l ligand rows each; then the la blocks, g_a atoms each), each with its
+    targets' valid pairs in candidate order cut into tiles of WIDE_TILE."""
+    bsz, nl, na = lig_pos.shape[0], lig_pos.shape[1], atm_pos.shape[1]
+    al = cross_valid(lig_pos, atm_pos, lig_mask, atm_mask, cab,
+                     _cutoffs(cutoff, bsz, lig_pos.device))
+    blocks = []
+    for kind, mask, n, g in (("al", al, nl, g_l), ("la", al.transpose(1, 2), na, g_a)):
+        for b in range(bsz):
+            blocks += [TileBlock(kind, b, t0, g, {kind: block_tiles(mask[b, t0 : t0 + g], t0)})
+                       for t0 in range(0, n, g)]
+    return blocks
+
+
+def wide_tile_plain(c: ConvConsts, vec, tgt_x, src_x, extra, w_in, beff, emb, fc):
+    """The messages [P, dout] of one tile's pairs as conv_fwd_wide.cuh
+    computes them: pair_chain_plain on the folded edge input, then the TP."""
+    *_, w, cb = pair_chain_plain(c, vec, tgt_x, src_x, extra, w_in, beff, emb["l2"]["w"],
+                                 emb["l2"]["b"], fc["l1"]["w"], fc["l1"]["b"], fc["l2"]["w"],
+                                 fc["l2"]["b"])
+    return _tp_plain(c, src_x, cb, w)
+
+
+def cross_conv_tiled_plain(c: ConvConsts, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask,
+                           cabflag, temb, cutoff, emb_params, fc_al, fc_la, groups):
+    """B1's decomposition, plain: the blocks of cross_tile_plan at groups
+    (g_l, g_a), each tile's messages (wide_tile_plain; the la direction's
+    geometry flipped to atom - ligand, as the kernel's) added to their
+    targets' sums tile by tile, in list order. Same returns as
+    cross_conv_plain."""
+    e_, fc_al, fc_la, temb, lig_x, atm_x = _f32((emb_params, fc_al, fc_la, temb, lig_x, atm_x))
+    bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
+    w_in, beff = _prep_edge(c, e_["l1"]["w"], e_["l1"]["b"], temb, 0, bsz, lig_x.device)
+    sums = {"al": lig_x.new_zeros(bsz, nl, c.dout), "la": atm_x.new_zeros(bsz, na, c.dout)}
+    sides = {"al": (lig_pos, atm_pos, lig_x, atm_x, fc_al),
+             "la": (atm_pos, lig_pos, atm_x, lig_x, fc_la)}
+    for blk in cross_tile_plan(lig_pos, atm_pos, lig_mask, atm_mask, cabflag, cutoff, *groups):
+        tp, sp, tx, sx, fc = sides[blk.kind]
+        b = blk.b
+        for tile in blk.tiles[blk.kind]:
+            t, s = tile[:, 0], tile[:, 1]
+            vec = sp[b, s] - tp[b, t]
+            vec = -vec if blk.kind == "la" else vec  # the kernel's flip: atom - ligand
+            sums[blk.kind][b].index_add_(0, t, wide_tile_plain(c, vec, tx[b, t], sx[b, s], None,
+                                                               w_in, beff[b], e_, fc))
+    return sums["al"], sums["la"]
+
+
+def cross_conv_fin_tiled_plain(c: ConvConsts, fin, lig_pos, atm_pos, lig_x, atm_x, lig_mask,
+                               atm_mask, cabflag, temb, cutoff, emb_params, fc_al, fc_la, fin_al,
+                               fin_la, cnt_al, cnt_la, groups):
+    """B7's decomposition, plain: cross_conv_tiled_plain's sums, each
+    direction finalized. Same returns as cross_conv_fin_plain."""
+    al, la = cross_conv_tiled_plain(c, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask,
+                                    cabflag, temb, cutoff, emb_params, fc_al, fc_la, groups)
+    return finalize_plain(fin, fin_al, al, cnt_al), finalize_plain(fin, fin_la, la, cnt_la)
 
 
 # ---- B3 knn conv / B6 backward -------------------------------------------
@@ -1512,28 +1748,17 @@ def cross_conv_fin(c: ConvConsts, fin: FinConsts, lig_pos, atm_pos, lig_x, atm_x
 
 
 def _cross_fin_kernel(c, fin, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cabflag, temb,
-                      cutoff, emb_params, fc_al, fc_la, fin_al, fin_la, cnt_al, cnt_la):
+                      cutoff, emb_params, fc_al, fc_la, fin_al, fin_la, cnt_al, cnt_la,
+                      cycles=None):
+    """One launch of B7 (_cross_wide)."""
     data, lx, ax, w_in, beff, *weights = _cross_inputs(
         c, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cabflag, temb, cutoff,
         emb_params, fc_al, fc_la)
-    d, dev = data, lx.device
-    bsz, nl, na = lx.shape[0], lx.shape[1], ax.shape[1]
-    he, hf, nw, kdim = d.dims
-    ck, gs_off, meta = c.device_tables(dev)
-    al_ptrs, _keep_al = _fin_ptrs(fin, fin_al, cnt_al, (bsz, nl), dev)
-    la_ptrs, _keep_la = _fin_ptrs(fin, fin_la, cnt_la, (bsz, na), dev)
-    tptrs, tints = _fin_tail(fin, dev)
-    al = torch.empty(bsz, nl, fin.out_dim, dtype=torch.float32, device=dev)
-    la = torch.empty(bsz, na, fin.out_dim, dtype=torch.float32, device=dev)
-    rc = _library().dbfr_cross_conv_fin(
-        _ptr(d.lig_pos), _ptr(d.atm_pos), _ptr(lx), _ptr(ax), _ptr(d.lig_mask),
-        _ptr(d.atm_mask), _ptr(d.cab), _ptr(d.cut), _ptr(w_in), _ptr(beff),
-        *[_ptr(v) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(al), _ptr(la),
-        bsz, nl, na, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff,
-        *al_ptrs, *la_ptrs, *tptrs, *tints, _stream())
-    _check(rc, "cross_conv_fin")
-    launches["cross_conv_fin"] += 1
-    return al, la
+    dev, bsz, nl, na = lx.device, lx.shape[0], lx.shape[1], ax.shape[1]
+    _, ts_al = _fin_ptrs(fin, fin_al, cnt_al, (bsz, nl), dev)
+    _, ts_la = _fin_ptrs(fin, fin_la, cnt_la, (bsz, na), dev)
+    return _cross_wide(_library(), "cross_conv_fin", data, lx, ax, w_in, beff, weights,
+                       _stream(), fin=fin, fin_ts=(ts_al, ts_la), cycles=cycles)
 
 
 # ---- B9 knn conv with finalize ---------------------------------------------

@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Device times of the cross conv kernels B1 and B7 in two checkouts of this
+repository, in turns on one card (A B B A).
+
+    python3 kernel_ab.py <checkout A> <checkout B>
+
+A checkout is a directory that holds a `diffbindfr_torch` package (for
+example the parent commit's, unpacked with `git archive <commit>
+diffbindfr_torch | tar -x -C <dir>`). Each turn is a child process that
+imports the package from its checkout (building its kernels there at first
+use) and this checkout's chip_smoke.py, makes chip_smoke's phase-5 and
+phase-12 inputs (kernel_inputs / rm_inputs: 3dbs bucket shapes, diff_r2
+weights, seeded features), and times each kernel through its wrapper:
+B1 (`cross_conv`) at (layer 0, B = 4), (5, 4) and (5, 16), B7
+(`cross_conv_fin`) at (0, 16) and (5, 16). `graph_ms` is the device time per
+call from CUDA events around replays of a CUDA graph of 20 calls (no host
+work between the launches; either version's kernels, whatever their
+symbols), `ms` CUDA events around 10 wrapper calls. Prints the card's
+nvidia-smi line, one line per kernel and shape with every turn's numbers,
+and, last, every turn's numbers as one JSON object. Imports nothing of JAX.
+"""
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SHAPES = {"cross_conv": ((0, 4), (5, 4), (5, 16)), "cross_conv_fin": ((0, 16), (5, 16))}
+
+
+def child(checkout):
+    """One turn: the kernels of `checkout` at every shape; one JSON line."""
+    import importlib.util
+
+    sys.path.insert(0, os.path.abspath(checkout))
+    path = os.path.join(ROOT, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import torch
+
+    from diffbindfr_torch.data.sample import _load_sample_npz
+    from diffbindfr_torch.nn import trunk_convs as TC
+    from diffbindfr_torch.utils.checkpoint import load_checkpoint
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_ab.py needs a CUDA device")
+    if not TC.__file__.startswith(os.path.abspath(checkout)):
+        raise RuntimeError(f"imported {TC.__file__}, not the package of {checkout}")
+    params, _ = load_checkpoint(cs.CKPT, use_ema=True, device=cs.DEV)
+    s_np = _load_sample_npz(cs.SAMPLE)
+    wrapper = {"cross_conv": TC.cross_conv, "cross_conv_fin": TC.cross_conv_fin}
+    out = {}
+    for name, shapes in SHAPES.items():
+        for layer, bsz in shapes:
+            rm, args = cs.rm_inputs(torch, params, s_np, layer, bsz, seed=layer * 100 + bsz)
+            a = args[name] if name in args else rm[name]
+            with torch.no_grad():
+                wrapper[name](*a)
+                ms = cs.time_ms(lambda: wrapper[name](*a), 3, 10)
+                graph = cs.graph_ms(torch, lambda: wrapper[name](*a))
+            out[f"{name} {layer} {bsz}"] = {"graph_ms": graph, "ms": ms}
+    print(json.dumps({"checkout": checkout, "times": out}), flush=True)
+
+
+def main(a, b):
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=30).stdout.strip()
+    print(smi, flush=True)
+    turns = []
+    for checkout in (a, b, b, a):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", checkout],
+                             capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if res.returncode != 0:
+            print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
+            raise RuntimeError(f"turn on {checkout} failed")
+        turns.append(json.loads(res.stdout.strip().splitlines()[-1]))
+    for key in turns[0]["times"]:
+        cells = "  ".join(f"{t['checkout']}: {t['times'][key]['graph_ms']:.4f} "
+                          f"({t['times'][key]['ms']:.4f})" for t in turns)
+        print(f"{key}: graph_ms (wrapper ms) {cells}", flush=True)
+    print(json.dumps({"nvidia_smi": smi, "turns": turns}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--child":
+        child(sys.argv[2])
+    elif len(sys.argv) == 3:
+        sys.exit(main(sys.argv[1], sys.argv[2]))
+    else:
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
