@@ -96,7 +96,15 @@ a non-zero exit code):
               the bound takes the chain's bf16 operations at the card's
               peak for separately rounded bf16x2 operations (67e12/s; phase
               17's measured rate printed beside it) and the fp32 operations
-              at 67 TFLOP/s
+              at 67 TFLOP/s. B11-cross (csrc/cross_conv.cu, the wide-tile
+              grid of phase 5's B1) and B11-knn (csrc/knn_conv.cu, a knn
+              grid of g_k atoms per block) also: a CUDA graph captures the
+              call and its replay gives the same bits; two more calls give
+              the same bits; their blocks (B11-cross: al and la blocks as
+              phase 5 reports B1's; B11-knn: blocks, working blocks and
+              their share of the block cycles, 64-pair tiles and their
+              fill, the longest block against the working mean), rows per
+              block and the block's shared memory
   19. bf16_forward  the full-width score net with compute_dtype='bfloat16',
               kernels on, against the JAX package's bf16 forward
               (tests/fixtures/torch_bf16_ref.npz; per field, tests/
@@ -258,8 +266,8 @@ SYMBOLS = {
     "cross_conv_fin": ("cross_conv_fin_wide_kernel(",),
     "pair_conv_fin": ("pair_conv_fin_kernel(",),
     "knn_conv_fin": ("knn_conv_fin_kernel(",), "layer_conv": ("layer_conv_kernel(",),
-    "cross_conv_bf16": ("cross_conv_bf16_kernel(",), "pair_conv_bf16": ("pair_conv_bf16_kernel(",),
-    "knn_conv_bf16": ("knn_conv_bf16_kernel(",),
+    "cross_conv_bf16": ("cross_conv_bf16_wide_kernel(",),
+    "pair_conv_bf16": ("pair_conv_bf16_kernel(",), "knn_conv_bf16": ("knn_conv_bf16_wide_kernel(",),
     "probe_bf16/f32_fma": ("probe_f32_kernel(",),
     "probe_bf16/bf16x2_mul_add": ("probe_bf16_kernel<false>(",),
     "probe_bf16/bf16x2_fma": ("probe_bf16_kernel<true>(",),
@@ -272,13 +280,11 @@ SYMBOLS = {
     "probe_mosaic/dwloop": ("dwloop_kernel(",), "probe_mosaic/abt": ("abt_kernel<", "abt_reduce_kernel("),
 }
 # grids of each kernel symbol (SYMBOLS[key]) that one counted launch runs,
-# where more than one (B1 and B7 run both directions in one grid): B11-cross
-# runs an al and an la pass (csrc/cross_conv.cu); B4 (csrc/cross_bwd.cu) two
-# prefix sums (ligand rows, atoms) and per direction a pair pass, a
-# contraction and its reduction; B5 a target and a source pass
-# (csrc/pair_bwd.cu)
-GRIDS = {"cross_conv_bf16": {"cross_conv_bf16_kernel(": 2},
-         "cross_bwd": {"cross_wide_kernel(": 2, "exclusive_scan_kernel(": 2, "abt_kernel<": 2,
+# where more than one (B1, B7 and B11-cross run both directions in one
+# grid): B4 (csrc/cross_bwd.cu) two prefix sums (ligand rows, atoms) and per
+# direction a pair pass, a contraction and its reduction; B5 a target and a
+# source pass (csrc/pair_bwd.cu)
+GRIDS = {"cross_bwd": {"cross_wide_kernel(": 2, "exclusive_scan_kernel(": 2, "abt_kernel<": 2,
                        "abt_reduce_kernel(": 2},
          "pair_bwd": {"pair_bwd_kernel(": 2}}
 # calls that read to the host (B4 reads its pair count to size its scratch):
@@ -614,8 +620,9 @@ def phase_kernels(torch, params, s_np, results):
 
 
 def cross_block_report(torch, TC, name, wrapper, a):
-    """B1 (name "cross_conv") or B7 ("cross_conv_fin") after its timing: two
-    more calls must give the same bits; then its two kinds of block (al: g_l
+    """B1 (name "cross_conv"), B7 ("cross_conv_fin") or B11-cross
+    ("cross_conv_bf16") after its timing: two more calls must give the same
+    bits; then its two kinds of block (al: g_l
     ligand rows; la: g_a atoms): per kind the blocks, those with a pair
     (working), their 64-pair tiles and how full they are (the plan model,
     cross_tile_plan, on these inputs), the share of the blocks' clock64()
@@ -634,7 +641,7 @@ def cross_block_report(torch, TC, name, wrapper, a):
         if name == "cross_conv_fin":
             TC._cross_fin_kernel(*a, cycles=cycles)
         else:
-            d = TC._cross_inputs(*a)
+            d = TC._cross_inputs(*a, bf16_chain=name == "cross_conv_bf16")
             TC._cross_conv_kernel(TC._library(), *d[:5], d[5:], TC._stream(), cycles=cycles)
         torch.cuda.synchronize()
     cyc = cycles.double().cpu()
@@ -658,6 +665,68 @@ def cross_block_report(torch, TC, name, wrapper, a):
               f"{100 * out[kind]['cycle_share']:.1f}% of the block cycles, longest block "
               f"{out[kind]['longest_over_working_mean']:.2f}x the working mean", flush=True)
     return out
+
+
+def knn_block_report(torch, TC, wrapper, a):
+    """B11-knn after its timing: two more calls must give the same bits;
+    then its blocks (g_k atoms each): the blocks, those with a pair
+    (working), their 64-pair tiles and how full they are (the plan model,
+    knn_tile_plan, on these inputs), the share of the blocks' clock64()
+    cycles that the working blocks take (one launch with `cycles`), the
+    longest block against the working mean; g_k and the block's shared
+    memory."""
+    _, pos, x, _, idx, valid, temb, p = a
+    with torch.no_grad():
+        one, two = wrapper(*a), wrapper(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(one, two):
+            raise AssertionError("knn_conv_bf16: two calls gave different bits")
+        stats = TC.knn_conv_stats["knn_conv_bf16"]
+        g_k = stats["atom_rows"]
+        plan = TC.knn_tile_plan(idx, valid, g_k)
+        cycles = torch.zeros(len(plan), dtype=torch.int64, device=DEV)
+        d = TC._knn_inputs(a[0], pos, x, idx, valid, temb, p, True)
+        TC._knn_conv_kernel(TC._library(), *d[:4], d[4:], TC._stream(), cycles=cycles)
+        torch.cuda.synchronize()
+    cyc = cycles.double().cpu()
+    sel = list(range(len(plan)))
+    work = [i for i in sel if plan[i].tiles["knn"]]
+    tiles = sum(len(blk.tiles["knn"]) for blk in plan)
+    pairs = sum(len(t) for blk in plan for t in blk.tiles["knn"])
+    c = cyc[work] if work else cyc
+    out = {"atom_rows": g_k, "smem_bytes": stats["smem_bytes"], "same_bits": True,
+           "blocks": len(sel), "working": len(work), "tiles": tiles, "pairs": pairs,
+           "tile_fill": pairs / max(1, tiles * TC.WIDE_TILE),
+           "working_cycle_share": float(c.sum() / cyc.sum()),
+           "longest_over_working_mean": float(c.max() / c.mean()),
+           "tiles_per_block_max": max(len(blk.tiles["knn"]) for blk in plan)}
+    print(f"    g_k {g_k} atoms per block, {out['smem_bytes']} bytes of shared memory; two calls "
+          f"bit-identical", flush=True)
+    print(f"    knn blocks: {len(sel)} blocks ({len(work)} working, "
+          f"{100 * out['working_cycle_share']:.1f}% of the block cycles), {tiles} tiles of {pairs} "
+          f"pairs ({100 * out['tile_fill']:.1f}% full, at most {out['tiles_per_block_max']} a "
+          f"block), longest block {out['longest_over_working_mean']:.2f}x the working mean",
+          flush=True)
+    return out
+
+
+def graph_same(torch, fn):
+    """A CUDA graph captures one call of `fn` and replays it: the replay's
+    output must equal an eager call's, bit for bit."""
+    with torch.no_grad():
+        eager = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+    eager, out = ((v if isinstance(v, tuple) else (v,)) for v in (eager, out))
+    return all(torch.equal(p, q) for p, q in zip(eager, out))
 
 
 def grad_inputs(name, args, names=None):
@@ -1639,6 +1708,17 @@ def phase_bf16_kernels(torch, params, s_np, results, bf16_rate):
             if not BF16_GATE < ctl:
                 raise AssertionError(f"{name} layer {layer}: the gate {BF16_GATE:g} cannot tell "
                                      f"the bf16 chain from f32 (control {ctl:.3e})")
+            if name == "pair_conv_bf16":
+                continue
+            # the wide-tile kernels: same bits, graph capture, their blocks
+            fn = functools.partial(wrapper[name], *a)
+            if not graph_same(torch, fn):
+                raise AssertionError(f"{name} layer {layer}: a CUDA graph's replay differs")
+            print("    a CUDA graph captures the call; its replay gives the same bits", flush=True)
+            row["graph_same"] = True
+            row["blocks"] = (cross_block_report(torch, TC, name, wrapper[name], a)
+                             if name == "cross_conv_bf16" else
+                             knn_block_report(torch, TC, wrapper[name], a))
 
 
 def phase_bf16_forward(torch, np, sn, TC, params, s_np):
@@ -2224,7 +2304,8 @@ def main() -> int:
                      "device_ms_method": main_row["device_ms_method"],
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
-                     "layer": 5, "batch": 16})
+                     "layer": 5, "batch": 16,
+                     **({"blocks": main_row["blocks"]} if "blocks" in main_row else {})})
     for name in sorted(k for k in per_kernel if k.startswith("probe_bf16/")):
         r = per_kernel[name]
         # 8192 x 1024 elements, 2000 steps; launches from its measurement

@@ -42,6 +42,7 @@ namespace dbfr {
 
 constexpr int kWideTile = 64;              // pairs per block
 constexpr int kWideS = kWideTile + 4;      // pair stride of the feature-major tiles
+constexpr int kWideSW = kWideS / 2;  // and of a bf16 tile, in 32-bit words (two pairs each)
 constexpr int kWideKT = 16;                // weight rows per cp.async stage
 constexpr int kTpD = 5;  // largest component count of a TP path (l <= 2)
 constexpr int kWideU = 8;  // global loads per thread issued together before use
@@ -165,8 +166,10 @@ __device__ __forceinline__ void stage_weights(float* dst, const float* __restric
 // (bias[n]), or, with bias_b, per pair's sample (bias[bias_b[p] * N + n]).
 // act: 0 none, 1 ReLU, 2 keep where mask[n][p] > 0 (mask may be out: each
 // element is read by the thread that writes it). Pairs at and beyond
-// nvalid get 0. Starts and ends with a barrier.
-template <int J>
+// nvalid get 0. BF_OUT: out is a bf16 tile [rows][kWideSW words] (two pairs
+// per word, the first in the low half) of the results rounded to nearest
+// even. Starts and ends with a barrier.
+template <int J, bool BF_OUT = false>
 __device__ __noinline__ void wide_gemm_j(const float* in, int K, const float* __restrict__ W,
                                          int N, const float* __restrict__ bias,
                                          const int* bias_b, int act, const float* mask,
@@ -245,20 +248,31 @@ __device__ __noinline__ void wide_gemm_j(const float* in, int K, const float* __
       if (act == 2 && !(mask[n * kWideS + p0 + i] > 0.f)) x = 0.f;
       v[i] = p0 + i < nvalid ? x : 0.f;
     }
-    float* o = out + n * kWideS + p0;
-    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    if constexpr (BF_OUT) {
+      uint32_t q[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        q[i] = (uint32_t)to_bf16_bits(v[2 * i]) | ((uint32_t)to_bf16_bits(v[2 * i + 1]) << 16);
+      uint2* o = reinterpret_cast<uint2*>(reinterpret_cast<uint32_t*>(out) + n * kWideSW + p0 / 2);
+      o[0] = make_uint2(q[0], q[1]);
+      o[1] = make_uint2(q[2], q[3]);
+    } else {
+      float* o = out + n * kWideS + p0;
+      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
+    }
   }
   __syncthreads();
 }
 
+template <bool BF_OUT = false>
 __device__ __forceinline__ void wide_gemm(const float* in, int K, const float* __restrict__ W,
                                           int N, const float* __restrict__ bias,
                                           const int* bias_b, int act, const float* mask,
                                           float* out, int nvalid, float* ws) {
 #define DBFR_WIDE_J(j) \
   case j:              \
-    wide_gemm_j<j>(in, K, W, N, bias, bias_b, act, mask, out, nvalid, ws); \
+    wide_gemm_j<j, BF_OUT>(in, K, W, N, bias, bias_b, act, mask, out, nvalid, ws); \
     break;
   switch ((N + 31) / 32) {
     DBFR_WIDE_J(1)

@@ -22,6 +22,22 @@
 // cp.async stages, two deep.
 // Bound on the H100: fp32 FMA in the MLPs (operations); the TP is ~2% of
 // them, its source rows staged in shared memory 32 pairs at a time.
+//
+// BF (B11-cross, cross_conv.cu; B11-knn, knn_conv.cu): the bf16 depthwise
+// chain of the JAX kernels with dw_dtype='bfloat16' (diffbindfr_tpu/nn/
+// pallas_conv_t.py:222-250, _dw_paths_t), rounded where trunk_conv.cuh's
+// 32-pair B11 body rounds: the target and/or source scalars enter the
+// TP-weight MLP rounded to bf16 (ConvArgs::bf_tgt_sc, bf_src_sc); the MLPs
+// stay fp32; w = Wf2^T h + bf2 and cb = ck^T sh leave their products
+// rounded to bf16, as packed tiles [rows][kWideSW words] (a masked pair
+// never reaches the list, so w * mask is w); the tile's source rows are
+// staged as bf16 in the same layout, all 64 pairs at once; and thread o
+// runs output column o's chain two pairs per bf16x2 register in the
+// reference's order, bs = x_i * w, t = bs * cb_i, z = z + t over i
+// ascending, each product and sum rounded once (bf16x2.cuh: mul.rn and
+// add.rn, never an fma), then adds each half to its target's fp32 running
+// sum in list order. Half-size w and cb tiles leave p2 the size of e, so a
+// block holds more rows of sums (fwd_plan).
 #pragma once
 
 #include "conv_bwd_wide.cuh"
@@ -35,7 +51,8 @@ constexpr int kTpPairs = 32;  // source rows staged per step of the TP
 // Shared-memory plan of a forward wide block, in 4-byte words. p1: h1, h,
 // then cb (and the finalize's output rows); p2: the edge input, e, then w
 // (and the finalize's mix weights); ws: the weight stages, then the TP's
-// staged source rows.
+// staged source rows. With a.bf16_chain (BF) w, cb and the source rows are
+// bf16 tiles of kWideSW words per row.
 struct FwdPlan {
   int p1, p2, sh, ws, ck, acc, oacc, stats, list, misc, words;
 };
@@ -43,11 +60,17 @@ struct FwdPlan {
 __host__ __device__ inline FwdPlan fwd_plan(const ConvArgs& a, int mode) {
   FwdPlan p;
   const int ke = a.gs_n + a.nb;
-  p.p1 = imax(imax(imax(a.he, a.hf), a.kdim) * kWideS, round4(a.g * a.out_dim));
-  p.p2 = imax(imax(imax(ke, 3 * a.ns), a.nw) * kWideS, round4(a.mix_numel));
+  const int ws = round4(2 * kWideKT * 32 * ((imax(imax(a.he, a.ns), imax(a.hf, a.nw)) + 31) / 32));
+  if (a.bf16_chain) {
+    p.p1 = imax(imax(imax(a.he, a.hf) * kWideS, round4(a.kdim * kWideSW)), round4(a.g * a.out_dim));
+    p.p2 = imax(imax(imax(ke, 3 * a.ns) * kWideS, round4(a.nw * kWideSW)), round4(a.mix_numel));
+    p.ws = imax(ws, round4(a.din * kWideSW));
+  } else {
+    p.p1 = imax(imax(imax(a.he, a.hf), a.kdim) * kWideS, round4(a.g * a.out_dim));
+    p.p2 = imax(imax(imax(ke, 3 * a.ns), a.nw) * kWideS, round4(a.mix_numel));
+    p.ws = imax(ws, kTpPairs * round4(a.din));
+  }
   p.sh = 9 * kWideS;
-  p.ws = imax(round4(2 * kWideKT * 32 * ((imax(imax(a.he, a.ns), imax(a.hf, a.nw)) + 31) / 32)),
-              kTpPairs * round4(a.din));
   p.ck = round4(9 * a.kdim);
   p.acc = round4(a.g * a.dout);
   p.oacc = round4(a.g * a.out_dim);
@@ -180,13 +203,77 @@ __device__ __forceinline__ void tile_messages(const ConvArgs& a, int b, int nval
   }
 }
 
+// BF: the messages of the tile's pairs 0 .. nvalid - 1 through the bf16
+// chain, added in order to their targets' sums. w (p2) and cb (p1) are bf16
+// tiles; the source rows are staged here as one more, [din][kWideSW words]
+// in the weight-stage region (pairs beyond nvalid zero). Thread o owns
+// output column o and reads four pairs of a row as one uint2 (a half-warp's
+// consecutive rows, kWideSW = 34 words apart, then fill the 32 banks once):
+// two bf16x2 chains, then each half into the running sum of its target,
+// which is added to acc[target][o] when the target changes, as
+// tile_messages does. Starts after, and ends with, a barrier.
+__device__ __forceinline__ void tile_messages_bf16(const ConvArgs& a, int b, int nvalid,
+                                                   const FwdRegions& F) {
+  const uint32_t* cb = reinterpret_cast<const uint32_t*>(F.p1);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(F.p2);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(F.ws);
+  const int4* meta = reinterpret_cast<const int4*>(a.out_meta);
+  const float* xb = a.src_x + (size_t)b * a.nsrc * a.din;
+  const int nw4 = (nvalid + 3) / 4 * 2;  // words of the pairs the chain reads
+  for (int i = threadIdx.x; i < nw4 * a.din; i += kThreads) {
+    const int q = i / a.din, c = i % a.din;  // consecutive threads: one pair's row
+    const int p = 2 * q;
+    const float v0 = p < nvalid ? __ldg(xb + (size_t)F.sl_s[p] * a.din + c) : 0.f;
+    const float v1 = p + 1 < nvalid ? __ldg(xb + (size_t)F.sl_s[p + 1] * a.din + c) : 0.f;
+    xs[c * kWideSW + q] = (uint32_t)to_bf16_bits(v0) | ((uint32_t)to_bf16_bits(v1) << 16);
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < a.dout; o += kThreads) {
+    const int4 m0 = meta[2 * o];      // a_base, mul, d1, w_idx
+    const int4 m1 = meta[2 * o + 1];  // cb_base, d3
+    const uint32_t* wr = w + m0.w * kWideSW;
+    int cur = F.sl_own[0];
+    float run = 0.f;
+    for (int j0 = 0; j0 < nvalid; j0 += 4) {
+      const int q = j0 / 2;
+      const uint2 wv = *reinterpret_cast<const uint2*>(wr + q);
+      uint32_t z0 = 0u, z1 = 0u;
+#pragma unroll
+      for (int i = 0; i < kTpD; ++i) {
+        if (i >= m0.z) break;
+        const uint2 x = *reinterpret_cast<const uint2*>(xs + (m0.x + i * m0.y) * kWideSW + q);
+        const uint2 c = *reinterpret_cast<const uint2*>(cb + (m1.x + i * m1.y) * kWideSW + q);
+        const uint32_t t0 = mul_bf16x2(mul_bf16x2(x.x, wv.x), c.x);
+        const uint32_t t1 = mul_bf16x2(mul_bf16x2(x.y, wv.y), c.y);
+        z0 = i == 0 ? t0 : add_bf16x2(z0, t0);
+        z1 = i == 0 ? t1 : add_bf16x2(z1, t1);
+      }
+      const float zf[4] = {lo_f32(z0), hi_f32(z0), lo_f32(z1), hi_f32(z1)};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (j0 + u >= nvalid) break;
+        const int own = F.sl_own[j0 + u];
+        if (own != cur) {
+          F.R.acc[cur * a.dout + o] += run;
+          run = 0.f;
+          cur = own;
+        }
+        run += zf[u];
+      }
+    }
+    F.R.acc[cur * a.dout + o] += run;
+  }
+  __syncthreads();
+}
+
 // The masked message sums of targets t0 .. t0 + g - 1 of sample b into
 // F.R.acc [g][dout] (zeroed here). MODE: kDense (every source of the other
-// side, the ConvArgs' mask rules) or kKnn (the neighbour slots). Ends after
-// a barrier. Inlined into its kernel, so that the block's pointers and
+// side, the ConvArgs' mask rules) or kKnn (the neighbour slots); BF: the
+// bf16 chain (a.bf16_chain set, the plan fwd_plan gives it). Ends after a
+// barrier. Inlined into its kernel, so that the block's pointers and
 // sizes stay in registers: through a call they live in local memory and are
 // reloaded after every store to shared memory.
-template <int MODE>
+template <int MODE, bool BF = false>
 __device__ __forceinline__ void wide_conv_sums(const ConvArgs& a, int b, int t0,
                                                const FwdRegions& F) {
   const int tid = threadIdx.x;
@@ -262,6 +349,8 @@ __device__ __forceinline__ void wide_conv_sums(const ConvArgs& a, int b, int t0,
         const int p = imin(i / (2 * ns), nvalid - 1), r = i % (2 * ns);
         v[u] = r < ns ? a.tgt_x[((size_t)b * a.nt + F.sl_t[p]) * a.din + r]
                       : a.src_x[((size_t)b * a.nsrc + F.sl_s[p]) * a.din + (r - ns)];
+        if (BF && (r < ns ? a.bf_tgt_sc : a.bf_src_sc))
+          v[u] = __bfloat162float(__float2bfloat16_rn(v[u]));
       }
 #pragma unroll
       for (int u = 0; u < kWideU; ++u) {
@@ -270,20 +359,38 @@ __device__ __forceinline__ void wide_conv_sums(const ConvArgs& a, int b, int t0,
         if (i < 2 * ns * kWideTile) F.p2[(ns + r) * kWideS + p] = p < nvalid ? v[u] : 0.f;
       }
     }
-    // 5. TP-weight MLP: h -> p1, w -> p2
+    // 5. TP-weight MLP: h -> p1, w -> p2 (BF: a bf16 tile)
     wide_gemm(F.p2, 3 * ns, a.wf1, a.hf, a.bf1, nullptr, 1, nullptr, F.p1, nvalid, F.ws);
-    wide_gemm(F.p1, a.hf, a.wf2, a.nw, a.bf2, nullptr, 0, nullptr, F.p2, nvalid, F.ws);
-    // 6. cb = ck^T sh -> p1 (h is used up)
-    for (int i = tid; i < a.kdim * kWideTile; i += kThreads) {
-      const int r = i / kWideTile, p = i % kWideTile;
-      float v = 0.f;
+    wide_gemm<BF>(F.p1, a.hf, a.wf2, a.nw, a.bf2, nullptr, 0, nullptr, F.p2, nvalid, F.ws);
+    // 6. cb = ck^T sh -> p1 (h is used up); BF: a bf16 tile, two pairs per word
+    if constexpr (BF) {
+      uint32_t* cbw = reinterpret_cast<uint32_t*>(F.p1);
+      for (int i = tid; i < a.kdim * (kWideTile / 2); i += kThreads) {
+        const int r = i / (kWideTile / 2), q = i % (kWideTile / 2);
+        float v0 = 0.f, v1 = 0.f;
 #pragma unroll
-      for (int m = 0; m < 9; ++m) v = fmaf(F.shs[m * kWideS + p], F.ck[m * a.kdim + r], v);
-      F.p1[r * kWideS + p] = v;
+        for (int m = 0; m < 9; ++m) {
+          const float ck = F.ck[m * a.kdim + r];
+          v0 = fmaf(F.shs[m * kWideS + 2 * q], ck, v0);
+          v1 = fmaf(F.shs[m * kWideS + 2 * q + 1], ck, v1);
+        }
+        cbw[r * kWideSW + q] = (uint32_t)to_bf16_bits(v0) | ((uint32_t)to_bf16_bits(v1) << 16);
+      }
+    } else {
+      for (int i = tid; i < a.kdim * kWideTile; i += kThreads) {
+        const int r = i / kWideTile, p = i % kWideTile;
+        float v = 0.f;
+#pragma unroll
+        for (int m = 0; m < 9; ++m) v = fmaf(F.shs[m * kWideS + p], F.ck[m * a.kdim + r], v);
+        F.p1[r * kWideS + p] = v;
+      }
     }
     __syncthreads();
     // 7. the messages, summed per target in list order
-    tile_messages(a, b, nvalid, F);
+    if constexpr (BF)
+      tile_messages_bf16(a, b, nvalid, F);
+    else
+      tile_messages(a, b, nvalid, F);
   }
 }
 

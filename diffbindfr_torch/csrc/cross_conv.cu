@@ -42,16 +42,17 @@
 // cycles there (grid order), for the share of each kind of block.
 //
 // B11-cross: dbfr_cross_conv_bf16 is B1 with the bf16 depthwise chain of
-// make_cross_conv_t(dw_dtype='bfloat16') on the 32-pair body
-// (trunk_conv.cuh conv_sums<., true>), one launch per direction: the ligand
-// rows move rounded to bf16 (pallas_conv_t.py:584-585), so their scalars
-// enter both TP-weight MLPs rounded (the al pass's targets, the la pass's
-// sources), the atom rows exact (:590-593); the la sums stay fp32
-// (:640-649).
+// make_cross_conv_t(dw_dtype='bfloat16'): the same one-launch grid (al
+// blocks, then la blocks) on conv_fwd_wide.cuh's chain with BF set. The
+// ligand rows move rounded to bf16 (pallas_conv_t.py:584-585), so their
+// scalars enter both TP-weight MLPs rounded (al blocks: the targets; la
+// blocks: the sources), the atom scalars exact (:590-593); the la sums stay
+// fp32 (:640-649). Its half-size w and cb tiles leave room for more atoms
+// per la block than B1 holds (the BF plan, fwd_plan).
 //
-// B1's and B7's arguments come as arrays indexed by the enums below, which
-// diffbindfr_torch/nn/trunk_convs.py (CROSS_PTRS, CROSS_INTS) mirrors name
-// for name.
+// B1's, B7's and B11-cross's arguments come as arrays indexed by the enums
+// below, which diffbindfr_torch/nn/trunk_convs.py (CROSS_PTRS, CROSS_INTS)
+// mirrors name for name.
 #include "conv_fwd_wide.cuh"
 
 namespace {
@@ -89,14 +90,15 @@ __host__ __device__ inline dbfr::FwdPlan cross_plan(const CrossArgs& C) {
   return p;
 }
 
-// The sums of targets t0 .. t0 + g - 1 of sample b in direction a, then
-// (FIN) their finalize, written to a.out. Inlined per direction, so that
-// the kernel parameters stay where the compiler can address them statically.
-template <bool FIN>
+// The sums of targets t0 .. t0 + g - 1 of sample b in direction a (BF: the
+// bf16 chain), then (FIN) their finalize, written to a.out. Inlined per
+// direction, so that the kernel parameters stay where the compiler can
+// address them statically.
+template <bool FIN, bool BF = false>
 __device__ __forceinline__ void cross_rows(const dbfr::ConvArgs& a, int b, int t0,
                                            dbfr::FwdRegions F) {
   using namespace dbfr;
-  wide_conv_sums<kDense>(a, b, t0, F);  // ends after a barrier: acc complete, ws free
+  wide_conv_sums<kDense, BF>(a, b, t0, F);  // ends after a barrier: acc complete, ws free
   if constexpr (FIN) {
     F.R.oacc = F.ws;
     F.R.stats = F.ws + round4(a.g * a.out_dim);
@@ -112,7 +114,7 @@ __device__ __forceinline__ void cross_rows(const dbfr::ConvArgs& a, int b, int t
 }
 
 // One 1-D grid: the al blocks of every sample, then the la blocks.
-template <bool FIN>
+template <bool FIN, bool BF = false>
 __device__ __forceinline__ void cross_block(const CrossArgs& C) {
   using namespace dbfr;
   const long long c0 = clock64();
@@ -120,10 +122,10 @@ __device__ __forceinline__ void cross_block(const CrossArgs& C) {
   const int al_blocks = C.batch * C.n_al_blocks;
   if ((int)blockIdx.x < al_blocks) {
     const int b = blockIdx.x / C.n_al_blocks;
-    cross_rows<FIN>(C.al, b, (blockIdx.x % C.n_al_blocks) * C.al.g, F);
+    cross_rows<FIN, BF>(C.al, b, (blockIdx.x % C.n_al_blocks) * C.al.g, F);
   } else {
     const int i = blockIdx.x - al_blocks;
-    cross_rows<FIN>(C.la, i / C.n_la_blocks, (i % C.n_la_blocks) * C.la.g, F);
+    cross_rows<FIN, BF>(C.la, i / C.n_la_blocks, (i % C.n_la_blocks) * C.la.g, F);
   }
   if (C.cycles != nullptr && threadIdx.x == 0) C.cycles[blockIdx.x] = clock64() - c0;
 }
@@ -136,100 +138,89 @@ __global__ void __launch_bounds__(dbfr::kThreads, 1) cross_conv_fin_wide_kernel(
   cross_block<true>(C);
 }
 
-// B11-cross: one 32-pair-body launch per direction
-__global__ void __launch_bounds__(dbfr::kThreads, 2) cross_conv_bf16_kernel(dbfr::ConvArgs a) {
-  dbfr::conv_block<dbfr::kDense, true>(a);
+__global__ void __launch_bounds__(dbfr::kThreads, 1) cross_conv_bf16_wide_kernel(CrossArgs C) {
+  cross_block<false, true>(C);
 }
+
+const float* fp(const void* const* p, int i) { return (const float*)p[i]; }
 
 // the al direction (ligand rows are the targets, atoms the sources) and the
 // la direction (atoms are the targets, ligand rows the sources), without
-// finalize
-void cross_passes(
-    const void* lig_pos, const void* atm_pos, const void* lig_x, const void* atm_x,
-    const void* lig_mask, const void* atm_mask, const void* cabflag,
-    const void* cutoff, const void* w1, const void* b1, const void* w2,
-    const void* b2, const void* al_w1, const void* al_b1, const void* al_w2,
-    const void* al_b2, const void* la_w1, const void* la_b1, const void* la_w2,
-    const void* la_b2, const void* ck, const void* gs_off, const void* out_meta,
-    void* out_al, void* out_la, int nl, int na, int din, int dout,
-    int ns, int he, int hf, int nw, int kdim, int gs_n, float gs_coeff,
-    dbfr::ConvArgs* al_out, dbfr::ConvArgs* la_out) {
+// finalize, from the argument arrays
+void cross_directions(const void* const* p, const int* n, const float* f, CrossArgs* C) {
   dbfr::ConvArgs a = {};
-  a.cab = (const float*)cabflag;
-  a.cutoff = (const float*)cutoff;
-  a.w1 = (const float*)w1;
-  a.b1 = (const float*)b1;
-  a.w2 = (const float*)w2;
-  a.b2 = (const float*)b2;
-  a.ck = (const float*)ck;
-  a.gs_off = (const float*)gs_off;
-  a.out_meta = (const int*)out_meta;
-  a.din = din;
-  a.dout = dout;
-  a.nb = 0;
-  a.k = 0;
-  a.ns = ns;
-  a.he = he;
-  a.hf = hf;
-  a.nw = nw;
-  a.kdim = kdim;
-  a.gs_n = gs_n;
-  a.gs_coeff = gs_coeff;
-  a.exclude_self = 0;
+  a.cab = fp(p, P_CAB);
+  a.cutoff = fp(p, P_CUT);
+  a.w1 = fp(p, P_W_IN);
+  a.b1 = fp(p, P_BEFF);
+  a.w2 = fp(p, P_W2);
+  a.b2 = fp(p, P_B2);
+  a.ck = fp(p, P_CK);
+  a.gs_off = fp(p, P_GS_OFF);
+  a.out_meta = (const int*)p[P_OUT_META];
+  a.din = n[I_DIN];
+  a.dout = n[I_DOUT];
+  a.ns = n[I_NS];
+  a.he = n[I_HE];
+  a.hf = n[I_HF];
+  a.nw = n[I_NW];
+  a.kdim = n[I_KDIM];
+  a.gs_n = n[I_GS_N];
+  a.gs_coeff = f[F_GS_COEFF];
 
   // al: ligand rows are the targets, atoms the sources (vec = atom - ligand)
-  dbfr::ConvArgs al = a;
-  al.tgt_pos = (const float*)lig_pos;
-  al.src_pos = (const float*)atm_pos;
-  al.tgt_x = (const float*)lig_x;
-  al.src_x = (const float*)atm_x;
-  al.tgt_mask = (const float*)lig_mask;
-  al.src_mask = (const float*)atm_mask;
-  al.nt = nl;
-  al.nsrc = na;
-  al.cab_on_tgt = 0;
-  al.flip = 0;
-  al.wf1 = (const float*)al_w1;
-  al.bf1 = (const float*)al_b1;
-  al.wf2 = (const float*)al_w2;
-  al.bf2 = (const float*)al_b2;
-  al.out = (float*)out_al;
-  *al_out = al;
+  dbfr::ConvArgs& al = C->al;
+  al = a;
+  al.tgt_pos = fp(p, P_LIG_POS);
+  al.src_pos = fp(p, P_ATM_POS);
+  al.tgt_x = fp(p, P_LIG_X);
+  al.src_x = fp(p, P_ATM_X);
+  al.tgt_mask = fp(p, P_LIG_MASK);
+  al.src_mask = fp(p, P_ATM_MASK);
+  al.nt = n[I_NL];
+  al.nsrc = n[I_NA];
+  al.wf1 = fp(p, P_AL_W1);
+  al.bf1 = fp(p, P_AL_B1);
+  al.wf2 = fp(p, P_AL_W2);
+  al.bf2 = fp(p, P_AL_B2);
+  al.out = (float*)p[P_OUT_AL];
 
   // la: atoms are the targets, ligand rows the sources; flip keeps
   // vec = atom - ligand, so distances, masks and sh match the al direction
-  dbfr::ConvArgs la = a;
-  la.tgt_pos = (const float*)atm_pos;
-  la.src_pos = (const float*)lig_pos;
-  la.tgt_x = (const float*)atm_x;
-  la.src_x = (const float*)lig_x;
-  la.tgt_mask = (const float*)atm_mask;
-  la.src_mask = (const float*)lig_mask;
-  la.nt = na;
-  la.nsrc = nl;
+  dbfr::ConvArgs& la = C->la;
+  la = a;
+  la.tgt_pos = fp(p, P_ATM_POS);
+  la.src_pos = fp(p, P_LIG_POS);
+  la.tgt_x = fp(p, P_ATM_X);
+  la.src_x = fp(p, P_LIG_X);
+  la.tgt_mask = fp(p, P_ATM_MASK);
+  la.src_mask = fp(p, P_LIG_MASK);
+  la.nt = n[I_NA];
+  la.nsrc = n[I_NL];
   la.cab_on_tgt = 1;
   la.flip = 1;
-  la.wf1 = (const float*)la_w1;
-  la.bf1 = (const float*)la_b1;
-  la.wf2 = (const float*)la_w2;
-  la.bf2 = (const float*)la_b2;
-  la.out = (float*)out_la;
-  *la_out = la;
+  la.wf1 = fp(p, P_LA_W1);
+  la.bf1 = fp(p, P_LA_B1);
+  la.wf2 = fp(p, P_LA_W2);
+  la.bf2 = fp(p, P_LA_B2);
+  la.out = (float*)p[P_OUT_LA];
 }
 
-// B1 (FIN false) or B7: one launch of the wide-tile grid
+// B1 (neither flag), B7 (fin) or B11-cross (bf16): one launch of the
+// wide-tile grid
 int launch_wide(const void* const* p, int n_ptrs, const int* n, int n_ints, const float* f,
-                int n_floats, void* stream, bool fin) {
+                int n_floats, void* stream, bool fin, bool bf16) {
   using namespace dbfr;
   if (n_ptrs != P_COUNT || n_ints != I_COUNT || n_floats != F_COUNT) return -1;
   const int batch = n[I_BATCH], nl = n[I_NL], na = n[I_NA];
   CrossArgs C;
-  cross_passes(p[P_LIG_POS], p[P_ATM_POS], p[P_LIG_X], p[P_ATM_X], p[P_LIG_MASK], p[P_ATM_MASK],
-               p[P_CAB], p[P_CUT], p[P_W_IN], p[P_BEFF], p[P_W2], p[P_B2], p[P_AL_W1],
-               p[P_AL_B1], p[P_AL_W2], p[P_AL_B2], p[P_LA_W1], p[P_LA_B1], p[P_LA_W2],
-               p[P_LA_B2], p[P_CK], p[P_GS_OFF], p[P_OUT_META], (void*)p[P_OUT_AL],
-               (void*)p[P_OUT_LA], nl, na, n[I_DIN], n[I_DOUT], n[I_NS], n[I_HE], n[I_HF],
-               n[I_NW], n[I_KDIM], n[I_GS_N], f[F_GS_COEFF], &C.al, &C.la);
+  cross_directions(p, n, f, &C);
+  if (bf16) {
+    if (fin) return -1;
+    C.al.bf16_chain = C.la.bf16_chain = 1;
+    C.al.bf_tgt_sc = 1;  // the ligand rows: targets of al, sources of la
+    C.la.bf_src_sc = 1;
+  }
   if (fin) {
     if (n[I_OUT_DIM] < 1) return -1;
     set_fin(C.al, p[P_AL_FIN], p[P_AL_FIN + 1], p[P_AL_FIN + 2], p[P_AL_FIN + 3],
@@ -249,7 +240,9 @@ int launch_wide(const void* const* p, int n_ptrs, const int* n, int n_ints, cons
   C.cycles = (long long*)p[P_CYCLES];
   const int bytes = cross_plan(C).words * 4;
   if (bytes > kSmemWords * 4) return (int)cudaErrorInvalidValue;
-  void (*kernel)(CrossArgs) = fin ? cross_conv_fin_wide_kernel : cross_conv_wide_kernel;
+  void (*kernel)(CrossArgs) = fin    ? cross_conv_fin_wide_kernel
+                              : bf16 ? cross_conv_bf16_wide_kernel
+                                     : cross_conv_wide_kernel;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -262,35 +255,17 @@ int launch_wide(const void* const* p, int n_ptrs, const int* n, int n_ints, cons
 // B1: the two directions' sums
 extern "C" int dbfr_cross_conv(const void* const* p, int n_ptrs, const int* n, int n_ints,
                                const float* f, int n_floats, void* stream) {
-  return launch_wide(p, n_ptrs, n, n_ints, f, n_floats, stream, false);
+  return launch_wide(p, n_ptrs, n, n_ints, f, n_floats, stream, false, false);
 }
 
 // B7: the two directions' sums, finalized
 extern "C" int dbfr_cross_conv_fin(const void* const* p, int n_ptrs, const int* n, int n_ints,
                                    const float* f, int n_floats, void* stream) {
-  return launch_wide(p, n_ptrs, n, n_ints, f, n_floats, stream, true);
+  return launch_wide(p, n_ptrs, n, n_ints, f, n_floats, stream, true, false);
 }
 
-// B11-cross: both passes with the bf16 chain
-extern "C" int dbfr_cross_conv_bf16(
-    const void* lig_pos, const void* atm_pos, const void* lig_x, const void* atm_x,
-    const void* lig_mask, const void* atm_mask, const void* cabflag,
-    const void* cutoff, const void* w1, const void* b1, const void* w2,
-    const void* b2, const void* al_w1, const void* al_b1, const void* al_w2,
-    const void* al_b2, const void* la_w1, const void* la_b1, const void* la_w2,
-    const void* la_b2, const void* ck, const void* gs_off, const void* out_meta,
-    void* out_al, void* out_la, int batch, int nl, int na, int din, int dout,
-    int ns, int he, int hf, int nw, int kdim, int gs_n, float gs_coeff,
-    void* stream) {
-  dbfr::ConvArgs al, la;
-  cross_passes(lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask, cabflag, cutoff, w1, b1, w2,
-               b2, al_w1, al_b1, al_w2, al_b2, la_w1, la_b1, la_w2, la_b2, ck, gs_off, out_meta,
-               out_al, out_la, nl, na, din, dout, ns, he, hf, nw, kdim, gs_n, gs_coeff, &al, &la);
-  cudaStream_t st = (cudaStream_t)stream;
-  al.bf16_chain = la.bf16_chain = 1;
-  al.bf_tgt_sc = 1;  // the ligand rows: targets of al, sources of la
-  la.bf_src_sc = 1;
-  const int rc = dbfr::launch<dbfr::kDense>(cross_conv_bf16_kernel, al, batch, st);
-  if (rc != 0) return rc;
-  return dbfr::launch<dbfr::kDense>(cross_conv_bf16_kernel, la, batch, st);
+// B11-cross: the two directions' sums with the bf16 chain
+extern "C" int dbfr_cross_conv_bf16(const void* const* p, int n_ptrs, const int* n, int n_ints,
+                                    const float* f, int n_floats, void* stream) {
+  return launch_wide(p, n_ptrs, n, n_ints, f, n_floats, stream, false, true);
 }

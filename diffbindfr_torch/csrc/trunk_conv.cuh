@@ -1,15 +1,15 @@
 // Shared device code of the trunk-conv kernels (forward B2 pair, B3 knn, B8
-// and B9 with their finalize, and B11's bf16 chain for all three convs; the
-// backward kernel B5 builds on it in trunk_conv_bwd.cuh; B1, B7 and B10
-// (conv_fwd_wide.cuh) and B4 and B6 (conv_bwd_wide.cuh) take its geometry,
-// mask decisions and pair compaction): one block gathers the valid (target,
+// and B9 with their finalize, and B11-pair's bf16 chain; the backward
+// kernel B5 builds on it in trunk_conv_bwd.cuh; B1, B7, B10, B11-cross and
+// B11-knn (conv_fwd_wide.cuh) and B4 and B6 (conv_bwd_wide.cuh) take its
+// geometry, mask decisions and pair compaction): one block gathers the valid (target,
 // source) pairs of its g owned nodes, then runs the whole per-pair chain on
 // chunks of 32 pairs in shared memory and sums per owned node. A chunk is
 // latency-bound (weight tiles stream through shared memory between
 // barriers), so blocks in flight matter as much as full chunks: dense blocks
 // take several owned nodes only when the owned side is long and the other
-// side short (B11-cross's la pass: 1024 atoms x 128 ligand rows); see
-// launch().
+// side short (none of the convs left on this body: the pair conv's 128
+// ligand rows take one each); see launch().
 //
 // Per pair: distance -> mask -> 32-bin Gaussian (+ bond features) -> edge
 // MLP -> [attr | tgt scalars | src scalars] -> TP-weight MLP -> l<=2
@@ -26,7 +26,9 @@
 // block's complete sums.
 //
 // B11, the bf16 chain (conv_sums<MODE, true>; the JAX kernels with
-// dw_dtype='bfloat16', diffbindfr_tpu/nn/pallas_conv_t.py:200-250): the MLPs
+// dw_dtype='bfloat16', diffbindfr_tpu/nn/pallas_conv_t.py:200-250), which
+// serves B11-pair alone (B11-cross and B11-knn run conv_fwd_wide.cuh's
+// 64-pair tiles with the same rounding points): the MLPs
 // stay fp32, but the TP weights w and the cb rows leave their products as
 // bf16 tiles, the source rows are staged as bf16 beside them (half the
 // footprint of fp32 tiles: they fit the fp32 plan's regions), the target
@@ -602,9 +604,9 @@ __device__ __forceinline__ void conv_block(const ConvArgs& a) {
 template <int MODE>
 inline int launch(void (*kernel)(ConvArgs), ConvArgs a, int batch, cudaStream_t st) {
   // measured on the H100 (PERF.md) while B1 ran on this body: grouping the
-  // la pass's 1024 atom targets took B1 from 8.46 to 7.25 ms (the rule now
-  // serves B11-cross's la pass), grouping the 128 ligand rows of B2 slowed
-  // it from 0.57 to 0.85 ms (fewer blocks in flight)
+  // la pass's 1024 atom targets took B1 from 8.46 to 7.25 ms, grouping the
+  // 128 ligand rows of B2 slowed it from 0.57 to 0.85 ms (fewer blocks in
+  // flight)
   a.g = group_size(a, MODE);
   const Plan pl = make_plan(a, MODE);
   const int bytes = pl.words * 4;

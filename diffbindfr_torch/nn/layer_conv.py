@@ -162,8 +162,8 @@ def layer_tile_plan(lig_pos, atm_pos, lig_mask, atm_mask, cab, lig_cut, cross_cu
     pair, cross = _dense_masks(lig_pos, atm_pos, lig_mask, atm_mask, cab, lig_cut, cross_cutoff,
                                bond_mask)
     idx = atm_idx.long()
-    knn = (atm_valid > 0) & (idx >= 0) & (idx < na)
-    masks = {"lig": pair, "al": cross, "la": cross.transpose(1, 2), "atom": knn}
+    masks = {"lig": pair, "al": cross, "la": cross.transpose(1, 2),
+             "atom": TC.knn_valid(idx, atm_valid)}
     blocks = []
     for kind, convs, n, g in (("lig", ("lig", "al"), nl, g_l), ("atom", ("atom", "la"), na, g_a)):
         for b in range(bsz):

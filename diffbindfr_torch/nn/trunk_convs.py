@@ -55,15 +55,19 @@ edge input (`_prep_edge`) stays in the autograd graph, so the backward
 kernels return gradients of (w_in, b_eff) and of the MLPs, and autograd maps
 them to the parameter tree. What bounds the kernels on the H100 and what
 their design does about it is in csrc/trunk_conv.cuh, csrc/trunk_conv_bwd.cuh
-(B5), csrc/conv_fwd_wide.cuh (B1, B7: one grid of 64-pair tiles for both
-directions, rows per block from cross_row_groups), csrc/conv_bwd_wide.cuh
+(B5), csrc/conv_fwd_wide.cuh (B1, B7 and B11-cross: one grid of 64-pair
+tiles for both directions, rows per block from cross_row_groups; B11-knn:
+a knn grid of its own, atoms per block from knn_row_groups; B11's bf16
+chain runs in the same tiles), csrc/conv_bwd_wide.cuh
 and csrc/abt_gemm.cuh (B4, B6) and the kernel sources. B4's and B6's plain
 versions, cross_bwd_plain and knn_bwd_plain, are models of their kernels'
 decomposition (pair list, per-pair rows, contractions, node sums) that
 cross_bwd and knn_bwd run on CPU tensors; B5 is held to autograd through the
-plain forward. B1's and B7's block and tile plan has its plain model in
-cross_tile_plan and cross_conv_tiled_plain / cross_conv_fin_tiled_plain,
-which the CPU tests hold against the plain versions and the JAX twin.
+plain forward. B1's, B7's and B11-cross's block and tile plan has its
+plain model in cross_tile_plan and cross_conv_tiled_plain (bf16_chain for
+B11-cross) / cross_conv_fin_tiled_plain, B11-knn's in knn_tile_plan and
+knn_conv_tiled_plain, which the CPU tests hold against the plain versions
+and the JAX kernels.
 """
 from __future__ import annotations
 
@@ -475,7 +479,7 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "dbfr_pair_conv": [_P] * 7 + [_I] + [_P] * 15 + [_I] * 12 + [_F, _I, _I, _P],
     "dbfr_cross_conv": [_P, _I, _P, _I, _P, _I, _P],
-    "dbfr_cross_conv_bf16": [_P] * 25 + [_I] * 11 + [_F, _P],
+    "dbfr_cross_conv_bf16": [_P, _I, _P, _I, _P, _I, _P],
     "dbfr_knn_conv": [_P] * 17 + [_I] * 11 + [_F, _P],
     "dbfr_pair_bwd": [_P] * 7 + [_I] + [_P] * 23 + [_I] * 12 + [_F, _I, _I, _P],
     "dbfr_cross_pairs": [_P] * 11 + [_I] * 3 + [_P],
@@ -486,10 +490,11 @@ _ARGTYPES = {
     "dbfr_cross_conv_fin": [_P, _I, _P, _I, _P, _I, _P],
     "dbfr_knn_conv_fin": [_P] * 17 + [_I] * 11 + [_F] + [_P] * 7 + [_I] * 3 + [_P],
     "dbfr_layer_conv": [_P, _I, _P, _I, _P, _I, _P],
+    # B11-knn: B3's arguments, then atoms per block and the per-block cycles
+    "dbfr_knn_conv_bf16": [_P] * 17 + [_I] * 11 + [_F, _I, _P, _P],
 }
-# B11-pair and B11-knn: the same arguments as B2 and B3
-for _name in ("pair", "knn"):
-    _ARGTYPES[f"dbfr_{_name}_conv_bf16"] = _ARGTYPES[f"dbfr_{_name}_conv"]
+# B11-pair: the same arguments as B2
+_ARGTYPES["dbfr_pair_conv_bf16"] = _ARGTYPES["dbfr_pair_conv"]
 # the widest matrix a kernel thread tiles (kMaxJ * 32 columns, trunk_conv.cuh)
 _MAX_COLS = 320
 # persistent blocks of B5's target pass: rows of its parameter-gradient
@@ -794,29 +799,14 @@ class _CrossConvFn(torch.autograd.Function):
 
 
 def _cross_conv_kernel(lib, data, lig_x, atm_x, w_in, beff, weights, stream, cycles=None):
-    """B1: one launch of the wide-tile grid (_cross_wide); with the data's
-    bf16_chain, B11-cross: the 32-pair body, one launch per direction."""
-    c, d = data.c, data
-    if not d.bf16_chain:
-        return _cross_wide(lib, "cross_conv", data, lig_x, atm_x, w_in, beff, weights, stream,
-                           cycles=cycles)
-    bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
-    he, hf, nw, kdim = d.dims
-    ck, gs_off, meta = c.device_tables(lig_x.device)
-    al = torch.zeros(bsz, nl, c.dout, dtype=torch.float32, device=lig_x.device)
-    la = torch.zeros(bsz, na, c.dout, dtype=torch.float32, device=lig_x.device)
-    rc = lib.dbfr_cross_conv_bf16(
-        _ptr(d.lig_pos), _ptr(d.atm_pos), _ptr(lig_x), _ptr(atm_x), _ptr(d.lig_mask),
-        _ptr(d.atm_mask), _ptr(d.cab), _ptr(d.cut), _ptr(w_in), _ptr(beff),
-        *[_ptr(v) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(al), _ptr(la),
-        bsz, nl, na, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, stream)
-    _check(rc, "cross_conv_bf16")
-    launches["cross_conv_bf16"] += 1
-    return al, la
+    """B1, or with the data's bf16_chain B11-cross: one launch of the
+    wide-tile grid (_cross_wide)."""
+    name = "cross_conv_bf16" if data.bf16_chain else "cross_conv"
+    return _cross_wide(lib, name, data, lig_x, atm_x, w_in, beff, weights, stream, cycles=cycles)
 
 
-# Order of B1's and B7's pointer and int arguments: the enums CrossPtr and
-# CrossInt of csrc/cross_conv.cu, name for name.
+# Order of B1's, B7's and B11-cross's pointer and int arguments: the enums
+# CrossPtr and CrossInt of csrc/cross_conv.cu, name for name.
 _FIN_KEYS = ("cnt", "mix", "ln_w", "ln_ms", "ln_b")
 _CROSS_WEIGHTS = ("w2", "b2", *[f"{d}_{w}" for d in ("al", "la") for w in ("w1", "b1", "w2", "b2")])
 CROSS_PTRS = (
@@ -826,17 +816,19 @@ CROSS_PTRS = (
 CROSS_INTS = ("batch", "nl", "na", "din", "dout", "ns", "he", "hf", "nw", "kdim", "gs_n",
               "out_dim", "n_slots", "mix_numel", "lig_rows", "atom_rows")
 
-# what the last B1 / B7 launch on the card used, by launch counter: rows per
-# block (g_l, g_a) and the block's shared memory (chip_smoke.py reports them)
+# what the last B1 / B7 / B11-cross launch on the card used, by launch
+# counter: rows per block (g_l, g_a) and the block's shared memory
+# (chip_smoke.py reports them)
 cross_conv_stats: dict = {}
 
 
 def _cross_wide(lib, name, data, lig_x, atm_x, w_in, beff, weights, stream, fin=None,
                 fin_ts=(), cycles=None):
     """One launch of csrc/cross_conv.cu's wide-tile grid: B1 (name
-    "cross_conv": the two directions' sums) or B7 ("cross_conv_fin": fin a
-    FinConsts, fin_ts the al and la finalize tensors of _fin_ptrs), the rows
-    per block from cross_row_groups. `cycles`, an int64 tensor of one entry
+    "cross_conv": the two directions' sums), B11-cross ("cross_conv_bf16":
+    the same with the bf16 chain) or B7 ("cross_conv_fin": fin a FinConsts,
+    fin_ts the al and la finalize tensors of _fin_ptrs), the rows per block
+    from cross_row_groups. `cycles`, an int64 tensor of one entry
     per block (cross_tile_plan's order), receives each block's clock64()
     cycles (chip_smoke.py's share of each kind of block)."""
     c, d, dev = data.c, data, lig_x.device
@@ -862,6 +854,7 @@ def _cross_wide(lib, name, data, lig_x, atm_x, w_in, beff, weights, stream, fin=
         t.update(mix_meta=mix_meta, ln_slots=ln_slots)
         for side, ts in zip(("al", "la"), fin_ts):
             t.update({f"{side}_{k}": v for k, v in zip(_FIN_KEYS, ts)})
+    ints["bf16_chain"] = int(name == "cross_conv_bf16")  # the plan's, not an argument
     g_l, g_a = ints["lig_rows"], ints["atom_rows"] = cross_row_groups(
         ints, contraction.sm_count(str(dev)))
     cross_conv_stats[name] = dict(groups=(g_l, g_a), smem_bytes=4 * cross_plan_words(ints, g_l,
@@ -1143,41 +1136,56 @@ def cross_bwd_plain(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la):
     return d_lig, d_atm, grads["al"], grads["la"]
 
 
-# ---- the forward wide-tile plan (csrc/conv_fwd_wide.cuh): B1, B7, B10 ---
+# ---- the forward wide-tile plan (csrc/conv_fwd_wide.cuh): B1, B7, B10,
+# B11-cross, B11-knn ---
 
 _WIDE_S = WIDE_TILE + 4  # pair stride of the feature-major tiles (kWideS)
+_WIDE_SW = _WIDE_S // 2  # and of a bf16 tile, in 32-bit words (kWideSW)
 _WIDE_KT = 16  # weight rows per cp.async stage (kWideKT)
 _STAT = 8  # LayerNorm statistics per (row, slot) (kStat)
 _TP_PAIRS = 32  # source rows the TP stages at a time (kTpPairs)
 SMEM_WORDS = 232448 // 4  # the H100's shared memory per block, 4-byte words
-CROSS_ATOM_ROWS = 32  # the most atoms a B1 / B7 la block owns (cross_row_groups)
+CROSS_ATOM_ROWS = 32  # the most atoms a B1 / B7 / B11-cross la block owns (cross_row_groups)
+KNN_ATOM_ROWS = 32  # the most atoms a B11-knn block owns (knn_row_groups)
+# valid share of the neighbour slots that knn_row_groups expects: the 3dbs
+# bucket's 1024 atoms x 16 slots hold 9,567 valid pairs (927 real atoms)
+KNN_SLOT_FILL = 0.58
 
 
 def _r4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def fwd_regions(ke, ns, he, hf, nw, kdim, din, dout, out_dim, mix_numel, n_slots, g, per):
+def fwd_regions(ke, ns, he, hf, nw, kdim, din, dout, out_dim, mix_numel, n_slots, g, per,
+                bf16=False):
     """FwdPlan's regions (fwd_plan, conv_fwd_wide.cuh) in 4-byte words: p1,
-    p2, sh, ws, ck, acc, oacc, stats, list, misc."""
-    return (max(max(he, hf, kdim) * _WIDE_S, _r4(g * out_dim)),
-            max(max(ke, 3 * ns, nw) * _WIDE_S, _r4(mix_numel)), 9 * _WIDE_S,
-            max(_r4(2 * _WIDE_KT * 32 * -(-max(he, ns, hf, nw) // 32)), _TP_PAIRS * _r4(din)),
-            _r4(9 * kdim),
-            _r4(g * dout), _r4(g * out_dim), _r4(g * n_slots * _STAT), _r4(g * per),
-            4 * WIDE_TILE + 8)
+    p2, sh, ws, ck, acc, oacc, stats, list, misc. bf16: the plan of the bf16
+    chain (ConvArgs::bf16_chain), whose w, cb and staged source rows are
+    bf16 tiles of _WIDE_SW words per row."""
+    ws = _r4(2 * _WIDE_KT * 32 * -(-max(he, ns, hf, nw) // 32))
+    if bf16:
+        p1 = max(max(he, hf) * _WIDE_S, _r4(kdim * _WIDE_SW), _r4(g * out_dim))
+        p2 = max(max(ke, 3 * ns) * _WIDE_S, _r4(nw * _WIDE_SW), _r4(mix_numel))
+        ws = max(ws, _r4(din * _WIDE_SW))
+    else:
+        p1 = max(max(he, hf, kdim) * _WIDE_S, _r4(g * out_dim))
+        p2 = max(max(ke, 3 * ns, nw) * _WIDE_S, _r4(mix_numel))
+        ws = max(ws, _TP_PAIRS * _r4(din))
+    return (p1, p2, 9 * _WIDE_S, ws, _r4(9 * kdim), _r4(g * dout), _r4(g * out_dim),
+            _r4(g * n_slots * _STAT), _r4(g * per), 4 * WIDE_TILE + 8)
 
 
 def cross_plan_words(ints: dict, g_l: int, g_a: int) -> int:
-    """Shared memory of a B1 / B7 block in 4-byte words (cross_plan,
-    csrc/cross_conv.cu: the al and la plans, region by region the larger;
-    with a finalize, out_dim > 0, its output rows and statistics in the
-    weight stages), from the kernel's CROSS_INTS."""
-    n = ints
+    """Shared memory of a B1 / B7 block (with a true ints["bf16_chain"], a
+    B11-cross block) in 4-byte words (cross_plan, csrc/cross_conv.cu: the
+    al and la plans, region by region the larger; with a finalize, out_dim
+    > 0, its output rows and statistics in the weight stages), from the
+    kernel's CROSS_INTS."""
+    n, bf16 = ints, bool(ints.get("bf16_chain"))
 
     def conv(g, per):
         return fwd_regions(n["gs_n"], n["ns"], n["he"], n["hf"], n["nw"], n["kdim"], n["din"],
-                           n["dout"], n["out_dim"], n["mix_numel"], n["n_slots"], g, per)
+                           n["dout"], n["out_dim"], n["mix_numel"], n["n_slots"], g, per, bf16)
 
     r = [max(x) for x in zip(conv(g_l, n["na"]), conv(g_a, n["nl"]))]
     if n["out_dim"] > 0:
@@ -1187,8 +1195,9 @@ def cross_plan_words(ints: dict, g_l: int, g_a: int) -> int:
 
 def cross_row_groups(ints: dict, sms: int):
     """(g_l, g_a): ligand rows per al block and atoms per la block of B1 /
-    B7, picked on the host from the batch and the shapes; the masks are
-    not read (no wait for the device: a CUDA graph captures the call).
+    B7 (with a true ints["bf16_chain"], of B11-cross, on its plan), picked
+    on the host from the batch and the shapes; the masks are not read (no
+    wait for the device: a CUDA graph captures the call).
 
     A real ligand row has ~230 cross pairs at the 3dbs bucket (~3.6 tiles),
     an atom ~9: the CA/CB atoms pair with every ligand row, the others only
@@ -1203,7 +1212,9 @@ def cross_row_groups(ints: dict, sms: int):
     B = 4 and below, at nl = 128 on 132 SMs.
     An atom's few pairs fill a tile only over many atoms (3dbs: 79% at 16
     atoms, 85% at 22, 90% at 32), so g_a is as large as the shared memory
-    holds, at most CROSS_ATOM_ROWS; then g_l halves until the block fits."""
+    holds, at most CROSS_ATOM_ROWS; then g_l halves until the block fits.
+    B11-cross's half-size w and cb tiles free ~38 KB at flagship width, so
+    its la blocks take CROSS_ATOM_ROWS atoms where B1's take 22."""
     g_l = next(g for g in (4, 2, 1) if g == 1 or 2 * g * sms <= ints["batch"] * ints["nl"])
     g_a = CROSS_ATOM_ROWS
     while cross_plan_words(ints, g_l, g_a) > SMEM_WORDS and g_a > 1:
@@ -1213,6 +1224,45 @@ def cross_row_groups(ints: dict, sms: int):
     if cross_plan_words(ints, g_l, g_a) > SMEM_WORDS:
         raise ValueError("cross_conv: one block's tile does not fit the shared memory")
     return g_l, g_a
+
+
+def knn_plan_words(ints: dict, g_k: int) -> int:
+    """Shared memory of a B11-knn block in 4-byte words (fwd_plan of its
+    conv, knn mode, the bf16 chain), from the kernel's sizes: batch, n, k,
+    din, dout, ns, he, hf, nw, kdim, gs_n (_knn_ints)."""
+    n = ints
+    return sum(fwd_regions(n["gs_n"], n["ns"], n["he"], n["hf"], n["nw"], n["kdim"], n["din"],
+                           n["dout"], 0, 0, 0, g_k, n["k"], bf16=True))
+
+
+def knn_row_groups(ints: dict, sms: int) -> int:
+    """g_k, the atoms per block of B11-knn's grid, picked on the host from
+    the batch, the shapes and the SM count; no mask or count is read (no
+    wait for the device: a CUDA graph captures the call).
+
+    One block runs per SM (its shared memory), and the blocks of the 1-D
+    grid start as SMs come free, so the grid takes about the mean tiles per
+    SM plus the last blocks' tail. Larger blocks fill their 64-pair tiles
+    better (the 3dbs bucket, per sample: 178 tiles 84% full at 16 atoms,
+    165 at 91% at 32), smaller ones shorten the tail (at most 4 tiles per
+    block at 16 atoms, 7 at 32). The host expects KNN_SLOT_FILL of the k
+    slots valid, so a block of g atoms holds T(g) = g k fill / 64 + 1/2
+    tiles (its last one half full), and g_k is the g <= KNN_ATOM_ROWS
+    that fits the shared memory and minimises B ceil(n / g) T(g) / sms +
+    T(g): the mean tiles per SM plus one block. At the 3dbs bucket on 132
+    SMs that is 19 atoms at B = 16 and 10 at B = 4."""
+    bsz, n, k = ints["batch"], ints["n"], ints["k"]
+    best = None
+    for g in range(1, KNN_ATOM_ROWS + 1):
+        if knn_plan_words(ints, g) > SMEM_WORDS:
+            break
+        tiles = g * k * KNN_SLOT_FILL / WIDE_TILE + 0.5
+        cost = bsz * -(-n // g) * tiles / sms + tiles
+        if best is None or cost < best[0]:
+            best = (cost, g)
+    if best is None:
+        raise ValueError("knn_conv: one block's tile does not fit the shared memory")
+    return best[1]
 
 
 @dataclasses.dataclass
@@ -1250,7 +1300,7 @@ def cross_valid(lig_pos, atm_pos, lig_mask, atm_mask, cab, cut):
 
 
 def cross_tile_plan(lig_pos, atm_pos, lig_mask, atm_mask, cab, cutoff, g_l, g_a):
-    """B1's and B7's blocks in grid order (the al blocks of every sample,
+    """B1's, B7's and B11-cross's blocks in grid order (the al blocks of every sample,
     g_l ligand rows each; then the la blocks, g_a atoms each), each with its
     targets' valid pairs in candidate order cut into tiles of WIDE_TILE."""
     bsz, nl, na = lig_pos.shape[0], lig_pos.shape[1], atm_pos.shape[1]
@@ -1264,21 +1314,33 @@ def cross_tile_plan(lig_pos, atm_pos, lig_mask, atm_mask, cab, cutoff, g_l, g_a)
     return blocks
 
 
-def wide_tile_plain(c: ConvConsts, vec, tgt_x, src_x, extra, w_in, beff, emb, fc):
+def wide_tile_plain(c: ConvConsts, vec, tgt_x, src_x, extra, w_in, beff, emb, fc, bf_sc=None):
     """The messages [P, dout] of one tile's pairs as conv_fwd_wide.cuh
-    computes them: pair_chain_plain on the folded edge input, then the TP."""
-    *_, w, cb = pair_chain_plain(c, vec, tgt_x, src_x, extra, w_in, beff, emb["l2"]["w"],
+    computes them: pair_chain_plain on the folded edge input, then the TP.
+    bf_sc: None (f32), or the bf16 chain (BF) with its (target, source)
+    flags, which scalars enter the TP-weight MLP rounded to bf16
+    (ConvArgs::bf_tgt_sc, bf_src_sc); the messages then from _chain_bf16."""
+    tx, sx = tgt_x, src_x
+    if bf_sc is not None:
+        tx = _bf16_round(tgt_x) if bf_sc[0] else tgt_x
+        sx = _bf16_round(src_x) if bf_sc[1] else src_x
+    *_, w, cb = pair_chain_plain(c, vec, tx, sx, extra, w_in, beff, emb["l2"]["w"],
                                  emb["l2"]["b"], fc["l1"]["w"], fc["l1"]["b"], fc["l2"]["w"],
                                  fc["l2"]["b"])
-    return _tp_plain(c, src_x, cb, w)
+    if bf_sc is None:
+        return _tp_plain(c, src_x, cb, w)
+    return _chain_bf16(c, src_x, sh_l2(vec), w, vec.new_ones(vec.shape[0]))
 
 
 def cross_conv_tiled_plain(c: ConvConsts, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask,
-                           cabflag, temb, cutoff, emb_params, fc_al, fc_la, groups):
+                           cabflag, temb, cutoff, emb_params, fc_al, fc_la, groups, *,
+                           bf16_chain: bool = False):
     """B1's decomposition, plain: the blocks of cross_tile_plan at groups
     (g_l, g_a), each tile's messages (wide_tile_plain; the la direction's
     geometry flipped to atom - ligand, as the kernel's) added to their
-    targets' sums tile by tile, in list order. Same returns as
+    targets' sums tile by tile, in list order. With `bf16_chain`,
+    B11-cross's: the ligand scalars rounded (al: the targets', la: the
+    sources'), each tile's messages through the bf16 chain. Same returns as
     cross_conv_plain."""
     e_, fc_al, fc_la, temb, lig_x, atm_x = _f32((emb_params, fc_al, fc_la, temb, lig_x, atm_x))
     bsz, nl, na = lig_x.shape[0], lig_x.shape[1], atm_x.shape[1]
@@ -1286,6 +1348,7 @@ def cross_conv_tiled_plain(c: ConvConsts, lig_pos, atm_pos, lig_x, atm_x, lig_ma
     sums = {"al": lig_x.new_zeros(bsz, nl, c.dout), "la": atm_x.new_zeros(bsz, na, c.dout)}
     sides = {"al": (lig_pos, atm_pos, lig_x, atm_x, fc_al),
              "la": (atm_pos, lig_pos, atm_x, lig_x, fc_la)}
+    bf_sc = {"al": (True, False), "la": (False, True)} if bf16_chain else {"al": None, "la": None}
     for blk in cross_tile_plan(lig_pos, atm_pos, lig_mask, atm_mask, cabflag, cutoff, *groups):
         tp, sp, tx, sx, fc = sides[blk.kind]
         b = blk.b
@@ -1293,8 +1356,8 @@ def cross_conv_tiled_plain(c: ConvConsts, lig_pos, atm_pos, lig_x, atm_x, lig_ma
             t, s = tile[:, 0], tile[:, 1]
             vec = sp[b, s] - tp[b, t]
             vec = -vec if blk.kind == "la" else vec  # the kernel's flip: atom - ligand
-            sums[blk.kind][b].index_add_(0, t, wide_tile_plain(c, vec, tx[b, t], sx[b, s], None,
-                                                               w_in, beff[b], e_, fc))
+            sums[blk.kind][b].index_add_(0, t, wide_tile_plain(
+                c, vec, tx[b, t], sx[b, s], None, w_in, beff[b], e_, fc, bf_sc[blk.kind]))
     return sums["al"], sums["la"]
 
 
@@ -1353,19 +1416,101 @@ class _KnnConvFn(torch.autograd.Function):
                 gr["wf2"], gr["bf2"])
 
 
-def _knn_conv_kernel(lib, data, x, w_in, beff, weights, stream):
+def _knn_conv_kernel(lib, data, x, w_in, beff, weights, stream, cycles=None):
+    """B3 (the 32-pair body), or with the data's bf16_chain B11-knn: one
+    launch of its knn grid (_knn_wide)."""
     c, d = data.c, data
+    if d.bf16_chain:
+        return _knn_wide(lib, data, x, w_in, beff, weights, stream, cycles)
     bsz, n, k = d.idx.shape
     he, hf, nw, kdim = d.dims
     ck, gs_off, meta = c.device_tables(x.device)
     out = torch.zeros(bsz, n, c.dout, dtype=torch.float32, device=x.device)
-    name = "knn_conv_bf16" if d.bf16_chain else "knn_conv"
-    rc = getattr(lib, "dbfr_" + name)(
+    rc = lib.dbfr_knn_conv(
         _ptr(d.pos), _ptr(x), _ptr(d.idx), _ptr(d.valid), None, _ptr(w_in), _ptr(beff),
         *[_ptr(v) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
         bsz, n, k, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, stream)
-    _check(rc, name)
-    launches[name] += 1
+    _check(rc, "knn_conv")
+    launches["knn_conv"] += 1
+    return out
+
+
+# what the last B11-knn launch on the card used: atoms per block and the
+# block's shared memory (chip_smoke.py reports them)
+knn_conv_stats: dict = {}
+
+
+def _knn_ints(c: ConvConsts, dims, bsz: int, n: int, k: int) -> dict:
+    """B11-knn's sizes, as knn_plan_words and knn_row_groups read them."""
+    he, hf, nw, kdim = dims
+    return dict(batch=bsz, n=n, k=k, din=c.din, dout=c.dout, ns=c.ns, he=he, hf=hf, nw=nw,
+                kdim=kdim, gs_n=c.gs_n)
+
+
+def _knn_wide(lib, data, x, w_in, beff, weights, stream, cycles=None):
+    """One launch of csrc/knn_conv.cu's knn grid (B11-knn), g_k atoms per
+    block from knn_row_groups. `cycles`, an int64 tensor of one entry per
+    block (knn_tile_plan's order), receives each block's clock64() cycles
+    (chip_smoke.py's block report)."""
+    c, d, dev = data.c, data, x.device
+    bsz, n, k = d.idx.shape
+    he, hf, nw, kdim = d.dims
+    ck, gs_off, meta = c.device_tables(dev)
+    ints = _knn_ints(c, d.dims, bsz, n, k)
+    g_k = knn_row_groups(ints, contraction.sm_count(str(dev)))
+    knn_conv_stats["knn_conv_bf16"] = dict(atom_rows=g_k, smem_bytes=4 * knn_plan_words(ints, g_k))
+    if cycles is not None and (cycles.dtype != torch.int64 or cycles.device != dev
+                               or cycles.numel() != bsz * -(-n // g_k)):
+        raise ValueError("knn_conv_bf16: cycles takes one int64 per block on the kernel's device")
+    out = torch.empty(bsz, n, c.dout, dtype=torch.float32, device=dev)
+    # cp.async stages the MLP weights 16 bytes at a time
+    rc = lib.dbfr_knn_conv_bf16(
+        _ptr(d.pos), _ptr(x), _ptr(d.idx), _ptr(d.valid), None, _ptr(_aligned(w_in)),
+        _ptr(beff), *[_ptr(_aligned(v)) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta),
+        _ptr(out), bsz, n, k, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, g_k,
+        _ptr(cycles), stream)
+    _check(rc, "knn_conv_bf16")
+    launches["knn_conv_bf16"] += 1
+    return out
+
+
+def knn_valid(idx, valid):
+    """The knn conv's valid (atom, slot) pairs [B, n, k]: the slot valid and
+    its neighbour index inside the sample, as the kernels decide them
+    (trunk_conv.cuh compact_pairs)."""
+    return (valid > 0) & (idx >= 0) & (idx < idx.shape[1])
+
+
+def knn_tile_plan(idx, valid, g_k):
+    """B11-knn's blocks in grid order (every sample's blocks, g_k atoms each,
+    in atom order), each with its atoms' valid neighbour slots in candidate
+    order (atom-major, then slot) cut into tiles of WIDE_TILE (target,
+    neighbour) pairs."""
+    bsz, n, _ = idx.shape
+    ok, nb = knn_valid(idx, valid), idx.long()
+    return [TileBlock("knn", b, t0, g_k, {"knn": block_tiles(ok[b, t0 : t0 + g_k], t0,
+                                                             nb[b, t0 : t0 + g_k])})
+            for b in range(bsz) for t0 in range(0, n, g_k)]
+
+
+def knn_conv_tiled_plain(c: ConvConsts, pos, x, mask, idx, valid, temb, params, g_k, *,
+                         bf16_chain: bool = False):
+    """B11-knn's decomposition, plain (bf16_chain; else the same plan with
+    the f32 chain): the blocks of knn_tile_plan at g_k atoms, each tile's
+    messages (wide_tile_plain on the kernel's folded edge input; with the
+    bf16 chain both scalar halves rounded) added to their atoms' sums tile
+    by tile, in list order. Same returns as knn_conv_plain."""
+    e_, fc, temb, x = _f32((params["emb"], params["fc"], temb, x))
+    bsz, n, _ = idx.shape
+    w_in, beff = _prep_edge(c, e_["l1"]["w"], e_["l1"]["b"], temb, 0, bsz, x.device)
+    out = x.new_zeros(bsz, n, c.dout)
+    bf_sc = (True, True) if bf16_chain else None
+    for blk in knn_tile_plan(idx, valid, g_k):
+        b = blk.b
+        for tile in blk.tiles["knn"]:
+            t, s = tile[:, 0], tile[:, 1]
+            out[b].index_add_(0, t, wide_tile_plain(c, pos[b, s] - pos[b, t], x[b, t], x[b, s],
+                                                    None, w_in, beff[b], e_, fc, bf_sc))
     return out
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Device times of the cross conv kernels B1 and B7 in two checkouts of this
-repository, in turns on one card (A B B A).
+"""Device times of the cross conv kernels B1 and B7 and of the bf16-chain
+kernels B11-cross and B11-knn in two checkouts of this repository, in
+turns on one card (A B B A).
 
-    python3 kernel_ab.py <checkout A> <checkout B>
+    python3 kernel_ab.py <checkout A> <checkout B> [--knn-rows G,G,...]
 
 A checkout is a directory that holds a `diffbindfr_torch` package (for
 example the parent commit's, unpacked with `git archive <commit>
@@ -12,12 +13,18 @@ use) and this checkout's chip_smoke.py, makes chip_smoke's phase-5 and
 phase-12 inputs (kernel_inputs / rm_inputs: 3dbs bucket shapes, diff_r2
 weights, seeded features), and times each kernel through its wrapper:
 B1 (`cross_conv`) at (layer 0, B = 4), (5, 4) and (5, 16), B7
-(`cross_conv_fin`) at (0, 16) and (5, 16). `graph_ms` is the device time per
-call from CUDA events around replays of a CUDA graph of 20 calls (no host
-work between the launches; either version's kernels, whatever their
-symbols), `ms` CUDA events around 10 wrapper calls. Prints the card's
+(`cross_conv_fin`) at (0, 16) and (5, 16), B11-cross and B11-knn
+(`cross_conv` and `knn_conv` with `bf16_chain=True`, on the bf16-rounded
+weights of chip_smoke's phase 18) at (0, 16) and (5, 16). `graph_ms` is
+the device time per call from CUDA events around replays of a CUDA graph
+of 20 calls (no host work between the launches; either version's kernels,
+whatever their symbols), `ms` CUDA events around 10 wrapper calls. Prints the card's
 nvidia-smi line, one line per kernel and shape with every turn's numbers,
-and, last, every turn's numbers as one JSON object. Imports nothing of JAX.
+and, last, every turn's numbers as one JSON object. With --knn-rows, each
+turn of a checkout that has trunk_convs.knn_row_groups also times B11-knn
+at its shapes with the atoms per block forced to each G (the host's rule
+replaced for the call), beside the G the rule picks. Imports nothing of
+JAX.
 """
 import json
 import os
@@ -25,11 +32,13 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SHAPES = {"cross_conv": ((0, 4), (5, 4), (5, 16)), "cross_conv_fin": ((0, 16), (5, 16))}
+SHAPES = {"cross_conv": ((0, 4), (5, 4), (5, 16)), "cross_conv_fin": ((0, 16), (5, 16)),
+          "cross_conv_bf16": ((0, 16), (5, 16)), "knn_conv_bf16": ((0, 16), (5, 16))}
 
 
-def child(checkout):
-    """One turn: the kernels of `checkout` at every shape; one JSON line."""
+def child(checkout, knn_rows=()):
+    """One turn: the kernels of `checkout` at every shape (and B11-knn at
+    each forced g_k of knn_rows); one JSON line."""
     import importlib.util
 
     sys.path.insert(0, os.path.abspath(checkout))
@@ -37,9 +46,12 @@ def child(checkout):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    import functools
+
     import torch
 
     from diffbindfr_torch.data.sample import _load_sample_npz
+    from diffbindfr_torch.models import score_net as sn
     from diffbindfr_torch.nn import trunk_convs as TC
     from diffbindfr_torch.utils.checkpoint import load_checkpoint
 
@@ -49,28 +61,48 @@ def child(checkout):
         raise RuntimeError(f"imported {TC.__file__}, not the package of {checkout}")
     params, _ = load_checkpoint(cs.CKPT, use_ema=True, device=cs.DEV)
     s_np = _load_sample_npz(cs.SAMPLE)
-    wrapper = {"cross_conv": TC.cross_conv, "cross_conv_fin": TC.cross_conv_fin}
+    p16 = sn._cast_f32_leaves(params, torch.bfloat16)
+    wrapper = {"cross_conv": TC.cross_conv, "cross_conv_fin": TC.cross_conv_fin,
+               "cross_conv_bf16": functools.partial(TC.cross_conv, bf16_chain=True),
+               "knn_conv_bf16": functools.partial(TC.knn_conv, bf16_chain=True)}
     out = {}
     for name, shapes in SHAPES.items():
         for layer, bsz in shapes:
-            rm, args = cs.rm_inputs(torch, params, s_np, layer, bsz, seed=layer * 100 + bsz)
-            a = args[name] if name in args else rm[name]
+            seed = layer * 100 + bsz
+            if name.endswith("_bf16"):
+                a = cs.kernel_inputs(torch, p16, s_np, layer, bsz, seed)[name[:-len("_bf16")]]
+            else:
+                rm, args = cs.rm_inputs(torch, params, s_np, layer, bsz, seed)
+                a = args[name] if name in args else rm[name]
             with torch.no_grad():
                 wrapper[name](*a)
                 ms = cs.time_ms(lambda: wrapper[name](*a), 3, 10)
                 graph = cs.graph_ms(torch, lambda: wrapper[name](*a))
             out[f"{name} {layer} {bsz}"] = {"graph_ms": graph, "ms": ms}
-    print(json.dumps({"checkout": checkout, "times": out}), flush=True)
+    sweep = {}
+    rule = getattr(TC, "knn_row_groups", None)
+    for layer, bsz in SHAPES["knn_conv_bf16"] if rule is not None else ():
+        a = cs.kernel_inputs(torch, p16, s_np, layer, bsz, layer * 100 + bsz)["knn_conv"]
+        with torch.no_grad():
+            wrapper["knn_conv_bf16"](*a)
+            picked = TC.knn_conv_stats["knn_conv_bf16"]["atom_rows"]
+            for g in knn_rows:
+                TC.knn_row_groups = lambda ints, sms, g=g: g
+                graph = cs.graph_ms(torch, lambda: wrapper["knn_conv_bf16"](*a))
+                sweep[f"knn_conv_bf16 {layer} {bsz} g_k={g}"] = {"graph_ms": graph,
+                                                                  "rule_picks": picked}
+            TC.knn_row_groups = rule
+    print(json.dumps({"checkout": checkout, "times": out, "knn_rows": sweep}), flush=True)
 
 
-def main(a, b):
+def main(a, b, knn_rows=""):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=30).stdout.strip()
     print(smi, flush=True)
     turns = []
     for checkout in (a, b, b, a):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", checkout],
-                             capture_output=True, text=True, timeout=600, cwd=ROOT)
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", checkout,
+                              knn_rows], capture_output=True, text=True, timeout=600, cwd=ROOT)
         if res.returncode != 0:
             print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
             raise RuntimeError(f"turn on {checkout} failed")
@@ -79,15 +111,21 @@ def main(a, b):
         cells = "  ".join(f"{t['checkout']}: {t['times'][key]['graph_ms']:.4f} "
                           f"({t['times'][key]['ms']:.4f})" for t in turns)
         print(f"{key}: graph_ms (wrapper ms) {cells}", flush=True)
+    for t in turns:
+        for key, v in t.get("knn_rows", {}).items():
+            print(f"{t['checkout']} {key}: graph_ms {v['graph_ms']:.4f} (the rule picks "
+                  f"{v['rule_picks']})", flush=True)
     print(json.dumps({"nvidia_smi": smi, "turns": turns}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        child(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--child":
+        child(sys.argv[2], [int(g) for g in sys.argv[3].split(",") if g])
     elif len(sys.argv) == 3:
         sys.exit(main(sys.argv[1], sys.argv[2]))
+    elif len(sys.argv) == 5 and sys.argv[3] == "--knn-rows":
+        sys.exit(main(sys.argv[1], sys.argv[2], sys.argv[4]))
     else:
         print(__doc__, file=sys.stderr)
         sys.exit(2)
