@@ -20,7 +20,10 @@ a non-zero exit code):
               rows; la: g_a atoms): blocks, working blocks, 64-pair tiles
               and their fill, each kind's share of the blocks' cycles, the
               longest block against the working mean; g_l, g_a and the
-              block's shared memory
+              block's shared memory; B3 (a knn grid of g_k atoms per block,
+              csrc/knn_conv.cu): a CUDA graph captures the call and its
+              replay gives the same bits, two more calls give the same bits,
+              and its blocks as phase 18 reports B11-knn's
   6. forward  full-width score net with the kernels on 3dbs, against the JAX
               package's numbers (tests/fixtures/torch_port_ref.npz, <= 1e-3)
               and against the port's plain path on the card
@@ -67,7 +70,8 @@ a non-zero exit code):
               bounds and plain times; B10's two kinds of block (ligand rows,
               atoms): blocks, 64-pair tiles and their fill, each kind's share
               of the blocks' cycles; B7 as phase 5's B1 (same bits, its al
-              and la blocks, g_l, g_a, shared memory)
+              and la blocks, g_l, g_a, shared memory); B9 as phase 5's B3
+              (graph replay, same bits, its blocks, g_k, shared memory)
   13. rm_forward  the full-width score net in the row-major configurations
               (rowmajor, +fused_epilogue, +fused_layer) against the JAX fixture
               (<= 1e-3, as phase 6)
@@ -256,7 +260,7 @@ MOSAIC_ROWS = {"3d": ("3d_accum", ":40"), "onehot": ("onehot", ":68"),
 # the first is the kernel that the counter counts
 SYMBOLS = {
     "cross_conv": ("cross_conv_wide_kernel(",), "pair_conv": ("pair_conv_kernel(",),
-    "knn_conv": ("knn_conv_kernel(",),
+    "knn_conv": ("knn_conv_wide_kernel(",),
     "cross_bwd": ("cross_wide_kernel(", "cross_pairs_count_kernel(", "exclusive_scan_kernel(",
                   "cross_atom_count_kernel(", "cross_pairs_fill_kernel(", "abt_kernel<",
                   "abt_reduce_kernel(", "segment_sum_kernel<8>(", "segment_sum_kernel<2>("),
@@ -265,7 +269,7 @@ SYMBOLS = {
                 "abt_kernel<", "abt_reduce_kernel(", "knn_node_sum_kernel("),
     "cross_conv_fin": ("cross_conv_fin_wide_kernel(",),
     "pair_conv_fin": ("pair_conv_fin_kernel(",),
-    "knn_conv_fin": ("knn_conv_fin_kernel(",), "layer_conv": ("layer_conv_kernel(",),
+    "knn_conv_fin": ("knn_conv_fin_wide_kernel(",), "layer_conv": ("layer_conv_kernel(",),
     "cross_conv_bf16": ("cross_conv_bf16_wide_kernel(",),
     "pair_conv_bf16": ("pair_conv_bf16_kernel(",), "knn_conv_bf16": ("knn_conv_bf16_wide_kernel(",),
     "probe_bf16/f32_fma": ("probe_f32_kernel(",),
@@ -617,6 +621,18 @@ def phase_kernels(torch, params, s_np, results):
                 raise AssertionError(f"{name} layer {layer}: kernel disagrees with plain ({err:.3e})")
             if name == "cross_conv":
                 row["blocks"] = cross_block_report(torch, TC, name, wrapper[name], a)
+            if name == "knn_conv":
+                row.update(knn_grid_report(torch, TC, name, wrapper[name], a))
+
+
+def knn_grid_report(torch, TC, name, wrapper, a):
+    """B3 ("knn_conv") or B9 ("knn_conv_fin") after its timing, on the knn
+    grid: a CUDA graph captures the call and its replay gives the same bits;
+    then knn_block_report. Returns the row's graph_same and blocks."""
+    if not graph_same(torch, functools.partial(wrapper, *a)):
+        raise AssertionError(f"{name}: a CUDA graph's replay differs")
+    print("    a CUDA graph captures the call; its replay gives the same bits", flush=True)
+    return {"graph_same": True, "blocks": knn_block_report(torch, TC, name, wrapper, a)}
 
 
 def cross_block_report(torch, TC, name, wrapper, a):
@@ -667,26 +683,30 @@ def cross_block_report(torch, TC, name, wrapper, a):
     return out
 
 
-def knn_block_report(torch, TC, wrapper, a):
-    """B11-knn after its timing: two more calls must give the same bits;
-    then its blocks (g_k atoms each): the blocks, those with a pair
+def knn_block_report(torch, TC, name, wrapper, a):
+    """B3 (name "knn_conv"), B9 ("knn_conv_fin") or B11-knn
+    ("knn_conv_bf16") after its timing: two more calls must give the same
+    bits; then its blocks (g_k atoms each): the blocks, those with a pair
     (working), their 64-pair tiles and how full they are (the plan model,
     knn_tile_plan, on these inputs), the share of the blocks' clock64()
     cycles that the working blocks take (one launch with `cycles`), the
     longest block against the working mean; g_k and the block's shared
     memory."""
-    _, pos, x, _, idx, valid, temb, p = a
+    c, pos, x, _, idx, valid, temb, p = (a[0],) + tuple(a[2:]) if name == "knn_conv_fin" else a
     with torch.no_grad():
         one, two = wrapper(*a), wrapper(*a)
         torch.cuda.synchronize()
         if not torch.equal(one, two):
-            raise AssertionError("knn_conv_bf16: two calls gave different bits")
-        stats = TC.knn_conv_stats["knn_conv_bf16"]
+            raise AssertionError(f"{name}: two calls gave different bits")
+        stats = TC.knn_conv_stats[name]
         g_k = stats["atom_rows"]
         plan = TC.knn_tile_plan(idx, valid, g_k)
         cycles = torch.zeros(len(plan), dtype=torch.int64, device=DEV)
-        d = TC._knn_inputs(a[0], pos, x, idx, valid, temb, p, True)
-        TC._knn_conv_kernel(TC._library(), *d[:4], d[4:], TC._stream(), cycles=cycles)
+        if name == "knn_conv_fin":
+            TC._knn_fin_kernel(*a, cycles=cycles)
+        else:
+            d = TC._knn_inputs(c, pos, x, idx, valid, temb, p, name == "knn_conv_bf16")
+            TC._knn_conv_kernel(TC._library(), *d[:4], d[4:], TC._stream(), cycles=cycles)
         torch.cuda.synchronize()
     cyc = cycles.double().cpu()
     sel = list(range(len(plan)))
@@ -726,7 +746,12 @@ def graph_same(torch, fn):
         graph.replay()
         torch.cuda.synchronize()
     eager, out = ((v if isinstance(v, tuple) else (v,)) for v in (eager, out))
-    return all(torch.equal(p, q) for p, q in zip(eager, out))
+    same = all(torch.equal(p, q) for p, q in zip(eager, out))
+    # the side stream and the capture each keep a cuBLAS workspace allocated
+    # (32 MiB on the H100): free them, so that a later phase's peak memory
+    # does not count them
+    torch._C._cuda_clearCublasWorkspaces()
+    return same
 
 
 def grad_inputs(name, args, names=None):
@@ -1281,6 +1306,8 @@ def phase_rm_kernels(torch, params, s_np, results):
                 row["blocks"] = layer_block_report(torch, LC, a, layer, bsz)
             if name == "cross_conv_fin":
                 row["blocks"] = cross_block_report(torch, TC, name, wrapper[name], a)
+            if name == "knn_conv_fin":
+                row.update(knn_grid_report(torch, TC, name, wrapper[name], a))
 
 
 def layer_block_report(torch, LC, a, layer, bsz):
@@ -1718,7 +1745,7 @@ def phase_bf16_kernels(torch, params, s_np, results, bf16_rate):
             row["graph_same"] = True
             row["blocks"] = (cross_block_report(torch, TC, name, wrapper[name], a)
                              if name == "cross_conv_bf16" else
-                             knn_block_report(torch, TC, wrapper[name], a))
+                             knn_block_report(torch, TC, name, wrapper[name], a))
 
 
 def phase_bf16_forward(torch, np, sn, TC, params, s_np):

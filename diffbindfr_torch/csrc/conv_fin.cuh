@@ -4,8 +4,8 @@
 // Counterpart of the in-kernel finalize of diffbindfr_tpu/nn/pallas_conv.py
 // (dense_mix_cm, make_ln_cm; kernel at :436-441) and of pallas_layer.py.
 //
-// A block owns its target rows and the pair loop (conv_sums, or
-// conv_fwd_wide.cuh's wide_conv_sums for B7 and B10) leaves each row's
+// A block owns its target rows and the pair loop (conv_sums for B8, or
+// conv_fwd_wide.cuh's wide_conv_sums for B7, B9 and B10) leaves each row's
 // complete sums in shared memory, so the finalize is a per-block
 // epilogue: no second pass, no grid-wide reduction, no atomics, and the
 // result is the same from run to run. The TPU kernels expanded the Linear
@@ -120,7 +120,7 @@ __device__ __forceinline__ void store_oacc(const ConvArgs& a, int b, int t0, flo
   }
 }
 
-// Body of B7-B9 with fin: block = targets t0 .. t0 + g - 1; a.out is
+// Body of B8 with fin: block = targets t0 .. t0 + g - 1; a.out is
 // [B, nt, out_dim].
 template <int MODE>
 __device__ __forceinline__ void conv_fin_block(const ConvArgs& a) {

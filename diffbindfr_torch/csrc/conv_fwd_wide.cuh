@@ -1,9 +1,11 @@
 // The forward chain of a trunk conv over 64-pair wide tiles, for blocks
-// that own their targets (B10, layer_conv.cu; B1 and B7, cross_conv.cu).
-// Replaces the per-pair chain of the Pallas whole-layer kernel
-// (diffbindfr_tpu/nn/pallas_layer.py:make_layer_conv, the pallas_call at
-// :552) and of the cross conv kernels (nn/pallas_conv_t.py:
-// make_cross_conv_t, :693; nn/pallas_conv.py:make_cross_conv, :1008): a
+// that own their targets (B10, layer_conv.cu; B1 and B7, cross_conv.cu;
+// B3 and B9, knn_conv.cu). Replaces the per-pair chain of the Pallas
+// whole-layer kernel (diffbindfr_tpu/nn/pallas_layer.py:make_layer_conv,
+// the pallas_call at :552), of the cross conv kernels (nn/pallas_conv_t.py:
+// make_cross_conv_t, :693; nn/pallas_conv.py:make_cross_conv, :1008) and of
+// the knn conv kernels (nn/pallas_conv_t.py:make_knn_conv_t, :935;
+// nn/pallas_conv.py:make_knn_conv, :1225): a
 // block compacts the valid candidates of its g owned targets into a list in
 // candidate order (trunk_conv.cuh compact_pairs: target-major, then source
 // index or neighbour slot), walks the list in tiles of 64 pairs, and per
@@ -96,6 +98,18 @@ __host__ __device__ inline FwdPlan max_fwd_plan(const FwdPlan& x, const FwdPlan&
   p.list = imax(x.list, y.list);
   p.misc = imax(x.misc, y.misc);
   p.words = p.p1 + p.p2 + p.sh + p.ws + p.ck + p.acc + p.oacc + p.stats + p.list + p.misc;
+  return p;
+}
+
+// A plan whose finalize (a.out_dim > 0) runs once, after the sums (B7,
+// B9): its output rows and LayerNorm statistics take the weight-stage
+// region, free by then, so they cost no rows of sums.
+__host__ __device__ inline FwdPlan fin_after_sums(FwdPlan p, const ConvArgs& a) {
+  if (a.out_dim > 0) {
+    p.ws = imax(p.ws, p.oacc + p.stats);
+    p.oacc = p.stats = 0;
+    p.words = p.p1 + p.p2 + p.sh + p.ws + p.ck + p.acc + p.list + p.misc;
+  }
   return p;
 }
 
@@ -391,6 +405,29 @@ __device__ __forceinline__ void wide_conv_sums(const ConvArgs& a, int b, int t0,
       tile_messages_bf16(a, b, nvalid, F);
     else
       tile_messages(a, b, nvalid, F);
+  }
+}
+
+// The sums of targets t0 .. t0 + g - 1 of sample b (BF: the bf16 chain),
+// then (FIN) their finalize in the weight-stage region (the plan of
+// fin_after_sums), written to a.out: the rows of one block of B1, B7 and
+// B11-cross (cross_conv.cu) and of B3, B9 and B11-knn (knn_conv.cu).
+// Inlined per call, so that the kernel parameters stay where the compiler
+// can address them statically.
+template <int MODE, bool FIN, bool BF = false>
+__device__ __forceinline__ void wide_rows(const ConvArgs& a, int b, int t0, FwdRegions F) {
+  wide_conv_sums<MODE, BF>(a, b, t0, F);  // ends after a barrier: acc complete, ws free
+  if constexpr (FIN) {
+    F.R.oacc = F.ws;
+    F.R.stats = F.ws + round4(a.g * a.out_dim);
+    init_oacc(a, b, t0, nullptr, F.R);
+    fin_epilogue(a, b, t0, F.R);
+    store_oacc(a, b, t0, a.out, F.R);
+  } else {
+    for (int i = threadIdx.x; i < a.g * a.dout; i += kThreads) {
+      const int t = t0 + i / a.dout;
+      if (t < a.nt) a.out[((size_t)b * a.nt + t) * a.dout + (i % a.dout)] = F.R.acc[i];
+    }
   }
 }
 

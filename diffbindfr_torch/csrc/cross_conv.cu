@@ -81,36 +81,7 @@ struct CrossArgs {
 // its output rows and statistics moved into the weight stages
 __host__ __device__ inline dbfr::FwdPlan cross_plan(const CrossArgs& C) {
   using namespace dbfr;
-  FwdPlan p = max_fwd_plan(fwd_plan(C.al, kDense), fwd_plan(C.la, kDense));
-  if (C.al.out_dim > 0) {
-    p.ws = imax(p.ws, p.oacc + p.stats);
-    p.oacc = p.stats = 0;
-    p.words = p.p1 + p.p2 + p.sh + p.ws + p.ck + p.acc + p.list + p.misc;
-  }
-  return p;
-}
-
-// The sums of targets t0 .. t0 + g - 1 of sample b in direction a (BF: the
-// bf16 chain), then (FIN) their finalize, written to a.out. Inlined per
-// direction, so that the kernel parameters stay where the compiler can
-// address them statically.
-template <bool FIN, bool BF = false>
-__device__ __forceinline__ void cross_rows(const dbfr::ConvArgs& a, int b, int t0,
-                                           dbfr::FwdRegions F) {
-  using namespace dbfr;
-  wide_conv_sums<kDense, BF>(a, b, t0, F);  // ends after a barrier: acc complete, ws free
-  if constexpr (FIN) {
-    F.R.oacc = F.ws;
-    F.R.stats = F.ws + round4(a.g * a.out_dim);
-    init_oacc(a, b, t0, nullptr, F.R);
-    fin_epilogue(a, b, t0, F.R);
-    store_oacc(a, b, t0, a.out, F.R);
-  } else {
-    for (int i = threadIdx.x; i < a.g * a.dout; i += kThreads) {
-      const int t = t0 + i / a.dout;
-      if (t < a.nt) a.out[((size_t)b * a.nt + t) * a.dout + (i % a.dout)] = F.R.acc[i];
-    }
-  }
+  return fin_after_sums(max_fwd_plan(fwd_plan(C.al, kDense), fwd_plan(C.la, kDense)), C.al);
 }
 
 // One 1-D grid: the al blocks of every sample, then the la blocks.
@@ -122,10 +93,10 @@ __device__ __forceinline__ void cross_block(const CrossArgs& C) {
   const int al_blocks = C.batch * C.n_al_blocks;
   if ((int)blockIdx.x < al_blocks) {
     const int b = blockIdx.x / C.n_al_blocks;
-    cross_rows<FIN, BF>(C.al, b, (blockIdx.x % C.n_al_blocks) * C.al.g, F);
+    wide_rows<kDense, FIN, BF>(C.al, b, (blockIdx.x % C.n_al_blocks) * C.al.g, F);
   } else {
     const int i = blockIdx.x - al_blocks;
-    cross_rows<FIN, BF>(C.la, i / C.n_la_blocks, (i % C.n_la_blocks) * C.la.g, F);
+    wide_rows<kDense, FIN, BF>(C.la, i / C.n_la_blocks, (i % C.n_la_blocks) * C.la.g, F);
   }
   if (C.cycles != nullptr && threadIdx.x == 0) C.cycles[blockIdx.x] = clock64() - c0;
 }

@@ -1,8 +1,8 @@
-// Shared device code of the trunk-conv kernels (forward B2 pair, B3 knn, B8
-// and B9 with their finalize, and B11-pair's bf16 chain; the backward
-// kernel B5 builds on it in trunk_conv_bwd.cuh; B1, B7, B10, B11-cross and
-// B11-knn (conv_fwd_wide.cuh) and B4 and B6 (conv_bwd_wide.cuh) take its
-// geometry, mask decisions and pair compaction): one block gathers the valid (target,
+// Shared device code of the trunk-conv kernels (forward B2 pair, B8 with
+// its finalize, and B11-pair's bf16 chain; the backward kernel B5 builds on
+// it in trunk_conv_bwd.cuh; B1, B3, B7, B9, B10, B11-cross and B11-knn
+// (conv_fwd_wide.cuh) and B4 and B6 (conv_bwd_wide.cuh) take its geometry,
+// mask decisions and pair compaction): one block gathers the valid (target,
 // source) pairs of its g owned nodes, then runs the whole per-pair chain on
 // chunks of 32 pairs in shared memory and sums per owned node. A chunk is
 // latency-bound (weight tiles stream through shared memory between
@@ -21,9 +21,9 @@
 // The MLPs are fp32 FMA register-tiled products (4 pairs x up to 10 columns
 // per thread) with weights streamed through shared memory 8 rows at a time.
 // Geometry, masks and every sum are exact fp32 (no TF32, no fast math).
-// conv_sums() is the pair loop alone, so that the finalize kernels
-// (conv_fin.cuh: B8 and B9 with fin) run it and then their epilogue on the
-// block's complete sums.
+// conv_sums() is the pair loop alone, so that the finalize kernel
+// (conv_fin.cuh: B8 with fin) runs it and then its epilogue on the block's
+// complete sums.
 //
 // B11, the bf16 chain (conv_sums<MODE, true>; the JAX kernels with
 // dw_dtype='bfloat16', diffbindfr_tpu/nn/pallas_conv_t.py:200-250), which
@@ -52,7 +52,6 @@ constexpr int kPairs = 32;     // pairs per chunk: one per lane of warp 0
 constexpr int kStride = 36;    // padded pair stride of the activation tiles
 constexpr int kKTile = 8;      // weight rows staged per step
 constexpr int kMaxJ = 10;      // output columns per lane: every N <= 320
-constexpr int kKnnGroup = 4;   // knn owned nodes per block (4 x 16 = 64 pairs)
 constexpr int kDenseCands = 1024;  // dense mode: at most 1024 candidates per block
 constexpr int kMaxGroup = 8;       // and at most 8 owned nodes, one per 128
 constexpr int kMaxInPaths = 8;     // backward: TP paths reading one input column
@@ -60,9 +59,8 @@ constexpr int kHStride = 36;       // B11: bf16 tiles, pair stride in bf16 eleme
 constexpr int kHWords = kHStride / 2;  // and in 32-bit words (two pairs per word)
 
 // kDense: candidates = (owned node, every node of the other side);
-// kKnn: the owned targets' neighbour-list slots; kKnnRev (backward only):
-// the owned sources' entries of the reverse neighbour list.
-enum Mode { kDense = 0, kKnn = 1, kKnnRev = 2 };
+// kKnn: the owned targets' neighbour-list slots.
+enum Mode { kDense = 0, kKnn = 1 };
 
 struct ConvArgs {
   const float* tgt_pos;    // [B, nt, 3]
@@ -103,9 +101,6 @@ struct ConvArgs {
   const float* w2t;      // [ns, he] = w2^T
   const int* w_meta;     // [nw, 8]: a_base, mul, d1, o_base, cb_off, d3, 0, 0
   const int* in_meta;    // [din, kMaxInPaths, 8]: o_base, mul, w_idx, cb_base, d3, 0, 0, 0
-  const int* rev_off;    // [B, nsrc + 1] offsets into rev_tgt / rev_src (kKnnRev)
-  const int* rev_tgt;    // reverse neighbour list: target of each entry
-  const int* rev_src;    // and its source
   float* d_own;          // [B, n_own, din] feature gradient of the owned side
   float* part;           // [blocks, part_stride] per-block parameter-gradient sums
   int part_stride, o_win, o_beff, o_w2, o_b2, o_wf1, o_bf1, o_wf2, o_bf2;
@@ -134,10 +129,9 @@ __host__ __device__ inline int per_owned(const ConvArgs& a, int mode) {
   return mode == kDense ? (a.own_src ? a.nt : a.nsrc) : a.k;
 }
 
-// owned nodes per block: knn blocks take 4 (64 list slots); dense blocks
-// group only when the owned side is long and the other side short
+// owned nodes per block of this body: dense blocks group only when the
+// owned side is long and the other side short
 __host__ __device__ inline int group_size(const ConvArgs& a, int mode) {
-  if (mode != kDense) return kKnnGroup;
   return imax(1, imin(imin(kMaxGroup, kDenseCands / imax(per_owned(a, mode), 1)), n_owned(a) / 128));
 }
 
@@ -365,10 +359,8 @@ __device__ __forceinline__ int compact_pairs(const ConvArgs& a, int b, int own0,
   return total;
 }
 
-// 2. Pairs c0 .. c0 + n - 1 of the block's list (kKnnRev: of the reverse
-// list, read from global memory): nodes, distance and spherical harmonics,
-// one pair per lane of warp 0. The caller synchronises.
-template <int MODE>
+// 2. Pairs c0 .. c0 + n - 1 of the block's list: nodes, distance and
+// spherical harmonics, one pair per lane of warp 0. The caller synchronises.
 __device__ __forceinline__ void load_chunk(const ConvArgs& a, int b, int own0, const int* list,
                                            int c0, int n, Slots sl, float* shs) {
   if (threadIdx.x >= 32) return;
@@ -376,17 +368,11 @@ __device__ __forceinline__ void load_chunk(const ConvArgs& a, int b, int own0, c
   int t = 0, s = 0, gl = 0;
   float vx = 0.f, vy = 0.f, vz = 0.f, d = 0.f;
   if (lane < n) {
-    if (MODE == kKnnRev) {
-      t = a.rev_tgt[c0 + lane];
-      s = a.rev_src[c0 + lane];
-      gl = s - own0;
-    } else {
-      const int e = list[c0 + lane];
-      gl = e >> 16;
-      const int other = e & 0xffff;
-      t = a.own_src ? other : own0 + gl;
-      s = a.own_src ? own0 + gl : other;
-    }
+    const int e = list[c0 + lane];
+    gl = e >> 16;
+    const int other = e & 0xffff;
+    t = a.own_src ? other : own0 + gl;
+    s = a.own_src ? own0 + gl : other;
     const PairGeo pg = pair_geo(a.tgt_pos + ((size_t)b * a.nt + t) * 3,
                                 a.src_pos + ((size_t)b * a.nsrc + s) * 3, a.flip);
     vx = pg.vx;
@@ -554,7 +540,7 @@ __device__ __forceinline__ void conv_sums(const ConvArgs& a, int b, int t0, cons
   const int ke = a.gs_n + a.nb;
   for (int c0 = 0; c0 < total; c0 += kPairs) {
     const int n = min(kPairs, total - c0);
-    load_chunk<MODE>(a, b, t0, R.list, c0, n, sl, R.shs);
+    load_chunk(a, b, t0, R.list, c0, n, sl, R.shs);
     __syncthreads();
     input_rows<BF>(a, b, n, sl, r2, r1 + a.ns * kStride);
     if constexpr (BF) {

@@ -240,7 +240,7 @@ __device__ __forceinline__ void bwd_tile(const ConvArgs& a, const BwdPlan& pl, f
   const int total = compact_pairs<MODE>(a, b, own0, list, sl.wcnt);
   for (int c0 = 0; c0 < total; c0 += kPairs) {
     const int n = imin(kPairs, total - c0);
-    load_chunk<MODE>(a, b, own0, list, c0, n, sl, shs);
+    load_chunk(a, b, own0, list, c0, n, sl, shs);
     __syncthreads();
     input_rows(a, b, n, sl, in_rows, e + ns * kStride);
     mlp_forward(a, b, in_rows, h1, e, h, w, cb, shs, ws);

@@ -54,20 +54,22 @@ grad: those gradients come from the plain versions. The folded
 edge input (`_prep_edge`) stays in the autograd graph, so the backward
 kernels return gradients of (w_in, b_eff) and of the MLPs, and autograd maps
 them to the parameter tree. What bounds the kernels on the H100 and what
-their design does about it is in csrc/trunk_conv.cuh, csrc/trunk_conv_bwd.cuh
-(B5), csrc/conv_fwd_wide.cuh (B1, B7 and B11-cross: one grid of 64-pair
-tiles for both directions, rows per block from cross_row_groups; B11-knn:
-a knn grid of its own, atoms per block from knn_row_groups; B11's bf16
-chain runs in the same tiles), csrc/conv_bwd_wide.cuh
+their design does about it is in csrc/trunk_conv.cuh (B2, B8, B11-pair),
+csrc/trunk_conv_bwd.cuh (B5), csrc/conv_fwd_wide.cuh (B1, B7 and
+B11-cross: one grid of 64-pair tiles for both directions, rows per block
+from cross_row_groups; B3, B9 and B11-knn: one knn grid, atoms per block
+from knn_row_groups; B11's bf16 chain runs in the same tiles),
+csrc/conv_bwd_wide.cuh
 and csrc/abt_gemm.cuh (B4, B6) and the kernel sources. B4's and B6's plain
 versions, cross_bwd_plain and knn_bwd_plain, are models of their kernels'
 decomposition (pair list, per-pair rows, contractions, node sums) that
 cross_bwd and knn_bwd run on CPU tensors; B5 is held to autograd through the
 plain forward. B1's, B7's and B11-cross's block and tile plan has its
 plain model in cross_tile_plan and cross_conv_tiled_plain (bf16_chain for
-B11-cross) / cross_conv_fin_tiled_plain, B11-knn's in knn_tile_plan and
-knn_conv_tiled_plain, which the CPU tests hold against the plain versions
-and the JAX kernels.
+B11-cross) / cross_conv_fin_tiled_plain, B3's, B9's and B11-knn's in
+knn_tile_plan and knn_conv_tiled_plain (bf16_chain for B11-knn) /
+knn_conv_fin_tiled_plain, which the CPU tests hold against the plain
+versions and the JAX kernels.
 """
 from __future__ import annotations
 
@@ -480,7 +482,8 @@ _ARGTYPES = {
     "dbfr_pair_conv": [_P] * 7 + [_I] + [_P] * 15 + [_I] * 12 + [_F, _I, _I, _P],
     "dbfr_cross_conv": [_P, _I, _P, _I, _P, _I, _P],
     "dbfr_cross_conv_bf16": [_P, _I, _P, _I, _P, _I, _P],
-    "dbfr_knn_conv": [_P] * 17 + [_I] * 11 + [_F, _P],
+    # B3: the conv's arguments, then atoms per block and the per-block cycles
+    "dbfr_knn_conv": [_P] * 17 + [_I] * 11 + [_F, _I, _P, _P],
     "dbfr_pair_bwd": [_P] * 7 + [_I] + [_P] * 23 + [_I] * 12 + [_F, _I, _I, _P],
     "dbfr_cross_pairs": [_P] * 11 + [_I] * 3 + [_P],
     "dbfr_cross_bwd": [_P] * 46 + [_I] * 20 + [_F, _P],
@@ -488,13 +491,12 @@ _ARGTYPES = {
     "dbfr_pair_conv_fin": [_P] * 7 + [_I] + [_P] * 15 + [_I] * 12 + [_F, _I, _I]
                           + [_P] * 7 + [_I] * 3 + [_P],
     "dbfr_cross_conv_fin": [_P, _I, _P, _I, _P, _I, _P],
-    "dbfr_knn_conv_fin": [_P] * 17 + [_I] * 11 + [_F] + [_P] * 7 + [_I] * 3 + [_P],
+    "dbfr_knn_conv_fin": [_P] * 17 + [_I] * 11 + [_F] + [_P] * 7 + [_I] * 3 + [_I, _P, _P],
     "dbfr_layer_conv": [_P, _I, _P, _I, _P, _I, _P],
-    # B11-knn: B3's arguments, then atoms per block and the per-block cycles
-    "dbfr_knn_conv_bf16": [_P] * 17 + [_I] * 11 + [_F, _I, _P, _P],
 }
-# B11-pair: the same arguments as B2
+# B11-pair and B11-knn: the same arguments as B2 and B3
 _ARGTYPES["dbfr_pair_conv_bf16"] = _ARGTYPES["dbfr_pair_conv"]
+_ARGTYPES["dbfr_knn_conv_bf16"] = _ARGTYPES["dbfr_knn_conv"]
 # the widest matrix a kernel thread tiles (kMaxJ * 32 columns, trunk_conv.cuh)
 _MAX_COLS = 320
 # persistent blocks of B5's target pass: rows of its parameter-gradient
@@ -1136,8 +1138,8 @@ def cross_bwd_plain(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la):
     return d_lig, d_atm, grads["al"], grads["la"]
 
 
-# ---- the forward wide-tile plan (csrc/conv_fwd_wide.cuh): B1, B7, B10,
-# B11-cross, B11-knn ---
+# ---- the forward wide-tile plan (csrc/conv_fwd_wide.cuh): B1, B3, B7, B9,
+# B10, B11-cross, B11-knn ---
 
 _WIDE_S = WIDE_TILE + 4  # pair stride of the feature-major tiles (kWideS)
 _WIDE_SW = _WIDE_S // 2  # and of a bf16 tile, in 32-bit words (kWideSW)
@@ -1146,7 +1148,7 @@ _STAT = 8  # LayerNorm statistics per (row, slot) (kStat)
 _TP_PAIRS = 32  # source rows the TP stages at a time (kTpPairs)
 SMEM_WORDS = 232448 // 4  # the H100's shared memory per block, 4-byte words
 CROSS_ATOM_ROWS = 32  # the most atoms a B1 / B7 / B11-cross la block owns (cross_row_groups)
-KNN_ATOM_ROWS = 32  # the most atoms a B11-knn block owns (knn_row_groups)
+KNN_ATOM_ROWS = 32  # the most atoms a B3 / B9 / B11-knn block owns (knn_row_groups)
 # valid share of the neighbour slots that knn_row_groups expects: the 3dbs
 # bucket's 1024 atoms x 16 slots hold 9,567 valid pairs (927 real atoms)
 KNN_SLOT_FILL = 0.58
@@ -1175,6 +1177,14 @@ def fwd_regions(ke, ns, he, hf, nw, kdim, din, dout, out_dim, mix_numel, n_slots
             _r4(g * n_slots * _STAT), _r4(g * per), 4 * WIDE_TILE + 8)
 
 
+def _fin_after_sums(r, out_dim):
+    """fin_after_sums (conv_fwd_wide.cuh) on fwd_regions' list: with a
+    finalize, its output rows and statistics in the weight stages."""
+    if out_dim > 0:
+        r[3], r[6], r[7] = max(r[3], r[6] + r[7]), 0, 0
+    return r
+
+
 def cross_plan_words(ints: dict, g_l: int, g_a: int) -> int:
     """Shared memory of a B1 / B7 block (with a true ints["bf16_chain"], a
     B11-cross block) in 4-byte words (cross_plan, csrc/cross_conv.cu: the
@@ -1187,10 +1197,8 @@ def cross_plan_words(ints: dict, g_l: int, g_a: int) -> int:
         return fwd_regions(n["gs_n"], n["ns"], n["he"], n["hf"], n["nw"], n["kdim"], n["din"],
                            n["dout"], n["out_dim"], n["mix_numel"], n["n_slots"], g, per, bf16)
 
-    r = [max(x) for x in zip(conv(g_l, n["na"]), conv(g_a, n["nl"]))]
-    if n["out_dim"] > 0:
-        r[3], r[6], r[7] = max(r[3], r[6] + r[7]), 0, 0
-    return sum(r)
+    return sum(_fin_after_sums([max(x) for x in zip(conv(g_l, n["na"]), conv(g_a, n["nl"]))],
+                               n["out_dim"]))
 
 
 def cross_row_groups(ints: dict, sms: int):
@@ -1227,18 +1235,25 @@ def cross_row_groups(ints: dict, sms: int):
 
 
 def knn_plan_words(ints: dict, g_k: int) -> int:
-    """Shared memory of a B11-knn block in 4-byte words (fwd_plan of its
-    conv, knn mode, the bf16 chain), from the kernel's sizes: batch, n, k,
-    din, dout, ns, he, hf, nw, kdim, gs_n (_knn_ints)."""
+    """Shared memory of a B3 block in 4-byte words (knn_plan, csrc/
+    knn_conv.cu: fwd_plan of the conv in knn mode; with a finalize, out_dim
+    > 0, B9's, its output rows and statistics in the weight stages; with a
+    true bf16_chain, B11-knn's), from the kernel's sizes (_knn_ints): batch,
+    n, k, din, dout, ns, he, hf, nw, kdim, gs_n, and bf16_chain, out_dim,
+    n_slots, mix_numel. Sizes without bf16_chain are B11-knn's (the bf16
+    plan), those without out_dim have no finalize."""
     n = ints
-    return sum(fwd_regions(n["gs_n"], n["ns"], n["he"], n["hf"], n["nw"], n["kdim"], n["din"],
-                           n["dout"], 0, 0, 0, g_k, n["k"], bf16=True))
+    fin = [n.get(key, 0) for key in ("out_dim", "mix_numel", "n_slots")]
+    return sum(_fin_after_sums(list(fwd_regions(
+        n["gs_n"], n["ns"], n["he"], n["hf"], n["nw"], n["kdim"], n["din"], n["dout"], *fin,
+        g_k, n["k"], bf16=bool(n.get("bf16_chain", 1)))), fin[0]))
 
 
 def knn_row_groups(ints: dict, sms: int) -> int:
-    """g_k, the atoms per block of B11-knn's grid, picked on the host from
-    the batch, the shapes and the SM count; no mask or count is read (no
-    wait for the device: a CUDA graph captures the call).
+    """g_k, the atoms per block of the knn grid (B3, B9, B11-knn), picked on
+    the host from the batch, the shapes and the SM count on the plan of
+    knn_plan_words; no mask or count is read (no wait for the device: a
+    CUDA graph captures the call).
 
     One block runs per SM (its shared memory), and the blocks of the 1-D
     grid start as SMs come free, so the grid takes about the mean tiles per
@@ -1250,7 +1265,8 @@ def knn_row_groups(ints: dict, sms: int) -> int:
     tiles (its last one half full), and g_k is the g <= KNN_ATOM_ROWS
     that fits the shared memory and minimises B ceil(n / g) T(g) / sms +
     T(g): the mean tiles per SM plus one block. At the 3dbs bucket on 132
-    SMs that is 19 atoms at B = 16 and 10 at B = 4."""
+    SMs that is 19 atoms at B = 16 and 10 at B = 4, on the f32 plan (which
+    holds at most 28 atoms at flagship width) as on the bf16 plan (32)."""
     bsz, n, k = ints["batch"], ints["n"], ints["k"]
     best = None
     for g in range(1, KNN_ATOM_ROWS + 1):
@@ -1416,39 +1432,31 @@ class _KnnConvFn(torch.autograd.Function):
                 gr["wf2"], gr["bf2"])
 
 
-def _knn_conv_kernel(lib, data, x, w_in, beff, weights, stream, cycles=None):
-    """B3 (the 32-pair body), or with the data's bf16_chain B11-knn: one
-    launch of its knn grid (_knn_wide)."""
-    c, d = data.c, data
-    if d.bf16_chain:
-        return _knn_wide(lib, data, x, w_in, beff, weights, stream, cycles)
-    bsz, n, k = d.idx.shape
-    he, hf, nw, kdim = d.dims
-    ck, gs_off, meta = c.device_tables(x.device)
-    out = torch.zeros(bsz, n, c.dout, dtype=torch.float32, device=x.device)
-    rc = lib.dbfr_knn_conv(
-        _ptr(d.pos), _ptr(x), _ptr(d.idx), _ptr(d.valid), None, _ptr(w_in), _ptr(beff),
-        *[_ptr(v) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
-        bsz, n, k, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, stream)
-    _check(rc, "knn_conv")
-    launches["knn_conv"] += 1
-    return out
-
-
-# what the last B11-knn launch on the card used: atoms per block and the
-# block's shared memory (chip_smoke.py reports them)
+# what the last launch of each knn-grid kernel on the card used, by launch
+# counter: atoms per block and the block's shared memory (chip_smoke.py
+# reports them)
 knn_conv_stats: dict = {}
 
 
-def _knn_ints(c: ConvConsts, dims, bsz: int, n: int, k: int) -> dict:
-    """B11-knn's sizes, as knn_plan_words and knn_row_groups read them."""
+def _knn_ints(c: ConvConsts, dims, bsz: int, n: int, k: int, bf16_chain: bool = True,
+              fin: FinConsts | None = None) -> dict:
+    """The knn grid's sizes, as knn_plan_words and knn_row_groups read them:
+    B11-knn's unless bf16_chain is false, then B3's, or with `fin` B9's."""
     he, hf, nw, kdim = dims
-    return dict(batch=bsz, n=n, k=k, din=c.din, dout=c.dout, ns=c.ns, he=he, hf=hf, nw=nw,
-                kdim=kdim, gs_n=c.gs_n)
+    ints = dict(batch=bsz, n=n, k=k, din=c.din, dout=c.dout, ns=c.ns, he=he, hf=hf, nw=nw,
+                kdim=kdim, gs_n=c.gs_n, bf16_chain=int(bf16_chain), out_dim=0, n_slots=0,
+                mix_numel=0)
+    if fin is not None:
+        ints.update(out_dim=fin.out_dim, n_slots=len(fin.spec.out.items),
+                    mix_numel=fin.spec.lin.weight_numel)
+    return ints
 
 
-def _knn_wide(lib, data, x, w_in, beff, weights, stream, cycles=None):
-    """One launch of csrc/knn_conv.cu's knn grid (B11-knn), g_k atoms per
+def _knn_conv_kernel(lib, data, x, w_in, beff, weights, stream, cycles=None, fin=None,
+                     fin_ts=()):
+    """One launch of csrc/knn_conv.cu's knn grid: B3 ("knn_conv"), B11-knn
+    ("knn_conv_bf16", the data's bf16_chain) or B9 ("knn_conv_fin": fin a
+    FinConsts, fin_ts the finalize tensors of _fin_ptrs), g_k atoms per
     block from knn_row_groups. `cycles`, an int64 tensor of one entry per
     block (knn_tile_plan's order), receives each block's clock64() cycles
     (chip_smoke.py's block report)."""
@@ -1456,21 +1464,29 @@ def _knn_wide(lib, data, x, w_in, beff, weights, stream, cycles=None):
     bsz, n, k = d.idx.shape
     he, hf, nw, kdim = d.dims
     ck, gs_off, meta = c.device_tables(dev)
-    ints = _knn_ints(c, d.dims, bsz, n, k)
+    name = "knn_conv_fin" if fin is not None else (
+        "knn_conv_bf16" if d.bf16_chain else "knn_conv")
+    ints = _knn_ints(c, d.dims, bsz, n, k, d.bf16_chain, fin)
     g_k = knn_row_groups(ints, contraction.sm_count(str(dev)))
-    knn_conv_stats["knn_conv_bf16"] = dict(atom_rows=g_k, smem_bytes=4 * knn_plan_words(ints, g_k))
+    knn_conv_stats[name] = dict(atom_rows=g_k, smem_bytes=4 * knn_plan_words(ints, g_k))
     if cycles is not None and (cycles.dtype != torch.int64 or cycles.device != dev
                                or cycles.numel() != bsz * -(-n // g_k)):
-        raise ValueError("knn_conv_bf16: cycles takes one int64 per block on the kernel's device")
-    out = torch.empty(bsz, n, c.dout, dtype=torch.float32, device=dev)
+        raise ValueError(f"{name}: cycles takes one int64 per block on the kernel's device")
+    fin_args = []
+    if fin is not None:
+        tptrs, _ = _fin_tail(fin, dev)
+        fin_args = [_ptr(t) for t in fin_ts] + tptrs + [ints["out_dim"], ints["n_slots"],
+                                                        ints["mix_numel"]]
+    out = torch.empty(bsz, n, c.dout if fin is None else fin.out_dim, dtype=torch.float32,
+                      device=dev)
     # cp.async stages the MLP weights 16 bytes at a time
-    rc = lib.dbfr_knn_conv_bf16(
+    rc = getattr(lib, "dbfr_" + name)(
         _ptr(d.pos), _ptr(x), _ptr(d.idx), _ptr(d.valid), None, _ptr(_aligned(w_in)),
         _ptr(beff), *[_ptr(_aligned(v)) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta),
-        _ptr(out), bsz, n, k, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff, g_k,
-        _ptr(cycles), stream)
-    _check(rc, "knn_conv_bf16")
-    launches["knn_conv_bf16"] += 1
+        _ptr(out), bsz, n, k, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff,
+        *fin_args, g_k, _ptr(cycles), stream)
+    _check(rc, name)
+    launches[name] += 1
     return out
 
 
@@ -1482,10 +1498,10 @@ def knn_valid(idx, valid):
 
 
 def knn_tile_plan(idx, valid, g_k):
-    """B11-knn's blocks in grid order (every sample's blocks, g_k atoms each,
-    in atom order), each with its atoms' valid neighbour slots in candidate
-    order (atom-major, then slot) cut into tiles of WIDE_TILE (target,
-    neighbour) pairs."""
+    """B3's, B9's and B11-knn's blocks in grid order (every sample's
+    blocks, g_k atoms each, in atom order), each with its atoms' valid
+    neighbour slots in candidate order (atom-major, then slot) cut into
+    tiles of WIDE_TILE (target, neighbour) pairs."""
     bsz, n, _ = idx.shape
     ok, nb = knn_valid(idx, valid), idx.long()
     return [TileBlock("knn", b, t0, g_k, {"knn": block_tiles(ok[b, t0 : t0 + g_k], t0,
@@ -1495,11 +1511,11 @@ def knn_tile_plan(idx, valid, g_k):
 
 def knn_conv_tiled_plain(c: ConvConsts, pos, x, mask, idx, valid, temb, params, g_k, *,
                          bf16_chain: bool = False):
-    """B11-knn's decomposition, plain (bf16_chain; else the same plan with
-    the f32 chain): the blocks of knn_tile_plan at g_k atoms, each tile's
-    messages (wide_tile_plain on the kernel's folded edge input; with the
-    bf16 chain both scalar halves rounded) added to their atoms' sums tile
-    by tile, in list order. Same returns as knn_conv_plain."""
+    """B3's decomposition, plain (with `bf16_chain`, B11-knn's): the blocks
+    of knn_tile_plan at g_k atoms, each tile's messages (wide_tile_plain on
+    the kernel's folded edge input; with the bf16 chain both scalar halves
+    rounded) added to their atoms' sums tile by tile, in list order. Same
+    returns as knn_conv_plain."""
     e_, fc, temb, x = _f32((params["emb"], params["fc"], temb, x))
     bsz, n, _ = idx.shape
     w_in, beff = _prep_edge(c, e_["l1"]["w"], e_["l1"]["b"], temb, 0, bsz, x.device)
@@ -1512,6 +1528,13 @@ def knn_conv_tiled_plain(c: ConvConsts, pos, x, mask, idx, valid, temb, params, 
             out[b].index_add_(0, t, wide_tile_plain(c, pos[b, s] - pos[b, t], x[b, t], x[b, s],
                                                     None, w_in, beff[b], e_, fc, bf_sc))
     return out
+
+
+def knn_conv_fin_tiled_plain(c: ConvConsts, fin, pos, x, mask, idx, valid, temb, params, g_k):
+    """B9's decomposition, plain: knn_conv_tiled_plain's sums, finalized by
+    the count of valid slots. Same returns as knn_conv_fin_plain."""
+    return finalize_plain(fin, params, knn_conv_tiled_plain(c, pos, x, mask, idx, valid, temb,
+                                                            params, g_k), valid.float().sum(-1))
 
 
 def reverse_neighbours(idx, valid):
@@ -1918,20 +1941,11 @@ def knn_conv_fin(c: ConvConsts, fin: FinConsts, pos, x, mask, idx, valid, temb, 
     return _with_plain_backward(_knn_fin_kernel, knn_conv_fin_plain, *args)
 
 
-def _knn_fin_kernel(c, fin, pos, x, mask, idx, valid, temb, params):
+def _knn_fin_kernel(c, fin, pos, x, mask, idx, valid, temb, params, cycles=None):
+    """One launch of B9 (_knn_conv_kernel)."""
     data, xx, w_in, beff, *weights = _knn_inputs(c, pos, x, idx, valid, temb, params)
     d, dev = data, xx.device
-    bsz, n, k = d.idx.shape
-    he, hf, nw, kdim = d.dims
-    ck, gs_off, meta = c.device_tables(dev)
-    fptrs, _keep = _fin_ptrs(fin, params, d.valid.sum(-1), (bsz, n), dev)
-    tptrs, tints = _fin_tail(fin, dev)
-    out = torch.empty(bsz, n, fin.out_dim, dtype=torch.float32, device=dev)
-    rc = _library().dbfr_knn_conv_fin(
-        _ptr(d.pos), _ptr(xx), _ptr(d.idx), _ptr(d.valid), None, _ptr(w_in), _ptr(beff),
-        *[_ptr(v) for v in weights], _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
-        bsz, n, k, c.din, c.dout, c.ns, he, hf, nw, kdim, c.gs_n, c.gs_coeff,
-        *fptrs, *tptrs, *tints, _stream())
-    _check(rc, "knn_conv_fin")
-    launches["knn_conv_fin"] += 1
-    return out
+    bsz, n, _ = d.idx.shape
+    _, ts = _fin_ptrs(fin, params, d.valid.sum(-1), (bsz, n), dev)
+    return _knn_conv_kernel(_library(), data, xx, w_in, beff, weights, _stream(), cycles,
+                            fin=fin, fin_ts=ts)

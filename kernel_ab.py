@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of the cross conv kernels B1 and B7 and of the bf16-chain
-kernels B11-cross and B11-knn in two checkouts of this repository, in
-turns on one card (A B B A).
+"""Device times of the cross conv kernels B1 and B7, the knn conv kernels B3
+and B9 and the bf16-chain kernels B11-cross and B11-knn in two checkouts of
+this repository, in turns on one card (A B B A).
 
     python3 kernel_ab.py <checkout A> <checkout B> [--knn-rows G,G,...]
 
@@ -12,8 +12,9 @@ imports the package from its checkout (building its kernels there at first
 use) and this checkout's chip_smoke.py, makes chip_smoke's phase-5 and
 phase-12 inputs (kernel_inputs / rm_inputs: 3dbs bucket shapes, diff_r2
 weights, seeded features), and times each kernel through its wrapper:
-B1 (`cross_conv`) at (layer 0, B = 4), (5, 4) and (5, 16), B7
-(`cross_conv_fin`) at (0, 16) and (5, 16), B11-cross and B11-knn
+B1 (`cross_conv`) and B3 (`knn_conv`) at (layer 0, B = 4), (5, 4) and
+(5, 16), B7 (`cross_conv_fin`) and B9 (`knn_conv_fin`) at (0, 16) and
+(5, 16), B11-cross and B11-knn
 (`cross_conv` and `knn_conv` with `bf16_chain=True`, on the bf16-rounded
 weights of chip_smoke's phase 18) at (0, 16) and (5, 16). `graph_ms` is
 the device time per call from CUDA events around replays of a CUDA graph
@@ -21,10 +22,11 @@ of 20 calls (no host work between the launches; either version's kernels,
 whatever their symbols), `ms` CUDA events around 10 wrapper calls. Prints the card's
 nvidia-smi line, one line per kernel and shape with every turn's numbers,
 and, last, every turn's numbers as one JSON object. With --knn-rows, each
-turn of a checkout that has trunk_convs.knn_row_groups also times B11-knn
-at its shapes with the atoms per block forced to each G (the host's rule
-replaced for the call), beside the G the rule picks. Imports nothing of
-JAX.
+turn also times each knn kernel that runs on the checkout's knn grid (B3,
+B9, B11-knn: the kernels whose call records trunk_convs.knn_conv_stats)
+at its shapes with the atoms per block forced to each G (the host's rule,
+knn_row_groups, replaced for the call), beside the G the rule picks.
+Imports nothing of JAX.
 """
 import json
 import os
@@ -33,12 +35,14 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPES = {"cross_conv": ((0, 4), (5, 4), (5, 16)), "cross_conv_fin": ((0, 16), (5, 16)),
-          "cross_conv_bf16": ((0, 16), (5, 16)), "knn_conv_bf16": ((0, 16), (5, 16))}
+          "cross_conv_bf16": ((0, 16), (5, 16)), "knn_conv_bf16": ((0, 16), (5, 16)),
+          "knn_conv": ((0, 4), (5, 4), (5, 16)), "knn_conv_fin": ((0, 16), (5, 16))}
+KNN_GRID = ("knn_conv_bf16", "knn_conv", "knn_conv_fin")
 
 
 def child(checkout, knn_rows=()):
-    """One turn: the kernels of `checkout` at every shape (and B11-knn at
-    each forced g_k of knn_rows); one JSON line."""
+    """One turn: the kernels of `checkout` at every shape (and its knn-grid
+    kernels at each forced g_k of knn_rows); one JSON line."""
     import importlib.util
 
     sys.path.insert(0, os.path.abspath(checkout))
@@ -64,16 +68,20 @@ def child(checkout, knn_rows=()):
     p16 = sn._cast_f32_leaves(params, torch.bfloat16)
     wrapper = {"cross_conv": TC.cross_conv, "cross_conv_fin": TC.cross_conv_fin,
                "cross_conv_bf16": functools.partial(TC.cross_conv, bf16_chain=True),
-               "knn_conv_bf16": functools.partial(TC.knn_conv, bf16_chain=True)}
+               "knn_conv_bf16": functools.partial(TC.knn_conv, bf16_chain=True),
+               "knn_conv": TC.knn_conv, "knn_conv_fin": TC.knn_conv_fin}
+
+    def inputs(name, layer, bsz):
+        seed = layer * 100 + bsz
+        if name.endswith("_bf16"):
+            return cs.kernel_inputs(torch, p16, s_np, layer, bsz, seed)[name[:-len("_bf16")]]
+        rm, args = cs.rm_inputs(torch, params, s_np, layer, bsz, seed)
+        return args[name] if name in args else rm[name]
+
     out = {}
     for name, shapes in SHAPES.items():
         for layer, bsz in shapes:
-            seed = layer * 100 + bsz
-            if name.endswith("_bf16"):
-                a = cs.kernel_inputs(torch, p16, s_np, layer, bsz, seed)[name[:-len("_bf16")]]
-            else:
-                rm, args = cs.rm_inputs(torch, params, s_np, layer, bsz, seed)
-                a = args[name] if name in args else rm[name]
+            a = inputs(name, layer, bsz)
             with torch.no_grad():
                 wrapper[name](*a)
                 ms = cs.time_ms(lambda: wrapper[name](*a), 3, 10)
@@ -81,17 +89,21 @@ def child(checkout, knn_rows=()):
             out[f"{name} {layer} {bsz}"] = {"graph_ms": graph, "ms": ms}
     sweep = {}
     rule = getattr(TC, "knn_row_groups", None)
-    for layer, bsz in SHAPES["knn_conv_bf16"] if rule is not None else ():
-        a = cs.kernel_inputs(torch, p16, s_np, layer, bsz, layer * 100 + bsz)["knn_conv"]
-        with torch.no_grad():
-            wrapper["knn_conv_bf16"](*a)
-            picked = TC.knn_conv_stats["knn_conv_bf16"]["atom_rows"]
-            for g in knn_rows:
-                TC.knn_row_groups = lambda ints, sms, g=g: g
-                graph = cs.graph_ms(torch, lambda: wrapper["knn_conv_bf16"](*a))
-                sweep[f"knn_conv_bf16 {layer} {bsz} g_k={g}"] = {"graph_ms": graph,
-                                                                  "rule_picks": picked}
-            TC.knn_row_groups = rule
+    for name in KNN_GRID if knn_rows and rule is not None else ():
+        for layer, bsz in SHAPES[name]:
+            a = inputs(name, layer, bsz)
+            with torch.no_grad():
+                TC.knn_conv_stats.pop(name, None)
+                wrapper[name](*a)
+                if name not in TC.knn_conv_stats:  # not on the checkout's knn grid
+                    break
+                picked = TC.knn_conv_stats[name]["atom_rows"]
+                for g in knn_rows:
+                    TC.knn_row_groups = lambda ints, sms, g=g: g
+                    graph = cs.graph_ms(torch, lambda: wrapper[name](*a))
+                    sweep[f"{name} {layer} {bsz} g_k={g}"] = {"graph_ms": graph,
+                                                              "rule_picks": picked}
+                TC.knn_row_groups = rule
     print(json.dumps({"checkout": checkout, "times": out, "knn_rows": sweep}), flush=True)
 
 
