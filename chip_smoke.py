@@ -45,11 +45,12 @@ a non-zero exit code):
               plain version may take the kernel's decision at a ReLU
               pre-activation within f32 rounding of 0 and nowhere else
               (nn/relu_ties.py); each such tie is printed with |z| and its
-              rounding bound. B4 and B6 also: two more calls give the same
-              bits; the pair list holds the pairs the mask keeps; the device
-              time by part (pair list, pair passes, contractions, node sums),
-              the pair count (B6: of its neighbour slots) and the scratch
-              bytes of a call
+              rounding bound. B4, B5 and B6 also: two more calls give the
+              same bits; the pair list holds the pairs the mask keeps; the
+              device time by part (pair list, pair passes, contractions, node
+              sums), the pair count (B6: of its neighbour slots; B5: the
+              pass's tiles, the SMs they fill, its time per tile and SM) and
+              the scratch bytes of a call
   10. train_parity  one full-width train step (diff_r2 params, a fixed 3dbs
               batch of 4, fixed TrainNoise) on the kernel path and on the
               plain path: loss terms within 1e-5, grad_norm within 1e-4
@@ -71,7 +72,9 @@ a non-zero exit code):
               atoms): blocks, 64-pair tiles and their fill, each kind's share
               of the blocks' cycles; B7 as phase 5's B1 (same bits, its al
               and la blocks, g_l, g_a, shared memory); B9 as phase 5's B3
-              (graph replay, same bits, its blocks, g_k, shared memory)
+              (graph replay, same bits, its blocks, g_k, shared memory); B8
+              likewise on its grid of g_p ligand rows per block
+              (csrc/pair_conv.cu)
   13. rm_forward  the full-width score net in the row-major configurations
               (rowmajor, +fused_epilogue, +fused_layer) against the JAX fixture
               (<= 1e-3, as phase 6)
@@ -261,14 +264,16 @@ MOSAIC_ROWS = {"3d": ("3d_accum", ":40"), "onehot": ("onehot", ":68"),
 SYMBOLS = {
     "cross_conv": ("cross_conv_wide_kernel(",), "pair_conv": ("pair_conv_kernel(",),
     "knn_conv": ("knn_conv_wide_kernel(",),
-    "cross_bwd": ("cross_wide_kernel(", "cross_pairs_count_kernel(", "exclusive_scan_kernel(",
-                  "cross_atom_count_kernel(", "cross_pairs_fill_kernel(", "abt_kernel<",
+    "cross_bwd": ("cross_wide_kernel(", "pairs_count_kernel(", "exclusive_scan_kernel(",
+                  "src_count_kernel(", "pairs_fill_kernel(", "abt_kernel<",
                   "abt_reduce_kernel(", "segment_sum_kernel<8>(", "segment_sum_kernel<2>("),
-    "pair_bwd": ("pair_bwd_kernel(", "reduce_rows_kernel("),
+    "pair_bwd": ("pair_wide_kernel(", "pairs_count_kernel(", "exclusive_scan_kernel(",
+                 "src_count_kernel(", "pairs_fill_kernel(", "abt_kernel<", "abt_reduce_kernel(",
+                 "segment_sum_kernel<2>("),
     "knn_bwd": ("knn_wide_kernel(", "knn_count_kernel(", "knn_scan_kernel(", "knn_rev_kernel(",
                 "abt_kernel<", "abt_reduce_kernel(", "knn_node_sum_kernel("),
     "cross_conv_fin": ("cross_conv_fin_wide_kernel(",),
-    "pair_conv_fin": ("pair_conv_fin_kernel(",),
+    "pair_conv_fin": ("pair_conv_fin_wide_kernel(",),
     "knn_conv_fin": ("knn_conv_fin_wide_kernel(",), "layer_conv": ("layer_conv_kernel(",),
     "cross_conv_bf16": ("cross_conv_bf16_wide_kernel(",),
     "pair_conv_bf16": ("pair_conv_bf16_kernel(",), "knn_conv_bf16": ("knn_conv_bf16_wide_kernel(",),
@@ -286,23 +291,29 @@ SYMBOLS = {
 # grids of each kernel symbol (SYMBOLS[key]) that one counted launch runs,
 # where more than one (B1, B7 and B11-cross run both directions in one
 # grid): B4 (csrc/cross_bwd.cu) two prefix sums (ligand rows, atoms) and per
-# direction a pair pass, a contraction and its reduction; B5 a target and a
-# source pass (csrc/pair_bwd.cu)
+# direction a pair pass, a contraction and its reduction; B5
+# (csrc/pair_bwd.cu) two prefix sums (target rows, sources) and two node
+# sums (targets, sources)
 GRIDS = {"cross_bwd": {"cross_wide_kernel(": 2, "exclusive_scan_kernel(": 2, "abt_kernel<": 2,
                        "abt_reduce_kernel(": 2},
-         "pair_bwd": {"pair_bwd_kernel(": 2}}
-# calls that read to the host (B4 reads its pair count to size its scratch):
-# no CUDA graph can capture them, so device_ms's fallback for them is CUDA
-# events around the calls
-NO_GRAPH = ("cross_bwd",)
-# B4's and B6's kernels by the part of their work they do (phase 9 prints
-# each part)
+         "pair_bwd": {"exclusive_scan_kernel(": 2, "segment_sum_kernel<2>(": 2}}
+# calls that read to the host (B4 and B5 read their pair counts to size
+# their scratch): no CUDA graph can capture them, so device_ms's fallback for
+# them is CUDA events around the calls
+NO_GRAPH = ("cross_bwd", "pair_bwd")
+# B4's, B5's and B6's kernels by the part of their work they do (phase 9
+# prints each part)
 BWD_PARTS = {
-    "cross_bwd": {"pair list": ("cross_pairs_count_kernel(", "exclusive_scan_kernel(",
-                                "cross_atom_count_kernel(", "cross_pairs_fill_kernel("),
+    "cross_bwd": {"pair list": ("pairs_count_kernel(", "exclusive_scan_kernel(",
+                                "src_count_kernel(", "pairs_fill_kernel("),
                   "pair passes": ("cross_wide_kernel(",),
                   "contractions": ("abt_kernel<", "abt_reduce_kernel("),
                   "node sums": ("segment_sum_kernel<8>(", "segment_sum_kernel<2>(")},
+    "pair_bwd": {"pair list": ("pairs_count_kernel(", "exclusive_scan_kernel(",
+                               "src_count_kernel(", "pairs_fill_kernel("),
+                 "pair pass": ("pair_wide_kernel(",),
+                 "contractions": ("abt_kernel<", "abt_reduce_kernel("),
+                 "node sums": ("segment_sum_kernel<2>(",)},
     "knn_bwd": {"pair list": ("knn_count_kernel(", "knn_scan_kernel(", "knn_rev_kernel("),
                 "pair pass": ("knn_wide_kernel(",),
                 "contractions": ("abt_kernel<", "abt_reduce_kernel("),
@@ -622,17 +633,20 @@ def phase_kernels(torch, params, s_np, results):
             if name == "cross_conv":
                 row["blocks"] = cross_block_report(torch, TC, name, wrapper[name], a)
             if name == "knn_conv":
-                row.update(knn_grid_report(torch, TC, name, wrapper[name], a))
+                row.update(grid_report(torch, TC, name, wrapper[name], a))
 
 
-def knn_grid_report(torch, TC, name, wrapper, a):
-    """B3 ("knn_conv") or B9 ("knn_conv_fin") after its timing, on the knn
-    grid: a CUDA graph captures the call and its replay gives the same bits;
-    then knn_block_report. Returns the row's graph_same and blocks."""
+def grid_report(torch, TC, name, wrapper, a):
+    """B3 ("knn_conv") or B9 ("knn_conv_fin") on the knn grid, or B8
+    ("pair_conv_fin") on its grid of ligand rows, after its timing: a CUDA
+    graph captures the call and its replay gives the same bits; then its
+    block report (knn_block_report, pair_block_report). Returns the row's
+    graph_same and blocks."""
     if not graph_same(torch, functools.partial(wrapper, *a)):
         raise AssertionError(f"{name}: a CUDA graph's replay differs")
     print("    a CUDA graph captures the call; its replay gives the same bits", flush=True)
-    return {"graph_same": True, "blocks": knn_block_report(torch, TC, name, wrapper, a)}
+    report = pair_block_report if name == "pair_conv_fin" else knn_block_report
+    return {"graph_same": True, "blocks": report(torch, TC, name, wrapper, a)}
 
 
 def cross_block_report(torch, TC, name, wrapper, a):
@@ -686,43 +700,75 @@ def cross_block_report(torch, TC, name, wrapper, a):
 def knn_block_report(torch, TC, name, wrapper, a):
     """B3 (name "knn_conv"), B9 ("knn_conv_fin") or B11-knn
     ("knn_conv_bf16") after its timing: two more calls must give the same
-    bits; then its blocks (g_k atoms each): the blocks, those with a pair
-    (working), their 64-pair tiles and how full they are (the plan model,
-    knn_tile_plan, on these inputs), the share of the blocks' clock64()
-    cycles that the working blocks take (one launch with `cycles`), the
-    longest block against the working mean; g_k and the block's shared
+    bits; then its blocks (g_k atoms each, the plan model knn_tile_plan on
+    these inputs) as block_summary reports them; g_k and the block's shared
     memory."""
     c, pos, x, _, idx, valid, temb, p = (a[0],) + tuple(a[2:]) if name == "knn_conv_fin" else a
+    same_bits(torch, name, wrapper, a)
+    stats = TC.knn_conv_stats[name]
+    g_k = stats["atom_rows"]
+    plan = TC.knn_tile_plan(idx, valid, g_k)
+    cycles = torch.zeros(len(plan), dtype=torch.int64, device=DEV)
     with torch.no_grad():
-        one, two = wrapper(*a), wrapper(*a)
-        torch.cuda.synchronize()
-        if not torch.equal(one, two):
-            raise AssertionError(f"{name}: two calls gave different bits")
-        stats = TC.knn_conv_stats[name]
-        g_k = stats["atom_rows"]
-        plan = TC.knn_tile_plan(idx, valid, g_k)
-        cycles = torch.zeros(len(plan), dtype=torch.int64, device=DEV)
         if name == "knn_conv_fin":
             TC._knn_fin_kernel(*a, cycles=cycles)
         else:
             d = TC._knn_inputs(c, pos, x, idx, valid, temb, p, name == "knn_conv_bf16")
             TC._knn_conv_kernel(TC._library(), *d[:4], d[4:], TC._stream(), cycles=cycles)
         torch.cuda.synchronize()
+    print(f"    g_k {g_k} atoms per block, {stats['smem_bytes']} bytes of shared memory; two "
+          f"calls bit-identical", flush=True)
+    return {"atom_rows": g_k, "smem_bytes": stats["smem_bytes"], "same_bits": True,
+            **block_summary(TC, plan, "knn", cycles, "knn blocks")}
+
+
+def pair_block_report(torch, TC, name, wrapper, a):
+    """B8 ("pair_conv_fin") after its timing: two more calls must give the
+    same bits; then its blocks (g_p ligand rows each, the plan model
+    pair_tile_plan on these inputs) as block_summary reports them; g_p and
+    the block's shared memory."""
+    c, fin, tp, sp, tx, sx, tm, sm, ct, cs, temb, cut, p, bf, bm, cnt = a
+    same_bits(torch, name, wrapper, a)
+    stats = TC.pair_conv_stats[name]
+    g_p = stats["lig_rows"]
+    plan = TC.pair_tile_plan(tp, sp, tm, sm, cs, cut, bm, g_p)
+    cycles = torch.zeros(len(plan), dtype=torch.int64, device=DEV)
+    with torch.no_grad():
+        TC._pair_fin_kernel(*a, cycles=cycles)
+        torch.cuda.synchronize()
+    print(f"    g_p {g_p} ligand rows per block, {stats['smem_bytes']} bytes of shared memory; "
+          f"two calls bit-identical", flush=True)
+    return {"lig_rows": g_p, "smem_bytes": stats["smem_bytes"], "same_bits": True,
+            **block_summary(TC, plan, "pair", cycles, "ligand-row blocks")}
+
+
+def same_bits(torch, name, wrapper, a):
+    """Two more calls of `wrapper` must give the same bits."""
+    with torch.no_grad():
+        one, two = wrapper(*a), wrapper(*a)
+        torch.cuda.synchronize()
+    if not torch.equal(one, two):
+        raise AssertionError(f"{name}: two calls gave different bits")
+
+
+def block_summary(TC, plan, kind, cycles, what):
+    """A one-kind grid's blocks (`plan`, TileBlocks in grid order) and their
+    clock64() cycles from one launch: the blocks, those with a pair
+    (working), their 64-pair tiles and how full they are, the share of the
+    blocks' cycles that the working blocks take, the longest working block
+    against the working mean (each block's cycles are its SM's time on it)
+    and the most tiles a block holds."""
     cyc = cycles.double().cpu()
-    sel = list(range(len(plan)))
-    work = [i for i in sel if plan[i].tiles["knn"]]
-    tiles = sum(len(blk.tiles["knn"]) for blk in plan)
-    pairs = sum(len(t) for blk in plan for t in blk.tiles["knn"])
+    work = [i for i, blk in enumerate(plan) if blk.tiles[kind]]
+    tiles = sum(len(blk.tiles[kind]) for blk in plan)
+    pairs = sum(len(t) for blk in plan for t in blk.tiles[kind])
     c = cyc[work] if work else cyc
-    out = {"atom_rows": g_k, "smem_bytes": stats["smem_bytes"], "same_bits": True,
-           "blocks": len(sel), "working": len(work), "tiles": tiles, "pairs": pairs,
+    out = {"blocks": len(plan), "working": len(work), "tiles": tiles, "pairs": pairs,
            "tile_fill": pairs / max(1, tiles * TC.WIDE_TILE),
            "working_cycle_share": float(c.sum() / cyc.sum()),
            "longest_over_working_mean": float(c.max() / c.mean()),
-           "tiles_per_block_max": max(len(blk.tiles["knn"]) for blk in plan)}
-    print(f"    g_k {g_k} atoms per block, {out['smem_bytes']} bytes of shared memory; two calls "
-          f"bit-identical", flush=True)
-    print(f"    knn blocks: {len(sel)} blocks ({len(work)} working, "
+           "tiles_per_block_max": max(len(blk.tiles[kind]) for blk in plan)}
+    print(f"    {what}: {len(plan)} blocks ({len(work)} working, "
           f"{100 * out['working_cycle_share']:.1f}% of the block cycles), {tiles} tiles of {pairs} "
           f"pairs ({100 * out['tile_fill']:.1f}% full, at most {out['tiles_per_block_max']} a "
           f"block), longest block {out['longest_over_working_mean']:.2f}x the working mean",
@@ -917,11 +963,12 @@ def phase_bwd_kernels(torch, params, s_np, results):
 
 
 def wide_bwd_report(torch, TC, bname, launch, parts, layer, bsz):
-    """B4 or B6 after its timing: two more calls must give the same bits;
-    prints the device time of each part of its work (BWD_PARTS, from the
-    profiler's per-symbol reading), the pair count (B6: and its neighbour
-    slots, by which it sizes its scratch and grid) and the scratch bytes of
-    a call."""
+    """B4, B5 or B6 after its timing: two more calls must give the same
+    bits; prints the device time of each part of its work (BWD_PARTS, from
+    the profiler's per-symbol reading), the pair count (B6: and its
+    neighbour slots, by which it sizes its scratch and grid; B5: the pass's
+    tiles, the SMs they fill and its time per tile and SM) and the scratch
+    bytes of a call."""
     first, second = launch(), launch()
     torch.cuda.synchronize()
 
@@ -933,6 +980,10 @@ def wide_bwd_report(torch, TC, bname, launch, parts, layer, bsz):
     if bname == "cross_bwd":
         stats = dict(TC.cross_bwd_stats)
         listed = f"{stats['pairs']} pairs in the list"
+    elif bname == "pair_bwd":
+        stats = dict(TC.pair_bwd_stats)
+        listed = (f"{stats['pairs']} pairs in the list, the pass's {stats['tiles']} tiles on "
+                  f"{stats['sms']} SMs")
     else:
         stats = dict(TC.knn_bwd_stats, pairs=int(TC.knn_bwd_stats["count"]))
         listed = (f"{stats['pairs']} pairs of {stats['slots']} neighbour slots "
@@ -948,9 +999,14 @@ def wide_bwd_report(torch, TC, bname, launch, parts, layer, bsz):
     if parts:
         print("    by kernel: " + ", ".join(f"{k[:-1]} {v:.4f} ms" for k, v in parts.items()),
               flush=True)
+    extra = {k: stats[k] for k in ("slots", "tiles", "sms") if k in stats}
+    if bname == "pair_bwd" and by_part and stats["tiles"]:
+        # the pass's time per tile and SM: its tiles fill stats["sms"] SMs
+        extra["pass_us_per_tile"] = 1e3 * by_part["pair pass"] * stats["sms"] / stats["tiles"]
+        print(f"    the pass: {stats['tiles']} tiles on {stats['sms']} SMs, "
+              f"{extra['pass_us_per_tile']:.1f} us per tile and SM", flush=True)
     return dict(pairs_listed=stats["pairs"], splits=stats["splits"],
-                scratch_bytes=stats["scratch_bytes"], parts_ms=by_part,
-                **({"slots": stats["slots"]} if "slots" in stats else {}))
+                scratch_bytes=stats["scratch_bytes"], parts_ms=by_part, **extra)
 
 
 def param_paths(tree, prefix=""):
@@ -1306,8 +1362,8 @@ def phase_rm_kernels(torch, params, s_np, results):
                 row["blocks"] = layer_block_report(torch, LC, a, layer, bsz)
             if name == "cross_conv_fin":
                 row["blocks"] = cross_block_report(torch, TC, name, wrapper[name], a)
-            if name == "knn_conv_fin":
-                row.update(knn_grid_report(torch, TC, name, wrapper[name], a))
+            if name in ("knn_conv_fin", "pair_conv_fin"):
+                row.update(grid_report(torch, TC, name, wrapper[name], a))
 
 
 def layer_block_report(torch, LC, a, layer, bsz):
@@ -2295,6 +2351,7 @@ def main() -> int:
     for name, (src, repl, _) in BWD_KERNELS.items():
         # the training shapes: layer 5, the 128/1024 batch of 4
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 4][0]
+        b16 = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                      "launches": train_counts[name], "max_abs_err": main_row["max_abs_err"],
                      "max_rel_err": main_row["max_rel_err"],
@@ -2305,8 +2362,11 @@ def main() -> int:
                      "plain_ms": main_row["plain_ms"],
                      "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
                      "library_ms": None, "layer": 5, "batch": 4,
-                     **{k: main_row[k] for k in ("pairs_listed", "slots", "splits",
-                                                 "scratch_bytes", "parts_ms") if k in main_row}})
+                     **{k: main_row[k] for k in ("pairs_listed", "slots", "tiles", "sms",
+                                                 "pass_us_per_tile", "splits", "scratch_bytes",
+                                                 "parts_ms") if k in main_row},
+                     "batch_16": {k: b16[k] for k in ("device_ms", "device_ms_method",
+                                                      "bound_ms", "pairs")}})
     for name, (src, repl) in RM_KERNELS.items():
         # the dock shapes at layer 5; launches from the dock in the
         # configuration that runs the kernel

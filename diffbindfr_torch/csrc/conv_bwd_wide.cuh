@@ -1,12 +1,14 @@
 // The wide-tile pair pass of a trunk conv's backward (B4, cross_bwd.cu, for
-// each direction of the cross conv; B6, knn_bwd.cu, for the knn conv). It
-// replaces the Pallas backward kernels' per-pair chain
-// (diffbindfr_tpu/nn/pallas_conv_t.py, make_cross_bwd_t, make_knn_bwd_t)
-// for one direction of a conv, given a list of the valid pairs (target,
-// source, sample) built by the caller. The pair count is a host integer
-// (B4, which reads it) or a device word (B6, whose list and grid are sized
-// by every neighbour slot): tiles at and beyond a device count write zero
-// columns, so that the contractions over the whole scratch see zeros there.
+// each direction of the cross conv; B5, pair_bwd.cu, for the pair conv; B6,
+// knn_bwd.cu, for the knn conv). It replaces the Pallas backward kernels'
+// per-pair chain (diffbindfr_tpu/nn/pallas_conv_t.py, make_cross_bwd_t,
+// make_pair_bwd_t, make_knn_bwd_t) for one direction of a conv, given a list
+// of the valid pairs (target, source, sample) built by the caller. The pair
+// count is a host integer (B4 and B5, which read it) or a device word (B6,
+// whose list and grid are sized by every neighbour slot): tiles at and
+// beyond a device count write zero columns, so that the contractions over
+// the whole scratch see zeros there. The edge MLP's input rows are the
+// Gaussian rows of the pair's distance, then (B5) its nb bond features.
 //
 // A block takes 64 consecutive pairs of the list and, per pair, recomputes
 // the forward chain (geometry, Gaussian rows, edge MLP, TP-weight MLP, sh,
@@ -90,7 +92,9 @@ struct WideArgs {
   const float* gout;     // [B, nt, dout] cotangent of the target's message sum
   int nt, nsrc, din, dout, ns, he, hf, nw, kdim, gs_n;
   float gs_coeff;
-  const float* w1;    // [gs_n, he] Gaussian rows of the edge MLP
+  const float* bond_feat;  // [B, nt, nsrc, nb] the edge MLP's extra input rows (nb = 0: none)
+  int nb;
+  const float* w1;    // [gs_n + nb, he] the edge MLP's Gaussian rows, then its bond rows
   const float* beff;  // [B, he] its bias with the time embedding folded in
   const float* w2;    // [he, ns]
   const float* b2;    // [ns]
@@ -123,7 +127,7 @@ __host__ __device__ inline WidePlan wide_plan(const WideArgs& a) {
   WidePlan p;
   const int maxn = 32 * ((imax(imax(imax(a.he, a.ns), imax(a.hf, a.nw)), 3 * a.ns) + 31) / 32);
   p.a = (a.he + imax(3 * a.ns, a.nw)) * kWideS;  // h1 | e, then w / dw, then de
-  p.b = imax(imax(a.gs_n, a.hf), a.he) * kWideS;  // in, then h / dh, then dh1
+  p.b = imax(imax(a.gs_n + a.nb, a.hf), a.he) * kWideS;  // in, then h / dh, then dh1
   p.sh = 9 * kWideS;
   // weight slices, two stages; in the TP phase two staging rows per warp
   p.ws = round4(imax(2 * kWideKT * maxn, 2 * kWideWarps * round4(a.dout + a.din + a.kdim)));
@@ -319,7 +323,7 @@ __device__ __forceinline__ void wide_pass(const WideArgs& a) {
   const int nvalid = imin(kWideTile, (a.P_dev ? *a.P_dev : a.P) - tile0);
   if (nvalid <= 0) {
     if (a.P_dev && tile0 < a.ld) {  // beyond a device count: zero columns of every row
-      const int rows = wide_rows(a.gs_n, a.he, a.ns, a.hf, a.nw).total;
+      const int rows = wide_rows(a.gs_n + a.nb, a.he, a.ns, a.hf, a.nw).total;
       const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int i = threadIdx.x; i < rows * (kWideTile / 4); i += kThreads)
         *reinterpret_cast<float4*>(a.rows + (size_t)(i / (kWideTile / 4)) * a.ld + tile0 +
@@ -343,7 +347,7 @@ __device__ __forceinline__ void wide_pass(const WideArgs& a) {
   float* sl_d = reinterpret_cast<float*>(sl_b + kWideTile);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ns = a.ns, he = a.he, ke = a.gs_n;
+  const int ns = a.ns, he = a.he, ke = a.gs_n + a.nb;
   const WideRows R = wide_rows(ke, he, ns, a.hf, a.nw);
   for (int i = tid; i < 9 * a.kdim; i += kThreads) ck[i] = __ldg(a.ck + i);
   for (int i = tid; i < a.nw; i += kThreads) wm[i] = a.w_meta[i];
@@ -384,13 +388,18 @@ __device__ __forceinline__ void wide_pass(const WideArgs& a) {
     shs[8 * kWideS + p] = 0.5f * kSqrt15 * (x * x - y * y);
   }
   __syncthreads();
-  // 2. Gaussian rows -> B
+  // 2. edge input rows [Gaussian | bond features] -> B
   for (int i = tid; i < ke * kWideTile; i += kThreads) {
     const int r = i / kWideTile, p = i % kWideTile;
     float v = 0.f;
     if (p < nvalid) {
-      const float diff = sl_d[p] - a.gs_off[r];
-      v = expf(a.gs_coeff * (diff * diff));
+      if (r < a.gs_n) {
+        const float diff = sl_d[p] - a.gs_off[r];
+        v = expf(a.gs_coeff * (diff * diff));
+      } else {
+        const size_t e = ((size_t)sl_b[p] * a.nt + sl_t[p]) * a.nsrc + sl_s[p];
+        v = a.bond_feat[e * a.nb + (r - a.gs_n)];
+      }
     }
     B[r * kWideS + p] = v;
   }
@@ -540,5 +549,36 @@ __device__ __forceinline__ void wide_pass(const WideArgs& a) {
 }
 
 inline int wide_smem_bytes(const WideArgs& a) { return wide_plan(a).words * 4; }
+
+// The parameter gradients of one pass: a . b^T over the ld pair columns of
+// its rows (zero beyond the pairs), in one grouped launch of the split-K
+// contraction (abt_gemm.cuh): dW1 + db1_eff (indicator rows per sample
+// segment of the list, sample_off [batch + 1]), dW2 + db2, dWf1 + dbf1,
+// dWf2 + dbf2, written at offs (o_win, o_w2, o_wf1, o_wf2) of a row of
+// `stride` floats; part [max_splits, stride]. Returns a cudaError_t.
+inline int wide_contract(const float* rows, int ld, int ke, int he, int ns, int hf, int nw,
+                         int batch, const int* sample_off, const int offs[4], int stride,
+                         float* part, int max_splits, float* grads, cudaStream_t st) {
+  const WideRows R = wide_rows(ke, he, ns, hf, nw);
+  AbtGroup g = {};
+  g.n = 4;
+  g.K = ld;
+  g.stride = stride;
+  g.part = part;
+  const int ab[4][2] = {{R.in, R.dh1}, {R.h1, R.dea}, {R.e, R.dh}, {R.h, R.dw}};
+  const int mn[4][2] = {{ke, he}, {he, ns}, {3 * ns, hf}, {hf, nw}};
+  for (int i = 0; i < 4; ++i) {
+    g.p[i].a = rows + (size_t)ab[i][0] * ld;
+    g.p[i].b = rows + (size_t)ab[i][1] * ld;
+    g.p[i].M = mn[i][0];
+    g.p[i].N = mn[i][1];
+    g.p[i].lda = ld;
+    g.p[i].ldb = ld;
+    g.p[i].n_seg = i == 0 ? batch : 1;
+    g.p[i].seg = i == 0 ? sample_off : nullptr;
+    g.p[i].out_off = offs[i];
+  }
+  return abt_launch(g, max_splits, grads, st);
+}
 
 }  // namespace dbfr

@@ -4,16 +4,16 @@
 // Counterpart of the in-kernel finalize of diffbindfr_tpu/nn/pallas_conv.py
 // (dense_mix_cm, make_ln_cm; kernel at :436-441) and of pallas_layer.py.
 //
-// A block owns its target rows and the pair loop (conv_sums for B8, or
-// conv_fwd_wide.cuh's wide_conv_sums for B7, B9 and B10) leaves each row's
-// complete sums in shared memory, so the finalize is a per-block
-// epilogue: no second pass, no grid-wide reduction, no atomics, and the
-// result is the same from run to run. The TPU kernels expanded the Linear
-// into a dense [dout, out_dim] matrix for the MXU (419 KB at layers 3-5,
-// more than an SM's shared memory); here the block-sparse weight vector
-// itself (at most 7,776 floats at flagship width) is staged in shared memory
-// and each output column sums over the input rows of its irrep type only
-// (FinConsts.tables: at most kMixSegs input slots per output slot).
+// A block owns its target rows and the pair loop (conv_fwd_wide.cuh's
+// wide_conv_sums for B7, B8, B9 and B10) leaves each row's complete sums in
+// shared memory, so the finalize is a per-block epilogue: no second pass,
+// no grid-wide reduction, no atomics, and the result is the same from run
+// to run. The TPU kernels expanded the Linear into a dense [dout, out_dim]
+// matrix for the MXU (419 KB at layers 3-5, more than an SM's shared
+// memory); here the block-sparse weight vector itself (at most 7,776 floats
+// at flagship width) is staged in shared memory and each output column sums
+// over the input rows of its irrep type only (FinConsts.tables: at most
+// kMixSegs input slots per output slot).
 // Bound on the H100: a few thousand fp32 operations per row, against the
 // pair loop's ~10^5 per row: the epilogue is not what bounds these kernels.
 // Exact fp32 throughout: IEEE division and square root, no fast math.
@@ -118,19 +118,6 @@ __device__ __forceinline__ void store_oacc(const ConvArgs& a, int b, int t0, flo
     const int t = t0 + i / od;
     if (t < a.nt) out[((size_t)b * a.nt + t) * od + (i % od)] = R.oacc[i];
   }
-}
-
-// Body of B8 with fin: block = targets t0 .. t0 + g - 1; a.out is
-// [B, nt, out_dim].
-template <int MODE>
-__device__ __forceinline__ void conv_fin_block(const ConvArgs& a) {
-  const Regions R = carve(make_plan(a, MODE));
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * a.g;
-  init_oacc(a, b, t0, nullptr, R);
-  conv_sums<MODE>(a, b, t0, R);
-  fin_epilogue(a, b, t0, R);
-  store_oacc(a, b, t0, a.out, R);
 }
 
 // Host side: the finalize fields of one conv's arguments.

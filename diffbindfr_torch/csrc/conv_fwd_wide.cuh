@@ -1,11 +1,12 @@
 // The forward chain of a trunk conv over 64-pair wide tiles, for blocks
 // that own their targets (B10, layer_conv.cu; B1 and B7, cross_conv.cu;
-// B3 and B9, knn_conv.cu). Replaces the per-pair chain of the Pallas
-// whole-layer kernel (diffbindfr_tpu/nn/pallas_layer.py:make_layer_conv,
-// the pallas_call at :552), of the cross conv kernels (nn/pallas_conv_t.py:
-// make_cross_conv_t, :693; nn/pallas_conv.py:make_cross_conv, :1008) and of
-// the knn conv kernels (nn/pallas_conv_t.py:make_knn_conv_t, :935;
-// nn/pallas_conv.py:make_knn_conv, :1225): a
+// B3 and B9, knn_conv.cu; B8, pair_conv.cu). Replaces the per-pair chain of
+// the Pallas whole-layer kernel (diffbindfr_tpu/nn/pallas_layer.py:
+// make_layer_conv, the pallas_call at :552), of the cross conv kernels
+// (nn/pallas_conv_t.py:make_cross_conv_t, :693; nn/pallas_conv.py:
+// make_cross_conv, :1008), of the knn conv kernels (nn/pallas_conv_t.py:
+// make_knn_conv_t, :935; nn/pallas_conv.py:make_knn_conv, :1225) and of the
+// pair conv with its finalize (nn/pallas_conv.py:make_pair_conv, :653): a
 // block compacts the valid candidates of its g owned targets into a list in
 // candidate order (trunk_conv.cuh compact_pairs: target-major, then source
 // index or neighbour slot), walks the list in tiles of 64 pairs, and per
@@ -101,7 +102,7 @@ __host__ __device__ inline FwdPlan max_fwd_plan(const FwdPlan& x, const FwdPlan&
   return p;
 }
 
-// A plan whose finalize (a.out_dim > 0) runs once, after the sums (B7,
+// A plan whose finalize (a.out_dim > 0) runs once, after the sums (B7, B8,
 // B9): its output rows and LayerNorm statistics take the weight-stage
 // region, free by then, so they cost no rows of sums.
 __host__ __device__ inline FwdPlan fin_after_sums(FwdPlan p, const ConvArgs& a) {
@@ -411,7 +412,8 @@ __device__ __forceinline__ void wide_conv_sums(const ConvArgs& a, int b, int t0,
 // The sums of targets t0 .. t0 + g - 1 of sample b (BF: the bf16 chain),
 // then (FIN) their finalize in the weight-stage region (the plan of
 // fin_after_sums), written to a.out: the rows of one block of B1, B7 and
-// B11-cross (cross_conv.cu) and of B3, B9 and B11-knn (knn_conv.cu).
+// B11-cross (cross_conv.cu), of B3, B9 and B11-knn (knn_conv.cu) and of B8
+// (pair_conv.cu).
 // Inlined per call, so that the kernel parameters stay where the compiler
 // can address them statically.
 template <int MODE, bool FIN, bool BF = false>

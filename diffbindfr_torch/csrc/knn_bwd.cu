@@ -328,30 +328,12 @@ extern "C" int dbfr_knn_bwd(
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  // 3. the parameter gradients: a . b^T over the ld slot columns (zero at
-  // and beyond the pair count), bias rows generated (db1_eff per sample)
-  const dbfr::WideRows R = dbfr::wide_rows(gs_n, he, ns, hf, nw);
-  float* rw = (float*)rows;
-  dbfr::AbtGroup g = {};
-  g.n = 4;
-  g.K = ld;
-  g.stride = stride;
-  g.part = (float*)part;
-  const int ab[4][2] = {{R.in, R.dh1}, {R.h1, R.dea}, {R.e, R.dh}, {R.h, R.dw}};
-  const int mn[4][2] = {{gs_n, he}, {he, ns}, {3 * ns, hf}, {hf, nw}};
+  // 3. the parameter gradients over the ld slot columns (zero at and
+  // beyond the pair count)
   const int offs[4] = {o_win, o_w2, o_wf1, o_wf2};
-  for (int i = 0; i < 4; ++i) {
-    g.p[i].a = rw + (size_t)ab[i][0] * ld;
-    g.p[i].b = rw + (size_t)ab[i][1] * ld;
-    g.p[i].M = mn[i][0];
-    g.p[i].N = mn[i][1];
-    g.p[i].lda = ld;
-    g.p[i].ldb = ld;
-    g.p[i].n_seg = i == 0 ? batch : 1;
-    g.p[i].seg = i == 0 ? (const int*)sample_off : nullptr;
-    g.p[i].out_off = offs[i];
-  }
-  const int rc = dbfr::abt_launch(g, max_splits, (float*)grads, st);
+  const int rc = dbfr::wide_contract((const float*)rows, ld, gs_n, he, ns, hf, nw, batch,
+                                     (const int*)sample_off, offs, stride, (float*)part,
+                                     max_splits, (float*)grads, st);
   if (rc != 0) return rc;
 
   // 4. the node sums

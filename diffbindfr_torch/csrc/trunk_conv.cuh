@@ -1,9 +1,9 @@
-// Shared device code of the trunk-conv kernels (forward B2 pair, B8 with
-// its finalize, and B11-pair's bf16 chain; the backward kernel B5 builds on
-// it in trunk_conv_bwd.cuh; B1, B3, B7, B9, B10, B11-cross and B11-knn
-// (conv_fwd_wide.cuh) and B4 and B6 (conv_bwd_wide.cuh) take its geometry,
-// mask decisions and pair compaction): one block gathers the valid (target,
-// source) pairs of its g owned nodes, then runs the whole per-pair chain on
+// Shared device code of the trunk-conv kernels (the 32-pair body of B2 pair
+// and B11-pair's bf16 chain; B1, B3, B7, B8, B9, B10, B11-cross and
+// B11-knn (conv_fwd_wide.cuh) and B4, B5 and B6 (conv_bwd_wide.cuh,
+// dense_pairs.cuh) take its geometry, mask decisions and pair compaction):
+// one block gathers the valid (target, source) pairs of its g owned nodes,
+// then runs the whole per-pair chain on
 // chunks of 32 pairs in shared memory and sums per owned node. A chunk is
 // latency-bound (weight tiles stream through shared memory between
 // barriers), so blocks in flight matter as much as full chunks: dense blocks
@@ -21,9 +21,6 @@
 // The MLPs are fp32 FMA register-tiled products (4 pairs x up to 10 columns
 // per thread) with weights streamed through shared memory 8 rows at a time.
 // Geometry, masks and every sum are exact fp32 (no TF32, no fast math).
-// conv_sums() is the pair loop alone, so that the finalize kernel
-// (conv_fin.cuh: B8 with fin) runs it and then its epilogue on the block's
-// complete sums.
 //
 // B11, the bf16 chain (conv_sums<MODE, true>; the JAX kernels with
 // dw_dtype='bfloat16', diffbindfr_tpu/nn/pallas_conv_t.py:200-250), which
@@ -54,7 +51,6 @@ constexpr int kKTile = 8;      // weight rows staged per step
 constexpr int kMaxJ = 10;      // output columns per lane: every N <= 320
 constexpr int kDenseCands = 1024;  // dense mode: at most 1024 candidates per block
 constexpr int kMaxGroup = 8;       // and at most 8 owned nodes, one per 128
-constexpr int kMaxInPaths = 8;     // backward: TP paths reading one input column
 constexpr int kHStride = 36;       // B11: bf16 tiles, pair stride in bf16 elements
 constexpr int kHWords = kHStride / 2;  // and in 32-bit words (two pairs per word)
 
@@ -94,17 +90,6 @@ struct ConvArgs {
   // ---- B11 only: the bf16 chain, and which scalar rows of the TP-weight
   // MLP input are rounded to bf16 (target, source)
   int bf16_chain, bf_tgt_sc, bf_src_sc;
-  // ---- backward only (trunk_conv_bwd.cuh)
-  const float* gout;     // [B, nt, dout] cotangent of out
-  const float* wf2t;     // [nw, hf] = wf2^T
-  const float* wf1t;     // [hf, 3 ns] = wf1^T
-  const float* w2t;      // [ns, he] = w2^T
-  const int* w_meta;     // [nw, 8]: a_base, mul, d1, o_base, cb_off, d3, 0, 0
-  const int* in_meta;    // [din, kMaxInPaths, 8]: o_base, mul, w_idx, cb_base, d3, 0, 0, 0
-  float* d_own;          // [B, n_own, din] feature gradient of the owned side
-  float* part;           // [blocks, part_stride] per-block parameter-gradient sums
-  int part_stride, o_win, o_beff, o_w2, o_b2, o_wf1, o_bf1, o_wf2, o_bf2;
-  int own_src, accumulate, batch;
   // ---- finalize epilogue only (conv_fin.cuh)
   const float* cnt;      // [B, nt] message counts (clamped to >= 1 there)
   const float* mix_w;    // [mix_numel] irreps-Linear weight vector
@@ -120,19 +105,15 @@ __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-// owned side: the targets (forward, and the backward's target pass) or the
-// sources (the backward's source pass, own_src)
-__host__ __device__ inline int n_owned(const ConvArgs& a) { return a.own_src ? a.nsrc : a.nt; }
-
-// candidates per owned node
+// candidates per owned target
 __host__ __device__ inline int per_owned(const ConvArgs& a, int mode) {
-  return mode == kDense ? (a.own_src ? a.nt : a.nsrc) : a.k;
+  return mode == kDense ? a.nsrc : a.k;
 }
 
-// owned nodes per block of this body: dense blocks group only when the
-// owned side is long and the other side short
+// owned targets per block of this body: dense blocks group only when the
+// target side is long and the other side short
 __host__ __device__ inline int group_size(const ConvArgs& a, int mode) {
-  return imax(1, imin(imin(kMaxGroup, kDenseCands / imax(per_owned(a, mode), 1)), n_owned(a) / 128));
+  return imax(1, imin(imin(kMaxGroup, kDenseCands / imax(per_owned(a, mode), 1)), a.nt / 128));
 }
 
 // per (owned row, output slot) LayerNorm statistics of the finalize: the
@@ -141,11 +122,8 @@ constexpr int kMaxComp = 5;
 constexpr int kStat = 8;
 
 // Shared-memory plan, in 4-byte words; every region starts 16-byte aligned.
-// With a finalize (out_dim > 0) the epilogue stages the mix weights in r1
-// and the mixed rows in r2 (both free after the pair loop), and adds the
-// output accumulator `oacc` and the LayerNorm statistics `stats`.
 struct Plan {
-  int r1, r2, ws, sh, acc, list, oacc, stats, misc, words;
+  int r1, r2, ws, sh, acc, list, misc, words;
 };
 
 __host__ __device__ inline Plan make_plan(const ConvArgs& a, int mode) {
@@ -162,33 +140,8 @@ __host__ __device__ inline Plan make_plan(const ConvArgs& a, int mode) {
     p.r1 = imax(p.r1, round4(a.nw * kHWords));
     p.r2 = imax(p.r2, round4((a.kdim + a.din) * kHWords));
   }
-  p.oacc = 0;
-  p.stats = 0;
-  if (a.out_dim > 0) {
-    p.r1 = imax(p.r1, round4(a.mix_numel));
-    p.r2 = imax(p.r2, round4(a.g * a.out_dim));
-    p.oacc = round4(a.g * a.out_dim);
-    p.stats = round4(a.g * a.n_slots * kStat);
-  }
   p.misc = 4 * kPairs + 8;
-  p.words = p.r1 + p.r2 + p.ws + p.sh + p.acc + p.list + p.oacc + p.stats + p.misc;
-  return p;
-}
-
-// the larger of two plans, region by region (B10: one layout for the four
-// convs of a layer)
-__host__ __device__ inline Plan max_plan(const Plan& x, const Plan& y) {
-  Plan p;
-  p.r1 = imax(x.r1, y.r1);
-  p.r2 = imax(x.r2, y.r2);
-  p.ws = imax(x.ws, y.ws);
-  p.sh = imax(x.sh, y.sh);
-  p.acc = imax(x.acc, y.acc);
-  p.list = imax(x.list, y.list);
-  p.oacc = imax(x.oacc, y.oacc);
-  p.stats = imax(x.stats, y.stats);
-  p.misc = imax(x.misc, y.misc);
-  p.words = p.r1 + p.r2 + p.ws + p.sh + p.acc + p.list + p.oacc + p.stats + p.misc;
+  p.words = p.r1 + p.r2 + p.ws + p.sh + p.acc + p.list + p.misc;
   return p;
 }
 
@@ -320,7 +273,6 @@ __device__ __forceinline__ int compact_pairs(const ConvArgs& a, int b, int own0,
   const int warp = tid >> 5;
   const int per = per_owned(a, MODE);
   const int ncand = a.g * per;
-  const int n_own = n_owned(a);
   const float cut = MODE == kDense ? a.cutoff[b] : 0.f;
   int total = 0;
   for (int c0 = 0; c0 < ncand; c0 += kThreads) {
@@ -329,16 +281,14 @@ __device__ __forceinline__ int compact_pairs(const ConvArgs& a, int b, int own0,
     int entry = 0;
     const int gl = c / per;
     const int own = own0 + gl;
-    if (c < ncand && own < n_own) {
+    if (c < ncand && own < a.nt) {
       int other = c % per;
       if (MODE == kKnn) {
         const size_t e = ((size_t)b * a.nt + own) * a.k + other;
         other = a.knn_idx[e];
         ok = a.knn_valid[e] > 0.f && other >= 0 && other < a.nsrc;
       } else {
-        const int t = a.own_src ? other : own;
-        const int s = a.own_src ? own : other;
-        ok = a.tgt_mask[(size_t)b * a.nt + t] > 0.f && dense_valid(a, b, t, s, cut);
+        ok = a.tgt_mask[(size_t)b * a.nt + own] > 0.f && dense_valid(a, b, own, other, cut);
       }
       entry = (gl << 16) | (ok ? other : 0);
     }
@@ -371,8 +321,8 @@ __device__ __forceinline__ void load_chunk(const ConvArgs& a, int b, int own0, c
     const int e = list[c0 + lane];
     gl = e >> 16;
     const int other = e & 0xffff;
-    t = a.own_src ? other : own0 + gl;
-    s = a.own_src ? own0 + gl : other;
+    t = own0 + gl;
+    s = other;
     const PairGeo pg = pair_geo(a.tgt_pos + ((size_t)b * a.nt + t) * 3,
                                 a.src_pos + ((size_t)b * a.nsrc + s) * 3, a.flip);
     vx = pg.vx;
@@ -496,7 +446,9 @@ __device__ __forceinline__ void chain_bf16(const ConvArgs& a, int n, Slots sl, c
   }
 }
 
-// The block's shared-memory regions, carved from the dynamic allocation.
+// The block's shared-memory regions, carved from the dynamic allocation
+// (oacc and stats: the finalize's, conv_fin.cuh, in the wide blocks of
+// conv_fwd_wide.cuh).
 struct Regions {
   float *r1, *r2, *ws, *shs, *acc, *oacc, *stats;
   int* list;
@@ -512,9 +464,8 @@ __device__ __forceinline__ Regions carve(const Plan& pl) {
   R.ws = R.r2 + pl.r2;
   R.shs = R.ws + pl.ws;
   R.acc = R.shs + pl.sh;
-  R.oacc = R.acc + pl.acc;
-  R.stats = R.oacc + pl.oacc;
-  R.list = reinterpret_cast<int*>(R.stats + pl.stats);
+  R.oacc = R.stats = nullptr;
+  R.list = reinterpret_cast<int*>(R.acc + pl.acc);
   R.sl.t = R.list + pl.list;
   R.sl.s = R.sl.t + kPairs;
   R.sl.own = R.sl.s + kPairs;

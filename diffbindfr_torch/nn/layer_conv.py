@@ -143,13 +143,11 @@ def _dense_masks(lig_pos, atm_pos, lig_mask, atm_mask, cab, lig_cut, cross_cutof
     [B, nl, na], as the kernel decides them (compact_pairs, dense_valid):
     target and source unmasked, and (CA/CB flag or within the cutoff, self
     excluded for the pair conv) or bonded."""
-    nl = lig_pos.shape[1]
-    lm = lig_mask > 0
-    eye = torch.eye(nl, dtype=torch.bool, device=lig_pos.device)
-    d_ll = TC._dist(lig_pos[:, None, :, :] - lig_pos[:, :, None, :])
-    pair = (((d_ll <= lig_cut) & ~eye) | (bond_mask > 0)) & lm[:, :, None] & lm[:, None, :]
-    cut = TC._cutoffs(cross_cutoff, lig_pos.shape[0], lig_pos.device)
-    return pair, TC.cross_valid(lig_pos, atm_pos, lig_mask, atm_mask, cab, cut)
+    bsz, dev = lig_pos.shape[0], lig_pos.device
+    pair = TC.pair_valid(lig_pos, lig_pos, lig_mask, lig_mask, torch.zeros_like(lig_mask),
+                         TC._cutoffs(lig_cut, bsz, dev), bond_mask)
+    return pair, TC.cross_valid(lig_pos, atm_pos, lig_mask, atm_mask, cab,
+                                TC._cutoffs(cross_cutoff, bsz, dev))
 
 
 def layer_tile_plan(lig_pos, atm_pos, lig_mask, atm_mask, cab, lig_cut, cross_cutoff, bond_mask,

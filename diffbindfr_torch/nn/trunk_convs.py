@@ -54,22 +54,22 @@ grad: those gradients come from the plain versions. The folded
 edge input (`_prep_edge`) stays in the autograd graph, so the backward
 kernels return gradients of (w_in, b_eff) and of the MLPs, and autograd maps
 them to the parameter tree. What bounds the kernels on the H100 and what
-their design does about it is in csrc/trunk_conv.cuh (B2, B8, B11-pair),
-csrc/trunk_conv_bwd.cuh (B5), csrc/conv_fwd_wide.cuh (B1, B7 and
-B11-cross: one grid of 64-pair tiles for both directions, rows per block
-from cross_row_groups; B3, B9 and B11-knn: one knn grid, atoms per block
-from knn_row_groups; B11's bf16 chain runs in the same tiles),
-csrc/conv_bwd_wide.cuh
-and csrc/abt_gemm.cuh (B4, B6) and the kernel sources. B4's and B6's plain
-versions, cross_bwd_plain and knn_bwd_plain, are models of their kernels'
-decomposition (pair list, per-pair rows, contractions, node sums) that
-cross_bwd and knn_bwd run on CPU tensors; B5 is held to autograd through the
-plain forward. B1's, B7's and B11-cross's block and tile plan has its
-plain model in cross_tile_plan and cross_conv_tiled_plain (bf16_chain for
-B11-cross) / cross_conv_fin_tiled_plain, B3's, B9's and B11-knn's in
-knn_tile_plan and knn_conv_tiled_plain (bf16_chain for B11-knn) /
-knn_conv_fin_tiled_plain, which the CPU tests hold against the plain
-versions and the JAX kernels.
+their design does about it is in csrc/trunk_conv.cuh (B2, B11-pair: the
+32-pair body), csrc/conv_fwd_wide.cuh (B1, B7 and B11-cross: one grid of
+64-pair tiles for both directions, rows per block from cross_row_groups;
+B3, B9 and B11-knn: one knn grid, atoms per block from knn_row_groups; B8:
+a grid of ligand rows, rows per block from pair_row_groups; B11's bf16
+chain runs in the same tiles), csrc/conv_bwd_wide.cuh, csrc/dense_pairs.cuh
+and csrc/abt_gemm.cuh (B4, B5, B6) and the kernel sources. B4's, B5's and
+B6's plain versions, cross_bwd_plain, pair_bwd_plain and knn_bwd_plain, are
+models of their kernels' decomposition (pair list, per-pair rows,
+contractions, node sums) that cross_bwd, pair_bwd and knn_bwd run on CPU
+tensors. B1's, B7's and B11-cross's block and tile plan has its plain model
+in cross_tile_plan and cross_conv_tiled_plain (bf16_chain for B11-cross) /
+cross_conv_fin_tiled_plain, B3's, B9's and B11-knn's in knn_tile_plan and
+knn_conv_tiled_plain (bf16_chain for B11-knn) / knn_conv_fin_tiled_plain,
+B8's in pair_tile_plan and pair_conv_fin_tiled_plain, which the CPU tests
+hold against the plain versions and the JAX kernels.
 """
 from __future__ import annotations
 
@@ -123,10 +123,6 @@ def cm_to_irreps(irreps: Irreps, x):
                 x.shape[:-1] + (mul * d,))
         parts.append(blk)
     return torch.cat(parts, dim=-1)
-
-
-# TP paths that may read one input column (kMaxInPaths, trunk_conv.cuh)
-MAX_IN_PATHS = 8
 
 
 def _path_constants(spec: TensorProductSpec):
@@ -200,33 +196,6 @@ class ConvConsts:
         return _device_tables(self, str(device))
 
     @functools.cached_property
-    def bwd_tables(self):
-        """(w_meta [nw, 8], in_meta [din, MAX_IN_PATHS, 8]) int32, the
-        backward kernels' views of the same paths.
-        w_meta row j = w_off + u: a_base = s1 + u, mul, d1, o_base = s3 + u,
-        cb_off, d3. in_meta[c]: one entry per path reading input column
-        c = s1 + i * mul + u: o_base, mul, w_idx, cb_base = cb_off + i * d3,
-        d3; unused entries have d3 = 0."""
-        metas, _ = _path_constants(self.spec)
-        w_meta = np.zeros((self.spec.weight_numel, 8), np.int32)
-        in_meta = np.zeros((self.din, MAX_IN_PATHS, 8), np.int32)
-        used = np.zeros(self.din, np.int64)
-        for m in metas:
-            for u in range(m["mul"]):
-                w_meta[m["w_off"] + u] = (m["s1"] + u, m["mul"], m["d1"], m["s3"] + u,
-                                          m["cb_off"], m["d3"], 0, 0)
-                for i in range(m["d1"]):
-                    col = m["s1"] + i * m["mul"] + u
-                    in_meta[col, used[col]] = (m["s3"] + u, m["mul"], m["w_off"] + u,
-                                               m["cb_off"] + i * m["d3"], m["d3"], 0, 0, 0)
-                    used[col] += 1
-        return w_meta, in_meta
-
-    def device_bwd_tables(self, device):
-        """(w_meta, in_meta) tensors on `device`, cached."""
-        return _device_bwd_tables(self, str(device))
-
-    @functools.cached_property
     def wide_tables(self):
         """(w_meta [nw, 4], in_off [din + 1], in_ent [n_in, 4]) int32, the
         wide-tile backward pass's views of the paths (csrc/conv_bwd_wide.cuh).
@@ -264,11 +233,6 @@ def _device_tables(c: ConvConsts, device: str):
     return (torch.from_numpy(np.ascontiguousarray(ck)).to(device),
             torch.tensor(c.gs_offsets, dtype=torch.float32, device=device),
             torch.from_numpy(meta).to(device))
-
-
-@functools.lru_cache(maxsize=None)
-def _device_bwd_tables(c: ConvConsts, device: str):
-    return tuple(torch.from_numpy(t).to(device) for t in c.bwd_tables)
 
 
 @functools.lru_cache(maxsize=None)
@@ -484,12 +448,12 @@ _ARGTYPES = {
     "dbfr_cross_conv_bf16": [_P, _I, _P, _I, _P, _I, _P],
     # B3: the conv's arguments, then atoms per block and the per-block cycles
     "dbfr_knn_conv": [_P] * 17 + [_I] * 11 + [_F, _I, _P, _P],
-    "dbfr_pair_bwd": [_P] * 7 + [_I] + [_P] * 23 + [_I] * 12 + [_F, _I, _I, _P],
+    "dbfr_pair_pairs": [_P] * 12 + [_I] * 3 + [_P],
+    "dbfr_pair_bwd": [_P] * 37 + [_I] * 21 + [_F, _P],
     "dbfr_cross_pairs": [_P] * 11 + [_I] * 3 + [_P],
     "dbfr_cross_bwd": [_P] * 46 + [_I] * 20 + [_F, _P],
     "dbfr_knn_bwd": [_P] * 35 + [_I] * 19 + [_F, _P],
-    "dbfr_pair_conv_fin": [_P] * 7 + [_I] + [_P] * 15 + [_I] * 12 + [_F, _I, _I]
-                          + [_P] * 7 + [_I] * 3 + [_P],
+    "dbfr_pair_conv_fin": [_P, _I, _P, _I, _P, _I, _P],
     "dbfr_cross_conv_fin": [_P, _I, _P, _I, _P, _I, _P],
     "dbfr_knn_conv_fin": [_P] * 17 + [_I] * 11 + [_F] + [_P] * 7 + [_I] * 3 + [_I, _P, _P],
     "dbfr_layer_conv": [_P, _I, _P, _I, _P, _I, _P],
@@ -499,11 +463,8 @@ _ARGTYPES["dbfr_pair_conv_bf16"] = _ARGTYPES["dbfr_pair_conv"]
 _ARGTYPES["dbfr_knn_conv_bf16"] = _ARGTYPES["dbfr_knn_conv"]
 # the widest matrix a kernel thread tiles (kMaxJ * 32 columns, trunk_conv.cuh)
 _MAX_COLS = 320
-# persistent blocks of B5's target pass: rows of its parameter-gradient
-# scratch (kBwdBlocks, trunk_conv_bwd.cuh)
-_BWD_BLOCKS = 264
-# pairs per block of B4's and B6's wide-tile pass; their scratch rows are a
-# multiple of this apart (kWideTile, conv_bwd_wide.cuh)
+# pairs per block of B4's, B5's and B6's wide-tile pass; their scratch rows
+# are a multiple of this apart (kWideTile, conv_bwd_wide.cuh)
 WIDE_TILE = 64
 
 
@@ -574,8 +535,10 @@ def _check_nodes(name: str, *counts):
 
 
 def _grad_layout(ke: int, he: int, ns: int, hf: int, nw: int, bsz: int):
-    """Offsets of the backward kernels' reduced parameter gradients (the
-    layout of set_grad_layout in trunk_conv_bwd.cuh) and the row stride."""
+    """Offsets of the backward kernels' parameter gradients (each one of
+    the contractions' results, abt_gemm.cuh out_off: dW1 and its per-sample
+    bias rows, dW2 and db2, dWf1 and dbf1, dWf2 and dbf2) and the row
+    stride."""
     shapes = (("w_in", (ke, he)), ("beff", (bsz, he)), ("w2", (he, ns)), ("b2", (ns,)),
               ("wf1", (3 * ns, hf)), ("bf1", (hf,)), ("wf2", (hf, nw)), ("bf2", (nw,)))
     out, off = {}, 0
@@ -589,14 +552,45 @@ def _split_grads(flat, layout):
     return {k: flat[o : o + int(np.prod(shape))].view(shape) for k, (o, shape) in layout.items()}
 
 
-def _grad_scratch(layout_stride: int, dev):
-    """(per-block partial sums, zeroed; reduced result)"""
-    return (torch.zeros(_BWD_BLOCKS, layout_stride, dtype=torch.float32, device=dev),
-            torch.empty(layout_stride, dtype=torch.float32, device=dev))
-
-
 def _transposed(*ws):
     return [w.t().contiguous() for w in ws]
+
+
+@dataclasses.dataclass
+class _DensePairs:
+    """The pair counts of a dense conv's backward (B4: dbfr_cross_pairs, B5:
+    dbfr_pair_pairs; csrc/dense_pairs.cuh): per target row the rank of each
+    valid source (pid) and the target rows' and sources' exclusive prefix
+    sums; the total copied to pinned host memory, complete when `done` is."""
+
+    pid: torch.Tensor
+    tgt_off: torch.Tensor
+    src_off: torch.Tensor
+    keep: tuple
+    total: torch.Tensor
+    done: torch.cuda.Event
+
+    @classmethod
+    def start(cls, fn, name, st, dev, bsz, nt, nsrc, *inputs):
+        """Launch the counts (fn: dbfr_cross_pairs or dbfr_pair_pairs, on
+        the tensors `inputs`) and queue the copy of the total to the host."""
+        i32 = dict(dtype=torch.int32, device=dev)
+        pid = torch.empty(bsz, nt, nsrc, **i32)
+        cnt_t, tgt_off = torch.empty(bsz * nt, **i32), torch.empty(bsz * nt + 1, **i32)
+        cnt_s, src_off = torch.empty(bsz * nsrc, **i32), torch.empty(bsz * nsrc + 1, **i32)
+        _check(fn(*[_ptr(t) for t in inputs], _ptr(pid), _ptr(cnt_t), _ptr(tgt_off), _ptr(cnt_s),
+                  _ptr(src_off), bsz, nt, nsrc, st), name)
+        total = torch.empty(1, dtype=torch.int32, pin_memory=dev.type == "cuda")
+        total.copy_(tgt_off[-1:], non_blocking=True)
+        done = torch.cuda.Event() if dev.type == "cuda" else None
+        if done is not None:
+            done.record()
+        return cls(pid, tgt_off, src_off, (cnt_t, cnt_s), total, done)
+
+    def count(self) -> int:
+        if self.done is not None:
+            self.done.synchronize()
+        return int(self.total[0])
 
 
 class _Data:
@@ -682,12 +676,19 @@ class _PairConvFn(torch.autograd.Function):
     def forward(ctx, data, tgt_x, src_x, w_in, beff, *weights):
         ctx.data = data
         ctx.save_for_backward(tgt_x, src_x, w_in, beff, *weights)
-        return _pair_conv_kernel(_library(), data, tgt_x, src_x, w_in, beff, weights, _stream())
+        lib, st = _library(), _stream()
+        out = _pair_conv_kernel(lib, data, tgt_x, src_x, w_in, beff, weights, st)
+        # B5's pair counts start here, so that its backward reads the count
+        # it sizes its scratch by without waiting for the queue to drain
+        ctx.pairs = (_pair_pairs(lib, st, data, tgt_x.shape[0], tgt_x.shape[1], src_x.shape[1])
+                     if any(ctx.needs_input_grad) else None)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         tgt_x, src_x, w_in, beff, *weights = ctx.saved_tensors
-        d_tgt, d_src, gr = pair_bwd(ctx.data, tgt_x, src_x, w_in, beff, weights, g)
+        d_tgt, d_src, gr = pair_bwd(ctx.data, tgt_x, src_x, w_in, beff, weights, g,
+                                    pairs=ctx.pairs)
         return (None, d_tgt, d_src, gr["w_in"], gr["beff"], gr["w2"], gr["b2"], gr["wf1"],
                 gr["bf1"], gr["wf2"], gr["bf2"])
 
@@ -711,31 +712,85 @@ def _pair_conv_kernel(lib, data, tgt_x, src_x, w_in, beff, weights, stream):
     return out
 
 
-def pair_bwd(data, tgt_x, src_x, w_in, beff, weights, g):
+# what the last pair_bwd call on the card did: its pair count, the pass's
+# 64-pair tiles and the SMs they fill, K chunks and scratch bytes
+# (chip_smoke.py reports them)
+pair_bwd_stats: dict = {}
+
+
+def pair_bwd(data, tgt_x, src_x, w_in, beff, weights, g, pairs=None):
     """B5: (d_tgt, d_src, parameter gradients) of pair_conv for the output
-    cotangent g, by the hand-written kernel (CUDA tensors only)."""
+    cotangent g. On CUDA tensors the kernels of csrc/pair_bwd.cu: the valid
+    pairs as one list (their count read to the host, to size the scratch:
+    counted here, or, from the autograd forward, by `pairs`), one wide-tile
+    pair pass writing feature-major rows (the edge input [Gaussian | bond
+    features]), one grouped launch of the split-K contraction that turns
+    them into every parameter gradient, then the per-node sums of the pairs'
+    rows: d_tgt over the targets' segments, d_src over the sources'. On CPU
+    tensors the plain model of that decomposition, pair_bwd_plain."""
+    c, dev = data.c, tgt_x.device
+    bsz, nt, nsrc = tgt_x.shape[0], tgt_x.shape[1], src_x.shape[1]
+    g = _arg(g, (bsz, nt, c.dout), dev)
+    if not tgt_x.is_cuda:
+        return pair_bwd_plain(data, tgt_x, src_x, w_in, beff, weights, g)
+    lib, st = _library(), _stream()
+    if pairs is None:
+        pairs = _pair_pairs(lib, st, data, bsz, nt, nsrc)
+    return _pair_bwd_kernel(lib, st, data, tgt_x, src_x, w_in, beff, weights, g, pairs)
+
+
+def _pair_pairs(lib, st, data, bsz, nt, nsrc):
+    """B5's pair counts (dbfr_pair_pairs): the pair conv's mask, as the
+    forward decides it, over every (target, source) of the batch."""
+    d = data
+    return _DensePairs.start(lib.dbfr_pair_pairs, "pair_pairs", st, d.tgt_pos.device, bsz, nt,
+                             nsrc, d.tgt_pos, d.src_pos, d.tgt_mask, d.src_mask, d.cab_s, d.cut,
+                             d.bond_mask)
+
+
+def _pair_bwd_kernel(lib, st, data, tgt_x, src_x, w_in, beff, weights, g, pairs):
     c, d, dev = data.c, data, tgt_x.device
     bsz, nt, nsrc = tgt_x.shape[0], tgt_x.shape[1], src_x.shape[1]
     he, hf, nw, kdim = d.dims
+    ns, din, ke = c.ns, c.din, c.gs_n + d.nb
+    weights = [_aligned(w) for w in weights]
     w2, b2, wf1, bf1, wf2, bf2 = weights
-    layout, stride = _grad_layout(c.gs_n + d.nb, he, c.ns, hf, nw, bsz)
-    part, flat = _grad_scratch(stride, dev)
+    w_in = _aligned(w_in)
+    layout, stride = _grad_layout(ke, he, ns, hf, nw, bsz)
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_pairs = pairs.count()  # the scratch is sized by it
+    ld = -(-n_pairs // WIDE_TILE) * WIDE_TILE
+    pair_t, pair_s, pair_b = (torch.empty(ld, **i32) for _ in range(3))
+    at_src, sample_off = torch.empty(n_pairs, **i32), torch.empty(bsz + 1, **i32)
+    rows = torch.empty(_wide_row_count(ke, he, ns, hf, nw), ld, **f32)
+    tgt_rows, src_rows = torch.empty(ld, ns, **f32), torch.empty(ld, din, **f32)
+    sms = contraction.sm_count(str(dev))
+    n_tiles = sum(contraction.tiles(m, q) for m, q in _wide_problems(ke, he, ns, hf, nw, bsz))
+    splits = contraction.max_splits(n_tiles, ld, sms)
+    part = torch.empty(splits, stride, **f32)
+    flat = torch.empty(stride, **f32)
+    d_tgt, d_src = torch.empty(bsz, nt, din, **f32), torch.empty(bsz, nsrc, din, **f32)
     ck, gs_off, _ = c.device_tables(dev)
-    w_meta, in_meta = c.device_bwd_tables(dev)
-    g = _arg(g, (bsz, nt, c.dout), dev)
-    d_tgt = torch.empty(bsz, nt, c.din, dtype=torch.float32, device=dev)
-    d_src = torch.empty(bsz, nsrc, c.din, dtype=torch.float32, device=dev)
-    transposed = _transposed(w2, wf1, wf2)  # kept alive through the call
-    rc = _library().dbfr_pair_bwd(
-        _ptr(d.tgt_pos), _ptr(d.src_pos), _ptr(tgt_x), _ptr(src_x), _ptr(d.tgt_mask),
-        _ptr(d.src_mask), _ptr(d.cab_s), 0, _ptr(d.cut), _ptr(d.bond_feat), _ptr(d.bond_mask),
-        _ptr(w_in), _ptr(beff), *[_ptr(v) for v in weights],
-        *[_ptr(v) for v in transposed],
-        _ptr(ck), _ptr(gs_off), _ptr(w_meta), _ptr(in_meta), _ptr(g), _ptr(d_tgt), _ptr(d_src),
-        _ptr(part), _ptr(flat), bsz, nt, nsrc, c.din, c.dout, d.nb, c.ns, he, hf, nw, kdim,
-        c.gs_n, c.gs_coeff, 0, 1, _stream())
+    w_meta, in_off, in_ent = c.device_wide_tables(dev)
+    w2t, wf1t, wf2t = [_aligned(t) for t in _transposed(w2, wf1, wf2)]
+    rc = lib.dbfr_pair_bwd(
+        _ptr(d.tgt_pos), _ptr(d.src_pos), _ptr(tgt_x), _ptr(src_x), _ptr(d.bond_feat),
+        _ptr(w_in), _ptr(beff), _ptr(w2), _ptr(b2), _ptr(w2t), _ptr(wf1), _ptr(bf1), _ptr(wf2),
+        _ptr(bf2), _ptr(wf1t), _ptr(wf2t), _ptr(ck), _ptr(gs_off), _ptr(w_meta), _ptr(in_off),
+        _ptr(in_ent), _ptr(g), _ptr(pairs.pid), _ptr(pairs.tgt_off), _ptr(pairs.src_off),
+        _ptr(pair_t), _ptr(pair_s), _ptr(pair_b), _ptr(at_src), _ptr(sample_off), _ptr(rows),
+        _ptr(tgt_rows), _ptr(src_rows), _ptr(part), _ptr(flat), _ptr(d_tgt), _ptr(d_src), bsz,
+        nt, nsrc, din, c.dout, d.nb, ns, he, hf, nw, kdim, c.gs_n, in_ent.shape[0], n_pairs, ld,
+        layout["w_in"][0], layout["w2"][0], layout["wf1"][0], layout["wf2"][0], stride, splits,
+        c.gs_coeff, st)
     _check(rc, "pair_bwd")
     launches["pair_bwd"] += 1
+    scratch = (pairs.pid, *pairs.keep, pairs.tgt_off, pairs.src_off, pair_t, pair_s, pair_b,
+               at_src, sample_off, rows, tgt_rows, src_rows, part)
+    tiles = ld // WIDE_TILE
+    pair_bwd_stats.update(pairs=n_pairs, tiles=tiles, sms=min(tiles, sms), splits=splits,
+                          scratch_bytes=sum(t.numel() * t.element_size() for t in scratch))
     return d_tgt, d_src, _split_grads(flat, layout)
 
 
@@ -907,41 +962,10 @@ def cross_bwd(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la, pairs=None):
     return _cross_bwd_kernel(lib, st, data, lig_x, atm_x, w_in, beff, weights, g_al, g_la, pairs)
 
 
-@dataclasses.dataclass
-class _CrossPairs:
-    """B4's pair counts (dbfr_cross_pairs): per ligand row the rank of each
-    valid atom (pid) and the rows' and atoms' exclusive prefix sums; the
-    total copied to pinned host memory, complete when `done` is."""
-
-    pid: torch.Tensor
-    lig_off: torch.Tensor
-    atm_off: torch.Tensor
-    keep: tuple
-    total: torch.Tensor
-    done: torch.cuda.Event
-
-    def count(self) -> int:
-        if self.done is not None:
-            self.done.synchronize()
-        return int(self.total[0])
-
-
 def _cross_pairs(lib, st, data, bsz, nl, na):
-    d, dev = data, data.lig_pos.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    pid = torch.empty(bsz, nl, na, **i32)
-    cnt_l, lig_off = torch.empty(bsz * nl, **i32), torch.empty(bsz * nl + 1, **i32)
-    cnt_a, atm_off = torch.empty(bsz * na, **i32), torch.empty(bsz * na + 1, **i32)
-    _check(lib.dbfr_cross_pairs(
-        _ptr(d.lig_pos), _ptr(d.atm_pos), _ptr(d.lig_mask), _ptr(d.atm_mask), _ptr(d.cab),
-        _ptr(d.cut), _ptr(pid), _ptr(cnt_l), _ptr(lig_off), _ptr(cnt_a), _ptr(atm_off),
-        bsz, nl, na, st), "cross_pairs")
-    total = torch.empty(1, dtype=torch.int32, pin_memory=dev.type == "cuda")
-    total.copy_(lig_off[-1:], non_blocking=True)
-    done = torch.cuda.Event() if dev.type == "cuda" else None
-    if done is not None:
-        done.record()
-    return _CrossPairs(pid, lig_off, atm_off, (cnt_l, cnt_a), total, done)
+    d = data
+    return _DensePairs.start(lib.dbfr_cross_pairs, "cross_pairs", st, d.lig_pos.device, bsz, nl,
+                             na, d.lig_pos, d.atm_pos, d.lig_mask, d.atm_mask, d.cab, d.cut)
 
 
 def _cross_bwd_kernel(lib, st, data, lig_x, atm_x, w_in, beff, weights, g_al, g_la, pairs):
@@ -955,7 +979,7 @@ def _cross_bwd_kernel(lib, st, data, lig_x, atm_x, w_in, beff, weights, g_al, g_
     layout, stride = _grad_layout(c.gs_n, he, ns, hf, nw, bsz)
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    pid, lig_off, atm_off = pairs.pid, pairs.lig_off, pairs.atm_off
+    pid, lig_off, atm_off = pairs.pid, pairs.tgt_off, pairs.src_off
     n_pairs = pairs.count()  # the scratch is sized by it
     ld = -(-n_pairs // WIDE_TILE) * WIDE_TILE
     pair_l, pair_a, pair_b = (torch.empty(ld, **i32) for _ in range(3))
@@ -1080,16 +1104,18 @@ def _tp_bwd_plain(c: ConvConsts, x, cb, w, g):
 
 
 def wide_pass_plain(c: ConvConsts, pairs, vec, tgt_x, src_x, gout, w_in, beff, w2, b2, wf1,
-                    bf1, wf2, bf2):
+                    bf1, wf2, bf2, extra=None):
     """One direction's wide-tile pass, plain (csrc/conv_bwd_wide.cuh; B4 per
-    direction, B6): pairs = (target, source, sample) index tensors, vec
-    [P, 3] = the geometry's source - target (B4: atom - ligand in both).
+    direction, B5, B6): pairs = (target, source, sample) index tensors, vec
+    [P, 3] = the geometry's source - target (B4: atom - ligand in both),
+    extra [P, nb] the edge input's rows after the Gaussian ones (B5: the
+    pairs' bond features; None: none, w_in has the Gaussian rows alone).
     Returns the feature-major rows that the parameter gradients contract
     ({in, h1, dh1, dea, e, dh, h, dw}, each [features, P]), the pairs' rows
     of d / d target scalars [P, ns] and of d / d source features [P, din]."""
     t, s, b = pairs
     ns = c.ns
-    inp, h1, e, h, w, cb = pair_chain_plain(c, vec, tgt_x[b, t], src_x[b, s], None, w_in,
+    inp, h1, e, h, w, cb = pair_chain_plain(c, vec, tgt_x[b, t], src_x[b, s], extra, w_in,
                                             beff[b], w2, b2, wf1, bf1, wf2, bf2)
     dw, dx = _tp_bwd_plain(c, src_x[b, s], cb, w, gout[b, t])
     dh = (dw @ wf2.t()) * (h > 0)
@@ -1138,6 +1164,70 @@ def cross_bwd_plain(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la):
     return d_lig, d_atm, grads["al"], grads["la"]
 
 
+# ---- B5's decomposition, plain -------------------------------------------
+
+
+def pair_valid(tgt_pos, src_pos, tgt_mask, src_mask, cab, cut, bond_mask):
+    """The pair conv's valid (target, source) pairs [B, nt, nsrc], as the
+    kernels decide them (trunk_conv.cuh dense_valid): both nodes valid, and
+    the source a cab node or within the sample's cutoff and not the target
+    itself, or the two bonded."""
+    nt, nsrc = tgt_pos.shape[1], src_pos.shape[1]
+    dev = tgt_pos.device
+    d = _dist(src_pos[:, None, :, :] - tgt_pos[:, :, None, :])
+    other = torch.arange(nt, device=dev)[:, None] != torch.arange(nsrc, device=dev)[None, :]
+    keep = (((cab[:, None, :] > 0) | (d <= cut[:, None, None])) & other) | (bond_mask > 0)
+    return keep & (tgt_mask[:, :, None] > 0) & (src_mask[:, None, :] > 0)
+
+
+def pair_pairs_plain(tgt_pos, src_pos, tgt_mask, src_mask, cab, cut, bond_mask):
+    """The pair list of B5 (csrc/pair_bwd.cu, dense_pairs.cuh): the valid
+    pairs of every sample in target-major order (b, t, s ascending), as
+    (pair_t, pair_s, pair_b); sample_off [B + 1], tgt_off [B nt + 1] (the
+    first pair of each target row), src_off [B nsrc + 1] (of each source, in
+    the source-major permutation) and perm, the list indices in source-major
+    order, list order kept within a source."""
+    nsrc = src_pos.shape[1]
+    valid = pair_valid(tgt_pos, src_pos, tgt_mask, src_mask, cab, cut, bond_mask)
+    pair_b, pair_t, pair_s = torch.nonzero(valid, as_tuple=True)
+    zero = torch.zeros(1, dtype=torch.long, device=tgt_pos.device)
+
+    def offsets(counts):
+        return torch.cat([zero, torch.cumsum(counts.reshape(-1), 0)])
+
+    perm = torch.sort(pair_b * nsrc + pair_s, stable=True).indices
+    return (pair_t, pair_s, pair_b, offsets(valid.sum((1, 2))), offsets(valid.sum(2)),
+            offsets(valid.sum(1)), perm)
+
+
+def pair_bwd_plain(data, tgt_x, src_x, w_in, beff, weights, g):
+    """pair_bwd's plain version, a model of its decomposition: the pair list
+    (pair_pairs_plain), the pass's rows (wide_pass_plain, the pairs' bond
+    features as the edge input's extra rows) contracted over the pairs into
+    each parameter gradient with its bias rows (contraction.contract_plain;
+    db1_eff per sample segment), d_tgt the target-scalar rows summed per
+    target row in list order, d_src the source rows summed per source in
+    source-major order. Same returns as pair_bwd."""
+    c, d = data.c, data
+    bsz, nt, nsrc = tgt_x.shape[0], tgt_x.shape[1], src_x.shape[1]
+    he, hf, _, _ = d.dims
+    ns, din, ke = c.ns, c.din, c.gs_n + d.nb
+    pt, ps, pb, sample_off, tgt_off, src_off, perm = pair_pairs_plain(
+        d.tgt_pos, d.src_pos, d.tgt_mask, d.src_mask, d.cab_s, d.cut, d.bond_mask)
+    vec = d.src_pos[pb, ps] - d.tgt_pos[pb, pt]
+    rows, tgt_rows, src_rows = wide_pass_plain(c, (pt, ps, pb), vec, tgt_x, src_x, g, w_in, beff,
+                                               *weights, extra=d.bond_feat[pb, pt, ps])
+    w_in_b = contraction.contract_plain(rows["in"], rows["dh1"], sample_off)
+    w2_b = contraction.contract_plain(rows["h1"], rows["dea"])
+    wf1_b = contraction.contract_plain(rows["e"], rows["dh"])
+    wf2_b = contraction.contract_plain(rows["h"], rows["dw"])
+    grads = {"w_in": w_in_b[:ke], "beff": w_in_b[ke:], "w2": w2_b[:he], "b2": w2_b[he],
+             "wf1": wf1_b[: 3 * ns], "bf1": wf1_b[3 * ns], "wf2": wf2_b[:hf], "bf2": wf2_b[hf]}
+    d_tgt = _segment_sum(torch.nn.functional.pad(tgt_rows, (0, din - ns)), tgt_off, bsz * nt)
+    d_src = _segment_sum(src_rows[perm], src_off, bsz * nsrc)
+    return d_tgt.view(bsz, nt, din), d_src.view(bsz, nsrc, din), grads
+
+
 # ---- the forward wide-tile plan (csrc/conv_fwd_wide.cuh): B1, B3, B7, B9,
 # B10, B11-cross, B11-knn ---
 
@@ -1152,6 +1242,14 @@ KNN_ATOM_ROWS = 32  # the most atoms a B3 / B9 / B11-knn block owns (knn_row_gro
 # valid share of the neighbour slots that knn_row_groups expects: the 3dbs
 # bucket's 1024 atoms x 16 slots hold 9,567 valid pairs (927 real atoms)
 KNN_SLOT_FILL = 0.58
+PAIR_LIG_ROWS = 32  # the most ligand rows a B8 block owns (pair_row_groups)
+# valid pairs per real ligand row that pair_row_groups expects: the 3dbs
+# bucket's 35 real rows (of 128) hold 458 pairs a sample, 7,328 at B = 16
+PAIR_ROW_PAIRS = 13.1
+# a B8 block's finalize in tiles of pair work, which pair_row_groups charges
+# every block, real rows or not: B9's finalize took ~35 us a block against
+# ~70 us a tile (PERF.md section 6, PR 12)
+PAIR_FIN_TILES = 0.5
 
 
 def _r4(n: int) -> int:
@@ -1278,6 +1376,50 @@ def knn_row_groups(ints: dict, sms: int) -> int:
             best = (cost, g)
     if best is None:
         raise ValueError("knn_conv: one block's tile does not fit the shared memory")
+    return best[1]
+
+
+def pair_plan_words(ints: dict, g_p: int) -> int:
+    """Shared memory of a B8 block in 4-byte words (pair_plan, csrc/
+    pair_conv.cu: fwd_plan of the conv in dense mode, its finalize's output
+    rows and statistics in the weight stages), from the kernel's PAIR_INTS:
+    nsrc, din, dout, nb, ns, he, hf, nw, kdim, gs_n, out_dim, n_slots,
+    mix_numel."""
+    n = ints
+    return sum(_fin_after_sums(list(fwd_regions(
+        n["gs_n"] + n["nb"], n["ns"], n["he"], n["hf"], n["nw"], n["kdim"], n["din"], n["dout"],
+        n["out_dim"], n["mix_numel"], n["n_slots"], g_p, n["nsrc"])), n["out_dim"]))
+
+
+def pair_row_groups(ints: dict, sms: int) -> int:
+    """g_p, the ligand rows per block of B8's grid, picked on the host from
+    the batch, the shapes and the SM count on the plan of pair_plan_words;
+    no mask or count is read (no wait for the device: a CUDA graph captures
+    the call).
+
+    One block runs per SM (its shared memory) and the blocks start as SMs
+    come free, so the grid takes about the mean work per SM plus the last
+    block's. The host expects, as cross_row_groups does, a quarter of the
+    nt rows real (the 3dbs ligand fills 35 of 128; the real rows come
+    first), each with PAIR_ROW_PAIRS valid pairs: a working block of g rows
+    then holds T(g) = g PAIR_ROW_PAIRS / 64 + 1/2 tiles (its last one half
+    full; ~5 rows fill a tile), and every block, working or not, finalizes
+    its rows (PAIR_FIN_TILES). g_p is the g <= PAIR_LIG_ROWS that fits the
+    shared memory and minimises B (ceil(nt / 4 / g) T(g) + ceil(nt / g)
+    PAIR_FIN_TILES) / sms + T(g) + PAIR_FIN_TILES."""
+    bsz, n = ints["batch"], ints["nt"]
+    real = -(-n // 4)
+    best = None
+    for g in range(1, PAIR_LIG_ROWS + 1):
+        if pair_plan_words(ints, g) > SMEM_WORDS:
+            break
+        tiles = g * PAIR_ROW_PAIRS / WIDE_TILE + 0.5
+        work = bsz * (-(-real // g) * tiles + -(-n // g) * PAIR_FIN_TILES)
+        cost = work / sms + tiles + PAIR_FIN_TILES
+        if best is None or cost < best[0]:
+            best = (cost, g)
+    if best is None:
+        raise ValueError("pair_conv_fin: one block's tile does not fit the shared memory")
     return best[1]
 
 
@@ -1868,7 +2010,8 @@ def _fin_tail(fin: FinConsts, dev):
 
 def pair_conv_fin(c: ConvConsts, fin: FinConsts, tgt_pos, src_pos, tgt_x, src_x, tgt_mask,
                   src_mask, cab_t, cab_s, temb, cutoff, params, bond_feat, bond_mask, cnt):
-    """B8: pair_conv's sums finalized in the kernel -> [B, nt, out_dim]."""
+    """B8: pair_conv's sums finalized in the kernel -> [B, nt, out_dim]
+    (_pair_fin_kernel); params also hold "mix" and "ln"."""
     args = (c, fin, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_t, cab_s, temb,
             cutoff, params, bond_feat, bond_mask, cnt)
     if not tgt_x.is_cuda:
@@ -1876,28 +2019,104 @@ def pair_conv_fin(c: ConvConsts, fin: FinConsts, tgt_pos, src_pos, tgt_x, src_x,
     return _with_plain_backward(_pair_fin_kernel, pair_conv_fin_plain, *args)
 
 
+# Order of B8's pointer and int arguments: the enums PairPtr and PairInt of
+# csrc/pair_conv.cu, name for name.
+_PAIR_WEIGHTS = ("w2", "b2", "wf1", "bf1", "wf2", "bf2")
+PAIR_PTRS = ("tgt_pos", "src_pos", "tgt_x", "src_x", "tgt_mask", "src_mask", "cab", "cut",
+             "bond_feat", "bond_mask", "w_in", "beff", *_PAIR_WEIGHTS, "ck", "gs_off",
+             "out_meta", "out", *_FIN_KEYS, "mix_meta", "ln_slots", "cycles")
+PAIR_INTS = ("batch", "nt", "nsrc", "din", "dout", "nb", "ns", "he", "hf", "nw", "kdim", "gs_n",
+             "out_dim", "n_slots", "mix_numel", "lig_rows")
+
+# what the last B8 launch on the card used: ligand rows per block and the
+# block's shared memory (chip_smoke.py reports them)
+pair_conv_stats: dict = {}
+
+
+def _pair_ints(c: ConvConsts, dims, bsz: int, nt: int, nsrc: int, nb: int,
+               fin: FinConsts) -> dict:
+    """B8's sizes, as pair_plan_words and pair_row_groups read them."""
+    he, hf, nw, kdim = dims
+    return dict(batch=bsz, nt=nt, nsrc=nsrc, din=c.din, dout=c.dout, nb=nb, ns=c.ns, he=he,
+                hf=hf, nw=nw, kdim=kdim, gs_n=c.gs_n, out_dim=fin.out_dim,
+                n_slots=len(fin.spec.out.items), mix_numel=fin.spec.lin.weight_numel)
+
+
 def _pair_fin_kernel(c, fin, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_t, cab_s,
-                     temb, cutoff, params, bond_feat, bond_mask, cnt):
+                     temb, cutoff, params, bond_feat, bond_mask, cnt, cycles=None):
+    """One launch of csrc/pair_conv.cu's B8 grid, g_p ligand rows per block
+    from pair_row_groups. `cycles`, an int64 tensor of one entry per block
+    (pair_tile_plan's order), receives each block's clock64() cycles
+    (chip_smoke.py's block report)."""
     data, tx, sx, w_in, beff, *weights = _pair_inputs(
         c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_s, temb, cutoff, params,
         bond_feat, bond_mask)
     d, dev = data, tx.device
     bsz, nt, nsrc = tx.shape[0], tx.shape[1], sx.shape[1]
-    he, hf, nw, kdim = d.dims
     ck, gs_off, meta = c.device_tables(dev)
-    fptrs, _keep = _fin_ptrs(fin, params, cnt, (bsz, nt), dev)
-    tptrs, tints = _fin_tail(fin, dev)
+    ints = _pair_ints(c, d.dims, bsz, nt, nsrc, d.nb, fin)
+    g_p = ints["lig_rows"] = pair_row_groups(ints, contraction.sm_count(str(dev)))
+    pair_conv_stats["pair_conv_fin"] = dict(lig_rows=g_p, smem_bytes=4 * pair_plan_words(ints, g_p))
+    if cycles is not None and (cycles.dtype != torch.int64 or cycles.device != dev
+                               or cycles.numel() != bsz * -(-nt // g_p)):
+        raise ValueError("pair_conv_fin: cycles takes one int64 per block on the kernel's device")
+    _, fin_ts = _fin_ptrs(fin, params, cnt, (bsz, nt), dev)
+    mix_meta, ln_slots = fin.device_tables(dev)
     out = torch.empty(bsz, nt, fin.out_dim, dtype=torch.float32, device=dev)
-    rc = _library().dbfr_pair_conv_fin(
-        _ptr(d.tgt_pos), _ptr(d.src_pos), _ptr(tx), _ptr(sx), _ptr(d.tgt_mask),
-        _ptr(d.src_mask), _ptr(d.cab_s), 0, _ptr(d.cut), _ptr(d.bond_feat), _ptr(d.bond_mask),
-        _ptr(w_in), _ptr(beff), *[_ptr(v) for v in weights],
-        _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
-        bsz, nt, nsrc, c.din, c.dout, d.nb, c.ns, he, hf, nw, kdim, c.gs_n,
-        c.gs_coeff, 0, 1, *fptrs, *tptrs, *tints, _stream())
+    # cp.async stages the MLP weights 16 bytes at a time
+    t = {"tgt_pos": d.tgt_pos, "src_pos": d.src_pos, "tgt_x": tx, "src_x": sx,
+         "tgt_mask": d.tgt_mask, "src_mask": d.src_mask, "cab": d.cab_s, "cut": d.cut,
+         "bond_feat": d.bond_feat, "bond_mask": d.bond_mask, "w_in": _aligned(w_in),
+         "beff": beff, "ck": ck, "gs_off": gs_off, "out_meta": meta, "out": out,
+         "mix_meta": mix_meta, "ln_slots": ln_slots, "cycles": cycles}
+    t.update(zip(_PAIR_WEIGHTS, [_aligned(w) for w in weights]))
+    t.update(zip(_FIN_KEYS, fin_ts))
+    ptr_arr = (ctypes.c_void_p * len(PAIR_PTRS))(*[_ptr(t[k]) for k in PAIR_PTRS])
+    int_arr = (ctypes.c_int * len(PAIR_INTS))(*[int(ints[k]) for k in PAIR_INTS])
+    float_arr = (ctypes.c_float * 1)(c.gs_coeff)
+    rc = _library().dbfr_pair_conv_fin(ptr_arr, len(PAIR_PTRS), int_arr, len(PAIR_INTS),
+                                       float_arr, 1, _stream())
     _check(rc, "pair_conv_fin")
     launches["pair_conv_fin"] += 1
     return out
+
+
+def pair_tile_plan(tgt_pos, src_pos, tgt_mask, src_mask, cab, cutoff, bond_mask, g_p):
+    """B8's blocks in grid order (every sample's blocks, g_p ligand rows
+    each, in row order), each with its rows' valid pairs in candidate order
+    (row-major, then source) cut into tiles of WIDE_TILE (target, source)
+    pairs."""
+    bsz, nt = tgt_pos.shape[0], tgt_pos.shape[1]
+    ok = pair_valid(tgt_pos, src_pos, tgt_mask, src_mask, cab,
+                    _cutoffs(cutoff, bsz, tgt_pos.device), bond_mask)
+    return [TileBlock("pair", b, t0, g_p, {"pair": block_tiles(ok[b, t0 : t0 + g_p], t0)})
+            for b in range(bsz) for t0 in range(0, nt, g_p)]
+
+
+def pair_conv_fin_tiled_plain(c: ConvConsts, fin: FinConsts, tgt_pos, src_pos, tgt_x, src_x,
+                              tgt_mask, src_mask, cab_t, cab_s, temb, cutoff, params, bond_feat,
+                              bond_mask, cnt, g_p):
+    """B8's decomposition, plain: the blocks of pair_tile_plan at g_p rows,
+    each tile's messages (wide_tile_plain on the kernel's folded edge input,
+    the pairs' bond features as its extra rows) added to their rows' sums
+    tile by tile, in list order, then finalized. Same returns as
+    pair_conv_fin_plain."""
+    p, temb, bond_feat, tgt_x, src_x = _f32((params, temb, bond_feat, tgt_x, src_x))
+    bsz, nt = tgt_x.shape[0], tgt_x.shape[1]
+    w_in, beff = _prep_edge(c, p["emb_w1"], p["emb_b1"], temb, bond_feat.shape[-1], bsz,
+                            tgt_x.device)
+    emb = {"l2": {"w": p["emb_w2"], "b": p["emb_b2"]}}
+    fc = {"l1": {"w": p["fc_w1"], "b": p["fc_b1"]}, "l2": {"w": p["fc_w2"], "b": p["fc_b2"]}}
+    sums = tgt_x.new_zeros(bsz, nt, c.dout)
+    for blk in pair_tile_plan(tgt_pos, src_pos, tgt_mask, src_mask, cab_s, cutoff, bond_mask,
+                              g_p):
+        b = blk.b
+        for tile in blk.tiles["pair"]:
+            t, s = tile[:, 0], tile[:, 1]
+            sums[b].index_add_(0, t, wide_tile_plain(
+                c, src_pos[b, s] - tgt_pos[b, t], tgt_x[b, t], src_x[b, s], bond_feat[b, t, s],
+                w_in, beff[b], emb, fc))
+    return finalize_plain(fin, p, sums, cnt)
 
 
 # ---- B7 cross conv with finalize -------------------------------------------

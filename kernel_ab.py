@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Device times of the cross conv kernels B1 and B7, the knn conv kernels B3
-and B9 and the bf16-chain kernels B11-cross and B11-knn in two checkouts of
-this repository, in turns on one card (A B B A).
+and B9, the bf16-chain kernels B11-cross and B11-knn, the pair conv's
+backward B5 and its finalized forward B8 (with B2, the pair conv's sums,
+as a control) in two checkouts of this repository, in turns on one card
+(A B B A).
 
     python3 kernel_ab.py <checkout A> <checkout B> [--knn-rows G,G,...]
+                         [--pair-rows G,G,...]
 
 A checkout is a directory that holds a `diffbindfr_torch` package (for
 example the parent commit's, unpacked with `git archive <commit>
@@ -16,17 +19,24 @@ B1 (`cross_conv`) and B3 (`knn_conv`) at (layer 0, B = 4), (5, 4) and
 (5, 16), B7 (`cross_conv_fin`) and B9 (`knn_conv_fin`) at (0, 16) and
 (5, 16), B11-cross and B11-knn
 (`cross_conv` and `knn_conv` with `bf16_chain=True`, on the bf16-rounded
-weights of chip_smoke's phase 18) at (0, 16) and (5, 16). `graph_ms` is
-the device time per call from CUDA events around replays of a CUDA graph
-of 20 calls (no host work between the launches; either version's kernels,
-whatever their symbols), `ms` CUDA events around 10 wrapper calls. Prints the card's
-nvidia-smi line, one line per kernel and shape with every turn's numbers,
-and, last, every turn's numbers as one JSON object. With --knn-rows, each
-turn also times each knn kernel that runs on the checkout's knn grid (B3,
-B9, B11-knn: the kernels whose call records trunk_convs.knn_conv_stats)
-at its shapes with the atoms per block forced to each G (the host's rule,
-knn_row_groups, replaced for the call), beside the G the rule picks.
-Imports nothing of JAX.
+weights of chip_smoke's phase 18) at (0, 16) and (5, 16), B5 (`pair_bwd`,
+the backward alone on phase 9's seeded cotangent, chip_smoke.bwd_launcher)
+at (0, 4), (5, 4) and (5, 16), B8 (`pair_conv_fin`) at (0, 16) and (5, 16)
+and B2 (`pair_conv`) at (5, 16). `graph_ms` is the device time per call
+from CUDA events around replays of a CUDA graph of 20 calls (no host work
+between the launches; either version's kernels, whatever their symbols),
+`ms` CUDA events around 10 wrapper calls. A call that reads to the host
+(B5 where the checkout reads its pair count to size its scratch) cannot be
+captured: its line has no graph_ms, only `ms`, and names the method. Prints
+the card's nvidia-smi line, one line per kernel and shape with every turn's
+numbers, and, last, every turn's numbers as one JSON object. With
+--knn-rows, each turn also times each knn kernel that runs on the
+checkout's knn grid (B3, B9, B11-knn: the kernels whose call records
+trunk_convs.knn_conv_stats) at its shapes with the atoms per block forced
+to each G (the host's rule, knn_row_groups, replaced for the call), beside
+the G the rule picks; with --pair-rows, B8 on the checkout's grid of ligand
+rows (where its call records trunk_convs.pair_conv_stats) at each forced
+g_p (pair_row_groups replaced). Imports nothing of JAX.
 """
 import json
 import os
@@ -36,13 +46,16 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SHAPES = {"cross_conv": ((0, 4), (5, 4), (5, 16)), "cross_conv_fin": ((0, 16), (5, 16)),
           "cross_conv_bf16": ((0, 16), (5, 16)), "knn_conv_bf16": ((0, 16), (5, 16)),
-          "knn_conv": ((0, 4), (5, 4), (5, 16)), "knn_conv_fin": ((0, 16), (5, 16))}
+          "knn_conv": ((0, 4), (5, 4), (5, 16)), "knn_conv_fin": ((0, 16), (5, 16)),
+          "pair_bwd": ((0, 4), (5, 4), (5, 16)), "pair_conv_fin": ((0, 16), (5, 16)),
+          "pair_conv": ((5, 16),)}
 KNN_GRID = ("knn_conv_bf16", "knn_conv", "knn_conv_fin")
 
 
-def child(checkout, knn_rows=()):
+def child(checkout, knn_rows=(), pair_rows=()):
     """One turn: the kernels of `checkout` at every shape (and its knn-grid
-    kernels at each forced g_k of knn_rows); one JSON line."""
+    kernels at each forced g_k of knn_rows, B8 at each forced g_p of
+    pair_rows); one JSON line."""
     import importlib.util
 
     sys.path.insert(0, os.path.abspath(checkout))
@@ -69,7 +82,8 @@ def child(checkout, knn_rows=()):
     wrapper = {"cross_conv": TC.cross_conv, "cross_conv_fin": TC.cross_conv_fin,
                "cross_conv_bf16": functools.partial(TC.cross_conv, bf16_chain=True),
                "knn_conv_bf16": functools.partial(TC.knn_conv, bf16_chain=True),
-               "knn_conv": TC.knn_conv, "knn_conv_fin": TC.knn_conv_fin}
+               "knn_conv": TC.knn_conv, "knn_conv_fin": TC.knn_conv_fin,
+               "pair_conv_fin": TC.pair_conv_fin, "pair_conv": TC.pair_conv}
 
     def inputs(name, layer, bsz):
         seed = layer * 100 + bsz
@@ -78,15 +92,29 @@ def child(checkout, knn_rows=()):
         rm, args = cs.rm_inputs(torch, params, s_np, layer, bsz, seed)
         return args[name] if name in args else rm[name]
 
+    def call(name, layer, bsz):
+        """A call of the kernel alone at the shape, and whether it reads to
+        the host (then no CUDA graph captures it)."""
+        if name != "pair_bwd":
+            a = inputs(name, layer, bsz)
+            return lambda: wrapper[name](*a), False
+        a = inputs("pair_conv", layer, bsz)
+        gen = torch.Generator(device=cs.DEV).manual_seed(layer * 10 + bsz)
+        g = torch.randn(a[3].shape[0], a[3].shape[1], a[0].dout, generator=gen, device=cs.DEV)
+        return cs.bwd_launcher(torch, TC, "pair_conv", a, [g]), hasattr(TC, "_pair_pairs")
+
     out = {}
     for name, shapes in SHAPES.items():
         for layer, bsz in shapes:
-            a = inputs(name, layer, bsz)
+            fn, reads_host = call(name, layer, bsz)
             with torch.no_grad():
-                wrapper[name](*a)
-                ms = cs.time_ms(lambda: wrapper[name](*a), 3, 10)
-                graph = cs.graph_ms(torch, lambda: wrapper[name](*a))
-            out[f"{name} {layer} {bsz}"] = {"graph_ms": graph, "ms": ms}
+                fn()
+                ms = cs.time_ms(fn, 3, 10)
+                graph = None if reads_host else cs.graph_ms(torch, fn)
+            out[f"{name} {layer} {bsz}"] = {
+                "graph_ms": graph, "ms": ms,
+                "method": ("events around 10 calls: the call reads its pair count to the host, no "
+                           "CUDA graph captures it") if reads_host else "graph replay"}
     sweep = {}
     rule = getattr(TC, "knn_row_groups", None)
     for name in KNN_GRID if knn_rows and rule is not None else ():
@@ -104,40 +132,63 @@ def child(checkout, knn_rows=()):
                     sweep[f"{name} {layer} {bsz} g_k={g}"] = {"graph_ms": graph,
                                                               "rule_picks": picked}
                 TC.knn_row_groups = rule
-    print(json.dumps({"checkout": checkout, "times": out, "knn_rows": sweep}), flush=True)
+    rule = getattr(TC, "pair_row_groups", None)
+    for layer, bsz in SHAPES["pair_conv_fin"] if pair_rows and rule is not None else ():
+        a = inputs("pair_conv_fin", layer, bsz)
+        with torch.no_grad():
+            TC.pair_conv_stats.pop("pair_conv_fin", None)
+            TC.pair_conv_fin(*a)
+            picked = TC.pair_conv_stats["pair_conv_fin"]["lig_rows"]
+            for g in pair_rows:
+                TC.pair_row_groups = lambda ints, sms, g=g: g
+                graph = cs.graph_ms(torch, lambda: TC.pair_conv_fin(*a))
+                sweep[f"pair_conv_fin {layer} {bsz} g_p={g}"] = {"graph_ms": graph,
+                                                                 "rule_picks": picked}
+            TC.pair_row_groups = rule
+    print(json.dumps({"checkout": checkout, "times": out, "rows": sweep}), flush=True)
 
 
-def main(a, b, knn_rows=""):
+def main(a, b, knn_rows="", pair_rows=""):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=30).stdout.strip()
     print(smi, flush=True)
     turns = []
     for checkout in (a, b, b, a):
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", checkout,
-                              knn_rows], capture_output=True, text=True, timeout=600, cwd=ROOT)
+                              knn_rows, pair_rows], capture_output=True, text=True, timeout=900,
+                             cwd=ROOT)
         if res.returncode != 0:
             print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
             raise RuntimeError(f"turn on {checkout} failed")
         turns.append(json.loads(res.stdout.strip().splitlines()[-1]))
     for key in turns[0]["times"]:
-        cells = "  ".join(f"{t['checkout']}: {t['times'][key]['graph_ms']:.4f} "
-                          f"({t['times'][key]['ms']:.4f})" for t in turns)
-        print(f"{key}: graph_ms (wrapper ms) {cells}", flush=True)
+        cells = "  ".join(
+            f"{t['checkout']}: "
+            + ("no graph" if t['times'][key]['graph_ms'] is None
+               else f"{t['times'][key]['graph_ms']:.4f}")
+            + f" ({t['times'][key]['ms']:.4f})" for t in turns)
+        how = sorted({t["times"][key]["method"] for t in turns})
+        print(f"{key}: graph_ms (wrapper ms) {cells}; {' / '.join(how)}", flush=True)
     for t in turns:
-        for key, v in t.get("knn_rows", {}).items():
+        for key, v in t.get("rows", {}).items():
             print(f"{t['checkout']} {key}: graph_ms {v['graph_ms']:.4f} (the rule picks "
                   f"{v['rule_picks']})", flush=True)
     print(json.dumps({"nvidia_smi": smi, "turns": turns}), flush=True)
     return 0
 
 
+def _rows(word):
+    return [int(g) for g in word.split(",") if g]
+
+
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--child":
-        child(sys.argv[2], [int(g) for g in sys.argv[3].split(",") if g])
-    elif len(sys.argv) == 3:
-        sys.exit(main(sys.argv[1], sys.argv[2]))
-    elif len(sys.argv) == 5 and sys.argv[3] == "--knn-rows":
-        sys.exit(main(sys.argv[1], sys.argv[2], sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--child":
+        child(sys.argv[2], _rows(sys.argv[3]), _rows(sys.argv[4]))
+    elif len(sys.argv) >= 3 and len(sys.argv) % 2 == 1 and all(
+            k in ("--knn-rows", "--pair-rows") for k in sys.argv[3::2]):
+        opts = dict(zip(sys.argv[3::2], sys.argv[4::2]))
+        sys.exit(main(sys.argv[1], sys.argv[2], opts.get("--knn-rows", ""),
+                      opts.get("--pair-rows", "")))
     else:
         print(__doc__, file=sys.stderr)
         sys.exit(2)

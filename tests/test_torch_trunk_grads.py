@@ -232,16 +232,20 @@ def test_reverse_neighbour_list(system):
 
 
 def test_backward_path_tables_cover_every_weight_and_input(system):
+    """The backward kernels' views of the TP paths (ConvConsts.wide_tables,
+    read by conv_bwd_wide.cuh in B4, B5 and B6)."""
     c = _consts(5.0)
-    w_meta, in_meta = c.bwd_tables
-    assert w_meta.shape == (c.spec.weight_numel, 8)
+    w_meta, in_off, in_ent = c.wide_tables
+    assert w_meta.shape == (c.spec.weight_numel, 4)
+    cb_off, d1, d3 = w_meta[:, 3] & 0xFFFF, (w_meta[:, 3] >> 16) & 0xFF, w_meta[:, 3] >> 24
     # a_base + (d1 - 1) mul inside the input, cb_off + d1 d3 inside cb
-    assert (w_meta[:, 0] + (w_meta[:, 2] - 1) * w_meta[:, 1] < c.din).all()
-    assert (w_meta[:, 4] + w_meta[:, 2] * w_meta[:, 5] <= c.tables[0].shape[1]).all()
-    used = in_meta[:, :, 4] > 0
-    assert used.any(axis=1).all() and used.sum(axis=1).max() <= TC.MAX_IN_PATHS
+    assert (w_meta[:, 0] + (d1 - 1) * w_meta[:, 1] < c.din).all()
+    assert (cb_off + d1 * d3 <= c.tables[0].shape[1]).all()
+    # every input column is read by a path; its entries name weights and outputs that exist
+    assert in_off.shape == (c.din + 1,) and (np.diff(in_off) > 0).all()
+    assert (in_ent[:, 2] < c.spec.weight_numel).all() and (in_ent[:, 0] < c.dout).all()
     # each (path, channel, component) appears once: one entry per weight and d1 row
-    assert used.sum() == int(w_meta[:, 2].sum())
+    assert in_off[-1] == in_ent.shape[0] == int(d1.sum())
     layout, stride = TC._grad_layout(GSN + 10, NS, NS, 3 * NS, c.spec.weight_numel, B)
     end = max(o + int(np.prod(s)) for o, s in layout.values())
     assert stride % 4 == 0 and end <= stride < end + 4
