@@ -21,7 +21,8 @@ a non-zero exit code):
               and their fill, each kind's share of the blocks' cycles, the
               longest block against the working mean; g_l, g_a and the
               block's shared memory; B3 (a knn grid of g_k atoms per block,
-              csrc/knn_conv.cu): a CUDA graph captures the call and its
+              csrc/knn_conv.cu) and B2 (a grid of g_p ligand rows per block,
+              csrc/pair_conv.cu): a CUDA graph captures the call and its
               replay gives the same bits, two more calls give the same bits,
               and its blocks as phase 18 reports B11-knn's
   6. forward  full-width score net with the kernels on 3dbs, against the JAX
@@ -104,14 +105,15 @@ a non-zero exit code):
               peak for separately rounded bf16x2 operations (67e12/s; phase
               17's measured rate printed beside it) and the fp32 operations
               at 67 TFLOP/s. B11-cross (csrc/cross_conv.cu, the wide-tile
-              grid of phase 5's B1) and B11-knn (csrc/knn_conv.cu, a knn
-              grid of g_k atoms per block) also: a CUDA graph captures the
-              call and its replay gives the same bits; two more calls give
-              the same bits; their blocks (B11-cross: al and la blocks as
-              phase 5 reports B1's; B11-knn: blocks, working blocks and
-              their share of the block cycles, 64-pair tiles and their
-              fill, the longest block against the working mean), rows per
-              block and the block's shared memory
+              grid of phase 5's B1), B11-pair (csrc/pair_conv.cu, the grid
+              of ligand rows of phase 5's B2) and B11-knn (csrc/knn_conv.cu,
+              a knn grid of g_k atoms per block) also: a CUDA graph captures
+              the call and its replay gives the same bits; two more calls
+              give the same bits; their blocks (B11-cross: al and la blocks
+              as phase 5 reports B1's; B11-pair and B11-knn: blocks, working
+              blocks and their share of the block cycles, 64-pair tiles and
+              their fill, the longest block against the working mean), rows
+              per block and the block's shared memory
   19. bf16_forward  the full-width score net with compute_dtype='bfloat16',
               kernels on, against the JAX package's bf16 forward
               (tests/fixtures/torch_bf16_ref.npz; per field, tests/
@@ -262,7 +264,7 @@ MOSAIC_ROWS = {"3d": ("3d_accum", ":40"), "onehot": ("onehot", ":68"),
 # CUDA kernel symbols of each launch counter, for the profiler's device time;
 # the first is the kernel that the counter counts
 SYMBOLS = {
-    "cross_conv": ("cross_conv_wide_kernel(",), "pair_conv": ("pair_conv_kernel(",),
+    "cross_conv": ("cross_conv_wide_kernel(",), "pair_conv": ("pair_conv_wide_kernel(",),
     "knn_conv": ("knn_conv_wide_kernel(",),
     "cross_bwd": ("cross_wide_kernel(", "pairs_count_kernel(", "exclusive_scan_kernel(",
                   "src_count_kernel(", "pairs_fill_kernel(", "abt_kernel<",
@@ -276,7 +278,8 @@ SYMBOLS = {
     "pair_conv_fin": ("pair_conv_fin_wide_kernel(",),
     "knn_conv_fin": ("knn_conv_fin_wide_kernel(",), "layer_conv": ("layer_conv_kernel(",),
     "cross_conv_bf16": ("cross_conv_bf16_wide_kernel(",),
-    "pair_conv_bf16": ("pair_conv_bf16_kernel(",), "knn_conv_bf16": ("knn_conv_bf16_wide_kernel(",),
+    "pair_conv_bf16": ("pair_conv_bf16_wide_kernel(",),
+    "knn_conv_bf16": ("knn_conv_bf16_wide_kernel(",),
     "probe_bf16/f32_fma": ("probe_f32_kernel(",),
     "probe_bf16/bf16x2_mul_add": ("probe_bf16_kernel<false>(",),
     "probe_bf16/bf16x2_fma": ("probe_bf16_kernel<true>(",),
@@ -632,20 +635,23 @@ def phase_kernels(torch, params, s_np, results):
                 raise AssertionError(f"{name} layer {layer}: kernel disagrees with plain ({err:.3e})")
             if name == "cross_conv":
                 row["blocks"] = cross_block_report(torch, TC, name, wrapper[name], a)
-            if name == "knn_conv":
+            else:
                 row.update(grid_report(torch, TC, name, wrapper[name], a))
 
 
 def grid_report(torch, TC, name, wrapper, a):
-    """B3 ("knn_conv") or B9 ("knn_conv_fin") on the knn grid, or B8
-    ("pair_conv_fin") on its grid of ligand rows, after its timing: a CUDA
-    graph captures the call and its replay gives the same bits; then its
-    block report (knn_block_report, pair_block_report). Returns the row's
-    graph_same and blocks."""
+    """A kernel on the knn grid (B3 "knn_conv", B9 "knn_conv_fin", B11-knn
+    "knn_conv_bf16"), on the grid of ligand rows (B2 "pair_conv", B8
+    "pair_conv_fin", B11-pair "pair_conv_bf16") or B11-cross
+    ("cross_conv_bf16"), after its timing: a CUDA graph captures the call
+    and its replay gives the same bits; then its block report
+    (knn_block_report, pair_block_report, cross_block_report). Returns the
+    row's graph_same and blocks."""
     if not graph_same(torch, functools.partial(wrapper, *a)):
         raise AssertionError(f"{name}: a CUDA graph's replay differs")
     print("    a CUDA graph captures the call; its replay gives the same bits", flush=True)
-    report = pair_block_report if name == "pair_conv_fin" else knn_block_report
+    report = {"pair": pair_block_report, "knn": knn_block_report,
+              "cross": cross_block_report}[name.split("_")[0]]
     return {"graph_same": True, "blocks": report(torch, TC, name, wrapper, a)}
 
 
@@ -723,18 +729,25 @@ def knn_block_report(torch, TC, name, wrapper, a):
 
 
 def pair_block_report(torch, TC, name, wrapper, a):
-    """B8 ("pair_conv_fin") after its timing: two more calls must give the
-    same bits; then its blocks (g_p ligand rows each, the plan model
+    """B2 ("pair_conv"), B11-pair ("pair_conv_bf16") or B8
+    ("pair_conv_fin") after its timing: two more calls must give the same
+    bits; then its blocks (g_p ligand rows each, the plan model
     pair_tile_plan on these inputs) as block_summary reports them; g_p and
     the block's shared memory."""
-    c, fin, tp, sp, tx, sx, tm, sm, ct, cs, temb, cut, p, bf, bm, cnt = a
+    fin = name == "pair_conv_fin"
+    c, tp, sp, tx, sx, tm, sm, ct, cs, temb, cut, p, bf, bm = (a[0], *a[2:15]) if fin else a
     same_bits(torch, name, wrapper, a)
     stats = TC.pair_conv_stats[name]
     g_p = stats["lig_rows"]
     plan = TC.pair_tile_plan(tp, sp, tm, sm, cs, cut, bm, g_p)
     cycles = torch.zeros(len(plan), dtype=torch.int64, device=DEV)
     with torch.no_grad():
-        TC._pair_fin_kernel(*a, cycles=cycles)
+        if fin:
+            TC._pair_fin_kernel(*a, cycles=cycles)
+        else:
+            d = TC._pair_inputs(c, tp, sp, tx, sx, tm, sm, cs, temb, cut, p, bf, bm,
+                                name == "pair_conv_bf16")
+            TC._pair_conv_kernel(TC._library(), *d[:5], d[5:], TC._stream(), cycles=cycles)
         torch.cuda.synchronize()
     print(f"    g_p {g_p} ligand rows per block, {stats['smem_bytes']} bytes of shared memory; "
           f"two calls bit-identical", flush=True)
@@ -1791,17 +1804,8 @@ def phase_bf16_kernels(torch, params, s_np, results, bf16_rate):
             if not BF16_GATE < ctl:
                 raise AssertionError(f"{name} layer {layer}: the gate {BF16_GATE:g} cannot tell "
                                      f"the bf16 chain from f32 (control {ctl:.3e})")
-            if name == "pair_conv_bf16":
-                continue
-            # the wide-tile kernels: same bits, graph capture, their blocks
-            fn = functools.partial(wrapper[name], *a)
-            if not graph_same(torch, fn):
-                raise AssertionError(f"{name} layer {layer}: a CUDA graph's replay differs")
-            print("    a CUDA graph captures the call; its replay gives the same bits", flush=True)
-            row["graph_same"] = True
-            row["blocks"] = (cross_block_report(torch, TC, name, wrapper[name], a)
-                             if name == "cross_conv_bf16" else
-                             knn_block_report(torch, TC, name, wrapper[name], a))
+            # same bits, graph capture, their blocks
+            row.update(grid_report(torch, TC, name, wrapper[name], a))
 
 
 def phase_bf16_forward(torch, np, sn, TC, params, s_np):
@@ -2347,7 +2351,7 @@ def main() -> int:
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 16,
-                     **({"blocks": main_row["blocks"]} if "blocks" in main_row else {})})
+                     **{k: main_row[k] for k in ("graph_same", "blocks") if k in main_row}})
     for name, (src, repl, _) in BWD_KERNELS.items():
         # the training shapes: layer 5, the 128/1024 batch of 4
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 4][0]
@@ -2380,7 +2384,7 @@ def main() -> int:
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 16,
-                     **({"blocks": main_row["blocks"]} if "blocks" in main_row else {})})
+                     **{k: main_row[k] for k in ("graph_same", "blocks") if k in main_row}})
     for name, (src, repl, _) in BF16_KERNELS.items():
         # the dock shapes at layer 5; launches from the bf16 dock
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]
@@ -2392,7 +2396,7 @@ def main() -> int:
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 16,
-                     **({"blocks": main_row["blocks"]} if "blocks" in main_row else {})})
+                     **{k: main_row[k] for k in ("graph_same", "blocks") if k in main_row}})
     for name in sorted(k for k in per_kernel if k.startswith("probe_bf16/")):
         r = per_kernel[name]
         # 8192 x 1024 elements, 2000 steps; launches from its measurement

@@ -1,5 +1,5 @@
 // Packed bf16x2 arithmetic with explicit round-to-nearest-even, for the
-// bf16 depthwise chain (B11, trunk_conv.cuh) and the probe P1
+// bf16 depthwise chain (B11, conv_fwd_wide.cuh) and the probe P1
 // (probe_bf16.cu). PTX mul/add without a rounding modifier may be fused into
 // an fma by ptxas; the `.rn` forms are never contracted, so each product and
 // each sum is rounded once, as the JAX reference rounds each bf16 operation.

@@ -1,12 +1,13 @@
 // The forward chain of a trunk conv over 64-pair wide tiles, for blocks
 // that own their targets (B10, layer_conv.cu; B1 and B7, cross_conv.cu;
-// B3 and B9, knn_conv.cu; B8, pair_conv.cu). Replaces the per-pair chain of
-// the Pallas whole-layer kernel (diffbindfr_tpu/nn/pallas_layer.py:
+// B3 and B9, knn_conv.cu; B2 and B8, pair_conv.cu). Replaces the per-pair
+// chain of the Pallas whole-layer kernel (diffbindfr_tpu/nn/pallas_layer.py:
 // make_layer_conv, the pallas_call at :552), of the cross conv kernels
 // (nn/pallas_conv_t.py:make_cross_conv_t, :693; nn/pallas_conv.py:
 // make_cross_conv, :1008), of the knn conv kernels (nn/pallas_conv_t.py:
 // make_knn_conv_t, :935; nn/pallas_conv.py:make_knn_conv, :1225) and of the
-// pair conv with its finalize (nn/pallas_conv.py:make_pair_conv, :653): a
+// pair conv kernels (nn/pallas_conv_t.py:make_pair_conv_t, :433; nn/
+// pallas_conv.py:make_pair_conv, :653): a
 // block compacts the valid candidates of its g owned targets into a list in
 // candidate order (trunk_conv.cuh compact_pairs: target-major, then source
 // index or neighbour slot), walks the list in tiles of 64 pairs, and per
@@ -26,11 +27,13 @@
 // Bound on the H100: fp32 FMA in the MLPs (operations); the TP is ~2% of
 // them, its source rows staged in shared memory 32 pairs at a time.
 //
-// BF (B11-cross, cross_conv.cu; B11-knn, knn_conv.cu): the bf16 depthwise
-// chain of the JAX kernels with dw_dtype='bfloat16' (diffbindfr_tpu/nn/
-// pallas_conv_t.py:222-250, _dw_paths_t), rounded where trunk_conv.cuh's
-// 32-pair B11 body rounds: the target and/or source scalars enter the
-// TP-weight MLP rounded to bf16 (ConvArgs::bf_tgt_sc, bf_src_sc); the MLPs
+// BF (B11-cross, cross_conv.cu; B11-pair, pair_conv.cu; B11-knn,
+// knn_conv.cu): the bf16 depthwise chain of the JAX kernels with
+// dw_dtype='bfloat16' (diffbindfr_tpu/nn/pallas_conv_t.py:222-250,
+// _dw_paths_t), rounded where the JAX kernels round: the target and/or
+// source scalars enter the TP-weight MLP rounded to bf16 where the
+// reference moves them at one bf16 pass (ConvArgs::bf_tgt_sc, bf_src_sc:
+// B11-pair the target's, B11-knn both, B11-cross per direction); the MLPs
 // stay fp32; w = Wf2^T h + bf2 and cb = ck^T sh leave their products
 // rounded to bf16, as packed tiles [rows][kWideSW words] (a masked pair
 // never reaches the list, so w * mask is w); the tile's source rows are
@@ -412,8 +415,8 @@ __device__ __forceinline__ void wide_conv_sums(const ConvArgs& a, int b, int t0,
 // The sums of targets t0 .. t0 + g - 1 of sample b (BF: the bf16 chain),
 // then (FIN) their finalize in the weight-stage region (the plan of
 // fin_after_sums), written to a.out: the rows of one block of B1, B7 and
-// B11-cross (cross_conv.cu), of B3, B9 and B11-knn (knn_conv.cu) and of B8
-// (pair_conv.cu).
+// B11-cross (cross_conv.cu), of B3, B9 and B11-knn (knn_conv.cu) and of
+// B2, B8 and B11-pair (pair_conv.cu).
 // Inlined per call, so that the kernel parameters stay where the compiler
 // can address them statically.
 template <int MODE, bool FIN, bool BF = false>

@@ -7,7 +7,7 @@
 //   0  f32:          acc = fmaf(acc, w, x) + pert        (FFMA + FADD)
 //   1  bf16x2 mul/add: acc = ((acc * w) + x) + pert, every product and sum
 //                    rounded to bf16 (mul.rn / add.rn.bf16x2: the rounding
-//                    of the B11 chain, trunk_conv.cuh)
+//                    of the B11 chain, conv_fwd_wide.cuh)
 //   2  bf16x2 fma:   acc = fma(acc, w, x) + pert, one rounding for the fma
 // A thread runs one 16-byte vector of elements (4 f32 or 8 bf16 chains):
 // independent chains hide the latency of each dependent step. Bound on the

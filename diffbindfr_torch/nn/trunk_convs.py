@@ -54,21 +54,23 @@ grad: those gradients come from the plain versions. The folded
 edge input (`_prep_edge`) stays in the autograd graph, so the backward
 kernels return gradients of (w_in, b_eff) and of the MLPs, and autograd maps
 them to the parameter tree. What bounds the kernels on the H100 and what
-their design does about it is in csrc/trunk_conv.cuh (B2, B11-pair: the
-32-pair body), csrc/conv_fwd_wide.cuh (B1, B7 and B11-cross: one grid of
-64-pair tiles for both directions, rows per block from cross_row_groups;
-B3, B9 and B11-knn: one knn grid, atoms per block from knn_row_groups; B8:
-a grid of ligand rows, rows per block from pair_row_groups; B11's bf16
-chain runs in the same tiles), csrc/conv_bwd_wide.cuh, csrc/dense_pairs.cuh
-and csrc/abt_gemm.cuh (B4, B5, B6) and the kernel sources. B4's, B5's and
-B6's plain versions, cross_bwd_plain, pair_bwd_plain and knn_bwd_plain, are
-models of their kernels' decomposition (pair list, per-pair rows,
-contractions, node sums) that cross_bwd, pair_bwd and knn_bwd run on CPU
-tensors. B1's, B7's and B11-cross's block and tile plan has its plain model
-in cross_tile_plan and cross_conv_tiled_plain (bf16_chain for B11-cross) /
+their design does about it is in csrc/conv_fwd_wide.cuh (B1, B7 and
+B11-cross: one grid of 64-pair tiles for both directions, rows per block
+from cross_row_groups; B3, B9 and B11-knn: one knn grid, atoms per block
+from knn_row_groups; B2, B8 and B11-pair: one grid of ligand rows, rows per
+block from pair_row_groups; B11's bf16 chain runs in the same tiles),
+csrc/conv_bwd_wide.cuh, csrc/dense_pairs.cuh and csrc/abt_gemm.cuh (B4, B5,
+B6), csrc/trunk_conv.cuh (the geometry, masks and pair compaction they
+share) and the kernel sources. B4's, B5's and B6's plain versions,
+cross_bwd_plain, pair_bwd_plain and knn_bwd_plain, are models of their
+kernels' decomposition (pair list, per-pair rows, contractions, node sums)
+that cross_bwd, pair_bwd and knn_bwd run on CPU tensors. B1's, B7's and
+B11-cross's block and tile plan has its plain model in cross_tile_plan and
+cross_conv_tiled_plain (bf16_chain for B11-cross) /
 cross_conv_fin_tiled_plain, B3's, B9's and B11-knn's in knn_tile_plan and
 knn_conv_tiled_plain (bf16_chain for B11-knn) / knn_conv_fin_tiled_plain,
-B8's in pair_tile_plan and pair_conv_fin_tiled_plain, which the CPU tests
+B2's, B8's and B11-pair's in pair_tile_plan and pair_conv_tiled_plain
+(bf16_chain for B11-pair) / pair_conv_fin_tiled_plain, which the CPU tests
 hold against the plain versions and the JAX kernels.
 """
 from __future__ import annotations
@@ -443,7 +445,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
-    "dbfr_pair_conv": [_P] * 7 + [_I] + [_P] * 15 + [_I] * 12 + [_F, _I, _I, _P],
+    "dbfr_pair_conv": [_P, _I, _P, _I, _P, _I, _P],
     "dbfr_cross_conv": [_P, _I, _P, _I, _P, _I, _P],
     "dbfr_cross_conv_bf16": [_P, _I, _P, _I, _P, _I, _P],
     # B3: the conv's arguments, then atoms per block and the per-block cycles
@@ -461,8 +463,9 @@ _ARGTYPES = {
 # B11-pair and B11-knn: the same arguments as B2 and B3
 _ARGTYPES["dbfr_pair_conv_bf16"] = _ARGTYPES["dbfr_pair_conv"]
 _ARGTYPES["dbfr_knn_conv_bf16"] = _ARGTYPES["dbfr_knn_conv"]
-# the widest matrix a kernel thread tiles (kMaxJ * 32 columns, trunk_conv.cuh)
-_MAX_COLS = 320
+# the widest product of the wide tiles: output columns l + 32 j of a lane,
+# j < 10 (wide_gemm, conv_bwd_wide.cuh)
+_WIDE_COLS = 320
 # pairs per block of B4's, B5's and B6's wide-tile pass; their scratch rows
 # are a multiple of this apart (kWideTile, conv_bwd_wide.cuh)
 WIDE_TILE = 64
@@ -521,11 +524,13 @@ def _prep_edge(c: ConvConsts, emb_w1, emb_b1, temb, edge_extra: int, bsz: int, d
 
 def _dims(c: ConvConsts, emb_w2, fc_w1):
     """(edge hidden, TP-weight hidden, n weights, kdim), checked against the
-    widest product a kernel thread tiles."""
+    widest product the wide tiles compute (the MLPs' outputs, and the
+    backward's 3 ns); kdim is bounded by the plan's shared memory, which the
+    C entry points check."""
     he, hf, nw = emb_w2.shape[0], fc_w1.shape[1], c.spec.weight_numel
     kdim = c.tables[0].shape[1]
-    if max(he, hf, nw, 3 * c.ns, kdim) > _MAX_COLS:
-        raise ValueError(f"trunk conv kernels tile at most {_MAX_COLS} columns")
+    if max(he, hf, nw, 3 * c.ns) > _WIDE_COLS:
+        raise ValueError(f"trunk conv kernels tile at most {_WIDE_COLS} columns")
     return he, hf, nw, kdim
 
 
@@ -693,23 +698,12 @@ class _PairConvFn(torch.autograd.Function):
                 gr["bf1"], gr["wf2"], gr["bf2"])
 
 
-def _pair_conv_kernel(lib, data, tgt_x, src_x, w_in, beff, weights, stream):
-    c, d = data.c, data
-    bsz, nt, nsrc = tgt_x.shape[0], tgt_x.shape[1], src_x.shape[1]
-    he, hf, nw, kdim = d.dims
-    ck, gs_off, meta = c.device_tables(tgt_x.device)
-    out = torch.zeros(bsz, nt, c.dout, dtype=torch.float32, device=tgt_x.device)
-    name = "pair_conv_bf16" if d.bf16_chain else "pair_conv"
-    rc = getattr(lib, "dbfr_" + name)(
-        _ptr(d.tgt_pos), _ptr(d.src_pos), _ptr(tgt_x), _ptr(src_x), _ptr(d.tgt_mask),
-        _ptr(d.src_mask), _ptr(d.cab_s), 0, _ptr(d.cut), _ptr(d.bond_feat), _ptr(d.bond_mask),
-        _ptr(w_in), _ptr(beff), *[_ptr(v) for v in weights],
-        _ptr(ck), _ptr(gs_off), _ptr(meta), _ptr(out),
-        bsz, nt, nsrc, c.din, c.dout, d.nb, c.ns, he, hf, nw, kdim, c.gs_n,
-        c.gs_coeff, 0, 1, stream)
-    _check(rc, name)
-    launches[name] += 1
-    return out
+def _pair_conv_kernel(lib, data, tgt_x, src_x, w_in, beff, weights, stream, cycles=None):
+    """One launch of B2 ("pair_conv") or, with the data's bf16_chain, B11-pair
+    ("pair_conv_bf16") on csrc/pair_conv.cu's grid of ligand rows
+    (_pair_wide)."""
+    name = "pair_conv_bf16" if data.bf16_chain else "pair_conv"
+    return _pair_wide(lib, name, data, tgt_x, src_x, w_in, beff, weights, stream, cycles=cycles)
 
 
 # what the last pair_bwd call on the card did: its pair count, the pass's
@@ -1228,8 +1222,8 @@ def pair_bwd_plain(data, tgt_x, src_x, w_in, beff, weights, g):
     return d_tgt.view(bsz, nt, din), d_src.view(bsz, nsrc, din), grads
 
 
-# ---- the forward wide-tile plan (csrc/conv_fwd_wide.cuh): B1, B3, B7, B9,
-# B10, B11-cross, B11-knn ---
+# ---- the forward wide-tile plan (csrc/conv_fwd_wide.cuh): B1, B2, B3, B7,
+# B8, B9, B10, B11 ---
 
 _WIDE_S = WIDE_TILE + 4  # pair stride of the feature-major tiles (kWideS)
 _WIDE_SW = _WIDE_S // 2  # and of a bf16 tile, in 32-bit words (kWideSW)
@@ -1242,7 +1236,8 @@ KNN_ATOM_ROWS = 32  # the most atoms a B3 / B9 / B11-knn block owns (knn_row_gro
 # valid share of the neighbour slots that knn_row_groups expects: the 3dbs
 # bucket's 1024 atoms x 16 slots hold 9,567 valid pairs (927 real atoms)
 KNN_SLOT_FILL = 0.58
-PAIR_LIG_ROWS = 32  # the most ligand rows a B8 block owns (pair_row_groups)
+# the most ligand rows a B2 / B8 / B11-pair block owns (pair_row_groups)
+PAIR_LIG_ROWS = 32
 # valid pairs per real ligand row that pair_row_groups expects: the 3dbs
 # bucket's 35 real rows (of 128) hold 458 pairs a sample, 7,328 at B = 16
 PAIR_ROW_PAIRS = 13.1
@@ -1250,6 +1245,12 @@ PAIR_ROW_PAIRS = 13.1
 # every block, real rows or not: B9's finalize took ~35 us a block against
 # ~70 us a tile (PERF.md section 6, PR 12)
 PAIR_FIN_TILES = 0.5
+# a B2 or B11-pair block's fixed cost in tiles of pair work, which
+# pair_row_groups charges every block: the compaction scan of its g x nsrc
+# candidates (two barriers per 256) and its rows' stores, zeros for padded
+# rows; B8's blocks of padded rows took ~19% of a working block's ~1.8 tiles
+# (PERF.md section 6, PR 13), nearly all of it the finalize
+PAIR_SCAN_TILES = 0.05
 
 
 def _r4(n: int) -> int:
@@ -1380,46 +1381,57 @@ def knn_row_groups(ints: dict, sms: int) -> int:
 
 
 def pair_plan_words(ints: dict, g_p: int) -> int:
-    """Shared memory of a B8 block in 4-byte words (pair_plan, csrc/
-    pair_conv.cu: fwd_plan of the conv in dense mode, its finalize's output
-    rows and statistics in the weight stages), from the kernel's PAIR_INTS:
-    nsrc, din, dout, nb, ns, he, hf, nw, kdim, gs_n, out_dim, n_slots,
-    mix_numel."""
+    """Shared memory of a block on the grid of ligand rows in 4-byte words
+    (pair_plan, csrc/pair_conv.cu: fwd_plan of the conv in dense mode; with
+    a finalize, out_dim > 0, B8's, its output rows and statistics in the
+    weight stages; with a true bf16_chain, B11-pair's, the bf16 plan), from
+    the kernel's sizes (_pair_ints): nsrc, din, dout, nb, ns, he, hf, nw,
+    kdim, gs_n, and out_dim, n_slots, mix_numel, bf16_chain. Sizes without
+    out_dim have no finalize, those without bf16_chain the f32 plan."""
     n = ints
+    fin = [n.get(key, 0) for key in ("out_dim", "mix_numel", "n_slots")]
     return sum(_fin_after_sums(list(fwd_regions(
         n["gs_n"] + n["nb"], n["ns"], n["he"], n["hf"], n["nw"], n["kdim"], n["din"], n["dout"],
-        n["out_dim"], n["mix_numel"], n["n_slots"], g_p, n["nsrc"])), n["out_dim"]))
+        *fin, g_p, n["nsrc"], bf16=bool(n.get("bf16_chain", 0)))), fin[0]))
 
 
 def pair_row_groups(ints: dict, sms: int) -> int:
-    """g_p, the ligand rows per block of B8's grid, picked on the host from
-    the batch, the shapes and the SM count on the plan of pair_plan_words;
-    no mask or count is read (no wait for the device: a CUDA graph captures
-    the call).
+    """g_p, the ligand rows per block of the grid of ligand rows (B2, B8,
+    B11-pair), picked on the host from the batch, the shapes and the SM
+    count on the plan of pair_plan_words; no mask or count is read (no wait
+    for the device: a CUDA graph captures the call).
 
-    One block runs per SM (its shared memory) and the blocks start as SMs
-    come free, so the grid takes about the mean work per SM plus the last
-    block's. The host expects, as cross_row_groups does, a quarter of the
-    nt rows real (the 3dbs ligand fills 35 of 128; the real rows come
-    first), each with PAIR_ROW_PAIRS valid pairs: a working block of g rows
-    then holds T(g) = g PAIR_ROW_PAIRS / 64 + 1/2 tiles (its last one half
-    full; ~5 rows fill a tile), and every block, working or not, finalizes
-    its rows (PAIR_FIN_TILES). g_p is the g <= PAIR_LIG_ROWS that fits the
-    shared memory and minimises B (ceil(nt / 4 / g) T(g) + ceil(nt / g)
-    PAIR_FIN_TILES) / sms + T(g) + PAIR_FIN_TILES."""
+    One block runs per SM (its shared memory) and the blocks start in grid
+    order as SMs come free. A block of g rows that holds real rows (they
+    come first) holds T(g) = g PAIR_ROW_PAIRS / 64 + 1/2 tiles (its last
+    one half full; ~5 rows fill a tile), and a tile's latency, not the
+    card's throughput, sets its time: the working blocks run in waves of
+    `sms`, so the grid takes about ceil(W / sms) T(g), W = B ceil(r / g)
+    working blocks for r real rows a sample. Every block, working or not,
+    also pays a fixed cost F, spread over the SMs: B8's finalize of its
+    rows (PAIR_FIN_TILES), or, without a finalize (B2, B11-pair), the
+    compaction scan of its g x nsrc candidates and the stores of its rows'
+    sums, zeros for padded rows (PAIR_SCAN_TILES). The host does not know r
+    without reading the masks; the 3dbs ligand fills 35 of its bucket's 128
+    rows, and a W just past a multiple of `sms` adds a whole wave (B2 at B
+    = 16: 4 rows a block, 144 working blocks on 132 SMs, took 0.187 ms
+    against 0.140 at 6 rows; PERF.md section 6, PR 14). So g_p is the g <=
+    PAIR_LIG_ROWS that fits the shared memory and minimises the worst case
+    over r from nt / 4 to nt / 2 of ceil(W / sms) T(g) + (B ceil(nt / g) /
+    sms + 1) F."""
     bsz, n = ints["batch"], ints["nt"]
-    real = -(-n // 4)
+    fixed = PAIR_FIN_TILES if ints.get("out_dim", 0) > 0 else PAIR_SCAN_TILES
     best = None
     for g in range(1, PAIR_LIG_ROWS + 1):
         if pair_plan_words(ints, g) > SMEM_WORDS:
             break
         tiles = g * PAIR_ROW_PAIRS / WIDE_TILE + 0.5
-        work = bsz * (-(-real // g) * tiles + -(-n // g) * PAIR_FIN_TILES)
-        cost = work / sms + tiles + PAIR_FIN_TILES
+        waves = max(-(-bsz * -(-r // g) // sms) for r in range(-(-n // 4), -(-n // 2) + 1))
+        cost = waves * tiles + (bsz * -(-n // g) / sms + 1) * fixed
         if best is None or cost < best[0]:
             best = (cost, g)
     if best is None:
-        raise ValueError("pair_conv_fin: one block's tile does not fit the shared memory")
+        raise ValueError("pair_conv: one block's tile does not fit the shared memory")
     return best[1]
 
 
@@ -2005,7 +2017,7 @@ def _fin_tail(fin: FinConsts, dev):
                                               fin.spec.lin.weight_numel]
 
 
-# ---- B8 pair conv with finalize --------------------------------------------
+# ---- B8 pair conv with finalize; the grid of ligand rows of B2, B8, B11-pair
 
 
 def pair_conv_fin(c: ConvConsts, fin: FinConsts, tgt_pos, src_pos, tgt_x, src_x, tgt_mask,
@@ -2019,8 +2031,8 @@ def pair_conv_fin(c: ConvConsts, fin: FinConsts, tgt_pos, src_pos, tgt_x, src_x,
     return _with_plain_backward(_pair_fin_kernel, pair_conv_fin_plain, *args)
 
 
-# Order of B8's pointer and int arguments: the enums PairPtr and PairInt of
-# csrc/pair_conv.cu, name for name.
+# Order of the pointer and int arguments of B2, B8 and B11-pair: the enums
+# PairPtr and PairInt of csrc/pair_conv.cu, name for name.
 _PAIR_WEIGHTS = ("w2", "b2", "wf1", "bf1", "wf2", "bf2")
 PAIR_PTRS = ("tgt_pos", "src_pos", "tgt_x", "src_x", "tgt_mask", "src_mask", "cab", "cut",
              "bond_feat", "bond_mask", "w_in", "beff", *_PAIR_WEIGHTS, "ck", "gs_off",
@@ -2028,64 +2040,83 @@ PAIR_PTRS = ("tgt_pos", "src_pos", "tgt_x", "src_x", "tgt_mask", "src_mask", "ca
 PAIR_INTS = ("batch", "nt", "nsrc", "din", "dout", "nb", "ns", "he", "hf", "nw", "kdim", "gs_n",
              "out_dim", "n_slots", "mix_numel", "lig_rows")
 
-# what the last B8 launch on the card used: ligand rows per block and the
-# block's shared memory (chip_smoke.py reports them)
+# what the last launch of each kernel on the grid of ligand rows used, by
+# launch counter (pair_conv, pair_conv_bf16, pair_conv_fin): ligand rows per
+# block and the block's shared memory (chip_smoke.py reports them)
 pair_conv_stats: dict = {}
 
 
 def _pair_ints(c: ConvConsts, dims, bsz: int, nt: int, nsrc: int, nb: int,
-               fin: FinConsts) -> dict:
-    """B8's sizes, as pair_plan_words and pair_row_groups read them."""
+               fin: FinConsts | None = None, bf16_chain: bool = False) -> dict:
+    """The sizes of a kernel on the grid of ligand rows, as pair_plan_words
+    and pair_row_groups read them: B2's, with `fin` B8's, with `bf16_chain`
+    B11-pair's."""
     he, hf, nw, kdim = dims
-    return dict(batch=bsz, nt=nt, nsrc=nsrc, din=c.din, dout=c.dout, nb=nb, ns=c.ns, he=he,
-                hf=hf, nw=nw, kdim=kdim, gs_n=c.gs_n, out_dim=fin.out_dim,
-                n_slots=len(fin.spec.out.items), mix_numel=fin.spec.lin.weight_numel)
+    ints = dict(batch=bsz, nt=nt, nsrc=nsrc, din=c.din, dout=c.dout, nb=nb, ns=c.ns, he=he,
+                hf=hf, nw=nw, kdim=kdim, gs_n=c.gs_n, out_dim=0, n_slots=0, mix_numel=0,
+                bf16_chain=int(bf16_chain))
+    if fin is not None:
+        ints.update(out_dim=fin.out_dim, n_slots=len(fin.spec.out.items),
+                    mix_numel=fin.spec.lin.weight_numel)
+    return ints
 
 
-def _pair_fin_kernel(c, fin, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_t, cab_s,
-                     temb, cutoff, params, bond_feat, bond_mask, cnt, cycles=None):
-    """One launch of csrc/pair_conv.cu's B8 grid, g_p ligand rows per block
-    from pair_row_groups. `cycles`, an int64 tensor of one entry per block
-    (pair_tile_plan's order), receives each block's clock64() cycles
-    (chip_smoke.py's block report)."""
-    data, tx, sx, w_in, beff, *weights = _pair_inputs(
-        c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_s, temb, cutoff, params,
-        bond_feat, bond_mask)
-    d, dev = data, tx.device
+def _pair_wide(lib, name, data, tx, sx, w_in, beff, weights, stream, fin=None, fin_ts=(),
+               cycles=None):
+    """One launch of csrc/pair_conv.cu's grid of ligand rows: B2
+    ("pair_conv"), B11-pair ("pair_conv_bf16", the data's bf16_chain) or B8
+    ("pair_conv_fin": fin a FinConsts, fin_ts the finalize tensors of
+    _fin_ptrs), g_p ligand rows per block from pair_row_groups. `cycles`, an
+    int64 tensor of one entry per block (pair_tile_plan's order), receives
+    each block's clock64() cycles (chip_smoke.py's block report)."""
+    c, d, dev = data.c, data, tx.device
     bsz, nt, nsrc = tx.shape[0], tx.shape[1], sx.shape[1]
     ck, gs_off, meta = c.device_tables(dev)
-    ints = _pair_ints(c, d.dims, bsz, nt, nsrc, d.nb, fin)
+    ints = _pair_ints(c, d.dims, bsz, nt, nsrc, d.nb, fin, d.bf16_chain)
     g_p = ints["lig_rows"] = pair_row_groups(ints, contraction.sm_count(str(dev)))
-    pair_conv_stats["pair_conv_fin"] = dict(lig_rows=g_p, smem_bytes=4 * pair_plan_words(ints, g_p))
+    pair_conv_stats[name] = dict(lig_rows=g_p, smem_bytes=4 * pair_plan_words(ints, g_p))
     if cycles is not None and (cycles.dtype != torch.int64 or cycles.device != dev
                                or cycles.numel() != bsz * -(-nt // g_p)):
-        raise ValueError("pair_conv_fin: cycles takes one int64 per block on the kernel's device")
-    _, fin_ts = _fin_ptrs(fin, params, cnt, (bsz, nt), dev)
-    mix_meta, ln_slots = fin.device_tables(dev)
-    out = torch.empty(bsz, nt, fin.out_dim, dtype=torch.float32, device=dev)
+        raise ValueError(f"{name}: cycles takes one int64 per block on the kernel's device")
+    # every row is written, the sums of rows without a pair as zeros
+    out = torch.empty(bsz, nt, c.dout if fin is None else fin.out_dim, dtype=torch.float32,
+                      device=dev)
     # cp.async stages the MLP weights 16 bytes at a time
     t = {"tgt_pos": d.tgt_pos, "src_pos": d.src_pos, "tgt_x": tx, "src_x": sx,
          "tgt_mask": d.tgt_mask, "src_mask": d.src_mask, "cab": d.cab_s, "cut": d.cut,
          "bond_feat": d.bond_feat, "bond_mask": d.bond_mask, "w_in": _aligned(w_in),
          "beff": beff, "ck": ck, "gs_off": gs_off, "out_meta": meta, "out": out,
-         "mix_meta": mix_meta, "ln_slots": ln_slots, "cycles": cycles}
+         "cycles": cycles}
     t.update(zip(_PAIR_WEIGHTS, [_aligned(w) for w in weights]))
-    t.update(zip(_FIN_KEYS, fin_ts))
-    ptr_arr = (ctypes.c_void_p * len(PAIR_PTRS))(*[_ptr(t[k]) for k in PAIR_PTRS])
+    if fin is not None:
+        t.update(zip(_FIN_KEYS, fin_ts))
+        t["mix_meta"], t["ln_slots"] = fin.device_tables(dev)
+    ptr_arr = (ctypes.c_void_p * len(PAIR_PTRS))(*[_ptr(t.get(k)) for k in PAIR_PTRS])
     int_arr = (ctypes.c_int * len(PAIR_INTS))(*[int(ints[k]) for k in PAIR_INTS])
     float_arr = (ctypes.c_float * 1)(c.gs_coeff)
-    rc = _library().dbfr_pair_conv_fin(ptr_arr, len(PAIR_PTRS), int_arr, len(PAIR_INTS),
-                                       float_arr, 1, _stream())
-    _check(rc, "pair_conv_fin")
-    launches["pair_conv_fin"] += 1
+    rc = getattr(lib, "dbfr_" + name)(ptr_arr, len(PAIR_PTRS), int_arr, len(PAIR_INTS),
+                                      float_arr, 1, stream)
+    _check(rc, name)
+    launches[name] += 1
     return out
 
 
+def _pair_fin_kernel(c, fin, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_t, cab_s,
+                     temb, cutoff, params, bond_feat, bond_mask, cnt, cycles=None):
+    """One launch of B8 (_pair_wide)."""
+    data, tx, sx, w_in, beff, *weights = _pair_inputs(
+        c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_s, temb, cutoff, params,
+        bond_feat, bond_mask)
+    _, fin_ts = _fin_ptrs(fin, params, cnt, (tx.shape[0], tx.shape[1]), tx.device)
+    return _pair_wide(_library(), "pair_conv_fin", data, tx, sx, w_in, beff, weights, _stream(),
+                      fin=fin, fin_ts=fin_ts, cycles=cycles)
+
+
 def pair_tile_plan(tgt_pos, src_pos, tgt_mask, src_mask, cab, cutoff, bond_mask, g_p):
-    """B8's blocks in grid order (every sample's blocks, g_p ligand rows
-    each, in row order), each with its rows' valid pairs in candidate order
-    (row-major, then source) cut into tiles of WIDE_TILE (target, source)
-    pairs."""
+    """B2's, B8's and B11-pair's blocks in grid order (every sample's
+    blocks, g_p ligand rows each, in row order), each with its rows' valid
+    pairs in candidate order (row-major, then source) cut into tiles of
+    WIDE_TILE (target, source) pairs."""
     bsz, nt = tgt_pos.shape[0], tgt_pos.shape[1]
     ok = pair_valid(tgt_pos, src_pos, tgt_mask, src_mask, cab,
                     _cutoffs(cutoff, bsz, tgt_pos.device), bond_mask)
@@ -2093,20 +2124,22 @@ def pair_tile_plan(tgt_pos, src_pos, tgt_mask, src_mask, cab, cutoff, bond_mask,
             for b in range(bsz) for t0 in range(0, nt, g_p)]
 
 
-def pair_conv_fin_tiled_plain(c: ConvConsts, fin: FinConsts, tgt_pos, src_pos, tgt_x, src_x,
-                              tgt_mask, src_mask, cab_t, cab_s, temb, cutoff, params, bond_feat,
-                              bond_mask, cnt, g_p):
-    """B8's decomposition, plain: the blocks of pair_tile_plan at g_p rows,
-    each tile's messages (wide_tile_plain on the kernel's folded edge input,
-    the pairs' bond features as its extra rows) added to their rows' sums
-    tile by tile, in list order, then finalized. Same returns as
-    pair_conv_fin_plain."""
+def pair_conv_tiled_plain(c: ConvConsts, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask,
+                          cab_t, cab_s, temb, cutoff, params, bond_feat, bond_mask, g_p, *,
+                          bf16_chain: bool = False):
+    """B2's decomposition, plain (with `bf16_chain`, B11-pair's): the blocks
+    of pair_tile_plan at g_p rows, each tile's messages (wide_tile_plain on
+    the kernel's folded edge input, the pairs' bond features as its extra
+    rows; with the bf16 chain the target scalars rounded, the source
+    scalars exact) added to their rows' sums tile by tile, in list order.
+    Same returns as pair_conv_plain."""
     p, temb, bond_feat, tgt_x, src_x = _f32((params, temb, bond_feat, tgt_x, src_x))
     bsz, nt = tgt_x.shape[0], tgt_x.shape[1]
     w_in, beff = _prep_edge(c, p["emb_w1"], p["emb_b1"], temb, bond_feat.shape[-1], bsz,
                             tgt_x.device)
     emb = {"l2": {"w": p["emb_w2"], "b": p["emb_b2"]}}
     fc = {"l1": {"w": p["fc_w1"], "b": p["fc_b1"]}, "l2": {"w": p["fc_w2"], "b": p["fc_b2"]}}
+    bf_sc = (True, False) if bf16_chain else None
     sums = tgt_x.new_zeros(bsz, nt, c.dout)
     for blk in pair_tile_plan(tgt_pos, src_pos, tgt_mask, src_mask, cab_s, cutoff, bond_mask,
                               g_p):
@@ -2115,8 +2148,18 @@ def pair_conv_fin_tiled_plain(c: ConvConsts, fin: FinConsts, tgt_pos, src_pos, t
             t, s = tile[:, 0], tile[:, 1]
             sums[b].index_add_(0, t, wide_tile_plain(
                 c, src_pos[b, s] - tgt_pos[b, t], tgt_x[b, t], src_x[b, s], bond_feat[b, t, s],
-                w_in, beff[b], emb, fc))
-    return finalize_plain(fin, p, sums, cnt)
+                w_in, beff[b], emb, fc, bf_sc))
+    return sums
+
+
+def pair_conv_fin_tiled_plain(c: ConvConsts, fin: FinConsts, tgt_pos, src_pos, tgt_x, src_x,
+                              tgt_mask, src_mask, cab_t, cab_s, temb, cutoff, params, bond_feat,
+                              bond_mask, cnt, g_p):
+    """B8's decomposition, plain: pair_conv_tiled_plain's sums, finalized.
+    Same returns as pair_conv_fin_plain."""
+    sums = pair_conv_tiled_plain(c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_t,
+                                 cab_s, temb, cutoff, params, bond_feat, bond_mask, g_p)
+    return finalize_plain(fin, _f32(params), sums, cnt)
 
 
 # ---- B7 cross conv with finalize -------------------------------------------

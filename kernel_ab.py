@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Device times of the cross conv kernels B1 and B7, the knn conv kernels B3
-and B9, the bf16-chain kernels B11-cross and B11-knn, the pair conv's
-backward B5 and its finalized forward B8 (with B2, the pair conv's sums,
-as a control) in two checkouts of this repository, in turns on one card
+and B9, the bf16-chain kernels B11-cross, B11-knn and B11-pair, and the
+pair conv's kernels B2 (its sums), B8 (its sums finalized) and B5 (its
+backward) in two checkouts of this repository, in turns on one card
 (A B B A).
 
     python3 kernel_ab.py <checkout A> <checkout B> [--knn-rows G,G,...]
@@ -21,8 +21,10 @@ B1 (`cross_conv`) and B3 (`knn_conv`) at (layer 0, B = 4), (5, 4) and
 (`cross_conv` and `knn_conv` with `bf16_chain=True`, on the bf16-rounded
 weights of chip_smoke's phase 18) at (0, 16) and (5, 16), B5 (`pair_bwd`,
 the backward alone on phase 9's seeded cotangent, chip_smoke.bwd_launcher)
-at (0, 4), (5, 4) and (5, 16), B8 (`pair_conv_fin`) at (0, 16) and (5, 16)
-and B2 (`pair_conv`) at (5, 16). `graph_ms` is the device time per call
+at (0, 4), (5, 4) and (5, 16), B8 (`pair_conv_fin`) at (0, 16) and (5, 16),
+B2 (`pair_conv`) at (0, 4), (5, 4), (0, 16) and (5, 16) (training's forward
+runs at B = 4) and B11-pair (`pair_conv` with `bf16_chain=True`, on phase
+18's weights) at (0, 16) and (5, 16). `graph_ms` is the device time per call
 from CUDA events around replays of a CUDA graph of 20 calls (no host work
 between the launches; either version's kernels, whatever their symbols),
 `ms` CUDA events around 10 wrapper calls. A call that reads to the host
@@ -34,9 +36,10 @@ numbers, and, last, every turn's numbers as one JSON object. With
 checkout's knn grid (B3, B9, B11-knn: the kernels whose call records
 trunk_convs.knn_conv_stats) at its shapes with the atoms per block forced
 to each G (the host's rule, knn_row_groups, replaced for the call), beside
-the G the rule picks; with --pair-rows, B8 on the checkout's grid of ligand
-rows (where its call records trunk_convs.pair_conv_stats) at each forced
-g_p (pair_row_groups replaced). Imports nothing of JAX.
+the G the rule picks; with --pair-rows, each kernel that runs on the
+checkout's grid of ligand rows (B2, B11-pair, B8: the kernels whose call
+records trunk_convs.pair_conv_stats) at its shapes with each forced g_p
+(pair_row_groups replaced). Imports nothing of JAX.
 """
 import json
 import os
@@ -48,14 +51,15 @@ SHAPES = {"cross_conv": ((0, 4), (5, 4), (5, 16)), "cross_conv_fin": ((0, 16), (
           "cross_conv_bf16": ((0, 16), (5, 16)), "knn_conv_bf16": ((0, 16), (5, 16)),
           "knn_conv": ((0, 4), (5, 4), (5, 16)), "knn_conv_fin": ((0, 16), (5, 16)),
           "pair_bwd": ((0, 4), (5, 4), (5, 16)), "pair_conv_fin": ((0, 16), (5, 16)),
-          "pair_conv": ((5, 16),)}
+          "pair_conv": ((0, 4), (5, 4), (0, 16), (5, 16)), "pair_conv_bf16": ((0, 16), (5, 16))}
 KNN_GRID = ("knn_conv_bf16", "knn_conv", "knn_conv_fin")
+PAIR_GRID = ("pair_conv", "pair_conv_bf16", "pair_conv_fin")
 
 
 def child(checkout, knn_rows=(), pair_rows=()):
     """One turn: the kernels of `checkout` at every shape (and its knn-grid
-    kernels at each forced g_k of knn_rows, B8 at each forced g_p of
-    pair_rows); one JSON line."""
+    kernels at each forced g_k of knn_rows, its kernels on the grid of
+    ligand rows at each forced g_p of pair_rows); one JSON line."""
     import importlib.util
 
     sys.path.insert(0, os.path.abspath(checkout))
@@ -82,6 +86,7 @@ def child(checkout, knn_rows=(), pair_rows=()):
     wrapper = {"cross_conv": TC.cross_conv, "cross_conv_fin": TC.cross_conv_fin,
                "cross_conv_bf16": functools.partial(TC.cross_conv, bf16_chain=True),
                "knn_conv_bf16": functools.partial(TC.knn_conv, bf16_chain=True),
+               "pair_conv_bf16": functools.partial(TC.pair_conv, bf16_chain=True),
                "knn_conv": TC.knn_conv, "knn_conv_fin": TC.knn_conv_fin,
                "pair_conv_fin": TC.pair_conv_fin, "pair_conv": TC.pair_conv}
 
@@ -116,35 +121,26 @@ def child(checkout, knn_rows=(), pair_rows=()):
                 "method": ("events around 10 calls: the call reads its pair count to the host, no "
                            "CUDA graph captures it") if reads_host else "graph replay"}
     sweep = {}
-    rule = getattr(TC, "knn_row_groups", None)
-    for name in KNN_GRID if knn_rows and rule is not None else ():
-        for layer, bsz in SHAPES[name]:
-            a = inputs(name, layer, bsz)
-            with torch.no_grad():
-                TC.knn_conv_stats.pop(name, None)
-                wrapper[name](*a)
-                if name not in TC.knn_conv_stats:  # not on the checkout's knn grid
-                    break
-                picked = TC.knn_conv_stats[name]["atom_rows"]
-                for g in knn_rows:
-                    TC.knn_row_groups = lambda ints, sms, g=g: g
-                    graph = cs.graph_ms(torch, lambda: wrapper[name](*a))
-                    sweep[f"{name} {layer} {bsz} g_k={g}"] = {"graph_ms": graph,
-                                                              "rule_picks": picked}
-                TC.knn_row_groups = rule
-    rule = getattr(TC, "pair_row_groups", None)
-    for layer, bsz in SHAPES["pair_conv_fin"] if pair_rows and rule is not None else ():
-        a = inputs("pair_conv_fin", layer, bsz)
-        with torch.no_grad():
-            TC.pair_conv_stats.pop("pair_conv_fin", None)
-            TC.pair_conv_fin(*a)
-            picked = TC.pair_conv_stats["pair_conv_fin"]["lig_rows"]
-            for g in pair_rows:
-                TC.pair_row_groups = lambda ints, sms, g=g: g
-                graph = cs.graph_ms(torch, lambda: TC.pair_conv_fin(*a))
-                sweep[f"pair_conv_fin {layer} {bsz} g_p={g}"] = {"graph_ms": graph,
-                                                                 "rule_picks": picked}
-            TC.pair_row_groups = rule
+    for grid, stats, rule_name, word, rows in (
+            (KNN_GRID, "knn_conv_stats", "knn_row_groups", "atom_rows", knn_rows),
+            (PAIR_GRID, "pair_conv_stats", "pair_row_groups", "lig_rows", pair_rows)):
+        rule = getattr(TC, rule_name, None)
+        tag = "g_k" if grid is KNN_GRID else "g_p"
+        for name in grid if rows and rule is not None else ():
+            for layer, bsz in SHAPES[name]:
+                a = inputs(name, layer, bsz)
+                with torch.no_grad():
+                    getattr(TC, stats).pop(name, None)
+                    wrapper[name](*a)
+                    if name not in getattr(TC, stats):  # not on the checkout's grid
+                        break
+                    picked = getattr(TC, stats)[name][word]
+                    for g in rows:
+                        setattr(TC, rule_name, lambda ints, sms, g=g: g)
+                        graph = cs.graph_ms(torch, lambda: wrapper[name](*a))
+                        sweep[f"{name} {layer} {bsz} {tag}={g}"] = {"graph_ms": graph,
+                                                                    "rule_picks": picked}
+                    setattr(TC, rule_name, rule)
     print(json.dumps({"checkout": checkout, "times": out, "rows": sweep}), flush=True)
 
 
