@@ -127,17 +127,34 @@ a non-zero exit code):
               exact launch counts (bf16: B11 120 each, every other kernel 0),
               poses/s of each, RMSD to the prep-cache pose; then phase 8's
               profile of the bf16 dock beside phase 8's f32 numbers
-  21. probe_mlp  P4 (probes/mlp.py, and P3's mlps): the fused MLP kernel
+  21. ec_mdn_ref  error correction (ops/vina.py minimize_batch through
+              app.pipeline.error_correct, 150 steps) and MDN scoring
+              (models/mdn_scorer.py through score_mdn, runs/mdn_r4b weights)
+              on the card against the JAX package's numbers
+              (tests/fixtures/torch_ec_ref.npz, torch_mdn_ref.npz: 3dbs and
+              3mhw, 4 perturbed crystal poses each): EC positions <= 1e-2 A
+              over real atoms, affinity <= 1e-3 relative, MDN on the poses
+              before and after EC <= 1e-3 relative; the control printed
+              beside each: how far EC moved the atoms, how far the other
+              stage's scores are
+  22. score_chain  phase 7's 16 docked 3dbs poses -> error_correct (150
+              steps) -> score_mdn, after a first (cold) pass: every score
+              finite, every pose's Vina energy no higher after EC; ms per EC
+              batch and per MDN batch, kernel launches per EC step and the
+              card's busy share over 3 EC steps under torch.profiler. These
+              stages are plain PyTorch: the JAX package runs them as XLA,
+              with no Pallas kernel, so they add no row to the kernels line
+  23. probe_mlp  P4 (probes/mlp.py, and P3's mlps): the fused MLP kernel
               against its plain version at R = 1024 and 32 (<= 1e-5), its
               device time beside addmm + relu + mm (a reading); the entry
               point `python -m diffbindfr_torch.probes.mlp` run in process
               with exact launch counts
-  22. probe_mxu_ops  P2 (probes/mxu_ops.py): legality (1e-6), the bf16 chain
+  24. probe_mxu_ops  P2 (probes/mxu_ops.py): legality (1e-6), the bf16 chain
               on CUDA cores (chain_vpu, 1e-6) and on the tensor cores
               (chain_mxu: d3 = 5 rows 1e-5, the bf16-rounded rows within one
               bf16 unit) at the tool's 4096 grid steps over 64 input
               blocks, the tool's rates; the entry point with exact counts
-  23. probe_mosaic  P3 (probes/mosaic.py): the ten probes at the tool's
+  25. probe_mosaic  P3 (probes/mosaic.py): the ten probes at the tool's
               shapes (exact for the layout probes, onehot and precision bit
               for bit; mosaic.TOL otherwise), the library call beside each
               that has one (TF32 off, stated; events and graph replay);
@@ -145,14 +162,14 @@ a non-zero exit code):
               each probe's entry point with exact counts
 Kernel times: `ms` is the wrapper's time by CUDA events around 10 calls
 (its host set-up included), `device_ms` the kernel's own device time per
-call (phases 5, 9, 12, 17, 18, 21-23): from torch.profiler's
+call (phases 5, 9, 12, 17, 18, 23-25): from torch.profiler's
 key_averages(), summed over the CUDA kernel symbols the call launches
 (SYMBOLS), taken only where the profiler recorded, for every symbol, one
 event for each of its grids launched (its counter's launches x GRIDS); else
 from CUDA events around replays of a CUDA graph of 20 calls (no host work
 between the kernels); each row names its `device_ms_method` (and, for graph
 replay, what the profiler missed).
-Phase 21 also prints what the profiler records of the P4 kernel's launches
+Phase 23 also prints what the profiler records of the P4 kernel's launches
 made bare, with 20 ms host pauses at the ends of its window, each in a
 record_function span, and beside an aten kernel (PERF.md section 7). The
 probes' library calls are timed both ways. The second-to-last lines are
@@ -177,12 +194,20 @@ CKPT = os.path.join(ROOT, "runs/diff_r2/ckpt_best.npz")
 PREP = os.path.join(ROOT, "runs/eval_r5_scsrc/prep_cache")
 FIXTURE = os.path.join(ROOT, "tests/fixtures/torch_port_ref.npz")
 FIXTURE_BF16 = os.path.join(ROOT, "tests/fixtures/torch_bf16_ref.npz")
+FIXTURE_EC = os.path.join(ROOT, "tests/fixtures/torch_ec_ref.npz")
+FIXTURE_MDN = os.path.join(ROOT, "tests/fixtures/torch_mdn_ref.npz")
+MDN_CKPT = os.path.join(ROOT, "runs/mdn_r4b/ckpt_best.npz")
+EC_NAMES = ("3dbs", "3mhw")
+# the card against the JAX fixtures after 150 EC steps: positions (A over
+# real atoms), affinity and MDN scores (relative)
+EC_POS_GATE, EC_AFF_GATE, MDN_GATE = 1e-2, 1e-3, 1e-3
 DEV = "cuda"
 DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 300,
              "forward": 180, "dock": 300, "profile": 120, "bwd_kernels": 480,
              "train_parity": 180, "train": 300, "rm_kernels": 240, "rm_forward": 120,
              "rm_dock": 300, "rm_profile": 120, "rm_grad": 180, "probe_bf16": 120,
-             "bf16_kernels": 240, "bf16_forward": 120, "bf16_dock": 300, "probe_mlp": 120,
+             "bf16_kernels": 240, "bf16_forward": 120, "bf16_dock": 300, "ec_mdn_ref": 180,
+             "score_chain": 240, "probe_mlp": 120,
              "probe_mxu_ops": 180, "probe_mosaic": 180}
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, HBM3 bandwidth; bf16 outside the tensor cores (packed
@@ -464,6 +489,34 @@ def graph_ms_or_none(torch, fn):
         torch.cuda.synchronize()
         print(f"  graph replay not measured: {exc}", flush=True)
         return None
+
+
+def paired_graph_ms(torch, fns, calls=20, rounds=10):
+    """ms per call of each of `fns` in one window: one CUDA graph of `calls`
+    calls each, replayed in turns (A B B A ...), the median of `rounds`
+    replays per graph."""
+    graphs = []
+    for fn in fns:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        graphs.append(g)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = [[] for _ in fns]
+    for r in range(rounds):
+        for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
+            start.record()
+            graphs[i].replay()
+            end.record()
+            torch.cuda.synchronize()
+            times[i].append(start.elapsed_time(end) / calls)
+    return [sorted(t)[len(t) // 2] for t in times]
 
 
 def graph_ms(torch, fn, calls=20, replays=5):
@@ -1889,6 +1942,161 @@ def phase_bf16_dock(torch, np, sn, sp, pipeline, TC, params, s_np, smi, cmt_prof
         for m, v in prof.items()), flush=True)
     return counts["bf16"]
 
+def fixture_pose_results(np, pipeline, vec, stage):
+    """(prepared, PoseResults) of the EC fixture's 3dbs and 3mhw poses
+    (`stage`: pose0 before EC, ec_pos after), with the pocket's atom14."""
+    prepared, res = [], []
+    for i, n in enumerate(EC_NAMES):
+        pair = pipeline.PreparedPair.from_prep_cache(os.path.join(PREP, f"{n}_r12.npz"))
+        a14 = np.zeros(pair.sample.atom14_mask.shape + (3,), np.float32)
+        a14[: pair.pocket.num_res] = pair.pocket.atom14_pos * pair.pocket.atom14_mask[..., None]
+        prepared.append(pair)
+        res += [pipeline.PoseResult(i, k, lp.copy(), a14, None)
+                for k, lp in enumerate(vec[f"{n}|{stage}"])]
+    return prepared, res
+
+
+def phase_ec_mdn_ref(torch, np, pipeline, mdn_params, smi):
+    """EC and MDN on the card against the JAX fixtures (tests/fixtures/
+    torch_ec_ref.npz, torch_mdn_ref.npz): EC positions over real atoms
+    <= EC_POS_GATE A, affinity <= EC_AFF_GATE relative; MDN on the
+    fixture's poses before and after EC <= MDN_GATE relative. The control:
+    how far EC moved the poses and how much it changed the scores."""
+    from diffbindfr_torch.models import mdn_scorer as mdn
+
+    ec, ref = np.load(FIXTURE_EC), np.load(FIXTURE_MDN)
+    prepared, res = fixture_pose_results(np, pipeline, ec, "pose0")
+    bsz = ec[EC_NAMES[0] + "|pose0"].shape[0]
+    t0 = time.time()
+    pipeline.error_correct(prepared, res, steps=150, batch_size=bsz, device=DEV, verbose=False)
+    torch.cuda.synchronize()
+    print(f"  EC: {len(res)} poses, 150 steps, 2 batches of {bsz} in {time.time() - t0:.3f} s "
+          f"(first call) on {smi}", flush=True)
+    bad = []
+    for i, n in enumerate(EC_NAMES):
+        mask = prepared[i].sample.lig_mask > 0
+        got = np.stack([r.lig_pos for r in res if r.pair_idx == i])
+        aff = np.array([r.vina_score for r in res if r.pair_idx == i])
+        pos_err = float(np.abs(got - ec[n + "|ec_pos"])[:, mask].max())
+        aff_err = float(np.abs(aff - ec[n + "|ec_aff"]).max() / np.abs(ec[n + "|ec_aff"]).max())
+        moved = float(np.abs(ec[n + "|pose0"] - ec[n + "|ec_pos"])[:, mask].max())
+        print(f"  {n} EC: positions vs JAX {pos_err:.2e} A (gate {EC_POS_GATE}; control: EC "
+              f"moved atoms up to {moved:.3f} A), affinity vs JAX {aff_err:.2e} relative "
+              f"(gate {EC_AFF_GATE})", flush=True)
+        if not (pos_err <= EC_POS_GATE and aff_err <= EC_AFF_GATE and moved > EC_POS_GATE):
+            bad.append(f"EC {n}")
+    cfg = mdn.MDNConfig()
+    for stage, key in (("before", "pose0"), ("after", "ec_pos")):
+        prepared, res = fixture_pose_results(np, pipeline, ec, key)
+        pipeline.score_mdn(prepared, res, mdn_params, cfg, batch_size=bsz, device=DEV,
+                           verbose=False)
+        for i, n in enumerate(EC_NAMES):
+            for f, attr in (("sum_prob", "mdn_score"), ("mean_nll", "mdn_nll")):
+                got = np.array([getattr(r, attr) for r in res if r.pair_idx == i])
+                want = ref[f"{n}|{stage}|{f}"]
+                err = float(np.abs(got - want).max() / np.abs(want).max())
+                other = ref[f"{n}|{'after' if stage == 'before' else 'before'}|{f}"]
+                ctrl = float(np.abs(other - want).max() / np.abs(want).max())
+                print(f"  {n} MDN {stage} EC, {f}: vs JAX {err:.2e} relative (gate {MDN_GATE}; "
+                      f"control: the other stage's scores differ by {ctrl:.2e})", flush=True)
+                if not err <= MDN_GATE:
+                    bad.append(f"MDN {n} {stage} {f}")
+    if bad:
+        raise AssertionError(f"EC/MDN disagree with the JAX fixtures: {bad}")
+
+
+def phase_score_chain(torch, np, pipeline, prepared, docked, mdn_params, smi):
+    """Phase 7's docked poses -> error_correct (150 steps) -> score_mdn on
+    the card: every score finite, every pose's Vina energy (inter + intra)
+    after EC no higher than before; ms per EC and per MDN batch, then the
+    launches per EC step and the card's busy share over a few EC steps
+    under torch.profiler."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffbindfr_torch.models import mdn_scorer as mdn
+    from diffbindfr_torch.ops import vina
+
+    pair, bsz = prepared[0], len(docked)
+    b = pair.bucket
+    ligs = vina.stack_to_device([vina.build_ligand(pair.lig, b.n_lig, b.n_tor)] * bsz, DEV)
+    recs = vina.stack_to_device([vina.build_receptor(pair.pocket, b.n_atm)] * bsz, DEV)
+
+    def energy(res):
+        lp = torch.from_numpy(np.stack([r.lig_pos for r in res])).to(DEV)
+        with torch.no_grad():
+            return (vina.inter_energy(lp, ligs, recs) + vina.intra_energy(lp, ligs)).cpu().numpy()
+
+    cfg = mdn.MDNConfig()
+    warm = copy.deepcopy(docked)  # first calls: allocator and libraries
+    pipeline.error_correct(prepared, warm, steps=150, batch_size=bsz, device=DEV, verbose=False)
+    pipeline.score_mdn(prepared, warm, mdn_params, cfg, batch_size=bsz, device=DEV,
+                       verbose=False)
+    torch.cuda.synchronize()
+    res = copy.deepcopy(docked)
+    e0 = energy(res)
+    t0 = time.time()
+    pipeline.error_correct(prepared, res, steps=150, batch_size=bsz, device=DEV, verbose=False)
+    torch.cuda.synchronize()
+    ec_ms = (time.time() - t0) * 1e3
+    t0 = time.time()
+    pipeline.score_mdn(prepared, res, mdn_params, cfg, batch_size=bsz, device=DEV,
+                       verbose=False)
+    torch.cuda.synchronize()
+    mdn_ms = (time.time() - t0) * 1e3
+    e1 = energy(res)
+    vs = np.array([r.vina_score for r in res])
+    sp_ = np.array([r.mdn_score for r in res])
+    nll = np.array([r.mdn_nll for r in res])
+    mask = pair.sample.lig_mask > 0
+    moved = np.sqrt(((np.stack([r.lig_pos for r in res]) - np.stack(
+        [r.lig_pos for r in docked])) ** 2).sum(-1)[:, mask].mean(-1))
+    n_tor = pair.lig.num_torsions
+    print(f"  {bsz} docked poses of {pair.name} ({n_tor} torsions of the bucket's {b.n_tor} "
+          f"visited): EC 150 steps {ec_ms:.1f} ms per batch of {bsz} "
+          f"({ec_ms / 150:.2f} ms per step), MDN {mdn_ms:.1f} ms per batch of {bsz}, on {smi}",
+          flush=True)
+    print("  Vina energy before -> after EC: " + ", ".join(
+        f"{a:.2f}->{c:.2f}" for a, c in zip(e0, e1)), flush=True)
+    print(f"  EC moved the poses by RMSD {moved.min():.3f}-{moved.max():.3f} A; vina_score "
+          f"{vs.min():.3f}..{vs.max():.3f}; mdn_score {sp_.min():.3f}..{sp_.max():.3f}; "
+          f"mdn_nll {nll.min():.3f}..{nll.max():.3f}", flush=True)
+    # a few EC steps under the profiler: launches per step and busy share
+    steps = 3
+    lp = torch.from_numpy(np.stack([r.lig_pos for r in docked])).to(DEV)
+    vina.minimize_batch(lp, ligs, recs, steps=steps, n_tor=n_tor)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        vina.minimize_batch(lp, ligs, recs, steps=steps, n_tor=n_tor)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((e.key, dev_us / 1e3, e.count))
+    if rows:
+        dev_ms = sum(r[1] for r in rows)
+        kernels = sum(r[2] for r in rows if not r[0].startswith(("Memcpy", "Memset")))
+        print(f"  EC, {steps} steps under the profiler (with the final pose and affinity): "
+              f"wall {wall * 1e3:.1f} ms, device {dev_ms:.2f} ms "
+              f"({100 * dev_ms / (wall * 1e3):.1f}% busy), {kernels / steps:.0f} kernel "
+              f"launches per step, on {smi}", flush=True)
+        for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:6]:
+            print(f"    {ms:9.3f} ms  x{cnt:<5d} {key[:90]}", flush=True)
+    else:
+        print("  the profiler saw no device time: EC launches and busy share not measured",
+              flush=True)
+    if not (np.isfinite(vs).all() and np.isfinite(sp_).all() and np.isfinite(nll).all()):
+        raise AssertionError("non-finite scores")
+    if not (np.isfinite(e1).all() and (e1 <= e0).all()):
+        raise AssertionError(f"EC raised the energy of poses {np.nonzero(~(e1 <= e0))[0]}")
+
+
 def probe_row(torch, results, name, got, ref, ms, dev, plain_ms, ops, peak, byts,
               library_ms=None, err=None, **extra):
     """Record one probe kernel's row (`dev`: device_ms's (ms, method)); the
@@ -2146,6 +2354,13 @@ def phase_probe_mosaic(torch, results):
                   device_ms(torch, lambda: fn(*args), mosaic_counter(word)),
                   time_ms(lambda: plain(*args), 3, 20), ops, PEAK_FP32, byts, lib_ms,
                   library_device_ms=lib_dev)
+        if word == "4d":
+            # both at a launch's floor: kernel and library call in one window
+            k_ms, l_ms = paired_graph_ms(torch, [lambda: fn(*args), lambda: lib(*args)])
+            print(f"  4d in one graph-replay window (turns, median of 10 replays of 20 "
+                  f"calls): kernel {k_ms:.4g} ms, library call {l_ms:.4g} ms, kernel / library "
+                  f"{k_ms / l_ms:.4g}", flush=True)
+            results[name]["paired_graph_ms"] = {"kernel": k_ms, "library": l_ms}
     # probe_precision on this card: TF32 in a movement dot. The gather and
     # the fp32 matmul (TF32 off) were exact above; the control turns TF32 on
     a = mosaic.inputs("prec", DEV)[0]
@@ -2260,6 +2475,7 @@ def main() -> int:
         dock_s = time.time() - t0
         counts = dict(TC.launches)
         print(f"  launches during dock: {counts}", flush=True)
+        docked = res  # phase 22 scores these poses
         lig = np.stack([r.lig_pos for r in res])
         finite = bool(np.isfinite(lig).all() and all(np.isfinite(r.atom14_pos).all() for r in res))
         mask = s_np.lig_mask > 0
@@ -2325,6 +2541,15 @@ def main() -> int:
     with Phase("bf16_dock"):
         bf16_counts = phase_bf16_dock(torch, np, sn, sp, pipeline, TC, params, s_np, smi,
                                       cmt_profile)
+
+    # the stages of predict after the dock: plain PyTorch on the card (the
+    # JAX package runs them as XLA, with no Pallas kernel)
+    with Phase("ec_mdn_ref"):
+        mdn_params, _ = load_checkpoint(MDN_CKPT, use_ema=True, device=DEV)
+        phase_ec_mdn_ref(torch, np, pipeline, mdn_params, smi)
+
+    with Phase("score_chain"):
+        phase_score_chain(torch, np, pipeline, prepared, docked, mdn_params, smi)
 
     # the probes' plain versions and library yardsticks run fp32 matmuls in
     # full fp32: TF32 off, stated
@@ -2420,7 +2645,8 @@ def main() -> int:
                      **{k: r[k] for k in keys},
                      **{k: v for k, v in r.items() if k in (
                          "reps", "nblk", "bf16_unit_ratio", "tf32_control_max_abs_err",
-                         "library_device_ms", "three_calls_ms", "three_calls_device_ms")}})
+                         "library_device_ms", "three_calls_ms", "three_calls_device_ms",
+                         "paired_graph_ms")}})
         if name in served:
             rows[-1]["served_by"] = served[name]
         if name == "probe_mlp":

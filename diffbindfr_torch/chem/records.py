@@ -1,0 +1,128 @@
+"""Prep records of a (pocket, ligand) pair and their reader.
+
+The JAX package's prep writes, beside each prep-cache npz, a pickle
+`<stem>.rec.pkl`: a dict with the featurised ligand (`lig`), the pocket
+(`pocket`), the bucket (`bucket`), the crystal ligand pose (`crystal_pos`)
+and optional entries. The pickle names the JAX package's record classes;
+`load_prep_record` maps them onto the copies below, so reading a record
+imports neither that package nor JAX. Field for field the copies match
+diffbindfr_tpu/chem/ligand_feats.py:27-49 (LigandRecord) and
+diffbindfr_tpu/chem/protein_feats.py:28-68 (PocketRecord).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import pickle
+
+import numpy as np
+
+from ..data.sample import Buckets
+
+
+@dataclasses.dataclass
+class LigandRecord:
+    """Featurised ligand ready for padding/batching."""
+
+    name: str
+    pos: np.ndarray  # [A, 3]
+    node_feat: np.ndarray  # [A, 27]
+    edge_index: np.ndarray  # [2, E] directed, both ways
+    edge_feat: np.ndarray  # [E, 10]
+    tor_edge_mask: np.ndarray  # [E] bool
+    rot_node_mask: np.ndarray  # [T, A] bool (fragment that rotates)
+    elements: list
+    bonds: np.ndarray  # [B, 2] undirected
+    bond_orders: np.ndarray  # [B]
+    formal_charges: np.ndarray  # [A]
+
+    @property
+    def num_atoms(self) -> int:
+        return self.pos.shape[0]
+
+    @property
+    def num_torsions(self) -> int:
+        return self.rot_node_mask.shape[0]
+
+
+@dataclasses.dataclass
+class PocketRecord:
+    """Pocket residues; every coordinate is already in the pocket frame (CA
+    centroid at the origin), `center` is that centroid in the input frame."""
+
+    aatype: np.ndarray  # [R]
+    atom14_pos: np.ndarray  # [R, 14, 3]
+    atom14_mask: np.ndarray  # [R, 14]
+    backbone_rots: np.ndarray  # [R, 3, 3]
+    backbone_transl: np.ndarray  # [R, 3]
+    default_frame: np.ndarray  # [R, 8, 4, 4]
+    rigid_group_positions: np.ndarray  # [R, 14, 3]
+    torsion_angle: np.ndarray  # [R, 5] radians (psi, chi1-4)
+    chi_mask: np.ndarray  # [R, 4] diffusable chi angles
+    node_feat: np.ndarray  # [R, 14, 5] categorical
+    center: np.ndarray  # [3] pocket CA centroid in input coordinates
+    residue_index: np.ndarray  # [R] author numbering
+    chain_index: np.ndarray  # [R]
+    pocket_res_indices: np.ndarray  # [R] indices into the full protein
+    group_idx: np.ndarray  # [R, 14] rigid-group index per atom
+    res_extra: np.ndarray | None = None  # [R, K] optional per-residue features
+    # [R, 14] atoms the input structure had (atom14_mask is after repair);
+    # None in records written before the field existed
+    atom14_input_mask: np.ndarray | None = None
+    chain_ids: list | None = None  # author chain letters, indexed by chain_index
+
+    @property
+    def num_res(self) -> int:
+        return self.aatype.shape[0]
+
+
+# (module, name) in the pickle -> the class it builds here
+_RECORD_CLASSES = {
+    ("diffbindfr_tpu.chem.ligand_feats", "LigandRecord"): LigandRecord,
+    ("diffbindfr_tpu.chem.protein_feats", "PocketRecord"): PocketRecord,
+    ("diffbindfr_tpu.data.sample", "Buckets"): Buckets,
+}
+# numpy's array reconstruction: numpy >= 2 pickles name numpy._core, older
+# ones numpy.core; either file is read under either numpy
+_NUMPY_NAMES = {
+    ("numpy", "ndarray"), ("numpy", "dtype"),
+    ("numpy._core.multiarray", "_reconstruct"), ("numpy.core.multiarray", "_reconstruct"),
+    ("numpy._core.multiarray", "scalar"), ("numpy.core.multiarray", "scalar"),
+}
+# what pickle itself may name for plain objects, containers and (protocols
+# 0-2) bytes
+_BUILTIN_NAMES = {
+    ("copyreg", "_reconstructor"), ("copyreg", "__newobj__"), ("_codecs", "encode"),
+    ("builtins", "object"), ("builtins", "list"), ("builtins", "dict"),
+    ("builtins", "tuple"), ("builtins", "set"), ("builtins", "frozenset"),
+}
+
+
+def _multiarray():
+    try:
+        return importlib.import_module("numpy._core.multiarray")
+    except ImportError:  # numpy < 2
+        return importlib.import_module("numpy.core.multiarray")
+
+
+class _RecordUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        cls = _RECORD_CLASSES.get((module, name))
+        if cls is not None:
+            return cls
+        if (module, name) in _NUMPY_NAMES:
+            if module == "numpy":
+                return getattr(np, name)
+            return getattr(_multiarray(), name)
+        if (module, name) in _BUILTIN_NAMES:
+            return getattr(importlib.import_module(module), name)
+        raise pickle.UnpicklingError(f"prep record names a class not allowed here: {module}.{name}")
+
+
+def load_prep_record(path: str) -> dict:
+    """Read a `<stem>.rec.pkl` prep record: a dict whose `lig`, `pocket` and
+    `bucket` are this module's LigandRecord and PocketRecord and the port's
+    Buckets. Classes other than those, numpy arrays and plain containers are
+    refused."""
+    with open(path, "rb") as fh:
+        return _RecordUnpickler(fh).load()

@@ -1,5 +1,5 @@
 """Batched ligand pose updates: translation, rigid rotation, torsions,
-Kabsch (counterpart of diffbindfr_tpu/geometry/torsion.py:19-108).
+Kabsch (counterpart of diffbindfr_tpu/geometry/torsion.py:19-130).
 
 Every function takes a leading batch axis B. Torsions are applied in bond
 order, as the JAX package's lax.scan does: each rotation moves the axes of
@@ -54,4 +54,22 @@ def modify_conformer(pos, node_mask, tr_update, rot_update, tor_bonds, frag_mask
     aligned = kabsch_apply(Ra, ta, flexible)
     has_tor = tor_mask.any(dim=-1)[:, None, None]
     out = torch.where(has_tor, aligned, rigid)
+    return torch.where(node_mask[..., None], out, pos)
+
+
+def pose_transform(pos, node_mask, tr_update, rot_update, tor_bonds, frag_mask,
+                   torsion_updates, tor_mask):
+    """Torsions first, then the rigid move about the centroid, no Kabsch:
+    the pose parametrisation of the gradient minimizers (differentiable
+    everywhere, also at zero rotation).
+
+    pos [B, L, 3]; node_mask [B, L] bool; tr/rot [B, 3]; see
+    apply_torsion_updates for the rest.
+    """
+    flexible = apply_torsion_updates(pos, tor_bonds, frag_mask, torsion_updates, tor_mask)
+    w = node_mask.to(pos.dtype)[..., None]
+    n = torch.clamp(w.sum(dim=-2, keepdim=True), min=1.0)
+    center = (flexible * w).sum(dim=-2, keepdim=True) / n
+    R = axis_angle_to_matrix(rot_update)
+    out = (flexible - center) @ R.transpose(-1, -2) + center + tr_update[:, None, :]
     return torch.where(node_mask[..., None], out, pos)
