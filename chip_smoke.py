@@ -160,6 +160,25 @@ a non-zero exit code):
               that has one (TF32 off, stated; events and graph replay);
               probe_precision's control: the one-hot matmul with TF32 on;
               each probe's entry point with exact counts
+  26. predict  the port's `predict` command end to end (app/cli.py main(argv)
+              in process) from a prep cache: a jobs CSV of 3dbs and 3mhw
+              (runs/pb_bench proteins and ligands) and their tracked caches
+              copied into <outdir>/prep_cache. Run 1 at the defaults (bf16,
+              EC 150 steps) with diff_r2 and mdn_r4b, -np 40 -bs 16
+              --cluster-rank 2.0 --save-poses -traj --export-top 5: each B11
+              kernel launched exactly 720 times (2 complexes x 3 batches x 6
+              layers x 20 steps) and B1-B3 never; 80 rows with finite scores
+              and the four metrics; one row per complex in each top-1 table,
+              `rank_score` in the clustered one; 5 structure sets per
+              complex, each lig_final.sdf (read back with the port's
+              parse_sdf) at its pose's lig_pos + center and each
+              prot_final.pdb's pocket atoms (parse_pdb) at atom14_pos +
+              center, both within 1e-3 A; poses.npz back through load_poses
+              unchanged; a 20-frame lig_traj.xtc per kept pose. Run 2,
+              --dtype float32 -np 16 on 3dbs: B1-B3 120 launches each, B11
+              none. Prints each stage's wall time (poses/s of the dock, ms
+              per batch of EC and MDN, ms per row of export), seconds per
+              pose end to end and the top-1 l_rmsd by mdn_nll per complex
 Kernel times: `ms` is the wrapper's time by CUDA events around 10 calls
 (its host set-up included), `device_ms` the kernel's own device time per
 call (phases 5, 9, 12, 17, 18, 23-25): from torch.profiler's
@@ -198,6 +217,9 @@ FIXTURE_EC = os.path.join(ROOT, "tests/fixtures/torch_ec_ref.npz")
 FIXTURE_MDN = os.path.join(ROOT, "tests/fixtures/torch_mdn_ref.npz")
 MDN_CKPT = os.path.join(ROOT, "runs/mdn_r4b/ckpt_best.npz")
 EC_NAMES = ("3dbs", "3mhw")
+PB_BENCH = os.path.join(ROOT, "runs/pb_bench")
+# phase 26: the complexes of predict's run 1 (3mhw: no torsions, bucket nl 96)
+PREDICT_NAMES = ("3dbs", "3mhw")
 # the card against the JAX fixtures after 150 EC steps: positions (A over
 # real atoms), affinity and MDN scores (relative)
 EC_POS_GATE, EC_AFF_GATE, MDN_GATE = 1e-2, 1e-3, 1e-3
@@ -208,7 +230,7 @@ DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 
              "rm_dock": 300, "rm_profile": 120, "rm_grad": 180, "probe_bf16": 120,
              "bf16_kernels": 240, "bf16_forward": 120, "bf16_dock": 300, "ec_mdn_ref": 180,
              "score_chain": 240, "probe_mlp": 120,
-             "probe_mxu_ops": 180, "probe_mosaic": 180}
+             "probe_mxu_ops": 180, "probe_mosaic": 180, "predict": 300}
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, HBM3 bandwidth; bf16 outside the tensor cores (packed
 # bf16x2, two per fp32 lane: the H100 white paper's non-tensor BF16 rate,
@@ -2097,6 +2119,208 @@ def phase_score_chain(torch, np, pipeline, prepared, docked, mdn_params, smi):
         raise AssertionError(f"EC raised the energy of poses {np.nonzero(~(e1 <= e0))[0]}")
 
 
+def predict_inputs(outdir, names):
+    """A jobs CSV of `names` (runs/pb_bench proteins and ligands, complex
+    name = the PDB id) and their tracked prep caches copied into
+    <outdir>/prep_cache, where predict reads its pairs. Returns the CSV."""
+    import csv
+
+    os.makedirs(os.path.join(outdir, "prep_cache"))
+    path = os.path.join(outdir, "jobs.csv")
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["protein", "protein_name", "ligand", "ligand_name", "complex_name",
+                    "crystal_ligand"])
+        for n in names:
+            lig = os.path.join(PB_BENCH, n, f"{n}_ligand.sdf")
+            w.writerow([os.path.join(PB_BENCH, n, f"{n}_protein_contact_chains.pdb"), n, lig,
+                        n, n, lig])
+            for ext in (".npz", ".rec.pkl"):
+                shutil.copy(os.path.join(PREP, f"{n}_r12{ext}"),
+                            os.path.join(outdir, "prep_cache"))
+    return path
+
+
+def xtc_frames(path):
+    """(natoms, step) of each frame of an XTC file, from the frame headers
+    (compressed frames: the byte count after the header skips the data)."""
+    import struct
+
+    with open(path, "rb") as fh:
+        data = fh.read()
+    off, frames = 0, []
+    while off < len(data):
+        magic, natoms, step = struct.unpack_from(">iii", data, off)
+        if magic != 1995:
+            raise AssertionError(f"{path}: bad XTC magic at byte {off}")
+        off += 16 + 36 + 4
+        if natoms <= 9:
+            off += 12 * natoms
+        else:
+            (nbytes,) = struct.unpack_from(">i", data, off + 4 + 24 + 4)
+            off += 4 + 24 + 4 + 4 + nbytes + (-nbytes) % 4
+        frames.append((natoms, step))
+    return frames
+
+
+def predict_run(torch, TC, pipeline, cli, argv, n_poses):
+    """cli.main(argv) with every launch counter set to 0 just before and
+    read just after. The pipeline functions that cli.py calls through the
+    module are wrapped meanwhile, so each stage's wall time (the card
+    synchronised on both sides) adds up in `stage`. Returns (counts, stage
+    seconds, main()'s wall seconds, the prepared pairs and final results
+    that export_and_rank received, the EC and MDN batch count)."""
+    stage, seen, orig = {}, {}, {}
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            stage[name] = stage.get(name, 0.0) + time.time() - t0
+            seen[name] = args
+            return out
+        return run
+
+    for name in ("prep", "dock", "error_correct", "save_poses", "score_mdn", "export_and_rank"):
+        orig[name] = getattr(pipeline, name)
+        setattr(pipeline, name, timed(name, orig[name]))
+    try:
+        TC.reset_launches()
+        t0 = time.time()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = dict(TC.launches)
+    finally:
+        for name, fn in orig.items():
+            setattr(pipeline, name, fn)
+    if rc != 0:
+        raise AssertionError(f"predict exited with {rc}")
+    prepared, results = seen["export_and_rank"][:2]
+    if len(results) != n_poses:
+        raise AssertionError(f"{len(results)} poses, expected {n_poses}")
+    bs = int(argv[argv.index("-bs") + 1])
+    return counts, stage, wall, prepared, results, len(pipeline._batches(prepared, results, bs))
+
+
+def phase_predict(torch, np, TC, smi):
+    """The port's predict command end to end on the card (see the module
+    docstring, phase 26)."""
+    import csv
+
+    from diffbindfr_torch.app import cli
+    from diffbindfr_torch.app import pipeline
+    from diffbindfr_torch.constants import residues as rc
+    from diffbindfr_torch.io.pdb import parse_pdb
+    from diffbindfr_torch.io.sdf import parse_sdf
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_predict_")
+    try:
+        out = os.path.join(tmp, "run1")
+        jobs = predict_inputs(out, PREDICT_NAMES)
+        n_poses, bs = 40, 16
+        argv = ["predict", "-i", jobs, "-o", out, "-ckt", CKPT, "-mdn", MDN_CKPT,
+                "-np", str(n_poses), "-bs", str(bs), "--cluster-rank", "2.0", "--save-poses",
+                "-traj", "--export-top", "5"]
+        counts, stage, wall, prepared, results, n_batches = predict_run(
+            torch, TC, pipeline, cli, argv, n_poses * len(PREDICT_NAMES))
+        total = len(results)
+        print(f"  run 1 (bf16, EC 150 steps, {len(PREDICT_NAMES)} complexes x {n_poses} poses, "
+              f"-bs {bs}): launches {counts}", flush=True)
+        print(f"  stages: prep {stage['prep']:.3f} s; dock {stage['dock']:.3f} s "
+              f"({total / stage['dock']:.3f} poses/s); EC {stage['error_correct']:.3f} s "
+              f"({1e3 * stage['error_correct'] / n_batches:.1f} ms per batch, {n_batches} "
+              f"batches); save_poses {stage['save_poses']:.3f} s; MDN {stage['score_mdn']:.3f} s "
+              f"({1e3 * stage['score_mdn'] / n_batches:.1f} ms per batch); export "
+              f"{stage['export_and_rank']:.3f} s ({1e3 * stage['export_and_rank'] / total:.1f} "
+              f"ms per row, {16e3 * stage['export_and_rank'] / total:.1f} ms per 16 rows; 5 "
+              f"structure sets and trajectories per complex); main() "
+              f"{wall:.3f} s: {wall / total:.4f} s per pose end to end, on {smi}", flush=True)
+        want = {k: 6 * 20 * 3 * len(PREDICT_NAMES) if k in BF16_KERNELS else 0
+                for k in TC.launches}
+        if counts != want:
+            raise AssertionError(f"run 1 launch counts {counts}, expected {want}")
+        with open(os.path.join(out, "results.csv"), newline="") as fh:
+            rows = list(csv.DictReader(fh))
+        if len(rows) != total:
+            raise AssertionError(f"{len(rows)} rows in results.csv, expected {total}")
+        for col in ("mdn_score", "mdn_nll", "vina_score", "l_rmsd", "centroid", "chi1_rate",
+                    "sc_rmsd"):
+            vals = np.array([float(r[col]) for r in rows])
+            if not np.isfinite(vals).all():
+                raise AssertionError(f"results.csv: non-finite {col}")
+        for table in ("results_mdn_top1.csv", "results_mdn_nll_top1.csv",
+                      "results_vina_top1.csv", "results_cluster_top1.csv"):
+            with open(os.path.join(out, table), newline="") as fh:
+                top = list(csv.DictReader(fh))
+            if sorted(r["complex_name"] for r in top) != sorted(PREDICT_NAMES):
+                raise AssertionError(f"{table}: rows {[r['complex_name'] for r in top]}")
+            if table == "results_cluster_top1.csv" and {r["rank_score"] for r in top} != {
+                    "mdn_nll"}:
+                raise AssertionError("results_cluster_top1.csv: rank_score is not mdn_nll")
+            if table == "results_mdn_nll_top1.csv":
+                print("  top-1 by mdn_nll (a reading): " + ", ".join(
+                    f"{r['complex_name']} pose {r['pose']} l_rmsd {float(r['l_rmsd']):.3f} A"
+                    for r in top), flush=True)
+        # the exported structures read back
+        by_key = {(prepared[r.pair_idx].name, r.pose_idx): r for r in results}
+        lig_err = prot_err = 0.0
+        for pair in prepared:
+            kept = [r for r in rows if r["complex_name"] == pair.name and r["lig_sdf"]]
+            if len(kept) != 5:
+                raise AssertionError(f"{pair.name}: {len(kept)} structure sets, expected 5")
+            na, pk = pair.lig.num_atoms, pair.pocket
+            nres = pk.num_res
+            a37 = rc.restype_atom14_to_atom37[pk.aatype]
+            ks, ss = np.nonzero(pk.atom14_mask[:nres])
+            for row in kept:
+                r = by_key[(pair.name, int(row["pose"]))]
+                lig = parse_sdf(row["lig_sdf"])[0].coords
+                lig_err = max(lig_err, float(np.abs(lig - (r.lig_pos[:na] + pk.center)).max()))
+                prot = parse_pdb(row["prot_pdb"])
+                got = prot.atom_positions[pk.pocket_res_indices[ks], a37[ks, ss]]
+                want_pos = r.atom14_pos[:nres][ks, ss] + pk.center
+                prot_err = max(prot_err, float(np.abs(got - want_pos).max()))
+                frames = xtc_frames(os.path.join(os.path.dirname(row["lig_sdf"]),
+                                                 "lig_traj.xtc"))
+                if [f[1] for f in frames] != list(range(20)) or {f[0] for f in frames} != {na}:
+                    raise AssertionError(f"{row['lig_sdf']}: trajectory frames {frames[:3]}...")
+        print(f"  read back: lig_final.sdf vs lig_pos + center max {lig_err:.2e} A, "
+              f"prot_final.pdb pocket atoms vs atom14_pos + center max {prot_err:.2e} A "
+              f"(gate 1e-3); 20-frame lig_traj.xtc per kept pose", flush=True)
+        if not (lig_err <= 1e-3 and prot_err <= 1e-3):
+            raise AssertionError("exported structures do not read back")
+        back = pipeline.load_poses(os.path.join(out, "poses.npz"), prepared)
+        same = len(back) == total and all(
+            np.array_equal(a.lig_pos, b.lig_pos) and np.array_equal(a.atom14_pos, b.atom14_pos)
+            and (a.pair_idx, a.pose_idx) == (b.pair_idx, b.pose_idx)
+            and np.float32(a.vina_score) == np.float32(b.vina_score)
+            for a, b in zip(back, results))
+        if not same:
+            raise AssertionError("poses.npz does not come back through load_poses unchanged")
+        print(f"  poses.npz: {total} poses back through load_poses unchanged", flush=True)
+
+        out2 = os.path.join(tmp, "run2")
+        jobs2 = predict_inputs(out2, ("3dbs",))
+        argv2 = ["predict", "-i", jobs2, "-o", out2, "-ckt", CKPT, "-mdn", MDN_CKPT,
+                 "--dtype", "float32", "-np", "16", "-bs", "16"]
+        counts2, stage2, wall2, _, res2, _ = predict_run(torch, TC, pipeline, cli, argv2, 16)
+        print(f"  run 2 (f32, 3dbs, 16 poses): launches {counts2}; dock {stage2['dock']:.3f} s "
+              f"({16 / stage2['dock']:.3f} poses/s), EC {stage2['error_correct']:.3f} s, MDN "
+              f"{stage2['score_mdn']:.3f} s, export {stage2['export_and_rank']:.3f} s, main() "
+              f"{wall2:.3f} s", flush=True)
+        want2 = {k: 120 if k in KERNELS else 0 for k in TC.launches}
+        if counts2 != want2:
+            raise AssertionError(f"run 2 launch counts {counts2}, expected {want2}")
+        if not all(np.isfinite(r.lig_pos).all() and np.isfinite(r.mdn_nll) for r in res2):
+            raise AssertionError("run 2: non-finite poses or scores")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def probe_row(torch, results, name, got, ref, ms, dev, plain_ms, ops, peak, byts,
               library_ms=None, err=None, **extra):
     """Record one probe kernel's row (`dev`: device_ms's (ms, method)); the
@@ -2564,6 +2788,9 @@ def main() -> int:
 
     with Phase("probe_mosaic"):
         phase_probe_mosaic(torch, per_kernel)
+
+    with Phase("predict"):
+        phase_predict(torch, np, TC, smi)
 
     rows = []
     for name, (src, repl) in KERNELS.items():

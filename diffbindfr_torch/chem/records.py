@@ -6,8 +6,10 @@ The JAX package's prep writes, beside each prep-cache npz, a pickle
 and optional entries. The pickle names the JAX package's record classes;
 `load_prep_record` maps them onto the copies below, so reading a record
 imports neither that package nor JAX. Field for field the copies match
-diffbindfr_tpu/chem/ligand_feats.py:27-49 (LigandRecord) and
-diffbindfr_tpu/chem/protein_feats.py:28-68 (PocketRecord).
+diffbindfr_tpu/chem/ligand_feats.py:27-49 (LigandRecord),
+diffbindfr_tpu/chem/protein_feats.py:28-68 (PocketRecord) and
+diffbindfr_tpu/app/analysis.py:70-89 (HoloRef, the `holo_ref` entry of a
+record written for an apo->holo job).
 """
 from __future__ import annotations
 
@@ -76,11 +78,32 @@ class PocketRecord:
         return self.aatype.shape[0]
 
 
+@dataclasses.dataclass
+class HoloRef:
+    """Side-chain reference of an apo->holo job: the holo structure's atoms
+    at the apo pocket's residues, superposed into the apo world frame (so
+    `center` is zero). Row k is pocket residue k; unmatched rows have mask
+    0. Export grades the rebuilt side chains against it in place of the
+    input pocket."""
+
+    aatype: np.ndarray  # [R] (the apo pocket's)
+    atom14_pos: np.ndarray  # [R, 14, 3] apo world frame
+    atom14_mask: np.ndarray  # [R, 14] holo atoms that exist (0 where unmatched)
+    center: np.ndarray  # [3] zeros
+    n_matched: int = 0
+    ca_rmsd: float = float("nan")  # apo-vs-holo pocket CA RMSD after the fit
+
+    @property
+    def atom14_input_mask(self):
+        return self.atom14_mask
+
+
 # (module, name) in the pickle -> the class it builds here
 _RECORD_CLASSES = {
     ("diffbindfr_tpu.chem.ligand_feats", "LigandRecord"): LigandRecord,
     ("diffbindfr_tpu.chem.protein_feats", "PocketRecord"): PocketRecord,
     ("diffbindfr_tpu.data.sample", "Buckets"): Buckets,
+    ("diffbindfr_tpu.app.analysis", "HoloRef"): HoloRef,
 }
 # numpy's array reconstruction: numpy >= 2 pickles name numpy._core, older
 # ones numpy.core; either file is read under either numpy
@@ -120,9 +143,9 @@ class _RecordUnpickler(pickle.Unpickler):
 
 
 def load_prep_record(path: str) -> dict:
-    """Read a `<stem>.rec.pkl` prep record: a dict whose `lig`, `pocket` and
-    `bucket` are this module's LigandRecord and PocketRecord and the port's
-    Buckets. Classes other than those, numpy arrays and plain containers are
-    refused."""
+    """Read a `<stem>.rec.pkl` prep record: a dict whose `lig`, `pocket`,
+    `bucket` and, where present, `holo_ref` are this module's LigandRecord,
+    PocketRecord, the port's Buckets and this module's HoloRef. Classes
+    other than those, numpy arrays and plain containers are refused."""
     with open(path, "rb") as fh:
         return _RecordUnpickler(fh).load()

@@ -13,8 +13,9 @@ orientation vectors, knn-30 CA graph edge features) is computed from them.
     the observed distance over pairs closer than 5 A.
 
 Parameters are the JAX package's tree (nested dicts and lists) as tensors:
-`load_checkpoint(path, use_ema=True)` reads a checkpoint file, and
-`params_from_jax` carries a JAX parameter tree held as numpy arrays.
+`load_checkpoint(path, use_ema=True)` reads a checkpoint file,
+`params_from_jax` carries a JAX parameter tree held as numpy arrays, and
+`init_params` draws a fresh tree.
 """
 from __future__ import annotations
 
@@ -70,6 +71,60 @@ def params_from_jax(tree, device="cuda"):
         return node
 
     return params_from_numpy(drop_none(tree), device)
+
+
+def _xavier(gen, shape):
+    a = math.sqrt(6.0 / (shape[0] + shape[-1]))
+    return (torch.rand(shape, generator=gen, dtype=torch.float32) * 2.0 - 1.0) * a
+
+
+def _linear_init(gen, din, dout, bias=True):
+    p = {"w": _xavier(gen, (din, dout))}
+    if bias:
+        p["b"] = torch.zeros(dout)
+    return p
+
+
+def _gvp_init(gen, si, vi, so, vo):
+    hv = max(vi, vo)
+    p = {"wm": _linear_init(gen, si + (hv if vi else 0), so)}
+    if vi:
+        p["wh"] = _xavier(gen, (vi, hv))
+    if vo:
+        p["wu"] = _xavier(gen, (hv if vi else 1, vo))
+        p["wg"] = _linear_init(gen, so, vo)
+    return p
+
+
+def init_params(generator: torch.Generator, cfg: MDNConfig, device="cpu"):
+    """A fresh parameter tree (float32 on `device`) drawn from the CPU
+    `generator`: the JAX package's init_params tree, keys, shapes and
+    distributions (xavier-uniform weights, zero biases); the draws differ."""
+    g, h, hv = generator, cfg.hidden, cfg.pro_vector_hidden
+    p: dict = {"seq_emb": {"emb": _xavier(g, (21, 20))},
+               "pro_node_in": [_gvp_init(g, cfg.pro_scalar_in + 20, cfg.pro_vector_in, h, hv)],
+               "pro_edge_in": [_gvp_init(g, cfg.pro_edge_scalar, 1, 32, 1)],
+               "gvp_layers": []}
+    for _ in range(cfg.gvp_layers):
+        p["gvp_layers"].append({
+            "msg": [_gvp_init(g, h + 32 + h, hv + 1 + hv, h, hv), _gvp_init(g, h, hv, h, hv),
+                    _gvp_init(g, h, hv, h, hv)],
+            "ff": [_gvp_init(g, h, hv, 2 * h, 2 * hv), _gvp_init(g, 2 * h, 2 * hv, h, hv)]})
+    p["pro_out"] = _gvp_init(g, h, hv, h, 0)
+    p["lig_node_in"] = _linear_init(g, cfg.lig_node_dim, h)
+    p["lig_edge_in"] = _linear_init(g, cfg.lig_edge_dim + 8, h)
+    p["gt_layers"] = [{"q": _linear_init(g, h, h), "k": _linear_init(g, h, h),
+                       "v": _linear_init(g, h, h), "eb": _linear_init(g, h, cfg.gt_heads),
+                       "ev": _linear_init(g, h, h), "o": _linear_init(g, h, h),
+                       "ff1": _linear_init(g, h, 2 * h), "ff2": _linear_init(g, 2 * h, h)}
+                      for _ in range(cfg.gt_layers)]
+    p["pair_l"] = _linear_init(g, h, h)
+    p["pair_p"] = _linear_init(g, h, h, bias=False)
+    for k in ("z_pi", "z_sigma", "z_mu"):
+        p[k] = _linear_init(g, h, cfg.n_gaussians)
+    p["atom_types"] = _linear_init(g, h, 18)
+    p["bond_types"] = _linear_init(g, 2 * h, 5)
+    return params_from_numpy(p, device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Reverse-diffusion sampler (SDE), PyTorch counterpart of
-diffbindfr_tpu/sampler.py:99-248.
+"""Reverse-diffusion sampler (the SDE and the probability-flow ODE), PyTorch
+counterpart of diffbindfr_tpu/sampler.py:99-248.
 
 The JAX package runs the steps as one jitted lax.scan with jax.random keys;
 here the steps are a Python loop and every random draw is a tensor in a
@@ -7,7 +7,8 @@ here the steps are a Python loop and every random draw is a tensor in a
 (`draw_noise`) or handed in by the caller: the two frameworks' random
 streams differ, so parity tests build the noise on the JAX side and pass it
 in. Per pose, the noise of a batch is independent of the other poses, so
-slicing a `SamplerNoise` along the batch reruns a subset of poses.
+slicing a `SamplerNoise` along the batch reruns a subset of poses. The ODE
+(`kind='ode'`) draws only the prior: its steps are deterministic.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from .models import score_net as sn
 
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
+    kind: str = "sde"  # 'sde' | 'ode'
     inference_steps: int = 22
     actual_steps: int = 20
     eps: float = 1e-5
@@ -68,15 +70,18 @@ class SampleResult(NamedTuple):
     lig_pos: torch.Tensor  # [B, NL, 3] final pose (pocket frame)
     atom14_pos: torch.Tensor  # [B, R, 14, 3]
     chi: torch.Tensor  # [B, R, 4]
+    lig_traj: torch.Tensor | None = None  # [S, B, NL, 3] after each step
+    atom14_traj: torch.Tensor | None = None  # [S, B, R, 14, 3]
 
 
 def draw_noise(batch, cfg: SamplerConfig, generator: torch.Generator) -> SamplerNoise:
     """Draw the prior and per-step noise for `batch` from `generator` (its
-    device is the tensors' device). Pose b's draws do not depend on B."""
+    device is the tensors' device). Pose b's draws do not depend on B. The
+    ODE draws no per-step noise: its z fields have 0 steps."""
     dev = generator.device
     bsz, nt = batch.tor_mask.shape
     nres = batch.chi_mask.shape[1]
-    steps = cfg.actual_steps
+    steps = cfg.actual_steps if _kind(cfg) == "sde" else 0
 
     def uni(*shape):
         return (torch.rand(shape, generator=generator, device=dev) * 2.0 - 1.0) * math.pi
@@ -91,6 +96,12 @@ def draw_noise(batch, cfg: SamplerConfig, generator: torch.Generator) -> Sampler
                          nrm(steps, 3), nrm(steps, 3), nrm(steps, nt), nrm(steps, nres, 4)))
     cols = [torch.stack(c) for c in zip(*per_pose)]
     return SamplerNoise(*cols[:4], *[c.transpose(0, 1).contiguous() for c in cols[4:]])
+
+
+def _kind(cfg: SamplerConfig) -> str:
+    if cfg.kind not in ("sde", "ode"):
+        raise ValueError(f"sampler kind {cfg.kind!r}: 'sde' or 'ode'")
+    return cfg.kind
 
 
 def _rebuild_atom14(s, chi):
@@ -134,40 +145,64 @@ def t_schedule(cfg: SamplerConfig, device="cpu"):
                           device=device)
 
 
-def sample(params, net_cfg: sn.ScoreNetConfig, cfg: SamplerConfig, batch,
-           noise: SamplerNoise, use_kernels: bool = True) -> SampleResult:
-    """Run the reverse SDE for a batch of tensors [B, ...] on their device."""
-    bsz = batch.lig_pos.shape[0]
-    dev = batch.lig_pos.device
-    lig_pos, chi, atm_pos = init_pose(batch, cfg, noise)
-    ts = t_schedule(cfg, dev)
+def _schedule(cfg: SamplerConfig, device):
+    """(time grid, each step's Sigmas, their score-norm SigmaScales): every
+    step's lookups made once, before the loop."""
+    ts = t_schedule(cfg, device)
     sigs = [sn.sigmas_from_t(ts[i], cfg.schedule) for i in range(cfg.actual_steps)]
-    # every step's score-norm scales, looked up once, before the loop
-    scales = sn.sigma_scales(sn.Sigmas(*[torch.stack(v) for v in zip(*sigs)]))
-    tr_g_scale = math.sqrt(2.0 * math.log(cfg.tr_sigma_max / cfg.tr_sigma_min))
-    rot_g_scale = 2.0 * math.sqrt(math.log(cfg.rot_sigma_max / cfg.rot_sigma_min))
-    tor_g_scale = math.sqrt(2.0 * math.log(cfg.tor_sigma_max / cfg.tor_sigma_min))
-    sc_g_scale = math.sqrt(2.0 * math.log(cfg.sc_tor_sigma_max / cfg.sc_tor_sigma_min))
-    lig_mask, tor_mask = batch.lig_mask > 0, batch.tor_mask > 0
-    frag, bonds = batch.rot_node_mask > 0, _tor_bonds(batch)
+    return ts, sigs, sn.sigma_scales(sn.Sigmas(*[torch.stack(v) for v in zip(*sigs)]))
 
-    for i, sig in enumerate(sigs):
-        t, dt = ts[i], ts[i] - ts[i + 1]
+
+def _step(params, net_cfg: sn.ScoreNetConfig, cfg: SamplerConfig, batch, sched,
+          noise: SamplerNoise, i: int, lig_pos, chi, atm_pos, use_kernels: bool = True):
+    """Step i of the schedule `sched` (= _schedule(cfg, ...)) from the state
+    (lig_pos, chi, atm_pos) -> (lig_pos, chi, atom14, atm_pos) after it."""
+    ts, sigs, scales = sched
+    bsz = batch.lig_pos.shape[0]
+    sig, t, dt = sigs[i], ts[i], ts[i] - ts[i + 1]
+    sig_b = sn.Sigmas(*[v.expand(bsz) for v in sig])
+    scales_b = sn.SigmaScales(*[v[i].expand(bsz) for v in scales])
+    data = batch._replace(lig_pos=lig_pos, atm_pos=atm_pos)
+    out = sn.apply(params, net_cfg, data, t.expand(bsz), sig_b, use_kernels=use_kernels,
+                   scales=scales_b)
+    tr_g = sig.tr * math.sqrt(2.0 * math.log(cfg.tr_sigma_max / cfg.tr_sigma_min))
+    rot_g = sig.rot * (2.0 * math.sqrt(math.log(cfg.rot_sigma_max / cfg.rot_sigma_min)))
+    tor_g = sig.tor * math.sqrt(2.0 * math.log(cfg.tor_sigma_max / cfg.tor_sigma_min))
+    sc_g = sig.sc_tor * math.sqrt(2.0 * math.log(cfg.sc_tor_sigma_max / cfg.sc_tor_sigma_min))
+    if _kind(cfg) == "ode":  # probability flow: half the drift, no noise
+        tr_p = 0.5 * tr_g**2 * out.tr * dt
+        rot_p = 0.5 * rot_g**2 * out.rot * dt
+        tor_p = 0.5 * tor_g**2 * out.tor * dt
+        sc_p = 0.5 * sc_g**2 * out.sc_tor * dt
+    else:
         last = i == cfg.actual_steps - 1
-        sig_b = sn.Sigmas(*[v.expand(bsz) for v in sig])
-        scales_b = sn.SigmaScales(*[v[i].expand(bsz) for v in scales])
-        data = batch._replace(lig_pos=lig_pos, atm_pos=atm_pos)
-        out = sn.apply(params, net_cfg, data, t.expand(bsz), sig_b, use_kernels=use_kernels,
-                       scales=scales_b)
-        tr_g, rot_g = sig.tr * tr_g_scale, sig.rot * rot_g_scale
-        tor_g, sc_g = sig.tor * tor_g_scale, sig.sc_tor * sc_g_scale
         nz = 0.0 if (cfg.no_random or (cfg.no_final_step_noise and last)) else 1.0
         sdt = torch.sqrt(dt)
         tr_p = tr_g**2 * out.tr * dt + tr_g * sdt * (noise.z_tr[i] * nz)
         rot_p = rot_g**2 * out.rot * dt + rot_g * sdt * (noise.z_rot[i] * nz)
         tor_p = tor_g**2 * out.tor * dt + tor_g * sdt * (noise.z_tor[i] * nz)
         sc_p = sc_g**2 * out.sc_tor * dt + sc_g * sdt * (noise.z_sc[i] * nz)
-        lig_pos = modify_conformer(lig_pos, lig_mask, tr_p, rot_p, bonds, frag, tor_p, tor_mask)
-        chi = chi + sc_p * batch.chi_mask
-        atm_pos = _pack_atoms(batch, _rebuild_atom14(batch, chi))
-    return SampleResult(lig_pos=lig_pos, atom14_pos=_rebuild_atom14(batch, chi), chi=chi)
+    lig_pos = modify_conformer(lig_pos, batch.lig_mask > 0, tr_p, rot_p, _tor_bonds(batch),
+                               batch.rot_node_mask > 0, tor_p, batch.tor_mask > 0)
+    chi = chi + sc_p * batch.chi_mask
+    atom14 = _rebuild_atom14(batch, chi)
+    return lig_pos, chi, atom14, _pack_atoms(batch, atom14)
+
+
+def sample(params, net_cfg: sn.ScoreNetConfig, cfg: SamplerConfig, batch,
+           noise: SamplerNoise, use_kernels: bool = True,
+           keep_trajectory: bool = False) -> SampleResult:
+    """Run the reverse SDE (or, with cfg.kind 'ode', the probability-flow
+    ODE) for a batch of tensors [B, ...] on their device. `keep_trajectory`
+    also returns the ligand and atom14 positions after every step."""
+    lig_pos, chi, atm_pos = init_pose(batch, cfg, noise)
+    sched = _schedule(cfg, batch.lig_pos.device)
+    lig_traj, a14_traj = [], []
+    for i in range(cfg.actual_steps):
+        lig_pos, chi, atom14, atm_pos = _step(params, net_cfg, cfg, batch, sched, noise, i,
+                                              lig_pos, chi, atm_pos, use_kernels=use_kernels)
+        if keep_trajectory:
+            lig_traj.append(lig_pos)
+            a14_traj.append(atom14)
+    traj = (torch.stack(lig_traj), torch.stack(a14_traj)) if keep_trajectory else (None, None)
+    return SampleResult(lig_pos, _rebuild_atom14(batch, chi), chi, *traj)

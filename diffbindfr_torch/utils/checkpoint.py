@@ -10,6 +10,7 @@ same key scheme with ``mu/`` and ``nu/`` trees added.
 """
 from __future__ import annotations
 
+import glob
 import os
 
 import numpy as np
@@ -138,3 +139,22 @@ def load_train_state(path: str, device="cuda"):
                       opt_state={"mu": tree_leaves(trees["mu"]), "nu": tree_leaves(trees["nu"]),
                                  "count": count},
                       step=step)
+
+
+def resolve_checkpoint(path: str) -> str:
+    """A file path is used as-is; a training run directory resolves to its
+    validation-best checkpoint (ckpt_best.npz) when present, else to the
+    highest-step ckpt_*.npz / mdn_ckpt_*.npz (the JAX package's policy)."""
+    if not os.path.isdir(path):
+        return path
+    best = os.path.join(path, "ckpt_best.npz")
+    if os.path.exists(best):
+        print(f"[model] checkpoint policy: best-val ({best})")
+        return best
+    cands = sorted(glob.glob(os.path.join(path, "ckpt_*.npz"))
+                   or glob.glob(os.path.join(path, "*ckpt_*.npz")))
+    if not cands:
+        raise FileNotFoundError(f"no ckpt_*.npz under {path}")
+    print(f"[model] checkpoint policy: no ckpt_best.npz in {path}; "
+          f"falling back to latest ({cands[-1]})")
+    return cands[-1]

@@ -85,7 +85,7 @@ pairs = [TP.PreparedPair.from_prep_cache(os.path.join(prep, n + '_r12.npz'))
 assert all(p.lig is not None and p.pocket is not None for p in pairs)
 assert pairs[3].lig.rot_node_mask.shape[0] == 0
 res = [TP.PoseResult(i, 0, p.sample.lig_pos.copy(), p.sample.template_pos, None)
-       for i, p in enumerate(pairs) if p.name in ('3dbs_r12', '3mhw_r12')]
+       for i, p in enumerate(pairs) if p.name in ('3dbs', '3mhw')]
 assert len(res) == 2
 TP.error_correct(pairs, res, steps=2, batch_size=1, device='cpu', verbose=False)
 params, _ = load_checkpoint('runs/mdn_r4b/ckpt_best.npz', device='cpu')
@@ -114,7 +114,7 @@ def test_prepared_pair_reads_the_record_beside_the_npz(tmp_path):
         np.testing.assert_array_equal(pair.pocket.atom14_pos, rec["pocket"].atom14_pos)
     shutil.copy(os.path.join(PREP, "3mhw_r12.npz"), tmp_path / "x_r12.npz")
     bare = TP.PreparedPair.from_prep_cache(str(tmp_path / "x_r12.npz"))
-    assert bare.name == "x_r12" and bare.lig is None and bare.pocket is None
+    assert bare.name == "x" and bare.lig is None and bare.pocket is None
     assert bare.crystal_pos is None and bare.bucket == bucket_of(bare.sample)
     with pytest.raises(ValueError, match="record"):
         TP.error_correct([bare], [TP.PoseResult(0, 0, bare.sample.lig_pos, None, None)],
@@ -159,7 +159,7 @@ def test_ec_engine_pads_the_last_batch_and_saves_scores(tmp_path):
         assert abs(a.vina_score - b.vina_score) <= 1e-6 * abs(b.vina_score)
     path = TP.save_poses(str(tmp_path), [pair], runs[1])
     with np.load(path) as data:
-        np.testing.assert_allclose(data["3mhw_r12|vina"], [r.vina_score for r in runs[1]])
+        np.testing.assert_allclose(data["3mhw|vina"], [r.vina_score for r in runs[1]])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TP.ECEngine()

@@ -99,7 +99,7 @@ def test_dock_engine_replays_its_noise_and_saves_poses(setup, tmp_path):
     s, _, tcfg, _, tp, _, _, _, _, _, _ = setup
     scfg = TSP.SamplerConfig(actual_steps=2)
     pair = TP.PreparedPair.from_prep_cache(SAMPLE)
-    assert pair.name == "3dbs_r12" and pair.bucket.n_atm == 1024
+    assert pair.name == "3dbs" and pair.bucket.n_atm == 1024
     res = TP.dock([pair], tp, tcfg, scfg, num_poses=3, batch_size=2, seed=4, device="cpu",
                   verbose=False)
     assert [(r.pair_idx, r.pose_idx) for r in res] == [(0, 0), (0, 1), (0, 2)]
@@ -113,8 +113,8 @@ def test_dock_engine_replays_its_noise_and_saves_poses(setup, tmp_path):
     np.testing.assert_allclose(again.lig_pos[1].numpy(), res[1].lig_pos, atol=1e-6)
     path = TP.save_poses(str(tmp_path), [pair], res)
     data = np.load(path)
-    assert data["3dbs_r12|lig_pos"].shape == (3, 128, 3)
-    np.testing.assert_array_equal(data["3dbs_r12|pose_idx"], [0, 1, 2])
+    assert data["3dbs|lig_pos"].shape == (3, 128, 3)
+    np.testing.assert_array_equal(data["3dbs|pose_idx"], [0, 1, 2])
 
 
 def test_dock_engine_fused_layer_mode_gives_the_cmt_poses(setup):
