@@ -179,6 +179,30 @@ a non-zero exit code):
               none. Prints each stage's wall time (poses/s of the dock, ms
               per batch of EC and MDN, ms per row of export), seconds per
               pose end to end and the top-1 l_rmsd by mdn_nll per complex
+  27. prep_predict  host prep from raw files (app/prepare.py prep):
+              (a) `predict -j prep` of 18 pairs (3dbs, 3mhw, and the 16
+              ligands of runs/screen_demo/mols on 3dbs's pocket) at -nw 0 and
+              -nw 4, seconds per pair of each: every pair prepared, the
+              workers' entries equal the serial ones, 3dbs's and 3mhw's
+              samples equal the tracked caches' real rows bit for bit and
+              their records the tracked records apart from the bucket and
+              the pocket's chain_ids, at the fresh buckets (n_lig, n_atm)
+              (64, 1024) and (32, 768); a second -nw 4 run serves every pair
+              from the cache and rewrites nothing. A library screen's prep
+              (prep_library: 64 and 640 records of one SDF on 3dbs's
+              pocket, -nw 0 and -nw 4): every pair prepared, seconds per
+              pair and the pair count from which -nw 4 is the faster. (b)
+              `predict` of 3dbs and 3mhw from their raw files at its
+              defaults (bf16, EC 150 steps, MDN), 40 poses each, -bs 16:
+              each B11 kernel launched exactly 720 times and B1-B10 never,
+              phase 26's read-back gates, each stage's wall time, prep
+              included. (c) B1-B3 and B11 at the
+              fresh buckets, layers 0 and 5, B = 16, diff_r2 weights (B11 on
+              their bf16 rounding): each against its plain version at phase
+              5's (1e-4) and phase 18's (BF16_GATE) bounds, its CUDA-graph
+              replay time, plain time and bound, and the same at the tracked
+              3dbs cache's bucket (128, 1024) for comparison; each such row
+              goes into its kernel's `buckets` in the kernels line
 Kernel times: `ms` is the wrapper's time by CUDA events around 10 calls
 (its host set-up included), `device_ms` the kernel's own device time per
 call (phases 5, 9, 12, 17, 18, 23-25): from torch.profiler's
@@ -218,6 +242,11 @@ FIXTURE_MDN = os.path.join(ROOT, "tests/fixtures/torch_mdn_ref.npz")
 MDN_CKPT = os.path.join(ROOT, "runs/mdn_r4b/ckpt_best.npz")
 EC_NAMES = ("3dbs", "3mhw")
 PB_BENCH = os.path.join(ROOT, "runs/pb_bench")
+SCREEN_MOLS = os.path.join(ROOT, "runs/screen_demo/mols")
+# phase 27: the buckets (n_lig, n_atm) a fresh prep picks (the tracked caches
+# were written before the ligand and pocket ladders were decoupled: 128/1024
+# and 96/768)
+PREP_BUCKETS = {"3dbs": (64, 1024), "3mhw": (32, 768)}
 # phase 26: the complexes of predict's run 1 (3mhw: no torsions, bucket nl 96)
 PREDICT_NAMES = ("3dbs", "3mhw")
 # the card against the JAX fixtures after 150 EC steps: positions (A over
@@ -230,7 +259,7 @@ DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 
              "rm_dock": 300, "rm_profile": 120, "rm_grad": 180, "probe_bf16": 120,
              "bf16_kernels": 240, "bf16_forward": 120, "bf16_dock": 300, "ec_mdn_ref": 180,
              "score_chain": 240, "probe_mlp": 120,
-             "probe_mxu_ops": 180, "probe_mosaic": 180, "predict": 300}
+             "probe_mxu_ops": 180, "probe_mosaic": 180, "predict": 300, "prep_predict": 480}
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, HBM3 bandwidth; bf16 outside the tensor cores (packed
 # bf16x2, two per fp32 lane: the H100 white paper's non-tensor BF16 rate,
@@ -579,8 +608,9 @@ def nbytes(*ts):
 
 
 def kernel_inputs(torch, params, s_np, layer, bsz, seed):
-    """Trunk-conv inputs of one layer at the 3dbs bucket shapes: 3dbs
-    geometry with the ligand shifted per replica, seeded random features."""
+    """Trunk-conv inputs of one layer at the bucket shapes of the sample
+    `s_np`: its geometry with the ligand shifted per replica, seeded random
+    features."""
     from diffbindfr_torch.data.sample import stack_samples, to_device
     from diffbindfr_torch.models import score_net as sn
     from diffbindfr_torch.nn import layers as L
@@ -1817,6 +1847,23 @@ def chain_ops(c):
     return f32_chain, b11_f32, b11_bf16
 
 
+def b11_bound(torch, twin, a):
+    """B11's bound on the inputs `a` of its f32 twin: the chain's bf16
+    operations at the card's peak for separately rounded bf16x2 operations,
+    its fp32 operations at the fp32 peak, against its bytes at the HBM rate.
+    Returns (bound ms, "operations" or "bytes", pairs, fp32 operations, bf16
+    operations, bytes)."""
+    flops, byts, pairs = work(torch, twin, a)
+    f32_chain, b11_f32, b11_bf16 = chain_ops(a[0])
+    n_tp = 2 if twin == "cross_conv" else 1
+    ops32 = flops - pairs * n_tp * (f32_chain - b11_f32)
+    ops16 = pairs * n_tp * b11_bf16
+    t_ops = ops32 / PEAK_FP32 + ops16 / PEAK_BF16X2_ROUNDED
+    t_bytes = byts / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", pairs,
+            ops32, ops16, byts)
+
+
 def phase_bf16_kernels(torch, params, s_np, results, bf16_rate):
     """B11 against its plain bf16 version at the dock shapes, on the
     bf16-rounded weights the score net hands the kernels. The bound takes
@@ -1853,19 +1900,12 @@ def phase_bf16_kernels(torch, params, s_np, results, bf16_rate):
                 ms = time_ms(lambda: wrapper[name](*a), 3, 10)
                 dev_ms, dev_how = device_ms(torch, lambda: wrapper[name](*a), name)
                 plain_ms = time_ms(lambda: plain[name](*a), 1, 2)
-            flops, byts, pairs = work(torch, twin, a)
-            f32_chain, b11_f32, b11_bf16 = chain_ops(a[0])
-            n_tp = 2 if twin == "cross_conv" else 1
-            ops32 = flops - pairs * n_tp * (f32_chain - b11_f32)
-            ops16 = pairs * n_tp * b11_bf16
-            t_ops = ops32 / PEAK_FP32 + ops16 / PEAK_BF16X2_ROUNDED
-            t_bytes = byts / PEAK_BYTES
-            bound_ms = max(t_ops, t_bytes) * 1e3
+            bound_ms, bound_by, pairs, ops32, ops16, byts = b11_bound(torch, twin, a)
             row = dict(layer=layer, batch=bsz, max_rel_err=err, max_abs_err=abs_err,
                        control=ctl, ms=ms, device_ms=dev_ms, device_ms_method=dev_how,
                        plain_ms=plain_ms,
                        bound_ms=bound_ms, pairs=pairs, fp32_ops=ops32, bf16_ops=ops16, bytes=byts,
-                       bound_by="operations" if t_ops >= t_bytes else "bytes")
+                       bound_by=bound_by)
             results.setdefault(name, []).append(row)
             print(f"  {name} layer {layer} B={bsz}: max|err|/max|ref| {err:.2e} (control: the "
                   f"f32 kernel {ctl:.2e}) kernel {fmt_ms(dev_ms)} ({dev_how}; wrapper {ms:.3f} ms) "
@@ -2119,14 +2159,18 @@ def phase_score_chain(torch, np, pipeline, prepared, docked, mdn_params, smi):
         raise AssertionError(f"EC raised the energy of poses {np.nonzero(~(e1 <= e0))[0]}")
 
 
-def predict_inputs(outdir, names):
+def predict_inputs(outdir, names, copy_cache=True, screen=False):
     """A jobs CSV of `names` (runs/pb_bench proteins and ligands, complex
-    name = the PDB id) and their tracked prep caches copied into
-    <outdir>/prep_cache, where predict reads its pairs. Returns the CSV."""
+    name = the PDB id, the ligand its own crystal ligand) in `outdir`, and
+    with `copy_cache` their tracked prep caches copied into
+    <outdir>/prep_cache, where predict looks for its pairs first. `screen`
+    adds the 16 ligands of runs/screen_demo/mols on 3dbs's pocket (complex
+    `3dbs_<stem>`). Returns the CSV."""
     import csv
 
     os.makedirs(os.path.join(outdir, "prep_cache"))
     path = os.path.join(outdir, "jobs.csv")
+    pdb3 = os.path.join(PB_BENCH, "3dbs", "3dbs_protein_contact_chains.pdb")
     with open(path, "w", newline="") as fh:
         w = csv.writer(fh)
         w.writerow(["protein", "protein_name", "ligand", "ligand_name", "complex_name",
@@ -2135,9 +2179,13 @@ def predict_inputs(outdir, names):
             lig = os.path.join(PB_BENCH, n, f"{n}_ligand.sdf")
             w.writerow([os.path.join(PB_BENCH, n, f"{n}_protein_contact_chains.pdb"), n, lig,
                         n, n, lig])
-            for ext in (".npz", ".rec.pkl"):
+            for ext in (".npz", ".rec.pkl") if copy_cache else ():
                 shutil.copy(os.path.join(PREP, f"{n}_r12{ext}"),
                             os.path.join(outdir, "prep_cache"))
+        for f in sorted(os.listdir(SCREEN_MOLS)) if screen else ():
+            stem = f[: -len(".sdf")]
+            w.writerow([pdb3, "3dbs", os.path.join(SCREEN_MOLS, f), stem, f"3dbs_{stem}",
+                        os.path.join(PB_BENCH, "3dbs", "3dbs_ligand.sdf")])
     return path
 
 
@@ -2206,16 +2254,88 @@ def predict_run(torch, TC, pipeline, cli, argv, n_poses):
     return counts, stage, wall, prepared, results, len(pipeline._batches(prepared, results, bs))
 
 
-def phase_predict(torch, np, TC, smi):
-    """The port's predict command end to end on the card (see the module
-    docstring, phase 26)."""
+def predict_read_back(np, out, prepared, results, names):
+    """Phase 26's read-back gates on one predict run into `out` (-np N
+    --cluster-rank 2.0 --save-poses -traj --export-top 5 at 20 steps): a row
+    with finite scores and metrics per pose in results.csv; one row per
+    complex in each top-1 table, `rank_score` mdn_nll in the clustered one;
+    5 structure sets per complex that read back at their poses within
+    1e-3 A, each with a 20-frame lig_traj.xtc; poses.npz back through
+    load_poses unchanged."""
     import csv
 
-    from diffbindfr_torch.app import cli
     from diffbindfr_torch.app import pipeline
     from diffbindfr_torch.constants import residues as rc
     from diffbindfr_torch.io.pdb import parse_pdb
     from diffbindfr_torch.io.sdf import parse_sdf
+
+    total = len(results)
+    with open(os.path.join(out, "results.csv"), newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    if len(rows) != total:
+        raise AssertionError(f"{len(rows)} rows in results.csv, expected {total}")
+    for col in ("mdn_score", "mdn_nll", "vina_score", "l_rmsd", "centroid", "chi1_rate",
+                "sc_rmsd"):
+        vals = np.array([float(r[col]) for r in rows])
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"results.csv: non-finite {col}")
+    for table in ("results_mdn_top1.csv", "results_mdn_nll_top1.csv",
+                  "results_vina_top1.csv", "results_cluster_top1.csv"):
+        with open(os.path.join(out, table), newline="") as fh:
+            top = list(csv.DictReader(fh))
+        if sorted(r["complex_name"] for r in top) != sorted(names):
+            raise AssertionError(f"{table}: rows {[r['complex_name'] for r in top]}")
+        if table == "results_cluster_top1.csv" and {r["rank_score"] for r in top} != {
+                "mdn_nll"}:
+            raise AssertionError("results_cluster_top1.csv: rank_score is not mdn_nll")
+        if table == "results_mdn_nll_top1.csv":
+            print("  top-1 by mdn_nll (a reading): " + ", ".join(
+                f"{r['complex_name']} pose {r['pose']} l_rmsd {float(r['l_rmsd']):.3f} A"
+                for r in top), flush=True)
+    # the exported structures read back
+    by_key = {(prepared[r.pair_idx].name, r.pose_idx): r for r in results}
+    lig_err = prot_err = 0.0
+    for pair in prepared:
+        kept = [r for r in rows if r["complex_name"] == pair.name and r["lig_sdf"]]
+        if len(kept) != 5:
+            raise AssertionError(f"{pair.name}: {len(kept)} structure sets, expected 5")
+        na, pk = pair.lig.num_atoms, pair.pocket
+        nres = pk.num_res
+        a37 = rc.restype_atom14_to_atom37[pk.aatype]
+        ks, ss = np.nonzero(pk.atom14_mask[:nres])
+        for row in kept:
+            r = by_key[(pair.name, int(row["pose"]))]
+            lig = parse_sdf(row["lig_sdf"])[0].coords
+            lig_err = max(lig_err, float(np.abs(lig - (r.lig_pos[:na] + pk.center)).max()))
+            prot = parse_pdb(row["prot_pdb"])
+            got = prot.atom_positions[pk.pocket_res_indices[ks], a37[ks, ss]]
+            want_pos = r.atom14_pos[:nres][ks, ss] + pk.center
+            prot_err = max(prot_err, float(np.abs(got - want_pos).max()))
+            frames = xtc_frames(os.path.join(os.path.dirname(row["lig_sdf"]),
+                                             "lig_traj.xtc"))
+            if [f[1] for f in frames] != list(range(20)) or {f[0] for f in frames} != {na}:
+                raise AssertionError(f"{row['lig_sdf']}: trajectory frames {frames[:3]}...")
+    print(f"  read back: lig_final.sdf vs lig_pos + center max {lig_err:.2e} A, "
+          f"prot_final.pdb pocket atoms vs atom14_pos + center max {prot_err:.2e} A "
+          f"(gate 1e-3); 20-frame lig_traj.xtc per kept pose", flush=True)
+    if not (lig_err <= 1e-3 and prot_err <= 1e-3):
+        raise AssertionError("exported structures do not read back")
+    back = pipeline.load_poses(os.path.join(out, "poses.npz"), prepared)
+    same = len(back) == total and all(
+        np.array_equal(a.lig_pos, b.lig_pos) and np.array_equal(a.atom14_pos, b.atom14_pos)
+        and (a.pair_idx, a.pose_idx) == (b.pair_idx, b.pose_idx)
+        and np.float32(a.vina_score) == np.float32(b.vina_score)
+        for a, b in zip(back, results))
+    if not same:
+        raise AssertionError("poses.npz does not come back through load_poses unchanged")
+    print(f"  poses.npz: {total} poses back through load_poses unchanged", flush=True)
+
+
+def phase_predict(torch, np, TC, smi):
+    """The port's predict command end to end on the card (see the module
+    docstring, phase 26)."""
+    from diffbindfr_torch.app import cli
+    from diffbindfr_torch.app import pipeline
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_predict_")
     try:
@@ -2243,65 +2363,7 @@ def phase_predict(torch, np, TC, smi):
                 for k in TC.launches}
         if counts != want:
             raise AssertionError(f"run 1 launch counts {counts}, expected {want}")
-        with open(os.path.join(out, "results.csv"), newline="") as fh:
-            rows = list(csv.DictReader(fh))
-        if len(rows) != total:
-            raise AssertionError(f"{len(rows)} rows in results.csv, expected {total}")
-        for col in ("mdn_score", "mdn_nll", "vina_score", "l_rmsd", "centroid", "chi1_rate",
-                    "sc_rmsd"):
-            vals = np.array([float(r[col]) for r in rows])
-            if not np.isfinite(vals).all():
-                raise AssertionError(f"results.csv: non-finite {col}")
-        for table in ("results_mdn_top1.csv", "results_mdn_nll_top1.csv",
-                      "results_vina_top1.csv", "results_cluster_top1.csv"):
-            with open(os.path.join(out, table), newline="") as fh:
-                top = list(csv.DictReader(fh))
-            if sorted(r["complex_name"] for r in top) != sorted(PREDICT_NAMES):
-                raise AssertionError(f"{table}: rows {[r['complex_name'] for r in top]}")
-            if table == "results_cluster_top1.csv" and {r["rank_score"] for r in top} != {
-                    "mdn_nll"}:
-                raise AssertionError("results_cluster_top1.csv: rank_score is not mdn_nll")
-            if table == "results_mdn_nll_top1.csv":
-                print("  top-1 by mdn_nll (a reading): " + ", ".join(
-                    f"{r['complex_name']} pose {r['pose']} l_rmsd {float(r['l_rmsd']):.3f} A"
-                    for r in top), flush=True)
-        # the exported structures read back
-        by_key = {(prepared[r.pair_idx].name, r.pose_idx): r for r in results}
-        lig_err = prot_err = 0.0
-        for pair in prepared:
-            kept = [r for r in rows if r["complex_name"] == pair.name and r["lig_sdf"]]
-            if len(kept) != 5:
-                raise AssertionError(f"{pair.name}: {len(kept)} structure sets, expected 5")
-            na, pk = pair.lig.num_atoms, pair.pocket
-            nres = pk.num_res
-            a37 = rc.restype_atom14_to_atom37[pk.aatype]
-            ks, ss = np.nonzero(pk.atom14_mask[:nres])
-            for row in kept:
-                r = by_key[(pair.name, int(row["pose"]))]
-                lig = parse_sdf(row["lig_sdf"])[0].coords
-                lig_err = max(lig_err, float(np.abs(lig - (r.lig_pos[:na] + pk.center)).max()))
-                prot = parse_pdb(row["prot_pdb"])
-                got = prot.atom_positions[pk.pocket_res_indices[ks], a37[ks, ss]]
-                want_pos = r.atom14_pos[:nres][ks, ss] + pk.center
-                prot_err = max(prot_err, float(np.abs(got - want_pos).max()))
-                frames = xtc_frames(os.path.join(os.path.dirname(row["lig_sdf"]),
-                                                 "lig_traj.xtc"))
-                if [f[1] for f in frames] != list(range(20)) or {f[0] for f in frames} != {na}:
-                    raise AssertionError(f"{row['lig_sdf']}: trajectory frames {frames[:3]}...")
-        print(f"  read back: lig_final.sdf vs lig_pos + center max {lig_err:.2e} A, "
-              f"prot_final.pdb pocket atoms vs atom14_pos + center max {prot_err:.2e} A "
-              f"(gate 1e-3); 20-frame lig_traj.xtc per kept pose", flush=True)
-        if not (lig_err <= 1e-3 and prot_err <= 1e-3):
-            raise AssertionError("exported structures do not read back")
-        back = pipeline.load_poses(os.path.join(out, "poses.npz"), prepared)
-        same = len(back) == total and all(
-            np.array_equal(a.lig_pos, b.lig_pos) and np.array_equal(a.atom14_pos, b.atom14_pos)
-            and (a.pair_idx, a.pose_idx) == (b.pair_idx, b.pose_idx)
-            and np.float32(a.vina_score) == np.float32(b.vina_score)
-            for a, b in zip(back, results))
-        if not same:
-            raise AssertionError("poses.npz does not come back through load_poses unchanged")
-        print(f"  poses.npz: {total} poses back through load_poses unchanged", flush=True)
+        predict_read_back(np, out, prepared, results, PREDICT_NAMES)
 
         out2 = os.path.join(tmp, "run2")
         jobs2 = predict_inputs(out2, ("3dbs",))
@@ -2317,6 +2379,232 @@ def phase_predict(torch, np, TC, smi):
             raise AssertionError(f"run 2 launch counts {counts2}, expected {want2}")
         if not all(np.isfinite(r.lig_pos).all() and np.isfinite(r.mdn_nll) for r in res2):
             raise AssertionError("run 2: non-finite poses or scores")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def same_tree(np, a, b, skip=()):
+    """Whether two prep values are equal: records field by field (fields in
+    `skip` left out), arrays in value, dtype and shape."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(b):
+        return type(a).__name__ == type(b).__name__ and all(
+            same_tree(np, getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(b) if f.name not in skip)
+    if isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a, b))
+    return a == b
+
+
+def same_real_rows(np, a, b):
+    """Two padded samples' arrays agree on the rows both hold and are zero
+    (the padding) beyond them: the same real rows under other buckets."""
+    if a.dtype != b.dtype or a.ndim != b.ndim:
+        return False
+    m = tuple(slice(0, min(x, y)) for x, y in zip(a.shape, b.shape))
+    return (np.array_equal(a[m], b[m]) and np.count_nonzero(a) == np.count_nonzero(a[m])
+            and np.count_nonzero(b) == np.count_nonzero(b[m]))
+
+
+def prep_timed(cli, argv):
+    """cli.main(argv) (a `predict -j prep` run); its wall seconds."""
+    t0 = time.time()
+    rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{' '.join(argv)} exited with {rc}")
+    return time.time() - t0
+
+
+def prep_library(np, cli, tmp, smi, sizes=(64, 640)):
+    """A library screen's prep: the 16 records of runs/screen_demo/mols
+    repeated into one SDF, `lib.sdf#i` on 3dbs's pocket, `predict -j prep`
+    of the first n records for each n in `sizes`, at -nw 0 and -nw 4. Every
+    pair prepared. Prints seconds per pair and, from the two sizes, each
+    setting's fixed and per-pair seconds and the pair count from which -nw
+    4 is the faster."""
+    import csv
+
+    mols = sorted(os.listdir(SCREEN_MOLS))
+    lib = os.path.join(tmp, "library.sdf")
+    with open(lib, "w") as out:
+        for i in range(max(sizes)):
+            with open(os.path.join(SCREEN_MOLS, mols[i % len(mols)])) as fh:
+                out.write(fh.read().rstrip("\n") + "\n$$$$\n")
+    pdb3 = os.path.join(PB_BENCH, "3dbs", "3dbs_protein_contact_chains.pdb")
+    secs = {}
+    # the first run, untimed, pays the process's first imports and parses
+    for n, nw, timed in [(min(sizes), 0, False)] + [(n, nw, True) for n in sizes
+                                                      for nw in (0, 4)]:
+        d = os.path.join(tmp, f"lib{n}_nw{nw}" + ("" if timed else "_warm"))
+        os.makedirs(d)
+        jobs = os.path.join(d, "jobs.csv")
+        with open(jobs, "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["protein", "protein_name", "ligand", "ligand_name", "complex_name",
+                        "crystal_ligand"])
+            for i in range(n):
+                w.writerow([pdb3, "3dbs", f"{lib}#{i}", f"lib{i}", f"lib_{i}",
+                            os.path.join(PB_BENCH, "3dbs", "3dbs_ligand.sdf")])
+        t = prep_timed(cli, ["predict", "-j", "prep", "-nw", str(nw), "-i", jobs, "-o", d])
+        done = [f for f in os.listdir(os.path.join(d, "prep_cache")) if f.endswith(".npz")]
+        if len(done) != n or os.path.exists(os.path.join(d, "failed.csv")):
+            raise AssertionError(f"library prep -nw {nw}: {len(done)} of {n} pairs prepared")
+        if timed:
+            secs[n, nw] = t
+            print(f"  library prep of {n} records on 3dbs's pocket, -nw {nw}: {t:.3f} s "
+                  f"({t / n:.4f} s per pair)", flush=True)
+    lo, hi = min(sizes), max(sizes)
+    fit = {}
+    for nw in (0, 4):
+        per = (secs[hi, nw] - secs[lo, nw]) / (hi - lo)
+        fit[nw] = (secs[lo, nw] - per * lo, per)
+        print(f"  -nw {nw}: {fit[nw][0]:.3f} s fixed + {fit[nw][1]:.5f} s per pair", flush=True)
+    saved = fit[0][1] - fit[4][1]
+    even = (fit[4][0] - fit[0][0]) / saved if saved > 0 else float("inf")
+    print(f"  -nw 4 is the faster from {even:.0f} pairs on, on the host of {smi}", flush=True)
+
+
+def phase_prep_predict(torch, np, TC, params, smi, new_buckets):
+    """Host prep from raw files, predict from raw inputs and the trunk
+    kernels at the buckets a fresh prep picks (see the module docstring,
+    phase 27). `new_buckets` receives each kernel's rows at those shapes."""
+    from diffbindfr_torch.app import cli
+    from diffbindfr_torch.app import pipeline
+    from diffbindfr_torch.chem.records import load_prep_record
+    from diffbindfr_torch.data.sample import _load_sample_npz
+    from diffbindfr_torch.models import score_net as sn
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prep_")
+    try:
+        # (a) predict -j prep of 18 pairs, serial and in 4 spawn workers
+        dirs, secs = {}, {}
+        for nw in (0, 4):
+            dirs[nw] = os.path.join(tmp, f"prep_nw{nw}")
+            jobs = predict_inputs(dirs[nw], PREDICT_NAMES, copy_cache=False, screen=True)
+            secs[nw] = prep_timed(cli, ["predict", "-j", "prep", "-nw", str(nw), "-i", jobs,
+                                        "-o", dirs[nw]])
+        cache = {nw: os.path.join(d, "prep_cache") for nw, d in dirs.items()}
+        names = sorted(f[: -len("_r12.npz")] for f in os.listdir(cache[0]) if f.endswith(".npz"))
+        n_pairs = len(PREDICT_NAMES) + len(os.listdir(SCREEN_MOLS))
+        print(f"  prep of {n_pairs} pairs from raw files (-j prep): -nw 0 {secs[0]:.3f} s "
+              f"({secs[0] / n_pairs:.4f} s per pair), -nw 4 {secs[4]:.3f} s "
+              f"({secs[4] / n_pairs:.4f} s per pair, the workers' start included), on the "
+              f"host of {smi}", flush=True)
+        if len(names) != n_pairs or any(os.path.exists(os.path.join(d, "failed.csv"))
+                                        for d in dirs.values()):
+            raise AssertionError(f"{len(names)} of {n_pairs} pairs prepared")
+        for n in names:  # the workers' entries are the serial prep's
+            rec0, rec4 = (load_prep_record(os.path.join(cache[nw], f"{n}_r12.rec.pkl"))
+                          for nw in (0, 4))
+            with np.load(os.path.join(cache[0], f"{n}_r12.npz")) as z0, \
+                    np.load(os.path.join(cache[4], f"{n}_r12.npz")) as z4:
+                same = z0.files == z4.files and all(same_tree(np, z4[k], z0[k]) for k in z0.files)
+            if not (same and set(rec0) == set(rec4)
+                    and all(same_tree(np, rec4[k], rec0[k]) for k in rec0)):
+                raise AssertionError(f"{n}: -nw 4 and -nw 0 prepared different entries")
+        for n in PREDICT_NAMES:  # against the tracked caches
+            got, ref = (load_prep_record(os.path.join(d, f"{n}_r12.rec.pkl"))
+                        for d in (cache[0], PREP))
+            bad = [k for k in ref if k != "bucket" and not same_tree(
+                np, got[k], ref[k], skip=("chain_ids",) if k == "pocket" else ())]
+            with np.load(os.path.join(cache[0], f"{n}_r12.npz")) as z, \
+                    np.load(os.path.join(PREP, f"{n}_r12.npz")) as zr:
+                bad += [k for k in zr.files if not same_real_rows(np, z[k], zr[k])]
+                b = (int(z["lig_feat"].shape[0]), int(z["atm_pos"].shape[0]))
+            print(f"  {n}: fresh bucket (n_lig, n_atm) {b}, tracked ({ref['bucket'].n_lig}, "
+                  f"{ref['bucket'].n_atm}); chain_ids {got['pocket'].chain_ids} (tracked "
+                  f"{ref['pocket'].chain_ids}); real rows and record fields differing from the "
+                  f"tracked cache: {bad or 'none'}", flush=True)
+            if bad or b != PREP_BUCKETS[n]:
+                raise AssertionError(f"{n}: fresh prep differs from the tracked cache in {bad}, "
+                                     f"bucket {b}")
+        stamp = {f: os.stat(os.path.join(cache[4], f)).st_mtime_ns
+                 for f in os.listdir(cache[4])}
+        again = prep_timed(cli, ["predict", "-j", "prep", "-nw", "4", "-i",
+                                 os.path.join(dirs[4], "jobs.csv"), "-o", dirs[4]])
+        if {f: os.stat(os.path.join(cache[4], f)).st_mtime_ns
+                for f in os.listdir(cache[4])} != stamp:
+            raise AssertionError("a second prep rewrote cache entries")
+        print(f"  second -nw 4 run: all {n_pairs} pairs from the cache in {again:.3f} s",
+              flush=True)
+        prep_library(np, cli, tmp, smi)
+
+        # (b) predict from raw inputs at its defaults
+        out = os.path.join(tmp, "raw")
+        jobs = predict_inputs(out, PREDICT_NAMES, copy_cache=False)
+        n_poses, bs = 40, 16
+        argv = ["predict", "-i", jobs, "-o", out, "-ckt", CKPT, "-mdn", MDN_CKPT,
+                "-np", str(n_poses), "-bs", str(bs), "--cluster-rank", "2.0", "--save-poses",
+                "-traj", "--export-top", "5"]
+        counts, stage, wall, prepared, results, n_batches = predict_run(
+            torch, TC, pipeline, cli, argv, n_poses * len(PREDICT_NAMES))
+        total = len(results)
+        print(f"  predict from raw files (bf16, EC 150 steps, {len(PREDICT_NAMES)} complexes x "
+              f"{n_poses} poses, -bs {bs}, buckets "
+              f"{[(p.name, p.bucket.n_lig, p.bucket.n_atm) for p in prepared]}): launches "
+              f"{counts}", flush=True)
+        print(f"  stages: prep {stage['prep']:.3f} s ({stage['prep'] / len(prepared):.4f} s per "
+              f"pair); dock {stage['dock']:.3f} s ({total / stage['dock']:.3f} poses/s); EC "
+              f"{stage['error_correct']:.3f} s ({1e3 * stage['error_correct'] / n_batches:.1f} "
+              f"ms per batch, {n_batches} batches); save_poses {stage['save_poses']:.3f} s; MDN "
+              f"{stage['score_mdn']:.3f} s; export {stage['export_and_rank']:.3f} s; main() "
+              f"{wall:.3f} s: {wall / total:.4f} s per pose end to end, on {smi}", flush=True)
+        want = {k: 6 * 20 * 3 * len(PREDICT_NAMES) if k in BF16_KERNELS else 0
+                for k in TC.launches}
+        if counts != want:
+            raise AssertionError(f"launch counts {counts}, expected {want}")
+        if {p.name: (p.bucket.n_lig, p.bucket.n_atm) for p in prepared} != PREP_BUCKETS:
+            raise AssertionError("predict did not dock at the fresh buckets")
+        predict_read_back(np, out, prepared, results, PREDICT_NAMES)
+
+        # (c) B1-B3 and B11 at the fresh buckets, against their plain versions;
+        # the tracked 3dbs cache's bucket beside them, timed the same way
+        f32 = {k: (getattr(TC, k), getattr(TC, k + "_plain")) for k in KERNELS}
+        b11 = {k: (functools.partial(getattr(TC, v[2]), bf16_chain=True),
+                   functools.partial(getattr(TC, v[2] + "_plain"), bf16_chain=True), v[2])
+               for k, v in BF16_KERNELS.items()}
+        p16 = sn._cast_f32_leaves(params, torch.bfloat16)
+        samples = [(n, os.path.join(cache[0], f"{n}_r12.npz")) for n in PREDICT_NAMES]
+        for n, path in samples + [("3dbs, tracked cache", SAMPLE)]:
+            s_np = _load_sample_npz(path)
+            for layer in (0, 5):
+                seed = 2700 + layer
+                a32 = kernel_inputs(torch, params, s_np, layer, 16, seed)
+                a16 = kernel_inputs(torch, p16, s_np, layer, 16, seed)
+                plan = [(k, fn, pl, a32[k], 1e-4, k) for k, (fn, pl) in f32.items()]
+                plan += [(k, fn, pl, a16[tw], BF16_GATE, tw) for k, (fn, pl, tw) in b11.items()]
+                for name, fn, plain, a, gate, twin in plan:
+                    with torch.no_grad():
+                        got, ref = fn(*a), plain(*a)
+                        torch.cuda.synchronize()
+                        got, ref = ((x if isinstance(x, tuple) else (x,)) for x in (got, ref))
+                        err = max(rel_err(g_, r_) for g_, r_ in zip(got, ref))
+                        abs_err = max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
+                        finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
+                        g_ms = graph_ms_or_none(torch, lambda: fn(*a))
+                        plain_ms = time_ms(lambda: plain(*a), 1, 2)
+                    if name in KERNELS:
+                        flops, byts, pairs = work(torch, name, a)
+                        t_ops, t_bytes = flops / PEAK_FP32, byts / PEAK_BYTES
+                        bound_ms = max(t_ops, t_bytes) * 1e3
+                        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+                    else:
+                        bound_ms, bound_by, pairs = b11_bound(torch, twin, a)[:3]
+                    row = dict(complex=n, n_lig=int(s_np.lig_feat.shape[0]),
+                               n_atm=int(s_np.atm_pos.shape[0]), layer=layer, batch=16,
+                               max_rel_err=err, max_abs_err=abs_err, graph_ms=g_ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               pairs=pairs)
+                    new_buckets.setdefault(name, []).append(row)
+                    print(f"  {name} {n} (n_lig {row['n_lig']}, n_atm {row['n_atm']}) layer "
+                          f"{layer} B=16: max|err|/max|ref| {err:.2e} (gate {gate:g}) graph "
+                          f"replay {fmt_ms(g_ms)} plain {plain_ms:.3f} ms bound "
+                          f"{bound_ms:.4f} ms ({bound_by}) pairs {pairs:.0f}", flush=True)
+                    if not finite or err > gate:
+                        raise AssertionError(f"{name} {n} layer {layer}: kernel disagrees with "
+                                             f"plain ({err:.3e})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2792,6 +3080,10 @@ def main() -> int:
     with Phase("predict"):
         phase_predict(torch, np, TC, smi)
 
+    fresh = {}
+    with Phase("prep_predict"):
+        phase_prep_predict(torch, np, TC, params, smi, fresh)
+
     rows = []
     for name, (src, repl) in KERNELS.items():
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]
@@ -2803,7 +3095,8 @@ def main() -> int:
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 16,
-                     **{k: main_row[k] for k in ("graph_same", "blocks") if k in main_row}})
+                     **{k: main_row[k] for k in ("graph_same", "blocks") if k in main_row},
+                     "buckets": fresh[name]})
     for name, (src, repl, _) in BWD_KERNELS.items():
         # the training shapes: layer 5, the 128/1024 batch of 4
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 4][0]
@@ -2848,7 +3141,8 @@ def main() -> int:
                      "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 16,
-                     **{k: main_row[k] for k in ("graph_same", "blocks") if k in main_row}})
+                     **{k: main_row[k] for k in ("graph_same", "blocks") if k in main_row},
+                     "buckets": fresh[name]})
     for name in sorted(k for k in per_kernel if k.startswith("probe_bf16/")):
         r = per_kernel[name]
         # 8192 x 1024 elements, 2000 steps; launches from its measurement

@@ -2,15 +2,21 @@
 predict ...`, the counterpart of diffbindfr_tpu/app/cli.py's `predict`.
 
 Same flag names and defaults. Jobs come from a CSV (-i) or receptor/ligand
-lists (-p / -l); their pairs are read from `<outdir>/prep_cache`, where the
-JAX package's `predict` writes them (`<complex>_r<radius>.npz` + `.rec.pkl`).
-Then dock -> error correction -> MDN scoring -> export and rank.
+lists (-p / -l, with a `<stem>_crystal.sdf` or `<stem>_box.csv` beside each
+receptor defining its pocket). Prep featurises each pair from its raw files
+on the host, in `-nw` spawn workers when asked, into `<outdir>/prep_cache`
+(`<complex>_r<radius>.npz` + `.rec.pkl`; an entry there that serves the job,
+written by the port or by the JAX package's `predict`, is used as it is).
+`-j prep` stops after prep; it touches no device. Then dock -> error
+correction -> MDN scoring -> export and rank.
 
-The device picks the path (as app/train_cli.py): the card by default, where
-the score net's trunk runs the hand-written CUDA kernels; `--cpu` runs their
-plain PyTorch versions on the CPU. Flags of stages the port does not have
-yet exit with an error naming their ROADMAP item; none falls back silently.
+The device picks the path of the stages after prep (as app/train_cli.py):
+the card by default, where the score net's trunk runs the hand-written CUDA
+kernels; `--cpu` runs their plain PyTorch versions on the CPU. Flags of
+stages the port does not have yet exit with an error naming their ROADMAP
+item; none falls back silently.
 
+    python -m diffbindfr_torch.app.cli predict -i jobs.csv -o OUT -j prep -nw 4
     python -m diffbindfr_torch.app.cli predict -i jobs.csv -o OUT -ckt CKPT -mdn MDN
 """
 from __future__ import annotations
@@ -22,8 +28,6 @@ import sys
 
 # flags of stages not ported yet: (flag, is set, ROADMAP item and what it ports)
 _NOT_PORTED = (
-    ("-j prep", lambda a: a.job == "prep", "A9b (host prep from raw files)"),
-    ("-nw > 0", lambda a: a.num_workers > 0, "A9b (host prep from raw files)"),
     ("-nc > 0", lambda a: a.num_conformers > 0, "A14 (chem/embed.py conformers)"),
     ("--cart-relax", lambda a: a.cart_relax, "A10 (ops/cartesian.py relax)"),
     ("--conv-mode fc", lambda a: a.conv_mode == "fc", "A3 (the 'fc' tensor product)"),
@@ -36,22 +40,22 @@ def build_parser():
         description="flexible protein-ligand diffusion docking (PyTorch/CUDA port)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("predict", help="end-to-end docking from a prep cache")
+    p = sub.add_parser("predict", help="end-to-end docking")
     p.add_argument("-i", "--input-csv", help="job table csv")
     p.add_argument("-l", "--ligands", nargs="+", help="ligand files/dirs")
     p.add_argument("-p", "--receptors", nargs="+", help="receptor files/dirs")
     p.add_argument("-o", "--outdir", required=True,
-                   help="output dir; pairs are read from <outdir>/prep_cache")
+                   help="output dir; pairs are prepared into <outdir>/prep_cache")
     p.add_argument("-np", "--num-poses", type=int, default=40)
     p.add_argument("-bs", "--batch-size", type=int, default=16)
     p.add_argument("-dr", "--pocket-radius", type=float, default=12.0)
     p.add_argument("-j", "--job", choices=["prep", "dock"], default="dock",
-                   help="'prep' waits for ROADMAP A9b")
+                   help="'prep' stops after prep (host only, no device)")
     p.add_argument("-ckt", "--checkpoint", help="diffusion model checkpoint (.npz)")
     p.add_argument("-mdn", "--mdn-checkpoint", help="MDN scorer checkpoint (.npz)")
     p.add_argument("-sd", "--seed", type=int, default=0)
     p.add_argument("-nw", "--num-workers", type=int, default=0,
-                   help="parallel featurization workers (> 0 waits for ROADMAP A9b)")
+                   help="parallel featurization workers (0 = serial)")
     p.add_argument("-nc", "--num-conformers", type=int, default=0,
                    help="DG-embedded starting conformers (> 0 waits for ROADMAP A14)")
     p.add_argument("-s", "--start", type=int, default=0, help="job slice start")
@@ -124,7 +128,6 @@ def cmd_predict(args):
     from . import jobs as J
     from . import pipeline as P
 
-    dev = resolve_device("cpu" if args.cpu else "cuda")
     if args.input_csv:
         jobs = J.load_jobs_csv(args.input_csv)
     elif args.ligands and args.receptors:
@@ -137,14 +140,20 @@ def cmd_predict(args):
         if len(jobs) != n0:
             print(f"[jobs] library expansion: {n0} -> {len(jobs)}")
     jobs = J.job_slice(jobs, args.start, args.end, args.interval)
-    print(f"[jobs] {len(jobs)} pairs on {dev}")
+    print(f"[jobs] {len(jobs)} pairs")
 
     os.makedirs(args.outdir, exist_ok=True)
     prepared, failures = P.prep(jobs, pocket_radius=args.pocket_radius,
-                                cache_dir=os.path.join(args.outdir, "prep_cache"))
+                                cache_dir=os.path.join(args.outdir, "prep_cache"),
+                                num_workers=args.num_workers)
     P.write_failures(args.outdir, failures)
+    if args.job == "prep":
+        print("[prep] done (job=prep, stopping before dock)")
+        return 0
     if not prepared:
         sys.exit("no pairs prepared")
+    dev = resolve_device("cpu" if args.cpu else "cuda")
+    print(f"[device] {dev}")
 
     net_kw = dict(compute_dtype=args.dtype)
     samp_kw = dict(inference_steps=args.steps + 2, actual_steps=args.steps)

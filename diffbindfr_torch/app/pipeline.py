@@ -1,16 +1,14 @@
 """The stages of `predict`: PyTorch counterpart of
-diffbindfr_tpu/app/pipeline.py (PreparedPair, prep from a prep cache,
-DockEngine / dock, ECEngine / error_correct, MDNEngine / score_mdn,
-export_and_rank, save_poses / load_poses, write_failures).
+diffbindfr_tpu/app/pipeline.py (PreparedPair, prep, DockEngine / dock,
+ECEngine / error_correct, MDNEngine / score_mdn, export_and_rank,
+save_poses / load_poses, write_failures).
 
-Pairs come from prep-cache npz files and the `<stem>.rec.pkl` records beside
-them, as the JAX package's `prep` writes both; `prep` here reads the cache
-only (host prep from raw PDB/SDF files is a later slice), and a pair without
-a usable cache entry is a Failure. Pairs, poses and exports are keyed by the
-complex name, as in the JAX package. Each stage groups its replicas (pair x
-pose) by bucket and runs them in batches of `batch_size`; a final partial
-batch is padded by repeating its first replica and the padding results are
-dropped.
+Host prep (PreparedPair, prep, write_failures) lives in app/prepare.py,
+which imports no torch, and is re-exported here. Pairs, poses and exports
+are keyed by the complex name, as in the JAX package. Each stage after prep
+groups its replicas (pair x pose) by bucket and runs them in batches of
+`batch_size`; a final partial batch is padded by repeating its first
+replica and the padding results are dropped.
 """
 from __future__ import annotations
 
@@ -23,136 +21,12 @@ import numpy as np
 import torch
 
 from .. import sampler as sp
-from ..chem.records import HoloRef, LigandRecord, PocketRecord, load_prep_record
-from ..data.sample import Buckets, DockingSample, _load_sample_npz, bucket_of, stack_samples, to_device
-from ..io.pdb import Protein, parse_pdb
+from ..data.sample import stack_samples, to_device
 from ..models import mdn_scorer as mdn
 from ..ops import vina
 from ..utils.device import resolve_device
 from .export import PoseStructWriter, export_pose, export_trajectory, pose_metrics
-from .jobs import Job
-
-
-@dataclasses.dataclass
-class PreparedPair:
-    """One featurised (pocket, ligand) pair, read from a prep-cache npz and,
-    where it exists, the `<stem>.rec.pkl` record beside it (the ligand and
-    pocket records that error correction, export and the metrics read)."""
-
-    name: str  # the complex name (the JAX pair's job.complex_name)
-    sample: DockingSample  # numpy fields, one padded sample
-    bucket: Buckets
-    lig: LigandRecord | None = None
-    pocket: PocketRecord | None = None
-    crystal_pos: np.ndarray | None = None  # [A, 3] input ligand pose, world frame
-    job: Job | None = None  # the job the pair was prepared for (its protein path)
-    # side-chain reference of an apo->holo job; None grades against the input pocket
-    holo_ref: HoloRef | None = None
-    # receptor path -> parsed Protein, shared by the pairs of one `prep` call
-    protein_cache: dict = dataclasses.field(default_factory=dict, repr=False)
-
-    @classmethod
-    def from_prep_cache(cls, path: str, job: Job | None = None, rec: dict | None = None,
-                        protein_cache: dict | None = None) -> "PreparedPair":
-        """The pair of the cache entry `path` (`<stem>.npz`). `rec` is its
-        record when the caller has read it already, else `<stem>.rec.pkl`
-        is read where it exists. With a job the pair takes the job's complex
-        name, its protein and, when the job names a holo structure, the
-        record's holo_ref (a redock job grades against the input pocket).
-        Without one the name is the stem less the `_r<radius>` suffix that
-        the JAX package's `_cache_paths` adds (`3dbs_r12.npz` -> `3dbs`),
-        and the pair has no protein."""
-        stem = path[: -len(".npz")] if path.endswith(".npz") else path
-        if rec is None:
-            rec = load_prep_record(stem + ".rec.pkl") if os.path.exists(stem + ".rec.pkl") else {}
-        if job is not None:
-            name = job.complex_name
-        else:
-            name = os.path.basename(stem)
-            head, sep, tail = name.rpartition("_r")
-            if sep and head and tail.replace(".", "", 1).isdigit():
-                name = head
-        s = _load_sample_npz(path)
-        return cls(name=name, sample=s, bucket=rec.get("bucket", bucket_of(s)),
-                   lig=rec.get("lig"), pocket=rec.get("pocket"),
-                   crystal_pos=rec.get("crystal_pos"), job=job,
-                   holo_ref=rec.get("holo_ref") if job is not None and job.holo_protein else None,
-                   protein_cache={} if protein_cache is None else protein_cache)
-
-    @property
-    def protein(self) -> Protein:
-        """The full input protein, parsed from job.protein on first use (once
-        per path among the pairs sharing `protein_cache`)."""
-        if self.job is None:
-            raise RuntimeError(f"{self.name}: no job, so no protein to export into")
-        if self.job.protein not in self.protein_cache:
-            self.protein_cache[self.job.protein] = parse_pdb(self.job.protein)
-        return self.protein_cache[self.job.protein]
-
-
-@dataclasses.dataclass
-class Failure:
-    complex_name: str
-    stage: str
-    error: str
-
-
-def _cache_paths(cache_dir: str, job: Job, pocket_radius: float):
-    stem = os.path.join(cache_dir, f"{job.complex_name}_r{pocket_radius:g}")
-    return stem + ".npz", stem + ".rec.pkl"
-
-
-def _cache_hit(rec: dict, job: Job):
-    """Why a prep record does not serve `job`, or None when it does: the JAX
-    package's `_cache_hit` checks for a run without conformers (-nc 0). A
-    record with conformers is refused too: the port's dock starts every
-    replica from the input conformer (conformer starts are ROADMAP A14)."""
-    if rec.get("conformers") is not None:
-        return ("the record carries DG-embedded conformers (-nc), which the port cannot "
-                "dock yet (ROADMAP A14)")
-    if job.holo_protein and (rec.get("holo_src") != job.holo_protein
-                             or rec.get("holo_ref") is None):
-        return f"the record's holo reference is not built from {job.holo_protein}"
-    return None
-
-
-def prep(jobs: list, pocket_radius: float = 12.0, cache_dir: str | None = None,
-         verbose: bool = True):
-    """The pairs of `jobs` from the prep cache in `cache_dir`, as the JAX
-    package's `prep` serves a cache hit (`<complex>_r<radius:g>.npz` and its
-    `.rec.pkl`). Returns (prepared list, failures list); a job whose entry is
-    missing or does not serve it is a Failure at stage 'prep': host prep
-    from raw files is ROADMAP A9b."""
-    prepared, failures, proteins = [], [], {}
-    for job in jobs:
-        spath, rpath = _cache_paths(cache_dir or "", job, pocket_radius)
-        if not (os.path.exists(spath) and os.path.exists(rpath)):
-            why = f"no prep-cache entry {spath} (+ .rec.pkl)"
-        else:
-            try:
-                rec = load_prep_record(rpath)
-                why = _cache_hit(rec, job)
-                if why is None:
-                    prepared.append(PreparedPair.from_prep_cache(
-                        spath, job=job, rec=rec, protein_cache=proteins))
-                    continue
-            except Exception as e:  # an entry the port cannot read: the job fails, not the run
-                why = f"unreadable prep-cache entry {spath}: {e!r}"
-        failures.append(Failure(job.complex_name, "prep",
-                                why + "; host prep from raw files is ROADMAP A9b"))
-    if verbose:
-        print(f"[prep] {len(prepared)} pairs from the prep cache, {len(failures)} failed")
-    return prepared, failures
-
-
-def write_failures(outdir: str, failures: list) -> None:
-    if not failures:
-        return
-    with open(os.path.join(outdir, "failed.csv"), "w", newline="") as fh:
-        w = csv.writer(fh)
-        w.writerow(["complex_name", "stage", "error"])
-        for f in failures:
-            w.writerow([f.complex_name, f.stage, f.error])
+from .prepare import Failure, PreparedPair, prep, write_failures  # noqa: F401 (re-exported)
 
 
 @dataclasses.dataclass
@@ -215,7 +89,7 @@ class DockEngine:
         t0 = time.time()
         for _, chunk in plan:
             reps = chunk + [chunk[0]] * (self.batch_size - len(chunk))
-            batch = to_device(stack_samples([prepared[i].sample for i, _ in reps]), self.device)
+            batch = to_device(_stack(prepared, [i for i, _ in reps]), self.device)
             noise = sp.draw_noise(batch, self.sampler_cfg, gen)
             res = sp.sample(self.params, self.net_cfg, self.sampler_cfg, batch, noise,
                             keep_trajectory=self.keep_trajectory)
@@ -232,6 +106,13 @@ class DockEngine:
                 rate = len(results) / max(time.time() - t0, 1e-9)
                 print(f"[dock] {len(results)}/{total} poses ({rate:.2f}/s)", flush=True)
         return results
+
+
+def _stack(prepared: list, pair_idxs: list):
+    """The batch of the pairs `pair_idxs` (repeats allowed): each pair's
+    sample read once, from memory or its npz."""
+    samples = {i: prepared[i].sample for i in dict.fromkeys(pair_idxs)}
+    return stack_samples([samples[i] for i in pair_idxs])
 
 
 def _to_device(tree, device):
@@ -347,8 +228,8 @@ class MDNEngine:
         t0 = time.time()
         done = 0
         for chunk, idxs in _batches(prepared, results, self.batch_size):
-            batch = to_device(stack_samples([prepared[results[k].pair_idx].sample
-                                             for k in idxs]), self.device)
+            batch = to_device(_stack(prepared, [results[k].pair_idx for k in idxs]),
+                              self.device)
             lp = torch.from_numpy(np.stack([results[k].lig_pos for k in idxs])).to(
                 self.device, torch.float32)
             a14 = torch.from_numpy(np.stack([results[k].atom14_pos for k in idxs])).to(

@@ -1,1 +1,2 @@
-"""Prep records of the port (counterparts of diffbindfr_tpu/chem/)."""
+"""Host chemistry of the port: ligand perception and featurisation, pocket
+featurisation and the prep records (counterparts of diffbindfr_tpu/chem/)."""

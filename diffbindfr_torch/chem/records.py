@@ -1,15 +1,22 @@
-"""Prep records of a (pocket, ligand) pair and their reader.
+"""Prep records of a (pocket, ligand) pair, their reader and the ligand's
+identity.
 
-The JAX package's prep writes, beside each prep-cache npz, a pickle
-`<stem>.rec.pkl`: a dict with the featurised ligand (`lig`), the pocket
-(`pocket`), the bucket (`bucket`), the crystal ligand pose (`crystal_pos`)
-and optional entries. The pickle names the JAX package's record classes;
+Prep writes, beside each prep-cache npz, a pickle `<stem>.rec.pkl`: a dict
+with the featurised ligand (`lig`), the pocket (`pocket`), the bucket
+(`bucket`), the crystal ligand pose (`crystal_pos`) and optional entries.
+A record the JAX package wrote names that package's record classes;
 `load_prep_record` maps them onto the copies below, so reading a record
-imports neither that package nor JAX. Field for field the copies match
-diffbindfr_tpu/chem/ligand_feats.py:27-49 (LigandRecord),
-diffbindfr_tpu/chem/protein_feats.py:28-68 (PocketRecord) and
-diffbindfr_tpu/app/analysis.py:70-89 (HoloRef, the `holo_ref` entry of a
-record written for an apo->holo job).
+imports neither that package nor JAX, and it reads the records the port's
+own prep writes (app/pipeline.py), which name these classes. Field for
+field the copies match diffbindfr_tpu/chem/ligand_feats.py:27-49
+(LigandRecord), diffbindfr_tpu/chem/protein_feats.py:28-68 (PocketRecord)
+and diffbindfr_tpu/app/analysis.py:70-89 (HoloRef, the `holo_ref` entry of
+a record written for an apo->holo job).
+
+The port's records also carry `lig_src` (`ligand_source`): the ligand path
+as the job names it (with its `#i`) and a sha256 of that record's text, so a
+cache entry written for another ligand, or for an edited or reordered
+library, is recomputed instead of served.
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import pickle
 import numpy as np
 
 from ..data.sample import Buckets
+from ..io.sdf import read_record
 
 
 @dataclasses.dataclass
@@ -98,12 +106,14 @@ class HoloRef:
         return self.atom14_mask
 
 
-# (module, name) in the pickle -> the class it builds here
+# (module, name) in the pickle -> the class it builds here: the JAX
+# package's classes, and the port's own
 _RECORD_CLASSES = {
     ("diffbindfr_tpu.chem.ligand_feats", "LigandRecord"): LigandRecord,
     ("diffbindfr_tpu.chem.protein_feats", "PocketRecord"): PocketRecord,
     ("diffbindfr_tpu.data.sample", "Buckets"): Buckets,
     ("diffbindfr_tpu.app.analysis", "HoloRef"): HoloRef,
+    **{(c.__module__, c.__name__): c for c in (LigandRecord, PocketRecord, Buckets, HoloRef)},
 }
 # numpy's array reconstruction: numpy >= 2 pickles name numpy._core, older
 # ones numpy.core; either file is read under either numpy
@@ -149,3 +159,9 @@ def load_prep_record(path: str) -> dict:
     other than those, numpy arrays and plain containers are refused."""
     with open(path, "rb") as fh:
         return _RecordUnpickler(fh).load()
+
+
+def ligand_source(path: str) -> tuple:
+    """`lig_src` of a job's ligand: (path as the job gives it, sha256 of the
+    text of the record it names; io/sdf.read_record)."""
+    return path, read_record(path)[1]

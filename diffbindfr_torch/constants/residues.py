@@ -1,12 +1,19 @@
-"""Residue vocabularies the port reads (counterpart of the vocabulary,
-atom14/atom37 and chi tables of diffbindfr_tpu/constants/residues.py;
-AlphaFold2 literature constants).
+"""Residue vocabularies and tables the port reads (counterpart of
+diffbindfr_tpu/constants/residues.py; AlphaFold2 literature constants).
+
+The ideal rigid-group atom positions are read from the port's own copy of
+that data, `rigid_group_positions.txt` beside this module; the default
+frames, template positions and group ids are derived from them here (AF2
+supplementary Algorithm 24 frame conventions), as the JAX package derives
+them.
 
 Residue type ids follow `restypes` (20 standard residues, then 20 for
 unknown); atom14 slots are N, CA, C, O, CB, then the side chain. The derived
 arrays have the JAX package's shapes and dtypes ([21, ...], unknown last).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -112,6 +119,97 @@ def _fill_tables():
 
 
 _fill_tables()
+
+
+# ---------------------------------------------------------------------------
+# Rigid-group frames (AF2 Algorithm 24 conventions)
+# ---------------------------------------------------------------------------
+
+
+def _read_rigid_group_positions():
+    """res3 -> [(atom name, rigid group, xyz float64)] in file order."""
+    out = {res3: [] for res3 in _SIDE if res3 != "UNK"}
+    path = os.path.join(os.path.dirname(__file__), "rigid_group_positions.txt")
+    with open(path) as fh:
+        for line in fh:
+            parts = line.split()
+            if not parts or parts[0].startswith("#"):
+                continue
+            out[parts[0]].append(
+                (parts[1], int(parts[2]), np.array([float(x) for x in parts[3:6]])))
+    return out
+
+
+rigid_group_atom_positions = _read_rigid_group_positions()
+
+
+def _rigid_4x4(ex: np.ndarray, ey: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """Rigid transform whose x-axis is ex, xy-plane spans (ex, ey), origin t."""
+    ex = ex / np.linalg.norm(ex)
+    ey = ey - np.dot(ey, ex) * ex
+    ey = ey / np.linalg.norm(ey)
+    ez = np.cross(ex, ey)
+    m = np.eye(4)
+    m[:3, 0] = ex
+    m[:3, 1] = ey
+    m[:3, 2] = ez
+    m[:3, 3] = t
+    return m
+
+
+restype_atom14_to_rigid_group = np.zeros((21, 14), dtype=np.int64)
+restype_atom14_rigid_group_positions = np.zeros((21, 14, 3), dtype=np.float32)
+restype_rigid_group_default_frame = np.zeros((21, 8, 4, 4), dtype=np.float32)
+restype_rigid_group_default_frame[:] = np.eye(4)
+# torsion rotation-axis edges i->j, j->k, k<-l of each chi in atom14 slots
+restype_atom14_torsion_edges = np.zeros((21, 4, 3, 2), dtype=np.int64)
+
+
+def _fill_rigid_groups():
+    for res3, atoms in rigid_group_atom_positions.items():
+        ri = restype_order[restype_3to1[res3]]
+        a14 = restype_name_to_atom14_names[res3]
+        pos = {name: xyz for name, _, xyz in atoms}
+        for name, group, xyz in atoms:
+            slot = a14.index(name)
+            restype_atom14_to_rigid_group[ri, slot] = group
+            restype_atom14_rigid_group_positions[ri, slot] = xyz
+        # groups 0 (backbone) and 1 (pre-omega) stay identity
+        restype_rigid_group_default_frame[ri, 2] = _rigid_4x4(
+            pos["N"] - pos["CA"], np.array([1.0, 0.0, 0.0]), pos["N"])
+        restype_rigid_group_default_frame[ri, 3] = _rigid_4x4(
+            pos["C"] - pos["CA"], pos["CA"] - pos["N"], pos["C"])
+        for ci, quad in enumerate(_CHI_ATOMS.get(res3, ())):
+            for k in range(3):
+                restype_atom14_torsion_edges[ri, ci, k] = [a14.index(quad[k]),
+                                                           a14.index(quad[k + 1])]
+            if ci == 0:
+                p = [pos[n] for n in quad]
+                mat = _rigid_4x4(p[2] - p[1], p[0] - p[1], p[2])
+            else:
+                axis_end = pos[quad[2]]
+                mat = _rigid_4x4(axis_end, np.array([-1.0, 0.0, 0.0]), axis_end)
+            restype_rigid_group_default_frame[ri, 4 + ci] = mat
+    # flip the l->k pair so edges read i->j->k<-l
+    restype_atom14_torsion_edges[..., -1, :] = restype_atom14_torsion_edges[..., -1, ::-1]
+
+
+_fill_rigid_groups()
+
+# chi rotation-bond (j, k) pairs in atom14 slots: the middle edge of each chi
+restype_chi_bond_atom14 = restype_atom14_torsion_edges[:, :, 1, :].copy()
+
+# coarse atom typing of the pocket featurizer (reference
+# protein_constants.py:600-618)
+atom_elements = ["C", "N", "O", "S"]
+coarse_atom_types = [
+    "C*", "CA", "CB", "CD", "CE", "CG", "CH", "CZ", "N*", "ND", "NE",
+    "NH", "NZ", "O*", "OD", "OE", "OG", "OH", "OX", "S*", "SD", "SG",
+]
+atom37_to_element = np.array([atom_elements.index(a[0]) for a in atom37_names],
+                             dtype=np.int64)
+atom37_to_coarse = np.array([coarse_atom_types.index((a + "*")[:2]) for a in atom37_names],
+                            dtype=np.int64)
 
 
 def aatype_from_resname(res3: str) -> int:

@@ -3,7 +3,12 @@
 Counterpart of diffbindfr_tpu/data/sample.py: one (pocket, ligand) pair is a
 `DockingSample` of dense arrays padded to a bucket size class; a batch
 stacks samples of one bucket along a new leading axis. Fields hold numpy
-arrays on the host (as read from a prep cache) or tensors on a device.
+arrays on the host (as `make_sample` builds them or a prep cache holds
+them) or tensors on a device.
+
+Pocket atoms use a packed layout: the existing atom14 slots of all pocket
+residues flattened in (residue, slot) order; `pack_flat` maps each packed
+atom back to r * 14 + slot.
 """
 from __future__ import annotations
 
@@ -11,7 +16,10 @@ import dataclasses
 from typing import NamedTuple
 
 import numpy as np
-import torch
+
+from ..constants import residues as rc
+
+CA37, CB37 = 1, 3  # atom37 ids of CA / CB (constants/residues.py atom37_order)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +102,87 @@ class DockingSample(NamedTuple):
     pocket_center: object  # [3] f32
 
 
+def _pad(a: np.ndarray, n: int, axis: int = 0, fill=0):
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (0, n - a.shape[axis])
+    return np.pad(a, pad, constant_values=fill)
+
+
+def make_sample(lig, pocket) -> DockingSample:
+    """Freeze one featurised pair (chem/records.py's LigandRecord and
+    PocketRecord) into a padded numpy DockingSample at the smallest bucket
+    that holds it (choose_bucket; `bucket_of` reads it back), as
+    diffbindfr_tpu/data/sample.py:142-226 does: the same operations, so the
+    same bits."""
+    nl, el, nt = lig.num_atoms, lig.edge_index.shape[1], lig.num_torsions
+    r = pocket.num_res
+
+    # --- packed pocket atoms
+    exists = pocket.atom14_mask.astype(bool)  # [R, 14]
+    ridx, aidx = np.nonzero(exists)
+    na = ridx.shape[0]
+    b = choose_bucket(nl, el, nt, r, na)
+
+    pack_flat = ridx * 14 + aidx
+    atm_pos = pocket.atom14_pos.reshape(-1, 3)[pack_flat]
+    atm_feat = pocket.node_feat[ridx, aidx].astype(np.int32)  # [NA, 5]
+    a37 = rc.restype_atom14_to_atom37[pocket.aatype][ridx, aidx]
+    is_cab = (a37 == CA37) | (a37 == CB37)
+
+    # inverse map: (r, a14) -> packed index (0 for missing; masked out)
+    inv = np.zeros((r, 14), dtype=np.int64)
+    inv[ridx, aidx] = np.arange(na)
+
+    # chi rotation bonds j->k in packed coordinates
+    chi_bonds = rc.restype_chi_bond_atom14[pocket.aatype]  # [R, 4, 2]
+    rr = np.arange(r)[:, None]
+    sc_src = inv[rr, chi_bonds[..., 0]]
+    sc_dst = inv[rr, chi_bonds[..., 1]]
+    chi_mask = pocket.chi_mask.astype(np.float32)
+    sc_src = sc_src * (chi_mask > 0)
+    sc_dst = sc_dst * (chi_mask > 0)
+
+    cab_pos = np.nonzero(is_cab)[0]
+    ncab = cab_pos.shape[0]
+    n_cab = 2 * b.n_res  # CA+CB compact list length
+
+    return DockingSample(
+        lig_feat=_pad(lig.node_feat.astype(np.float32), b.n_lig),
+        lig_pos=_pad(lig.pos.astype(np.float32), b.n_lig),
+        lig_ref_pos=_pad(lig.pos.astype(np.float32), b.n_lig),
+        lig_mask=_pad(np.ones(nl, np.float32), b.n_lig),
+        lig_e_src=_pad(lig.edge_index[0].astype(np.int32), b.n_lig_edges),
+        lig_e_dst=_pad(lig.edge_index[1].astype(np.int32), b.n_lig_edges),
+        lig_e_feat=_pad(lig.edge_feat.astype(np.float32), b.n_lig_edges),
+        lig_e_mask=_pad(np.ones(el, np.float32), b.n_lig_edges),
+        tor_src=_pad(lig.edge_index[0][lig.tor_edge_mask].astype(np.int32), b.n_tor),
+        tor_dst=_pad(lig.edge_index[1][lig.tor_edge_mask].astype(np.int32), b.n_tor),
+        tor_mask=_pad(np.ones(nt, np.float32), b.n_tor),
+        rot_node_mask=_pad(_pad(lig.rot_node_mask.astype(np.float32), b.n_lig, axis=1),
+                           b.n_tor),
+        atm_pos=_pad(atm_pos.astype(np.float32), b.n_atm),
+        atm_mask=_pad(np.ones(na, np.float32), b.n_atm),
+        atm_feat=_pad(atm_feat, b.n_atm),
+        cab_idx=_pad(cab_pos.astype(np.int32), n_cab),
+        cab_mask=_pad(np.ones(ncab, np.float32), n_cab),
+        noncab_mask=_pad((~is_cab).astype(np.float32), b.n_atm),
+        sc_src=_pad(sc_src.astype(np.int32), b.n_res),
+        sc_dst=_pad(sc_dst.astype(np.int32), b.n_res),
+        chi_mask=_pad(chi_mask, b.n_res),
+        aatype=_pad(pocket.aatype.astype(np.int32), b.n_res),
+        res_mask=_pad(np.ones(r, np.float32), b.n_res),
+        backbone_rots=_pad(pocket.backbone_rots.astype(np.float32), b.n_res),
+        backbone_transl=_pad(pocket.backbone_transl.astype(np.float32), b.n_res),
+        default_frame=_pad(pocket.default_frame.astype(np.float32), b.n_res),
+        template_pos=_pad(pocket.rigid_group_positions.astype(np.float32), b.n_res),
+        group_idx=_pad(pocket.group_idx.astype(np.int32), b.n_res),
+        atom14_mask=_pad(pocket.atom14_mask.astype(np.float32), b.n_res),
+        torsion_angle=_pad(pocket.torsion_angle.astype(np.float32), b.n_res),
+        pack_flat=_pad(pack_flat.astype(np.int32), b.n_atm),
+        pocket_center=pocket.center.astype(np.float32),
+    )
+
+
 def bucket_of(s: DockingSample) -> Buckets:
     """Size class of an (unbatched) sample, read from its padded shapes."""
     return Buckets(
@@ -120,7 +209,11 @@ def stack_samples(samples: list) -> DockingSample:
 
 
 def to_device(s: DockingSample, device) -> DockingSample:
-    """numpy sample -> tensors on `device` (float32 / int64 index fields)."""
+    """numpy sample -> tensors on `device` (float32 / int64 index fields).
+    torch is imported here, not with the module: host prep reads this
+    module and its spawn workers stay without torch."""
+    import torch
+
     out = []
     for v in s:
         t = torch.as_tensor(np.asarray(v))

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import gzip
+import hashlib
 import os
 
 import numpy as np
@@ -42,15 +43,21 @@ def parse_sdf(path: str, max_mols: int | None = None) -> list[RawMol]:
     with _open(path) as fh:
         text = fh.read()
     mols = []
+    for _, mol in _sdf_records(text):
+        mols.append(mol)
+        if max_mols and len(mols) >= max_mols:
+            break
+    return mols
+
+
+def _sdf_records(text: str):
+    """(block text, RawMol) of each record of an SDF text that parses."""
     for block in text.split("$$$$"):
         if not block.strip():
             continue
         mol = _parse_molblock(block)
         if mol is not None:
-            mols.append(mol)
-        if max_mols and len(mols) >= max_mols:
-            break
-    return mols
+            yield block, mol
 
 
 def _parse_molblock(block: str) -> RawMol | None:
@@ -143,8 +150,11 @@ _MOL2_BOND = {"1": 1, "2": 2, "3": 3, "ar": 4, "am": 1, "du": 1, "un": 1, "nc": 
 
 def parse_mol2(path: str) -> list[RawMol]:
     with _open(path) as fh:
-        text = fh.read()
-    mols = []
+        return [mol for _, mol in _mol2_records(fh.read())]
+
+
+def _mol2_records(text: str):
+    """(molecule text, RawMol) of each molecule of a MOL2 text with atoms."""
     for chunk in text.split("@<TRIPOS>MOLECULE")[1:]:
         lines = chunk.splitlines()
         name = lines[1].strip() if len(lines) > 1 else ""
@@ -173,20 +183,17 @@ def parse_mol2(path: str) -> list[RawMol]:
                 bonds.append((int(p[1]) - 1, int(p[2]) - 1))
                 orders.append(bt)
         if elements:
-            mols.append(
-                RawMol(
-                    name=name,
-                    elements=elements,
-                    coords=np.array(coords, dtype=np.float32),
-                    bonds=np.array(bonds, dtype=np.int64).reshape(-1, 2),
-                    bond_orders=np.array(orders, dtype=np.int64),
-                    # mol2 carries partial (not formal) charges; formal
-                    # charges default to 0 here
-                    formal_charges=np.zeros(len(elements), dtype=np.int64),
-                    props={},
-                )
+            yield chunk, RawMol(
+                name=name,
+                elements=elements,
+                coords=np.array(coords, dtype=np.float32),
+                bonds=np.array(bonds, dtype=np.int64).reshape(-1, 2),
+                bond_orders=np.array(orders, dtype=np.int64),
+                # mol2 carries partial (not formal) charges; formal
+                # charges default to 0 here
+                formal_charges=np.zeros(len(elements), dtype=np.int64),
+                props={},
             )
-    return mols
 
 
 def parse_ligand_file(path: str) -> list[RawMol]:
@@ -196,33 +203,58 @@ def parse_ligand_file(path: str) -> list[RawMol]:
     (app/jobs.py expand_ligand_library). The suffix is only honored when
     `path` itself does not name an existing file, so files whose names
     legitimately contain '#' keep working."""
-    idx = None
+    if _record_address(path)[1] is None:
+        return _parse_by_ext(path)
+    return [read_record(path)[0]]
+
+
+def read_record(path: str) -> tuple:
+    """(RawMol, sha256 hex of its record's text) of the record
+    parse_ligand_file(path)[0] returns (`file#i`: record i, else record 0).
+    The digest is the identity of a ligand record, which a copy of the file
+    to another machine keeps (its mtime it does not). Raises where the file
+    or the record is missing.
+
+    Record-addressed lookups arrive once per record of the SAME library
+    file (one prep job each); parsing the whole file per record would make
+    an N-record screen O(N^2) in records parsed. So the records of one file
+    at a time are kept, parsed and digested in one pass, keyed by
+    `file_key` (an edit keeping the mtime still moves the ctime). Parsed
+    RawMols are treated as immutable everywhere downstream."""
+    base, idx = _record_address(path)
+    key = file_key(base)
+    recs = _RECORDS.get(key)
+    if recs is None:
+        with _open(base) as fh:
+            text = fh.read()
+        if base.lower().endswith((".mol2", ".mol2.gz")):
+            pairs = _mol2_records(text)
+        else:  # the block as _parse_molblock reads it: from its title line on
+            pairs = ((t.lstrip("\n"), m) for t, m in _sdf_records(text))
+        recs = [(m, hashlib.sha256(t.encode()).hexdigest()) for t, m in pairs]
+        _RECORDS.clear()  # one library at a time; bound memory
+        _RECORDS[key] = recs
+    if (idx or 0) >= len(recs):
+        raise IndexError(f"{base} has {len(recs)} molecules; record #{idx or 0} requested")
+    return recs[idx or 0]
+
+
+_RECORDS: dict = {}
+
+
+def _record_address(path: str):
+    """(file, record index) of a `file#i` ligand path; (path, None) else."""
     if "#" in path and not os.path.exists(path):
         base, _, tail = path.rpartition("#")
         if tail.isdigit() and os.path.exists(base):
-            path, idx = base, int(tail)
-    if idx is not None:
-        # record-addressed lookups arrive once per record of the SAME
-        # library file (one prep job each); re-parsing the whole file per
-        # record would make an N-record screen O(N^2) in records parsed.
-        # Cache the parsed list keyed by (path, mtime, size); parsed
-        # RawMols are treated as immutable everywhere downstream.
-        st = os.stat(path)
-        key = (path, st.st_mtime_ns, st.st_size)
-        mols = _PARSED_CACHE.get(key)
-        if mols is None:
-            _PARSED_CACHE.clear()  # one library at a time; bound memory
-            mols = _parse_by_ext(path)
-            _PARSED_CACHE[key] = mols
-        if idx >= len(mols):
-            raise IndexError(
-                f"{path} has {len(mols)} molecules; record #{idx} requested"
-            )
-        return [mols[idx]]
-    return _parse_by_ext(path)
+            return base, int(tail)
+    return path, None
 
 
-_PARSED_CACHE: dict = {}
+def file_key(path: str) -> tuple:
+    """(path, mtime, ctime, size): changes when the file's content does."""
+    st = os.stat(path)
+    return path, st.st_mtime_ns, st.st_ctime_ns, st.st_size
 
 
 def _parse_by_ext(path: str) -> list[RawMol]:

@@ -180,7 +180,8 @@ def test_record_with_a_holo_reference_serves_redock_and_holo_jobs(tmp_path):
     own HoloRef; as the JAX package's `_cache_hit` does, a redock job is
     served and grades against the input pocket, a job naming the record's
     holo structure is served and grades against the HoloRef, and a job
-    naming another holo structure is a prep Failure. results.csv of each
+    naming another holo structure is not served (prepared again, it fails at
+    its pocket: the job has no pocket definition). results.csv of each
     served job is byte-identical to the JAX package's."""
     from diffbindfr_tpu.app.analysis import build_holo_ref
     from diffbindfr_torch.chem.records import HoloRef
@@ -222,4 +223,5 @@ def test_record_with_a_holo_reference_serves_redock_and_holo_jobs(tmp_path):
     assert min(abs(a - b) for a, b in zip(sc["redock"], sc["holo"])) > 0.1
     other = TJ.Job(**job_kw, holo_protein=os.path.join(d, "3mhw_ligand.sdf"))
     prepared, fails = TP.prep([other], 12.0, cache_dir=str(tmp_path), verbose=False)
-    assert not prepared and fails[0].stage == "prep" and "A9b" in fails[0].error
+    # not served, so prepared again from the raw files: the job has no pocket definition
+    assert not prepared and fails[0].stage == "pocket" and "no pocket" in fails[0].error

@@ -25,7 +25,7 @@ from diffbindfr_tpu.models import mdn_scorer as jmdn
 from diffbindfr_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
 from diffbindfr_torch.app import pipeline as TP
 from diffbindfr_torch.chem.records import load_prep_record
-from diffbindfr_torch.data.sample import stack_samples, to_device
+from diffbindfr_torch.data.sample import _load_sample_npz, stack_samples, to_device
 from diffbindfr_torch.models import mdn_scorer as tmdn
 from diffbindfr_torch.utils.checkpoint import load_checkpoint
 
@@ -91,7 +91,7 @@ def test_small_config_matches_jax(branch):
     jsum, jnll = np.asarray(jsum), np.asarray(jnll)
     tp = tmdn.params_from_jax(jp, device="cpu")
     tcfg = tmdn.MDNConfig(**{f: getattr(SMALL, f) for f in SMALL.__dataclass_fields__})
-    tb = to_device(stack_samples([TP._load_sample_npz(os.path.join(PREP, f"{n}_r12.npz"))
+    tb = to_device(stack_samples([_load_sample_npz(os.path.join(PREP, f"{n}_r12.npz"))
                                   for n in ("3dbs", "3dbs", "3dbs", "2zec", "2zec")]), "cpu")
     with torch.no_grad():
         tsum, tnll = tmdn.score_batch_both(tp, tcfg, tb, torch.from_numpy(poses),

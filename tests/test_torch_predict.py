@@ -328,8 +328,9 @@ def test_slice_from_sampler_to_export_matches_jax(small, tmp_path):
 def test_predict_cli_without_jax(tmp_path):
     """`python -m diffbindfr_torch.app.cli predict --cpu` in a fresh
     interpreter on a copy of the 3dbs and 3mhw caches (a third job, 2src, has
-    none): every output file, `failed.csv` naming A9b for 2src, and no jax,
-    JAX package or networkx module loaded. The SO(3)/torus tables are the
+    none, and no pocket definition to prepare it from): every output file,
+    `failed.csv` naming 2src's missing pocket definition, and no jax, JAX
+    package or networkx module loaded. The SO(3)/torus tables are the
     JAX package's, saved to a file here and handed in."""
     out = tmp_path / "out"
     os.makedirs(out / "prep_cache")
@@ -379,13 +380,14 @@ sys.exit(rc or (1 if bad else 0))
                 assert (out / n / f"pose_{p}" / f).exists(), (n, p, f)
     with open(out / "failed.csv", newline="") as fh:
         fail = list(csv.DictReader(fh))
-    assert [(f["complex_name"], f["stage"]) for f in fail] == [("2src", "prep")]
-    assert "A9b" in fail[0]["error"]
+    assert [(f["complex_name"], f["stage"]) for f in fail] == [("2src", "pocket")]
+    assert "no pocket definition" in fail[0]["error"]
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--cart-relax"], "A10"), (["-j", "prep"], "A9b"), (["-nw", "2"], "A9b"),
-    (["-nc", "4"], "A14"), (["--conv-mode", "fc"], "A3")])
+    pytest.param(["--cart-relax"], "A10", id="flags0-A10"),
+    pytest.param(["-nc", "4"], "A14", id="flags3-A14"),
+    pytest.param(["--conv-mode", "fc"], "A3", id="flags4-A3")])
 def test_unported_flags_exit_naming_their_item(flags, item, tmp_path):
     with pytest.raises(SystemExit) as e:
         cli.main(["predict", "--cpu", "-i", "none.csv", "-o", str(tmp_path)] + flags)
@@ -404,9 +406,11 @@ def test_unknown_config_option_is_refused(tmp_path):
 
 
 def test_cache_miss_and_unusable_records_are_failures(tmp_path):
-    """prep reads the cache only: a job without an entry, and one whose
-    record carries conformers, are Failures at stage 'prep' that name their
-    ROADMAP items, and write_failures lists them."""
+    """A job without a cache entry, and one whose record carries conformers
+    (which the port cannot dock from: ROADMAP A14), are prepared again from
+    their raw files; neither job has a pocket definition, so both are
+    Failures at stage 'pocket', and write_failures lists them. The third,
+    a JAX-written entry, is served."""
     import pickle
 
     for ext in (".npz", ".rec.pkl"):
@@ -421,8 +425,9 @@ def test_cache_miss_and_unusable_records_are_failures(tmp_path):
     prepared, failures = TP.prep(jobs, 12.0, cache_dir=str(tmp_path), verbose=False)
     assert [p.name for p in prepared] == ["3mhw"]
     assert prepared[0].job is jobs[1] and prepared[0].protein.num_res == 246
-    assert [(f.complex_name, f.stage) for f in failures] == [("3dbs", "prep"), ("2zec", "prep")]
-    assert "A14" in failures[0].error and "A9b" in failures[1].error
+    assert [(f.complex_name, f.stage) for f in failures] == [("3dbs", "pocket"),
+                                                            ("2zec", "pocket")]
+    assert all("no pocket definition" in f.error for f in failures)
     TP.write_failures(str(tmp_path), failures)
     with open(tmp_path / "failed.csv", newline="") as fh:
         assert [r["complex_name"] for r in csv.DictReader(fh)] == ["3dbs", "2zec"]

@@ -70,15 +70,30 @@ def test_record_equals_the_jax_unpickle(name):
 def test_records_ec_and_mdn_load_no_jax_or_networkx():
     """In a fresh interpreter: all five records load through PreparedPair,
     3mhw's ligand has 0 torsions, and two EC steps and the full-width MDN
-    (runs/mdn_r4b) run on the CPU; jax, the JAX package and networkx stay
-    out of sys.modules."""
+    (runs/mdn_r4b) run on the CPU; host prep from raw files (every module
+    of it imported, 3dbs prepared as an apo->holo job against itself, its
+    record read back) runs too; jax, the JAX package and networkx stay out
+    of sys.modules."""
     code = """
-import os, sys
+import os, sys, tempfile
 import torch
 torch.set_num_threads(1)
-from diffbindfr_torch.app import pipeline as TP
+from diffbindfr_torch.app import analysis, jobs, pipeline as TP
+from diffbindfr_torch.chem import gasteiger, ligand_feats, mol, protein_feats, records
+from diffbindfr_torch.chem import secondary_structure
+from diffbindfr_torch.constants import ligands, periodic, residues
+from diffbindfr_torch.data import sample
+from diffbindfr_torch.geometry import chi
 from diffbindfr_torch.models import mdn_scorer as mdn
 from diffbindfr_torch.utils.checkpoint import load_checkpoint
+d = 'runs/pb_bench/3dbs/'
+job = jobs.Job(d + '3dbs_protein_contact_chains.pdb', '3dbs', d + '3dbs_ligand.sdf', '3dbs',
+               '3dbs', crystal_ligand=d + '3dbs_ligand.sdf',
+               holo_protein=d + '3dbs_protein_contact_chains.pdb')
+tmp = tempfile.mkdtemp()
+fresh, fails = TP.prep([job], 12.0, cache_dir=tmp, verbose=False)
+assert not fails and fresh[0].bucket.n_lig == 64 and fresh[0].holo_ref is not None
+assert records.load_prep_record(os.path.join(tmp, '3dbs_r12.rec.pkl'))['lig_src'][0] == job.ligand
 prep = 'runs/eval_r5_scsrc/prep_cache'
 pairs = [TP.PreparedPair.from_prep_cache(os.path.join(prep, n + '_r12.npz'))
          for n in ('2src', '2zec', '3dbs', '3mhw', '3pp0')]
