@@ -203,6 +203,36 @@ a non-zero exit code):
               replay time, plain time and bound, and the same at the tracked
               3dbs cache's bucket (128, 1024) for comparison; each such row
               goes into its kernel's `buckets` in the kernels line
+  28. serve   the serving daemon (app/serve.py: make_service from the command
+              line's defaults, bf16, -bs 16, EC 150 steps, diff_r2 + mdn_r4b;
+              DockServer on a free localhost port; a drain window of 2 s, which
+              a full batch ends at once), requests from the raw files of
+              runs/pb_bench, after a warm-up on 3dbs: (a) two concurrent
+              requests for 8 poses of 3dbs share one round, each B11 kernel
+              launched exactly 120 times (B1-B10 never) and nothing prepared;
+              (c) that round run directly on the engines (DockEngine.run,
+              ECEngine, MDNEngine): poses within 1e-3 A, scores 1e-3 relative;
+              (d) each reply's SDFs (parse_sdf) at its round group's lig_pos +
+              center within 1e-3 A, rows best first; (b) concurrent 3dbs and
+              3mhw, 8 poses each: one round of two buckets, 240 launches of
+              each B11 kernel, one prep (3mhw's); /health, 400 for
+              n_conformers 2 (naming A14) and for a missing file, and /shutdown
+              with a request in flight serves it. Prints each request's
+              latency, the served round's dock poses/s beside the direct run's
+  29. eval    eval_cli.main (the pb layout: a copy of runs/pb_bench's five
+              complexes) with diff_r2 and mdn_r4b at -np 16 -bs 16 and the
+              defaults (bf16, EC 150 steps, validity): five batches (2src +
+              2zec, 3dbs + 3pp0, 3mhw), each B11 kernel launched exactly 600
+              times and B1-B10 never; 80 rows of finite scores and metrics,
+              metrics_report.txt, 80 validity rows, poses.npz; each stage's
+              time, validity's included, s per pose, the validity pass share,
+              the top-1 l_rmsd by mdn_nll per complex (readings). B11 at the
+              new bucket (n_lig 32, n_atm 1024), layers 0 and 5, B = 16, as
+              phase 27 (c), and a CUDA-graph replay gives the same bits (rows
+              into `buckets`). rescore_cli --poses on that run: MDN scores
+              within 1e-3 relative of eval's; rescore_cli -i results.csv
+              scores all 80 poses. The B11 rows of the kernels line carry the
+              launches of (a), (b) and eval in `path_launches`
 Kernel times: `ms` is the wrapper's time by CUDA events around 10 calls
 (its host set-up included), `device_ms` the kernel's own device time per
 call (phases 5, 9, 12, 17, 18, 23-25): from torch.profiler's
@@ -259,7 +289,8 @@ DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 
              "rm_dock": 300, "rm_profile": 120, "rm_grad": 180, "probe_bf16": 120,
              "bf16_kernels": 240, "bf16_forward": 120, "bf16_dock": 300, "ec_mdn_ref": 180,
              "score_chain": 240, "probe_mlp": 120,
-             "probe_mxu_ops": 180, "probe_mosaic": 180, "predict": 300, "prep_predict": 480}
+             "probe_mxu_ops": 180, "probe_mosaic": 180, "predict": 300, "prep_predict": 480,
+             "serve": 300, "eval": 420}
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, HBM3 bandwidth; bf16 outside the tensor cores (packed
 # bf16x2, two per fp32 lane: the H100 white paper's non-tensor BF16 rate,
@@ -2211,13 +2242,14 @@ def xtc_frames(path):
     return frames
 
 
-def predict_run(torch, TC, pipeline, cli, argv, n_poses):
+def predict_run(torch, TC, pipeline, cli, argv, n_poses, extra=()):
     """cli.main(argv) with every launch counter set to 0 just before and
     read just after. The pipeline functions that cli.py calls through the
-    module are wrapped meanwhile, so each stage's wall time (the card
-    synchronised on both sides) adds up in `stage`. Returns (counts, stage
-    seconds, main()'s wall seconds, the prepared pairs and final results
-    that export_and_rank received, the EC and MDN batch count)."""
+    module are wrapped meanwhile, and the functions `extra` names ((module,
+    name) pairs), so each stage's wall time (the card synchronised on both
+    sides) adds up in `stage`. Returns (counts, stage seconds, main()'s wall
+    seconds, the prepared pairs and final results that export_and_rank
+    received, the EC and MDN batch count)."""
     stage, seen, orig = {}, {}, {}
 
     def timed(name, fn):
@@ -2232,9 +2264,11 @@ def predict_run(torch, TC, pipeline, cli, argv, n_poses):
             return out
         return run
 
-    for name in ("prep", "dock", "error_correct", "save_poses", "score_mdn", "export_and_rank"):
-        orig[name] = getattr(pipeline, name)
-        setattr(pipeline, name, timed(name, orig[name]))
+    wrapped = [(pipeline, name) for name in ("prep", "dock", "error_correct", "save_poses",
+                                             "score_mdn", "export_and_rank")] + list(extra)
+    for mod, name in wrapped:
+        orig[mod, name] = getattr(mod, name)
+        setattr(mod, name, timed(name, orig[mod, name]))
     try:
         TC.reset_launches()
         t0 = time.time()
@@ -2243,10 +2277,10 @@ def predict_run(torch, TC, pipeline, cli, argv, n_poses):
         wall = time.time() - t0
         counts = dict(TC.launches)
     finally:
-        for name, fn in orig.items():
-            setattr(pipeline, name, fn)
+        for (mod, name), fn in orig.items():
+            setattr(mod, name, fn)
     if rc != 0:
-        raise AssertionError(f"predict exited with {rc}")
+        raise AssertionError(f"{cli.__name__} exited with {rc}")
     prepared, results = seen["export_and_rank"][:2]
     if len(results) != n_poses:
         raise AssertionError(f"{len(results)} poses, expected {n_poses}")
@@ -2466,6 +2500,68 @@ def prep_library(np, cli, tmp, smi, sizes=(64, 640)):
     print(f"  -nw 4 is the faster from {even:.0f} pairs on, on the host of {smi}", flush=True)
 
 
+def bucket_kernels(torch, TC, params, samples, new_buckets, f32=True, check_graph=False):
+    """B11 (and with `f32` B1-B3) on the kernel inputs of each (name, prep
+    npz) of `samples`, layers 0 and 5, B = 16, diff_r2 weights (B11 on their
+    bf16 rounding): each against its plain version at phase 5's (1e-4) and
+    phase 18's (BF16_GATE) bounds, its CUDA-graph replay time, plain time
+    and bound; with `check_graph` a CUDA-graph replay must give the eager
+    call's bits. Each row goes into new_buckets[kernel]."""
+    from diffbindfr_torch.data.sample import _load_sample_npz
+    from diffbindfr_torch.models import score_net as sn
+
+    f32 = {k: (getattr(TC, k), getattr(TC, k + "_plain")) for k in KERNELS} if f32 else {}
+    b11 = {k: (functools.partial(getattr(TC, v[2]), bf16_chain=True),
+               functools.partial(getattr(TC, v[2] + "_plain"), bf16_chain=True), v[2])
+           for k, v in BF16_KERNELS.items()}
+    p16 = sn._cast_f32_leaves(params, torch.bfloat16)
+    for n, path in samples:
+        s_np = _load_sample_npz(path)
+        for layer in (0, 5):
+            seed = 2700 + layer
+            a32 = kernel_inputs(torch, params, s_np, layer, 16, seed)
+            a16 = kernel_inputs(torch, p16, s_np, layer, 16, seed)
+            plan = [(k, fn, pl, a32[k], 1e-4, k) for k, (fn, pl) in f32.items()]
+            plan += [(k, fn, pl, a16[tw], BF16_GATE, tw) for k, (fn, pl, tw) in b11.items()]
+            for name, fn, plain, a, gate, twin in plan:
+                with torch.no_grad():
+                    got, ref = fn(*a), plain(*a)
+                    torch.cuda.synchronize()
+                    got, ref = ((x if isinstance(x, tuple) else (x,)) for x in (got, ref))
+                    err = max(rel_err(g_, r_) for g_, r_ in zip(got, ref))
+                    abs_err = max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
+                    finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
+                    g_ms = graph_ms_or_none(torch, lambda: fn(*a))
+                    plain_ms = time_ms(lambda: plain(*a), 1, 2)
+                same = graph_same(torch, lambda: fn(*a)) if check_graph else None
+                if name in KERNELS:
+                    flops, byts, pairs = work(torch, name, a)
+                    t_ops, t_bytes = flops / PEAK_FP32, byts / PEAK_BYTES
+                    bound_ms = max(t_ops, t_bytes) * 1e3
+                    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+                else:
+                    bound_ms, bound_by, pairs = b11_bound(torch, twin, a)[:3]
+                row = dict(complex=n, n_lig=int(s_np.lig_feat.shape[0]),
+                           n_atm=int(s_np.atm_pos.shape[0]), layer=layer, batch=16,
+                           max_rel_err=err, max_abs_err=abs_err, graph_ms=g_ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           pairs=pairs)
+                if check_graph:
+                    row["graph_same"] = same
+                new_buckets.setdefault(name, []).append(row)
+                print(f"  {name} {n} (n_lig {row['n_lig']}, n_atm {row['n_atm']}) layer "
+                      f"{layer} B=16: max|err|/max|ref| {err:.2e} (gate {gate:g}) graph "
+                      f"replay {fmt_ms(g_ms)} plain {plain_ms:.3f} ms bound "
+                      f"{bound_ms:.4f} ms ({bound_by}) pairs {pairs:.0f}"
+                      + ("" if same is None else f"; graph replay same bits: {same}"),
+                      flush=True)
+                if not finite or err > gate:
+                    raise AssertionError(f"{name} {n} layer {layer}: kernel disagrees with "
+                                         f"plain ({err:.3e})")
+                if check_graph and not same:
+                    raise AssertionError(f"{name} {n} layer {layer}: graph replay differs")
+
+
 def phase_prep_predict(torch, np, TC, params, smi, new_buckets):
     """Host prep from raw files, predict from raw inputs and the trunk
     kernels at the buckets a fresh prep picks (see the module docstring,
@@ -2473,8 +2569,6 @@ def phase_prep_predict(torch, np, TC, params, smi, new_buckets):
     from diffbindfr_torch.app import cli
     from diffbindfr_torch.app import pipeline
     from diffbindfr_torch.chem.records import load_prep_record
-    from diffbindfr_torch.data.sample import _load_sample_npz
-    from diffbindfr_torch.models import score_net as sn
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_prep_")
     try:
@@ -2561,50 +2655,342 @@ def phase_prep_predict(torch, np, TC, params, smi, new_buckets):
 
         # (c) B1-B3 and B11 at the fresh buckets, against their plain versions;
         # the tracked 3dbs cache's bucket beside them, timed the same way
-        f32 = {k: (getattr(TC, k), getattr(TC, k + "_plain")) for k in KERNELS}
-        b11 = {k: (functools.partial(getattr(TC, v[2]), bf16_chain=True),
-                   functools.partial(getattr(TC, v[2] + "_plain"), bf16_chain=True), v[2])
-               for k, v in BF16_KERNELS.items()}
-        p16 = sn._cast_f32_leaves(params, torch.bfloat16)
         samples = [(n, os.path.join(cache[0], f"{n}_r12.npz")) for n in PREDICT_NAMES]
-        for n, path in samples + [("3dbs, tracked cache", SAMPLE)]:
-            s_np = _load_sample_npz(path)
-            for layer in (0, 5):
-                seed = 2700 + layer
-                a32 = kernel_inputs(torch, params, s_np, layer, 16, seed)
-                a16 = kernel_inputs(torch, p16, s_np, layer, 16, seed)
-                plan = [(k, fn, pl, a32[k], 1e-4, k) for k, (fn, pl) in f32.items()]
-                plan += [(k, fn, pl, a16[tw], BF16_GATE, tw) for k, (fn, pl, tw) in b11.items()]
-                for name, fn, plain, a, gate, twin in plan:
-                    with torch.no_grad():
-                        got, ref = fn(*a), plain(*a)
-                        torch.cuda.synchronize()
-                        got, ref = ((x if isinstance(x, tuple) else (x,)) for x in (got, ref))
-                        err = max(rel_err(g_, r_) for g_, r_ in zip(got, ref))
-                        abs_err = max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
-                        finite = all(bool(torch.isfinite(g_).all()) for g_ in got)
-                        g_ms = graph_ms_or_none(torch, lambda: fn(*a))
-                        plain_ms = time_ms(lambda: plain(*a), 1, 2)
-                    if name in KERNELS:
-                        flops, byts, pairs = work(torch, name, a)
-                        t_ops, t_bytes = flops / PEAK_FP32, byts / PEAK_BYTES
-                        bound_ms = max(t_ops, t_bytes) * 1e3
-                        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-                    else:
-                        bound_ms, bound_by, pairs = b11_bound(torch, twin, a)[:3]
-                    row = dict(complex=n, n_lig=int(s_np.lig_feat.shape[0]),
-                               n_atm=int(s_np.atm_pos.shape[0]), layer=layer, batch=16,
-                               max_rel_err=err, max_abs_err=abs_err, graph_ms=g_ms,
-                               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                               pairs=pairs)
-                    new_buckets.setdefault(name, []).append(row)
-                    print(f"  {name} {n} (n_lig {row['n_lig']}, n_atm {row['n_atm']}) layer "
-                          f"{layer} B=16: max|err|/max|ref| {err:.2e} (gate {gate:g}) graph "
-                          f"replay {fmt_ms(g_ms)} plain {plain_ms:.3f} ms bound "
-                          f"{bound_ms:.4f} ms ({bound_by}) pairs {pairs:.0f}", flush=True)
-                    if not finite or err > gate:
-                        raise AssertionError(f"{name} {n} layer {layer}: kernel disagrees with "
-                                             f"plain ({err:.3e})")
+        bucket_kernels(torch, TC, params, samples + [("3dbs, tracked cache", SAMPLE)],
+                       new_buckets)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def http(port, path, body=None):
+    """(status, JSON reply, seconds) of a GET (body None) or POST to the
+    server on localhost:port."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if body is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.time()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read()), time.time() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.time() - t0
+
+
+def concurrently(port, bodies):
+    """POST every body of `bodies` to /dock at once, each from its own
+    thread; their (status, reply, seconds) in order."""
+    out = [None] * len(bodies)
+
+    def ask(i):
+        out[i] = http(port, "/dock", bodies[i])
+
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    return out
+
+
+def serve_request(name, **kw):
+    """A /dock request for a runs/pb_bench complex: its contact chains and
+    its crystal ligand (which defines the pocket)."""
+    d = os.path.join(PB_BENCH, name)
+    return {"protein": os.path.join(d, f"{name}_protein_contact_chains.pdb"),
+            "ligand": os.path.join(d, f"{name}_ligand.sdf"), **kw}
+
+
+def sdf_error(np, parse_sdf, tmp, sdf, pair, res):
+    """max |SDF coordinates - (lig_pos + center)| of one reply row (A)."""
+    path = os.path.join(tmp, "reply.sdf")
+    with open(path, "w") as fh:
+        fh.write(sdf)
+    coords = parse_sdf(path)[0].coords
+    na = pair.lig.num_atoms
+    return float(np.abs(coords - (res.lig_pos[:na] + pair.pocket.center)).max())
+
+
+def phase_serve(torch, np, TC, smi):
+    """The serving daemon on the card (see the module docstring, phase 28).
+    Returns each B11 kernel's launches in rounds (a) and (b)."""
+    from diffbindfr_torch.app import pipeline, serve
+    from diffbindfr_torch.io.sdf import parse_sdf
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    server, prep = None, pipeline.prep
+    try:
+        args = serve.build_parser().parse_args(["-ckt", CKPT, "-mdn", MDN_CKPT, "--cache-dir",
+                                                os.path.join(tmp, "cache"), "--port", "0"])
+        svc = serve.make_service(args, verbose=False)
+        # a full batch ends the drain at once; the window only has to outlast
+        # a concurrent request's prep in its handler thread
+        svc.max_wait_s = 2.0
+        rounds, preps = [], []
+        run = svc.dock_engine.run
+
+        def dock(pairs, num_poses, seed):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = run(pairs, num_poses=num_poses, seed=seed)
+            torch.cuda.synchronize()
+            rounds.append(dict(pairs=list(pairs), counts=list(num_poses), seed=seed,
+                               results=res, dock_s=time.time() - t0))
+            return res
+
+        def counted_prep(*a, **kw):
+            preps.append(a[0])
+            return prep(*a, **kw)
+
+        svc.dock_engine.run = dock
+        pipeline.prep = counted_prep
+        server = serve.DockServer(svc, port=0).start()
+        print(f"  serve at the defaults (bf16, -bs {args.batch_size}, EC {args.ec_steps} steps, "
+              f"{args.steps} steps, diff_r2 + mdn_r4b) on http://127.0.0.1:{server.port}, "
+              f"drain window {svc.max_wait_s} s", flush=True)
+        t0 = time.time()
+        svc.warmup(*[serve_request("3dbs")[k] for k in ("protein", "ligand")])
+        torch.cuda.synchronize()
+        print(f"  warm-up on 3dbs (prep, a round of 1 pose, EC, MDN): {time.time() - t0:.3f} s",
+              flush=True)
+
+        # (a) two concurrent requests on the 3dbs pair: one round, one batch
+        rounds.clear()
+        preps.clear()
+        TC.reset_launches()
+        replies = concurrently(server.port, [serve_request("3dbs", num_poses=8)] * 2)
+        torch.cuda.synchronize()
+        counts_a = dict(TC.launches)
+        want = {k: 6 * 20 if k in BF16_KERNELS else 0 for k in TC.launches}
+        print(f"  (a) 2 concurrent requests, 3dbs x 8 poses each: statuses "
+              f"{[r[0] for r in replies]}, latencies "
+              f"{', '.join(f'{r[2]:.3f} s' for r in replies)}; {len(rounds)} round(s), counts "
+              f"{[rd['counts'] for rd in rounds]}; preps {len(preps)}; launches {counts_a}",
+              flush=True)
+        if [r[0] for r in replies] != [200, 200]:
+            raise AssertionError(f"(a) replies {[(r[0], r[1].get('error')) for r in replies]}")
+        if counts_a != want or len(rounds) != 1 or preps:
+            raise AssertionError(f"(a) launches {counts_a} in {len(rounds)} rounds, {len(preps)} "
+                                 f"preps; expected {want} in one round, no prep")
+        served = rounds[0]
+        pairs = served["pairs"]
+        # (c) the same round run directly on the engines
+        eng = pipeline.DockEngine(svc.dock_engine.params, svc.dock_engine.net_cfg,
+                                  svc.dock_engine.sampler_cfg, batch_size=svc.batch_size,
+                                  device=DEV, verbose=False)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        direct = eng.run(pairs, num_poses=served["counts"], seed=served["seed"])
+        torch.cuda.synchronize()
+        direct_s = time.time() - t0
+        pipeline.ECEngine(steps=svc.ec_engine.steps, batch_size=svc.batch_size, device=DEV,
+                          verbose=False).run(pairs, direct)
+        pipeline.MDNEngine(svc.mdn_engine.mdn_params, svc.mdn_engine.mdn_cfg,
+                           batch_size=svc.batch_size, device=DEV, verbose=False).run(pairs, direct)
+        pos_err = max(float(np.abs(a.lig_pos - b.lig_pos).max())
+                      for a, b in zip(served["results"], direct))
+        score_err = max(abs(getattr(a, f) - getattr(b, f)) / max(abs(getattr(b, f)), 1e-30)
+                        for a, b in zip(served["results"], direct)
+                        for f in ("vina_score", "mdn_score", "mdn_nll"))
+        n_a = sum(served["counts"])
+        print(f"  (c) served round vs the engines run directly: poses max {pos_err:.2e} A "
+              f"(gate 1e-3), scores max {score_err:.2e} relative (gate 1e-3); dock "
+              f"{n_a / served['dock_s']:.3f} poses/s served, {n_a / direct_s:.3f} poses/s "
+              f"direct ({served['dock_s']:.3f} / {direct_s:.3f} s), on {smi}", flush=True)
+        if len(direct) != n_a or not (pos_err <= 1e-3 and score_err <= 1e-3):
+            raise AssertionError("(c) the served poses are not the direct run's")
+        # (d) each reply's rows: its own group of the round, best first, the
+        # SDF at lig_pos + center
+        groups = {}
+        for i, (_, body, _) in enumerate(replies):
+            rows = body["poses"]
+            if [r["mdn_score"] for r in rows] != sorted((r["mdn_score"] for r in rows),
+                                                        reverse=True):
+                raise AssertionError(f"(d) reply {i}: rows not best first")
+            errs = {}
+            for gi in range(len(pairs)):
+                by_pose = {r.pose_idx: r for r in served["results"] if r.pair_idx == gi}
+                errs[gi] = max(sdf_error(np, parse_sdf, tmp, row["sdf"], pairs[gi],
+                                         by_pose[row["pose"]]) for row in rows)
+            gi = min(errs, key=errs.get)
+            groups[i] = (gi, errs[gi])
+        print(f"  (d) replies' SDF vs lig_pos + center of their round group: "
+              f"{ {i: f'group {g}, {e:.2e} A' for i, (g, e) in groups.items()} } (gate 1e-3)",
+              flush=True)
+        if sorted(g for g, _ in groups.values()) != [0, 1] or max(
+                e for _, e in groups.values()) > 1e-3:
+            raise AssertionError("(d) the replies' SDFs are not their round's poses")
+
+        # (b) two buckets in one round: 3dbs (cached) and 3mhw (prepared now)
+        rounds.clear()
+        preps.clear()
+        TC.reset_launches()
+        replies = concurrently(server.port, [serve_request("3dbs", num_poses=8),
+                                             serve_request("3mhw", num_poses=8)])
+        torch.cuda.synchronize()
+        counts_b = dict(TC.launches)
+        want = {k: 2 * 6 * 20 if k in BF16_KERNELS else 0 for k in TC.launches}
+        print(f"  (b) concurrent 3dbs and 3mhw, 8 poses each: statuses "
+              f"{[r[0] for r in replies]}, latencies "
+              f"{', '.join(f'{r[2]:.3f} s' for r in replies)}; {len(rounds)} round(s), buckets "
+              f"{[[(p.bucket.n_lig, p.bucket.n_atm) for p in rd['pairs']] for rd in rounds]}; "
+              f"preps {[j.complex_name for js in preps for j in js]}; launches {counts_b}; "
+              f"dock {16 / rounds[0]['dock_s']:.3f} poses/s", flush=True)
+        if [r[0] for r in replies] != [200, 200]:
+            raise AssertionError(f"(b) replies {[(r[0], r[1].get('error')) for r in replies]}")
+        if counts_b != want or len(rounds) != 1 or len(preps) != 1:
+            raise AssertionError(f"(b) launches {counts_b} in {len(rounds)} rounds, "
+                                 f"{len(preps)} preps; expected {want} in one round, one prep")
+        err_b = 0.0
+        for body in (r[1] for r in replies):
+            gi = [p.name for p in rounds[0]["pairs"]].index(body["complex_name"])
+            by_pose = {r.pose_idx: r for r in rounds[0]["results"] if r.pair_idx == gi}
+            err_b = max([err_b] + [sdf_error(np, parse_sdf, tmp, row["sdf"],
+                                             rounds[0]["pairs"][gi], by_pose[row["pose"]])
+                                   for row in body["poses"]])
+        print(f"  (b) SDF vs lig_pos + center max {err_b:.2e} A", flush=True)
+        if err_b > 1e-3:
+            raise AssertionError("(b) the replies' SDFs are not their poses")
+
+        # (d) health, the bad requests, shutdown with a request in flight
+        code, health, _ = http(server.port, "/health")
+        bad_nc = http(server.port, "/dock", serve_request("3dbs", n_conformers=2))
+        bad_file = http(server.port, "/dock", serve_request(
+            "3dbs", ligand=os.path.join(tmp, "missing.sdf")))
+        print(f"  (d) /health {code} {health}; n_conformers 2: {bad_nc[0]} {bad_nc[1]}; missing "
+              f"file: {bad_file[0]} {bad_file[1]}", flush=True)
+        if code != 200 or health["device"] != DEV or health["warm_buckets"] != 2:
+            raise AssertionError(f"/health: {code} {health}")
+        if bad_nc[0] != 400 or "A14" not in bad_nc[1]["error"] or bad_file[0] != 400:
+            raise AssertionError("the bad requests did not get 400")
+        entered = threading.Event()
+
+        def dock_entered(*a, **kw):
+            entered.set()
+            return dock(*a, **kw)
+
+        svc.dock_engine.run = dock_entered
+        last = []
+        t = threading.Thread(target=lambda: last.append(http(server.port, "/dock", serve_request(
+            "3mhw", num_poses=1, ec=False, score=False))))
+        t.start()
+        if not entered.wait(300):
+            raise AssertionError("the last request never reached the card")
+        bye = http(server.port, "/shutdown", {})
+        t.join(300)
+        svc._worker.join(300)
+        print(f"  /shutdown with a request in flight: {bye[0]} {bye[1]}; the request: "
+              f"{last[0][0] if last else None}, {len(last[0][1].get('poses', [])) if last else 0} "
+              f"pose(s); worker stopped: {not svc._worker.is_alive()}", flush=True)
+        if bye[0] != 200 or not last or last[0][0] != 200 or svc._worker.is_alive():
+            raise AssertionError("/shutdown did not serve the request in flight")
+        server = None
+        return {k: (counts_a[k], counts_b[k]) for k in BF16_KERNELS}
+    finally:
+        pipeline.prep = prep
+        if server is not None:
+            server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+EVAL_NAMES = ("2src", "2zec", "3dbs", "3mhw", "3pp0")
+
+
+def phase_eval(torch, np, TC, params, smi, new_buckets):
+    """The evaluation protocol on the card (see the module docstring, phase
+    29). Returns each B11 kernel's launches."""
+    import csv
+
+    from diffbindfr_torch.app import eval_cli, pipeline, rescore_cli
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        data = os.path.join(tmp, "pb")
+        for n in EVAL_NAMES:  # a copy: the pb job maker may write into its data
+            os.makedirs(os.path.join(data, n))
+            for f in os.listdir(os.path.join(PB_BENCH, n)):
+                shutil.copy(os.path.join(PB_BENCH, n, f), os.path.join(data, n))
+        out = os.path.join(tmp, "out")
+        n_poses, bs = 16, 16
+        argv = ["-d", data, "-o", out, "-ckt", CKPT, "-mdn", MDN_CKPT, "-np", str(n_poses),
+                "-bs", str(bs)]
+        counts, stage, wall, prepared, results, n_batches = predict_run(
+            torch, TC, pipeline, eval_cli, argv, n_poses * len(EVAL_NAMES),
+            extra=[(eval_cli, "validity_rows")])
+        total = len(results)
+        buckets = sorted({(p.bucket.n_lig, p.bucket.n_atm) for p in prepared})
+        print(f"  eval_cli (pb, {len(EVAL_NAMES)} complexes x {n_poses} poses, -bs {bs}, bf16, "
+              f"EC 150 steps, validity on; buckets {buckets}): launches {counts}", flush=True)
+        print(f"  stages: prep {stage['prep']:.3f} s; dock {stage['dock']:.3f} s "
+              f"({total / stage['dock']:.3f} poses/s); EC {stage['error_correct']:.3f} s "
+              f"({1e3 * stage['error_correct'] / n_batches:.1f} ms per batch, {n_batches} "
+              f"batches); save_poses {stage['save_poses']:.3f} s; MDN {stage['score_mdn']:.3f} s; "
+              f"export {stage['export_and_rank']:.3f} s; validity {stage['validity_rows']:.3f} s "
+              f"({stage['validity_rows'] / total:.4f} s per pose, "
+              f"{100 * stage['validity_rows'] / wall:.1f}% of the run); main() {wall:.3f} s: "
+              f"{wall / total:.4f} s per pose end to end, on {smi}", flush=True)
+        want = {k: 6 * 20 * 5 if k in BF16_KERNELS else 0 for k in TC.launches}
+        if counts != want or n_batches != 5:
+            raise AssertionError(f"launch counts {counts} over {n_batches} batches, expected "
+                                 f"{want} over 5")
+        with open(os.path.join(out, "results.csv"), newline="") as fh:
+            rows = list(csv.DictReader(fh))
+        with open(os.path.join(out, "validity.csv"), newline="") as fh:
+            vrows = list(csv.DictReader(fh))
+        for col in ("mdn_score", "mdn_nll", "vina_score", "l_rmsd", "centroid", "chi1_rate",
+                    "sc_rmsd"):
+            if not np.isfinite([float(r[col]) for r in rows]).all():
+                raise AssertionError(f"results.csv: non-finite {col}")
+        missing = [f for f in ("metrics_report.txt", "poses.npz", "results_mdn_nll_top1.csv")
+                   if not os.path.exists(os.path.join(out, f))]
+        if len(rows) != total or len(vrows) != total or missing:
+            raise AssertionError(f"{len(rows)} results rows, {len(vrows)} validity rows, "
+                                 f"missing {missing}")
+        with open(os.path.join(out, "results_mdn_nll_top1.csv"), newline="") as fh:
+            top = list(csv.DictReader(fh))
+        share = sum(int(v["pass"]) for v in vrows) / len(vrows)
+        print(f"  validity: {100 * share:.1f}% of {len(vrows)} poses pass all checks; top-1 by "
+              f"mdn_nll (a reading): " + ", ".join(
+                  f"{r['complex_name']} pose {r['pose']} l_rmsd {float(r['l_rmsd']):.3f} A"
+                  for r in top), flush=True)
+
+        # B11 at the bucket no earlier phase runs: (n_lig 32, n_atm 1024)
+        small = [p for p in prepared if (p.bucket.n_lig, p.bucket.n_atm) == (32, 1024)]
+        if not small:
+            raise AssertionError(f"no pair at (32, 1024): {buckets}")
+        bucket_kernels(torch, TC, params, [(small[0].name, small[0].sample_path)], new_buckets,
+                       f32=False, check_graph=True)
+
+        # rescore both ways on the card: the fast path's MDN scores are eval's
+        t0 = time.time()
+        r_out = os.path.join(tmp, "rescore")
+        if rescore_cli.main(["--poses", out, "-d", data, "-mdn", MDN_CKPT, "-o", r_out]) != 0:
+            raise AssertionError("rescore --poses failed")
+        fast_s = time.time() - t0
+        with open(os.path.join(r_out, "results.csv"), newline="") as fh:
+            rescored = {(r["complex_name"], r["pose"]): r for r in csv.DictReader(fh)}
+        err = max(abs(float(rescored[r["complex_name"], r["pose"]][c]) - float(r[c]))
+                  / max(abs(float(r[c])), 1e-30) for r in rows for c in ("mdn_score", "mdn_nll"))
+        t0 = time.time()
+        g_out = os.path.join(tmp, "rescore_generic")
+        if rescore_cli.main(["-i", os.path.join(out, "results.csv"), "-mdn", MDN_CKPT, "-o",
+                             g_out]) != 0:
+            raise AssertionError("rescore -i failed")
+        generic_s = time.time() - t0
+        with open(os.path.join(g_out, "results.csv"), newline="") as fh:
+            generic = list(csv.DictReader(fh))
+        print(f"  rescore --poses: {len(rescored)} poses in {fast_s:.3f} s, MDN vs eval's max "
+              f"{err:.2e} relative (gate 1e-3); rescore -i results.csv: {len(generic)} poses in "
+              f"{generic_s:.3f} s", flush=True)
+        if len(rescored) != total or err > 1e-3:
+            raise AssertionError("rescore --poses does not give eval's MDN scores")
+        if len(generic) != total or not np.isfinite(
+                [float(r["mdn_nll"]) for r in generic]).all():
+            raise AssertionError("rescore -i did not score every pose")
+        return counts
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3084,6 +3470,12 @@ def main() -> int:
     with Phase("prep_predict"):
         phase_prep_predict(torch, np, TC, params, smi, fresh)
 
+    with Phase("serve"):
+        serve_counts = phase_serve(torch, np, TC, smi)
+
+    with Phase("eval"):
+        eval_counts = phase_eval(torch, np, TC, params, smi, fresh)
+
     rows = []
     for name, (src, repl) in KERNELS.items():
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]
@@ -3142,7 +3534,10 @@ def main() -> int:
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 16,
                      **{k: main_row[k] for k in ("graph_same", "blocks") if k in main_row},
-                     "buckets": fresh[name]})
+                     "buckets": fresh[name],
+                     "path_launches": {"serve_shared_round": serve_counts[name][0],
+                                       "serve_two_buckets": serve_counts[name][1],
+                                       "eval": eval_counts[name]}})
     for name in sorted(k for k in per_kernel if k.startswith("probe_bf16/")):
         r = per_kernel[name]
         # 8192 x 1024 elements, 2000 steps; launches from its measurement

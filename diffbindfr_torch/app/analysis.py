@@ -1,9 +1,13 @@
-"""Apo/holo binding-site helpers of prep: the port's counterpart of the
-first part of diffbindfr_tpu/app/analysis.py (`_kabsch_np`,
-`_match_residues`, `build_holo_ref`; `HoloRef` is chem/records.py's,
+"""Apo/holo binding-site analysis: the port's copy of
+diffbindfr_tpu/app/analysis.py (`HoloRef` is chem/records.py's,
 re-exported here). Prep of an apo->holo job builds the holo side-chain
-reference with them. The comparison report (`compare_binding_sites`, the
-module's command line) is not ported yet.
+reference with `build_holo_ref`; `compare_binding_sites` and the command
+line report how far an apo binding site (e.g. an AlphaFold model) is from
+the holo one: pocket CA-RMSD after a Kabsch fit of the pocket CAs,
+side-chain RMSD with 180-deg-symmetric naming, chi1 accuracy and the
+global TM-score (ops/tmalign.py). Host numpy.
+
+    python -m diffbindfr_torch.app.analysis apo.pdb holo.pdb ref_ligand.sdf [cutoff]
 
 Residues are matched by author (chain letter, residue number, residue
 type), then chain-blind, then by the best constant numbering offset.
@@ -14,9 +18,10 @@ from collections import Counter
 
 import numpy as np
 
-from ..chem.protein_feats import atom37_to_atom14
+from ..chem.protein_feats import atom37_to_atom14, select_pocket
 from ..chem.records import HoloRef
 from ..io.pdb import Protein, parse_pdb
+from ..metrics import chi1_accuracy, sidechain_rmsd
 
 
 def _kabsch_np(a: np.ndarray, b: np.ndarray):
@@ -162,3 +167,74 @@ def build_holo_ref(pocket, holo) -> HoloRef:
         n_matched=len(pairs),
         ca_rmsd=ca_rmsd,
     )
+
+
+def compare_binding_sites(
+    apo, holo, ref_lig_points: np.ndarray, cutoff: float = 12.0
+) -> dict:
+    """apo/holo: paths or Protein objects. Returns
+    {n_pocket, n_matched, pocket_ca_rmsd, sc_rmsd, chi1_rate, tm_score}."""
+    if isinstance(apo, str):
+        apo = parse_pdb(apo)
+    if isinstance(holo, str):
+        holo = parse_pdb(holo)
+    holo_idx = select_pocket(holo, ref_lig_points, cutoff)
+    pairs = _match_residues(apo, holo, holo_idx)
+    if len(pairs) < 3:
+        raise ValueError("could not match apo/holo pocket residues")
+    ai = np.array([p[0] for p in pairs])
+    hi = np.array([p[1] for p in pairs])
+
+    apo14, apo14_mask = atom37_to_atom14(apo.select(ai))
+    holo14, holo14_mask = atom37_to_atom14(holo.select(hi))
+    mask = apo14_mask * holo14_mask
+    aat = holo.aatype[hi]
+
+    # superpose apo pocket onto holo by CA
+    ca_ok = mask[:, 1] > 0
+    r, t = _kabsch_np(apo14[ca_ok, 1], holo14[ca_ok, 1])
+    apo14_s = apo14 @ r.T + t
+
+    ca_rmsd = float(
+        np.sqrt(np.mean(np.sum((apo14_s[ca_ok, 1] - holo14[ca_ok, 1]) ** 2, -1)))
+    )
+
+    # global fold agreement via in-process TM-align (the reference shells
+    # out to the TMalign binary here; ops/tmalign.py is the in-repo codec)
+    from ..ops.tmalign import tmalign
+
+    a14_full, a14m = atom37_to_atom14(apo)
+    h14_full, h14m = atom37_to_atom14(holo)
+    tm = tmalign(a14_full[a14m[:, 1] > 0, 1], h14_full[h14m[:, 1] > 0, 1])
+
+    return {
+        "n_pocket": int(len(holo_idx)),
+        "n_matched": int(len(pairs)),
+        "pocket_ca_rmsd": ca_rmsd,
+        "sc_rmsd": sidechain_rmsd(aat, apo14_s, holo14, mask),
+        "chi1_rate": chi1_accuracy(aat, apo14_s, holo14, mask),
+        "tm_score": float(tm.tm_target),
+    }
+
+
+def main(argv=None):
+    import sys
+
+    from ..io.sdf import parse_ligand_file
+
+    args = argv or sys.argv[1:]
+    if len(args) < 3:
+        print("usage: analysis.py apo.pdb holo.pdb ref_ligand.sdf [cutoff]")
+        return 1
+    ref = parse_ligand_file(args[2])[0].coords
+    cutoff = float(args[3]) if len(args) > 3 else 12.0
+    out = compare_binding_sites(args[0], args[1], ref, cutoff)
+    for k, v in out.items():
+        print(f"{k}: {v:.3f}" if isinstance(v, float) else f"{k}: {v}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

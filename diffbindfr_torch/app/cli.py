@@ -34,6 +34,14 @@ _NOT_PORTED = (
 )
 
 
+def refuse_unported(args) -> None:
+    """Exit naming the ROADMAP item of the first flag set that the port
+    does not have yet (predict's and eval_cli's flags)."""
+    for flag, is_set, item in _NOT_PORTED:
+        if is_set(args):
+            sys.exit(f"{flag}: not ported yet (ROADMAP {item})")
+
+
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="diffbindfr_torch",
@@ -114,9 +122,7 @@ def _config(cls, kw: dict, what: str):
 
 
 def cmd_predict(args):
-    for flag, is_set, item in _NOT_PORTED:
-        if is_set(args):
-            sys.exit(f"{flag}: not ported yet (ROADMAP {item})")
+    refuse_unported(args)
 
     import torch
 

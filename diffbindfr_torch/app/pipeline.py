@@ -16,6 +16,7 @@ import csv
 import dataclasses
 import os
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -151,7 +152,10 @@ class ECEngine:
     """Vina error correction: each pose re-minimized in (translation,
     rotation, torsion) space against the rigid pocket (`vina.minimize_batch`,
     `steps` Adam steps at learning rate `lr`). The typed ligand and receptor
-    of a pair are built on the host once and kept on the device."""
+    of a pair are built on the host once and kept on the device, for at most
+    `max(2 * batch_size, 32)` pairs (the JAX engines' stager capacity): past
+    that the least recently used pair outside the running batch is dropped,
+    so a long-lived server does not grow with every pair it has seen."""
 
     def __init__(self, steps: int = 150, lr: float = 0.05, batch_size: int = 16,
                  device="cuda", verbose: bool = True):
@@ -160,20 +164,32 @@ class ECEngine:
         self.lr = lr
         self.batch_size = batch_size
         self.verbose = verbose
-        self._systems: dict = {}  # id(pair) -> (pair, VinaLigand, VinaReceptor) on the device
+        self.capacity = max(2 * batch_size, 32)
+        # id(pair) -> (pair, VinaLigand, VinaReceptor) on the device, least
+        # recently used first; the entry holds the pair, so its id is not reused
+        self._systems: OrderedDict = OrderedDict()
 
-    def _system(self, pair):
+    def _system(self, pair, keep: set):
+        """The pair's system on the device; `keep` holds the ids of the
+        running batch's pairs, which are never evicted."""
         key = id(pair)
-        if key not in self._systems:
-            if pair.lig is None or pair.pocket is None:
-                raise ValueError(f"{pair.name}: no ligand/pocket record (rec.pkl) for EC")
-            b = pair.bucket
-            lig = vina.stack_to_device([vina.build_ligand(pair.lig, b.n_lig, b.n_tor)],
-                                       self.device)
-            rec = vina.stack_to_device([vina.build_receptor(pair.pocket, b.n_atm)],
-                                       self.device)
-            self._systems[key] = (pair, lig, rec)
+        if key in self._systems:
+            self._systems.move_to_end(key)
+            return self._systems[key]
+        if pair.lig is None or pair.pocket is None:
+            raise ValueError(f"{pair.name}: no ligand/pocket record (rec.pkl) for EC")
+        b = pair.bucket
+        lig = vina.stack_to_device([vina.build_ligand(pair.lig, b.n_lig, b.n_tor)], self.device)
+        rec = vina.stack_to_device([vina.build_receptor(pair.pocket, b.n_atm)], self.device)
+        self._systems[key] = (pair, lig, rec)
+        while len(self._systems) > self.capacity:
+            old = next(k for k in self._systems if k not in keep)
+            del self._systems[old]
         return self._systems[key]
+
+    def close(self) -> None:
+        """Drop every pair's system from the device."""
+        self._systems.clear()
 
     def run(self, prepared: list, results: list) -> None:
         """Minimize every result's pose in place: sets lig_pos and
@@ -182,7 +198,8 @@ class ECEngine:
         done = 0
         for chunk, idxs in _batches(prepared, results, self.batch_size):
             pairs = [prepared[results[k].pair_idx] for k in idxs]
-            systems = [self._system(p) for p in pairs]
+            keep = {id(p) for p in pairs}
+            systems = [self._system(p, keep) for p in pairs]
             ligs = vina.VinaLigand(*[torch.cat(f) for f in zip(*[s[1] for s in systems])])
             recs = vina.VinaReceptor(*[torch.cat(f) for f in zip(*[s[2] for s in systems])])
             lp = torch.from_numpy(np.stack([results[k].lig_pos for k in idxs])).to(
@@ -347,9 +364,9 @@ def _best_per_complex(rows: list, col: str, lower: bool) -> dict:
     return best
 
 
-def export_and_rank(prepared: list, results: list, outdir: str, export_pocket: bool = False,
-                    export_top: int = -1, verbose: bool = True, cluster_rank: float = 0.0,
-                    cluster_mode: str = "mean") -> str:
+def export_and_rank(prepared: list, results: list, outdir: str, export_structures: bool = True,
+                    export_pocket: bool = False, export_top: int = -1, verbose: bool = True,
+                    cluster_rank: float = 0.0, cluster_mode: str = "mean") -> str:
     """Write per-pose structures, results.csv and the top-1 tables; returns
     the results.csv path. The JAX package's `export_and_rank`, file for
     file, with one addition: results_cluster_top1.csv has a `rank_score`
@@ -360,7 +377,9 @@ def export_and_rank(prepared: list, results: list, outdir: str, export_pocket: b
     `prot_final.pdb` (`pocket_final.pdb` too with `export_pocket`, the
     trajectory files when the pose carries one); `export_top >= 0` writes
     structures only for the top-k poses per complex (`_top_results`), the
-    other rows keep their scores and metrics with empty file columns. The
+    other rows keep their scores and metrics with empty file columns, and
+    `export_structures=False` writes none (the tables only, as a rescore
+    does). The
     metrics grade each pose against the crystal pose (l_rmsd, centroid)
     and its side chains against `pair.holo_ref`, else the input pocket
     (chi1_rate, sc_rmsd). Top-1 tables: results_mdn_top1.csv (highest
@@ -379,7 +398,7 @@ def export_and_rank(prepared: list, results: list, outdir: str, export_pocket: b
         props = {}
         if r.mdn_score is not None:
             props["mdn_score"] = f"{r.mdn_score:.6f}"
-        write_structs = keep is None or ri in keep
+        write_structs = export_structures and (keep is None or ri in keep)
         if write_structs:
             export_pose(pose_dir, pair.lig, pair.pocket, pair.protein, r.lig_pos,
                         r.atom14_pos, export_pocket=export_pocket, props=props,

@@ -72,8 +72,9 @@ def test_records_ec_and_mdn_load_no_jax_or_networkx():
     3mhw's ligand has 0 torsions, and two EC steps and the full-width MDN
     (runs/mdn_r4b) run on the CPU; host prep from raw files (every module
     of it imported, 3dbs prepared as an apo->holo job against itself, its
-    record read back) runs too; jax, the JAX package and networkx stay out
-    of sys.modules."""
+    record read back) runs too; the serving daemon and the evaluation
+    modules import, and validity, the reporter and TM-align run on that
+    pair; jax, the JAX package and networkx stay out of sys.modules."""
     code = """
 import os, sys, tempfile
 import torch
@@ -86,6 +87,8 @@ from diffbindfr_torch.data import sample
 from diffbindfr_torch.geometry import chi
 from diffbindfr_torch.models import mdn_scorer as mdn
 from diffbindfr_torch.utils.checkpoint import load_checkpoint
+from diffbindfr_torch.app import eval_cli, reporter, rescore_cli, serve, validity
+from diffbindfr_torch.ops import tmalign
 d = 'runs/pb_bench/3dbs/'
 job = jobs.Job(d + '3dbs_protein_contact_chains.pdb', '3dbs', d + '3dbs_ligand.sdf', '3dbs',
                '3dbs', crystal_ligand=d + '3dbs_ligand.sdf',
@@ -106,6 +109,11 @@ TP.error_correct(pairs, res, steps=2, batch_size=1, device='cpu', verbose=False)
 params, _ = load_checkpoint('runs/mdn_r4b/ckpt_best.npz', device='cpu')
 TP.score_mdn(pairs, res, params, mdn.MDNConfig(), batch_size=1, device='cpu', verbose=False)
 assert all(r.vina_score is not None and r.mdn_score is not None for r in res)
+assert validity.check_pose(fresh[0].lig, fresh[0].pocket, fresh[0].lig.pos)['pass']
+assert 'Enrichment report' in reporter.format_report(reporter.load_results(
+    'runs/eval_r4_mdn/results.csv'))
+ca = fresh[0].pocket.atom14_pos[:, 1]
+assert tmalign.tmalign(ca, ca).tm_target > 0.99
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'diffbindfr_tpu',
                                                      'networkx')]
 print(bad)
