@@ -233,6 +233,26 @@ a non-zero exit code):
               within 1e-3 relative of eval's; rescore_cli -i results.csv
               scores all 80 poses. The B11 rows of the kernels line carry the
               launches of (a), (b) and eval in `path_launches`
+  30. relax   (a) the relax engine (pipeline.cartesian_relax, 300 steps, batches of
+              4) on the 3dbs and 3mhw poses of tests/fixtures/torch_relax_ref.npz,
+              the flex joint minimizer and the explicit-H angular rigid minimizer
+              (300 steps, 2 poses of 3dbs) against the JAX package's results
+              there: ligand and receptor atoms within RELAX_GATE (1e-2 A),
+              affinities within EC_AFF_GATE; ms per relax step. (b) `predict
+              --cart-relax` (bf16, EC 150 steps, relax 300 steps) on 16 poses of
+              3dbs from its tracked cache, -bs 16, with phase 26's read-back
+              flags and gates: each B11 kernel launched exactly 120 times (as in
+              `predict` without the relax) and B1-B10 never; each stage's time,
+              the relax's ms per step and share of the run; three relax steps
+              under torch.profiler: launches per step, busy share. (c) `relax` in
+              its five modes (rigid, --angular-hb, --explicit-h, --flex,
+              --cartesian) on two of (b)'s exported poses, each mode on its own
+              copy: finite poses, `_relaxed.pdb` where the mode writes one, no
+              trunk kernel. (d) `eval_cli --cart-relax` on 2src and 2zec, 8 poses
+              each (one batch): 120 launches per B11 kernel, validity_prerelax.csv
+              with 16 rows, relax_ab.json with its keys (printed as a reading).
+              The B11 rows of the kernels line carry (b)'s and (d)'s launches in
+              `path_launches`
 Kernel times: `ms` is the wrapper's time by CUDA events around 10 calls
 (its host set-up included), `device_ms` the kernel's own device time per
 call (phases 5, 9, 12, 17, 18, 23-25): from torch.profiler's
@@ -269,6 +289,7 @@ FIXTURE = os.path.join(ROOT, "tests/fixtures/torch_port_ref.npz")
 FIXTURE_BF16 = os.path.join(ROOT, "tests/fixtures/torch_bf16_ref.npz")
 FIXTURE_EC = os.path.join(ROOT, "tests/fixtures/torch_ec_ref.npz")
 FIXTURE_MDN = os.path.join(ROOT, "tests/fixtures/torch_mdn_ref.npz")
+FIXTURE_RELAX = os.path.join(ROOT, "tests/fixtures/torch_relax_ref.npz")
 MDN_CKPT = os.path.join(ROOT, "runs/mdn_r4b/ckpt_best.npz")
 EC_NAMES = ("3dbs", "3mhw")
 PB_BENCH = os.path.join(ROOT, "runs/pb_bench")
@@ -290,7 +311,7 @@ DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 
              "bf16_kernels": 240, "bf16_forward": 120, "bf16_dock": 300, "ec_mdn_ref": 180,
              "score_chain": 240, "probe_mlp": 120,
              "probe_mxu_ops": 180, "probe_mosaic": 180, "predict": 300, "prep_predict": 480,
-             "serve": 300, "eval": 420}
+             "serve": 300, "eval": 420, "relax": 420}
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, HBM3 bandwidth; bf16 outside the tensor cores (packed
 # bf16x2, two per fp32 lane: the H100 white paper's non-tensor BF16 rate,
@@ -2995,6 +3016,251 @@ def phase_eval(torch, np, TC, params, smi, new_buckets):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+RELAX_GATE = 1e-2  # A, the card against the JAX relax fixture (as EC_POS_GATE)
+RELAX_MODES = {"rigid": [], "angular": ["--angular-hb"], "explicit_h": ["--explicit-h"],
+               "flex": ["--flex"], "cartesian": ["--cartesian"]}
+# phase 30's eval: two complexes that share a bucket (one batch of 16)
+RELAX_EVAL_NAMES = ("2src", "2zec")
+
+
+def relax_fixture_check(torch, np, pipeline, smi):
+    """Phase 30 (a): the relax engine (Cartesian, 300 steps), the joint flex
+    minimizer and the explicit-H angular rigid minimizer on the card against
+    tests/fixtures/torch_relax_ref.npz (the JAX package on the CPU): max
+    error over real atoms against RELAX_GATE, the distance each moved the
+    poses as the control. Returns the Cartesian ms per step."""
+    from diffbindfr_torch.ops import vina
+
+    ref = np.load(FIXTURE_RELAX)
+    bad, step_ms = [], []
+    for name in EC_NAMES:
+        pair = pipeline.PreparedPair.from_prep_cache(os.path.join(PREP, f"{name}_r12.npz"))
+        pose0, a14_0 = ref[name + "|pose0"], ref[name + "|a14_0"]
+        res = [pipeline.PoseResult(0, k, p.copy(), a.copy(), None)
+               for k, (p, a) in enumerate(zip(pose0, a14_0))]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pipeline.cartesian_relax([pair], res, steps=300, batch_size=len(res), device=DEV,
+                                 verbose=False)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.time() - t0) / 300)
+        lmask = np.arange(pose0.shape[1]) < pair.lig.num_atoms
+        got = np.stack([r.lig_pos for r in res])
+        got14 = np.stack([r.atom14_pos for r in res])
+        lig_err = float(np.abs(got - ref[name + "|cart_pos"])[:, lmask].max())
+        rec_err = float(np.abs(got14 - ref[name + "|cart_a14"]).max())
+        moved = float(np.abs(ref[name + "|cart_pos"] - pose0)[:, lmask].max())
+        rmoved = float(np.abs(ref[name + "|cart_a14"] - a14_0).max())
+        print(f"  {name} Cartesian relax ({len(res)} poses, 300 steps, {step_ms[-1]:.2f} ms per "
+              f"step incl. the first call): ligand vs JAX {lig_err:.2e} A, receptor "
+              f"{rec_err:.2e} A (gate {RELAX_GATE}; control: the relax moved ligand atoms up "
+              f"to {moved:.3f} A, receptor atoms {rmoved:.3f} A)", flush=True)
+        if not (lig_err <= RELAX_GATE and rec_err <= RELAX_GATE and moved > RELAX_GATE):
+            bad.append(f"Cartesian {name}")
+    pair = pipeline.PreparedPair.from_prep_cache(os.path.join(PREP, "3dbs_r12.npz"))
+    b, na, pk = pair.bucket, pair.lig.num_atoms, pair.pocket
+    pose0 = ref["flex|pose0"]
+    vl = vina.build_ligand(pair.lig, b.n_lig, b.n_tor)
+    ligs = vina.stack_to_device([vl] * len(pose0), DEV)
+    lp = torch.from_numpy(pose0).to(DEV)
+    frec = vina.stack_to_device([vina.build_flex_receptor(pk, -(-pk.num_res // 8) * 8)]
+                                * len(pose0), DEV)
+    # the torsion loops stop after the ligand's last real torsion (minimize_batch's n_tor)
+    n_tor = pair.lig.num_torsions
+    t0 = time.time()
+    pos, p14, aff = vina.joint_minimize_batch(lp, ligs, frec, steps=300, n_tor=n_tor)
+    torch.cuda.synchronize()
+    flex_s = time.time() - t0
+    acc = np.asarray(vl.acceptor)[:na] > 0
+    recs = vina.stack_to_device([vina.build_receptor(pk, b.n_atm, explicit_polar_h=True,
+                                                     opt_acceptors=p[:na][acc]) for p in pose0],
+                                DEV)
+    t0 = time.time()
+    xpos, xaff = vina.minimize_batch(lp, ligs, recs, steps=300, angular_hb=True, n_tor=n_tor)
+    torch.cuda.synchronize()
+    xh_s = time.time() - t0
+    for what, got, got_aff, secs, key in (
+            ("flex joint", pos, aff, flex_s, "flex"), ("explicit-H rigid", xpos, xaff, xh_s, "xh")):
+        err = float(np.abs(got.cpu().numpy() - ref[key + "|pos"])[:, :na].max())
+        aerr = float(np.abs(got_aff.cpu().numpy() - ref[key + "|aff"]).max()
+                     / np.abs(ref[key + "|aff"]).max())
+        moved = float(np.abs(ref[key + "|pos"] - pose0)[:, :na].max())
+        line = (f"  3dbs {what} ({len(pose0)} poses, 300 steps, {secs:.3f} s): ligand vs JAX "
+                f"{err:.2e} A")
+        if key == "flex":
+            a14_err = float(np.abs(p14.cpu().numpy() - ref["flex|a14"]).max())
+            line += f", side chains {a14_err:.2e} A"
+            err = max(err, a14_err)
+        print(line + f" (gate {RELAX_GATE}), affinity {aerr:.2e} relative (gate {EC_AFF_GATE}; "
+              f"control: moved up to {moved:.3f} A)", flush=True)
+        if not (err <= RELAX_GATE and aerr <= EC_AFF_GATE and moved > RELAX_GATE):
+            bad.append(what)
+    if bad:
+        raise AssertionError(f"relax disagrees with the JAX fixture: {bad}")
+    return step_ms
+
+
+def relax_profile(torch, np, prepared, results, smi):
+    """Three Cartesian relax steps of the run's 16 poses under
+    torch.profiler: launches per step and the card's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffbindfr_torch.ops import cartesian, vina
+
+    pair = prepared[0]
+    b = pair.bucket
+    tabs = [vina.stack_to_device([t] * len(results), DEV) for t in (
+        cartesian.build_cartesian_ligand(pair.lig, b.n_lig),
+        vina.build_ligand(pair.lig, b.n_lig, b.n_tor),
+        cartesian.build_cartesian_receptor(pair.pocket, b.n_atm))]
+    lp = torch.from_numpy(np.stack([r.lig_pos for r in results])).to(DEV)
+    a14 = torch.from_numpy(np.stack([r.atom14_pos for r in results])).to(DEV)
+    steps = 3
+    cartesian.cartesian_minimize_batch(lp, a14, *tabs, steps=steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        cartesian.cartesian_minimize_batch(lp, a14, *tabs, steps=steps)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((e.key, dev_us / 1e3, e.count))
+    if not rows:
+        print("  the profiler saw no device time: relax launches and busy share not measured",
+              flush=True)
+        return None
+    dev_ms = sum(r[1] for r in rows)
+    kernels = sum(r[2] for r in rows if not r[0].startswith(("Memcpy", "Memset")))
+    print(f"  Cartesian relax, {steps} steps of {len(results)} poses under the profiler (with "
+          f"the set-up and the scatter-back): wall {wall * 1e3:.1f} ms, device {dev_ms:.2f} ms "
+          f"({100 * dev_ms / (wall * 1e3):.1f}% busy), {kernels / steps:.0f} kernel launches per "
+          f"step, on {smi}", flush=True)
+    for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"    {ms:9.3f} ms  x{cnt:<5d} {key[:90]}", flush=True)
+    return kernels / steps
+
+
+def relax_modes(np, TC, cli, out, tmp):
+    """Phase 30 (c): `relax` in each mode on two poses exported by `out`'s
+    run, each mode on its own copy: finite poses, `_relaxed.pdb` where the
+    mode writes one, no trunk kernel launched; seconds per mode."""
+    import csv
+
+    from diffbindfr_torch.io.pdb import parse_pdb
+    from diffbindfr_torch.io.sdf import parse_sdf
+
+    with open(os.path.join(out, "results.csv"), newline="") as fh:
+        rows = [r for r in csv.DictReader(fh) if r["lig_sdf"]][:2]
+    TC.reset_launches()
+    for mode, flags in RELAX_MODES.items():
+        mdir = os.path.join(tmp, "relax_" + mode)
+        kept = []
+        for r in rows:
+            dst = os.path.join(mdir, f"pose_{r['pose']}")
+            os.makedirs(dst)
+            for col in ("lig_sdf", "prot_pdb"):
+                shutil.copy(r[col], dst)
+            kept.append({"lig_sdf": os.path.join(dst, os.path.basename(r["lig_sdf"])),
+                         "prot_pdb": os.path.join(dst, os.path.basename(r["prot_pdb"]))})
+        table = os.path.join(mdir, "results.csv")
+        with open(table, "w", newline="") as fh:
+            w = csv.DictWriter(fh, fieldnames=["lig_sdf", "prot_pdb"])
+            w.writeheader()
+            w.writerows(kept)
+        before = [parse_sdf(k["lig_sdf"])[0].coords for k in kept]
+        t0 = time.time()
+        if cli.main(["relax", "-i", table] + flags) != 0:
+            raise AssertionError(f"relax {mode} failed")
+        secs = time.time() - t0
+        moved = 0.0
+        for k, c0 in zip(kept, before):
+            c = parse_sdf(k["lig_sdf"])[0].coords
+            if not (np.isfinite(c).all() and c.shape == c0.shape):
+                raise AssertionError(f"relax {mode}: bad pose in {k['lig_sdf']}")
+            moved = max(moved, float(np.abs(c - c0).max()))
+            pdb = k["lig_sdf"][: -len(".sdf")] + "_relaxed.pdb"
+            if (mode in ("flex", "cartesian")) != os.path.exists(pdb):
+                raise AssertionError(f"relax {mode}: _relaxed.pdb {os.path.exists(pdb)}")
+            if os.path.exists(pdb) and not np.isfinite(parse_pdb(pdb).atom_positions).all():
+                raise AssertionError(f"relax {mode}: non-finite {pdb}")
+        print(f"  relax {' '.join(flags) or '(rigid)'}: {len(kept)} poses (300 steps each, one "
+              f"at a time) in {secs:.3f} s; moved atoms up to {moved:.3f} A; finite", flush=True)
+    if any(TC.launches.values()):
+        raise AssertionError(f"relax launched trunk kernels: {TC.launches}")
+
+
+def phase_relax(torch, np, TC, smi):
+    """Relax on the card (see the module docstring, phase 30). Returns each
+    B11 kernel's launches in `predict --cart-relax` and in the eval."""
+    from diffbindfr_torch.app import cli, eval_cli, pipeline
+
+    step_ms = relax_fixture_check(torch, np, pipeline, smi)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_relax_")
+    try:
+        out = os.path.join(tmp, "predict")
+        jobs = predict_inputs(out, ("3dbs",))
+        argv = ["predict", "-i", jobs, "-o", out, "-ckt", CKPT, "-mdn", MDN_CKPT, "-np", "16",
+                "-bs", "16", "--cart-relax", "--cluster-rank", "2.0", "--save-poses", "-traj",
+                "--export-top", "5"]
+        counts, stage, wall, prepared, results, _ = predict_run(
+            torch, TC, pipeline, cli, argv, 16, extra=[(pipeline, "cartesian_relax")])
+        relax_s = stage["cartesian_relax"]
+        print(f"  predict --cart-relax (bf16, EC 150 steps, relax 300 steps, 3dbs x 16 poses, "
+              f"-bs 16): launches {counts}", flush=True)
+        print(f"  stages: prep {stage['prep']:.3f} s; dock {stage['dock']:.3f} s; EC "
+              f"{stage['error_correct']:.3f} s; relax {relax_s:.3f} s ({1e3 * relax_s / 300:.2f} "
+              f"ms per step, {100 * relax_s / wall:.1f}% of the run); save_poses "
+              f"{stage['save_poses']:.3f} s; MDN {stage['score_mdn']:.3f} s; export "
+              f"{stage['export_and_rank']:.3f} s; main() {wall:.3f} s: {wall / 16:.4f} s per "
+              f"pose end to end, on {smi}", flush=True)
+        print(f"  relax ms per step at the fixture's 4-pose batches (first calls): "
+              + ", ".join(f"{v:.2f}" for v in step_ms), flush=True)
+        want = {k: 120 if k in BF16_KERNELS else 0 for k in TC.launches}
+        if counts != want:
+            raise AssertionError(f"predict --cart-relax launch counts {counts}, expected {want}")
+        predict_read_back(np, out, prepared, results, ("3dbs",))
+        relax_profile(torch, np, prepared, results, smi)
+
+        relax_modes(np, TC, cli, out, tmp)
+
+        data = os.path.join(tmp, "pb")
+        for n in RELAX_EVAL_NAMES:
+            os.makedirs(os.path.join(data, n))
+            for f in os.listdir(os.path.join(PB_BENCH, n)):
+                shutil.copy(os.path.join(PB_BENCH, n, f), os.path.join(data, n))
+        e_out = os.path.join(tmp, "eval")
+        argv = ["-d", data, "-o", e_out, "-ckt", CKPT, "-mdn", MDN_CKPT, "-np", "8", "-bs", "16",
+                "--cart-relax"]
+        e_counts, e_stage, e_wall, _, _, n_batches = predict_run(
+            torch, TC, pipeline, eval_cli, argv, 8 * len(RELAX_EVAL_NAMES),
+            extra=[(pipeline, "cartesian_relax"), (eval_cli, "validity_rows")])
+        with open(os.path.join(e_out, "relax_ab.json")) as fh:
+            ab = json.load(fh)
+        with open(os.path.join(e_out, "validity_prerelax.csv")) as fh:
+            n_pre = len(fh.read().splitlines()) - 1
+        print(f"  eval_cli --cart-relax ({len(RELAX_EVAL_NAMES)} complexes x 8 poses, -bs 16, "
+              f"{n_batches} batch): launches {e_counts}; dock {e_stage['dock']:.3f} s, EC "
+              f"{e_stage['error_correct']:.3f} s, relax {e_stage['cartesian_relax']:.3f} s, "
+              f"validity (before and after) {e_stage['validity_rows']:.3f} s, main() "
+              f"{e_wall:.3f} s, on {smi}", flush=True)
+        print(f"  relax_ab.json (a reading): {json.dumps(ab)}", flush=True)
+        e_want = {k: 120 * n_batches if k in BF16_KERNELS else 0 for k in TC.launches}
+        keys = {"validity_pass_pre", "validity_pass_post", "oracle_l_rmsd_pre",
+                "oracle_l_rmsd_post", "oracle_mean_pre", "oracle_mean_post"}
+        if e_counts != e_want or n_pre != 16 or set(ab) != keys or sorted(
+                ab["oracle_l_rmsd_post"]) != sorted(RELAX_EVAL_NAMES):
+            raise AssertionError(f"eval --cart-relax: launches {e_counts} (expected {e_want}), "
+                                 f"{n_pre} pre-relax validity rows, relax_ab keys {sorted(ab)}")
+        return {k: (counts[k], e_counts[k]) for k in BF16_KERNELS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def probe_row(torch, results, name, got, ref, ms, dev, plain_ms, ops, peak, byts,
               library_ms=None, err=None, **extra):
     """Record one probe kernel's row (`dev`: device_ms's (ms, method)); the
@@ -3476,6 +3742,9 @@ def main() -> int:
     with Phase("eval"):
         eval_counts = phase_eval(torch, np, TC, params, smi, fresh)
 
+    with Phase("relax"):
+        relax_counts = phase_relax(torch, np, TC, smi)
+
     rows = []
     for name, (src, repl) in KERNELS.items():
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]
@@ -3537,7 +3806,9 @@ def main() -> int:
                      "buckets": fresh[name],
                      "path_launches": {"serve_shared_round": serve_counts[name][0],
                                        "serve_two_buckets": serve_counts[name][1],
-                                       "eval": eval_counts[name]}})
+                                       "eval": eval_counts[name],
+                                       "predict_cart_relax": relax_counts[name][0],
+                                       "eval_cart_relax": relax_counts[name][1]}})
     for name in sorted(k for k in per_kernel if k.startswith("probe_bf16/")):
         r = per_kernel[name]
         # 8192 x 1024 elements, 2000 steps; launches from its measurement

@@ -1,5 +1,5 @@
 """Command-line entry point of the port: `python -m diffbindfr_torch.app.cli
-predict ...`, the counterpart of diffbindfr_tpu/app/cli.py's `predict`.
+predict|relax ...`, the counterpart of diffbindfr_tpu/app/cli.py.
 
 Same flag names and defaults. Jobs come from a CSV (-i) or receptor/ligand
 lists (-p / -l, with a `<stem>_crystal.sdf` or `<stem>_box.csv` beside each
@@ -8,7 +8,10 @@ on the host, in `-nw` spawn workers when asked, into `<outdir>/prep_cache`
 (`<complex>_r<radius>.npz` + `.rec.pkl`; an entry there that serves the job,
 written by the port or by the JAX package's `predict`, is used as it is).
 `-j prep` stops after prep; it touches no device. Then dock -> error
-correction -> MDN scoring -> export and rank.
+correction -> (`--cart-relax`: Cartesian fine-relax) -> MDN scoring ->
+export and rank. `relax -i results.csv` re-minimizes exported poses in
+place: rigid-receptor Vina (with `--angular-hb`, `--explicit-h`), joint
+ligand + side chains (`--flex`) or all-atom Cartesian (`--cartesian`).
 
 The device picks the path of the stages after prep (as app/train_cli.py):
 the card by default, where the score net's trunk runs the hand-written CUDA
@@ -18,6 +21,7 @@ item; none falls back silently.
 
     python -m diffbindfr_torch.app.cli predict -i jobs.csv -o OUT -j prep -nw 4
     python -m diffbindfr_torch.app.cli predict -i jobs.csv -o OUT -ckt CKPT -mdn MDN
+    python -m diffbindfr_torch.app.cli relax -i OUT/results.csv --cartesian
 """
 from __future__ import annotations
 
@@ -29,7 +33,6 @@ import sys
 # flags of stages not ported yet: (flag, is set, ROADMAP item and what it ports)
 _NOT_PORTED = (
     ("-nc > 0", lambda a: a.num_conformers > 0, "A14 (chem/embed.py conformers)"),
-    ("--cart-relax", lambda a: a.cart_relax, "A10 (ops/cartesian.py relax)"),
     ("--conv-mode fc", lambda a: a.conv_mode == "fc", "A3 (the 'fc' tensor product)"),
 )
 
@@ -81,7 +84,10 @@ def build_parser():
                    help="skip vina-style pose re-minimization")
     p.add_argument("--ec-steps", type=int, default=150)
     p.add_argument("--cart-relax", action="store_true",
-                   help="all-atom Cartesian fine-relax after EC (waits for ROADMAP A10)")
+                   help="all-atom Cartesian fine-relax of every pose after EC (the reference's "
+                        "OpenMM relax role; repairs clashes and planarity that EC's pose-space "
+                        "moves cannot reach, ops/cartesian.py)")
+    p.add_argument("--cart-steps", type=int, default=300)
     p.add_argument("--ec-bs", type=int, default=0,
                    help="EC minimization batch size (0 = same as -bs)")
     p.add_argument("--score-bs", type=int, default=0,
@@ -109,6 +115,29 @@ def build_parser():
                    help="dotted overrides, e.g. score_net.ns=96 sampler.kind=ode")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (the kernels' plain versions)")
+
+    r = sub.add_parser("relax", help="re-minimize exported poses in place (the reference relaxes "
+                                     "with OpenMM, DiffBindFR/relax/pl.py)")
+    r.add_argument("-i", "--results-csv", required=True,
+                   help="a results.csv of predict (its lig_sdf and prot_pdb columns)")
+    r.add_argument("--steps", type=int, default=300)
+    r.add_argument("-dr", "--pocket-radius", type=float, default=8.0)
+    r.add_argument("--flex", action="store_true",
+                   help="joint ligand + side-chain relax (restrained chi DOFs, receptor clash "
+                        "term); writes <pose>_relaxed.pdb with the re-packed side chains")
+    r.add_argument("--cartesian", action="store_true",
+                   help="all-atom Cartesian fine-relax (ligand coordinates + restrained "
+                        "receptor heavy atoms, ops/cartesian.py); writes the relaxed receptor "
+                        "as <pose>_relaxed.pdb")
+    r.add_argument("--angular-hb", action="store_true",
+                   help="angular H-bond term: the hbond pair term scaled by donor/acceptor "
+                        "cones from heavy-atom geometry (implicit hydrogens)")
+    r.add_argument("--w-chi", type=float, default=1.0, help="chi restraint weight (--flex)")
+    r.add_argument("--explicit-h", action="store_true",
+                   help="explicit polar hydrogens on the receptor (chem/protonate.py), their "
+                        "directions in the angular H-bond term (implies --angular-hb; rigid "
+                        "receptor only)")
+    r.add_argument("--cpu", action="store_true", help="run on the CPU")
     return ap
 
 
@@ -187,6 +216,9 @@ def cmd_predict(args):
     if not args.no_ec:
         P.error_correct(prepared, results, steps=args.ec_steps,
                         batch_size=args.ec_bs or args.batch_size, device=dev)
+    if args.cart_relax:
+        P.cartesian_relax(prepared, results, steps=args.cart_steps, batch_size=args.batch_size,
+                          device=dev)
     if args.save_poses:
         P.save_poses(args.outdir, prepared, results)
     if not args.no_score:
@@ -207,10 +239,103 @@ def cmd_predict(args):
     return 0
 
 
+def _relaxed_protein(prot, pocket, atom14_pos):
+    """The input protein with the pocket's relaxed atom14 swapped in."""
+    from ..io.pdb import Protein
+    from .export import full_protein_with_pocket
+
+    pos37, mask37 = full_protein_with_pocket(prot, pocket, atom14_pos[: pocket.num_res])
+    return Protein(atom_positions=pos37, atom_mask=mask37, aatype=prot.aatype,
+                   residue_index=prot.residue_index, chain_index=prot.chain_index,
+                   b_factors=prot.b_factors, chain_ids=prot.chain_ids, resnames=prot.resnames,
+                   insertion_codes=prot.insertion_codes)
+
+
+def cmd_relax(args):
+    """Re-minimize each row's exported pose (`lig_sdf` against `prot_pdb`,
+    the pocket within `-dr` of the ligand) in place, one pose at a time:
+    the ligand SDF is rewritten (with its vina_score in the pose-space
+    modes), and `--flex` / `--cartesian` write the relaxed receptor as
+    `<lig_sdf stem>_relaxed.pdb`."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from ..chem.ligand_feats import featurize_ligand
+    from ..chem.mol import perceive
+    from ..chem.protein_feats import build_pocket_record
+    from ..io.pdb import parse_pdb, to_pdb_string
+    from ..io.sdf import parse_ligand_file, to_sdf_block
+    from ..ops import cartesian as C
+    from ..ops import vina
+    from ..utils.device import resolve_device
+    from .export import ligand_to_rawmol
+
+    with open(args.results_csv, newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    if args.explicit_h and not args.angular_hb:
+        print("[relax] --explicit-h implies --angular-hb")
+        args.angular_hb = True
+    if args.explicit_h and args.flex:
+        sys.exit("--explicit-h is rigid-receptor only (the flex path recomputes the axes from "
+                 "the rebuilt atom14)")
+    if args.cartesian and (args.flex or args.explicit_h or args.angular_hb):
+        sys.exit("--cartesian is its own mode (Cartesian DOFs; the angular/explicit-H terms "
+                 "belong to the pose-space minimizers)")
+    dev = resolve_device("cpu" if args.cpu else "cuda")
+
+    def on_dev(*trees):
+        return [vina.stack_to_device([t], dev) for t in trees]
+
+    for row in rows:
+        lig_raw = parse_ligand_file(row["lig_sdf"])[0]
+        lig = featurize_ligand(perceive(lig_raw), lig_raw.name)
+        prot = parse_pdb(row["prot_pdb"])
+        pocket = build_pocket_record(prot, lig.pos, cutoff=args.pocket_radius)
+        na = lig.num_atoms
+        pad_n = -(-na // 8) * 8
+        pad_a = -(-int(pocket.atom14_mask.sum()) // 8) * 8
+        vl = vina.build_ligand(lig, pad_n, max(lig.num_torsions, 1))
+        pos0 = np.pad(lig.pos - pocket.center, ((0, pad_n - na), (0, 0))).astype(np.float32)
+        lp = torch.from_numpy(pos0[None]).to(dev)
+        a14 = aff = None
+        if args.cartesian:
+            cl, vl_, cr = on_dev(C.build_cartesian_ligand(lig, pad_n), vl,
+                                 C.build_cartesian_receptor(pocket, pad_a))
+            a14_0 = torch.from_numpy(pocket.atom14_pos[None].astype(np.float32)).to(dev)
+            pos, a14 = C.cartesian_minimize_batch(lp, a14_0, cl, vl_, cr, steps=args.steps)
+        elif args.flex:
+            vl_, frec = on_dev(vl, vina.build_flex_receptor(pocket, -(-pocket.num_res // 8) * 8))
+            pos, a14, aff = vina.joint_minimize_batch(lp, vl_, frec, steps=args.steps,
+                                                      w_chi=args.w_chi,
+                                                      angular_hb=args.angular_hb)
+        else:
+            opt_acc = pos0[:na][np.asarray(vl.acceptor)[:na] > 0] if args.explicit_h else None
+            vrec = vina.build_receptor(pocket, pad_a, explicit_polar_h=args.explicit_h,
+                                       opt_acceptors=opt_acc)
+            vl_, vrec = on_dev(vl, vrec)
+            pos, aff = vina.minimize_batch(lp, vl_, vrec, steps=args.steps,
+                                           angular_hb=args.angular_hb)
+        world = pos[0].cpu().numpy()[:na] + pocket.center[None, :]
+        props = {} if aff is None else {"vina_score": f"{float(aff[0]):.4f}"}
+        with open(row["lig_sdf"], "w") as fh:
+            fh.write(to_sdf_block(ligand_to_rawmol(lig, world, props)))
+        if a14 is not None:
+            stem = os.path.splitext(row["lig_sdf"])[0]
+            with open(stem + "_relaxed.pdb", "w") as fh:
+                fh.write(to_pdb_string(_relaxed_protein(prot, pocket, a14[0].cpu().numpy())))
+    mode = " (Cartesian)" if args.cartesian else " (flex)" if args.flex else ""
+    print(f"[relax] re-minimized {len(rows)} poses in place{mode}")
+    return 0
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.cmd == "predict":
         return cmd_predict(args)
+    if args.cmd == "relax":
+        return cmd_relax(args)
     return 1
 
 

@@ -4,10 +4,13 @@ diffbindfr_tpu/app/eval_cli.py with the same flags, defaults and files.
 
 Dataset job makers (PDBbind time-split, PoseBusters, CrossDock layouts)
 drive the redocking protocol: prep -> dock (-np poses) -> error correction
--> `poses.npz` -> MDN scoring -> structure export with the redock metrics
-(symmetric L-RMSD, centroid, chi1, sc-RMSD against the crystal complex) ->
-`metrics_report.txt` (app/reporter.py) -> `validity.csv` (app/validity.py,
-the PoseBusters-style suite).
+-> (`--cart-relax`: Cartesian fine-relax) -> `poses.npz` -> MDN scoring ->
+structure export with the redock metrics (symmetric L-RMSD, centroid, chi1,
+sc-RMSD against the crystal complex) -> `metrics_report.txt`
+(app/reporter.py) -> `validity.csv` (app/validity.py, the PoseBusters-style
+suite). With `--cart-relax` the poses before the relax are graded too:
+`validity_prerelax.csv`, and `relax_ab.json` with the validity pass share
+and the oracle (best-pose) L-RMSD per complex before and after.
 
 Dataset layouts:
   * pdbbind_ts:  <root>/timesplit_test (one pdbid per line) +
@@ -20,7 +23,7 @@ Dataset layouts:
 
 In every layout the ligand file doubles as the crystal reference pose.
 
-The dock, error correction and MDN run on the card unless `--cpu` is given
+The dock, error correction, relax and MDN run on the card unless `--cpu` is given
 (then on the CPU, through the kernels' plain versions); prep, the report
 and validity are host numpy. Flags of stages the port does not have yet
 exit with an error naming their ROADMAP item.
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import json
 import os
 import sys
 
@@ -168,7 +172,8 @@ def build_parser():
     ap.add_argument("-no_score", "--no-score", action="store_true")
     ap.add_argument("--ec-steps", type=int, default=150)
     ap.add_argument("--cart-relax", action="store_true",
-                    help="all-atom Cartesian fine-relax after EC (waits for ROADMAP A10)")
+                    help="all-atom Cartesian fine-relax after EC (ops/cartesian.py); also writes "
+                         "validity_prerelax.csv and relax_ab.json")
     ap.add_argument("--cart-steps", type=int, default=300)
     ap.add_argument("--no-validity", action="store_true",
                     help="skip PoseBusters-style pose validity checks")
@@ -190,23 +195,57 @@ def build_parser():
     return ap
 
 
-def validity_rows(prepared: list, results: list) -> list:
+def validity_rows(prepared: list, results: list, poses: list | None = None) -> list:
     """The validity suite on every pose, judged against the pose's own
-    receptor (its atom14_pos, the structure the exporter writes)."""
+    receptor (its atom14_pos, the structure the exporter writes); `poses`
+    [(lig_pos, atom14_pos)] in the results' order replaces their own."""
     from . import validity as V
 
+    if poses is None:
+        poses = [(r.lig_pos, r.atom14_pos) for r in results]
     rows = []
-    for r in results:
+    for r, (lp, a14) in zip(results, poses):
         pr = prepared[r.pair_idx]
-        checks = V.check_pose(pr.lig, pr.pocket, r.lig_pos, atom14_pos=r.atom14_pos)
+        checks = V.check_pose(pr.lig, pr.pocket, lp, atom14_pos=a14)
         rows.append({"complex_name": pr.name, "pose": r.pose_idx,
                      **{k: int(bool(v)) for k, v in checks.items()}})
     return rows
 
 
-def write_validity(outdir: str, vrows: list) -> float:
-    """Write <outdir>/validity.csv; returns the share of poses passing all."""
-    vpath = os.path.join(outdir, "validity.csv")
+def relax_ab(prepared: list, results: list, pre: list, frac_pre: float,
+             frac_post: float) -> dict:
+    """relax_ab.json's content: the validity pass share before and after the
+    relax, and per complex with a crystal pose the oracle (lowest) L-RMSD
+    over its poses before (`pre`, [(lig_pos, atom14_pos)]) and after, with
+    their means."""
+    from .export import pose_metrics
+
+    oracle: dict = {}
+    for r, (lp, a14) in zip(results, pre):
+        pr = prepared[r.pair_idx]
+        if pr.crystal_pos is None:
+            continue
+        m_pre = pose_metrics(pr.lig, pr.pocket, lp, a14, crystal_lig_pos=pr.crystal_pos)
+        m_post = pose_metrics(pr.lig, pr.pocket, r.lig_pos, r.atom14_pos,
+                              crystal_lig_pos=pr.crystal_pos)
+        o = oracle.setdefault(pr.name, {"pre": 1e30, "post": 1e30})
+        o["pre"] = min(o["pre"], m_pre.l_rmsd)
+        o["post"] = min(o["post"], m_post.l_rmsd)
+    ab = {
+        "validity_pass_pre": round(frac_pre, 4),
+        "validity_pass_post": round(frac_post, 4),
+        "oracle_l_rmsd_pre": {k: round(v["pre"], 3) for k, v in oracle.items()},
+        "oracle_l_rmsd_post": {k: round(v["post"], 3) for k, v in oracle.items()},
+    }
+    if oracle:
+        ab["oracle_mean_pre"] = round(sum(v["pre"] for v in oracle.values()) / len(oracle), 3)
+        ab["oracle_mean_post"] = round(sum(v["post"] for v in oracle.values()) / len(oracle), 3)
+    return ab
+
+
+def write_validity(outdir: str, vrows: list, name: str = "validity.csv") -> float:
+    """Write <outdir>/<name>; returns the share of poses passing all."""
+    vpath = os.path.join(outdir, name)
     with open(vpath, "w", newline="") as fh:
         w = csv.DictWriter(fh, fieldnames=list(vrows[0]))
         w.writeheader()
@@ -257,6 +296,11 @@ def main(argv=None):
     if not args.no_ec:
         P.error_correct(prepared, results, steps=args.ec_steps, batch_size=args.batch_size,
                         device=dev)
+    pre = None
+    if args.cart_relax:
+        pre = [(r.lig_pos.copy(), r.atom14_pos.copy()) for r in results]
+        P.cartesian_relax(prepared, results, steps=args.cart_steps, batch_size=args.batch_size,
+                          device=dev)
     # final pose geometry persisted so scorers can be re-run on these exact
     # poses without re-docking (app/rescore_cli.py)
     P.save_poses(args.outdir, prepared, results)
@@ -281,7 +325,17 @@ def main(argv=None):
     print(report)
 
     if not args.no_validity:
-        write_validity(args.outdir, validity_rows(prepared, results))
+        frac_post = write_validity(args.outdir, validity_rows(prepared, results))
+        if pre is not None:
+            frac_pre = write_validity(args.outdir, validity_rows(prepared, results, pre),
+                                      "validity_prerelax.csv")
+            ab = relax_ab(prepared, results, pre, frac_pre, frac_post)
+            abpath = os.path.join(args.outdir, "relax_ab.json")
+            with open(abpath, "w") as fh:
+                json.dump(ab, fh, indent=1)
+            print(f"[relax A/B] validity {frac_pre:.1%} -> {frac_post:.1%}"
+                  + (f", oracle L-RMSD {ab['oracle_mean_pre']} -> {ab['oracle_mean_post']} A"
+                     if "oracle_mean_pre" in ab else "") + f" -> {abpath}")
     print(f"[eval] done: {res_csv}")
     return 0
 

@@ -1,7 +1,8 @@
 """The stages of `predict`: PyTorch counterpart of
 diffbindfr_tpu/app/pipeline.py (PreparedPair, prep, DockEngine / dock,
-ECEngine / error_correct, MDNEngine / score_mdn, export_and_rank,
-save_poses / load_poses, write_failures).
+ECEngine / error_correct, CartesianRelaxEngine / cartesian_relax,
+MDNEngine / score_mdn, export_and_rank, save_poses / load_poses,
+write_failures).
 
 Host prep (PreparedPair, prep, write_failures) lives in app/prepare.py,
 which imports no torch, and is re-exported here. Pairs, poses and exports
@@ -24,7 +25,7 @@ import torch
 from .. import sampler as sp
 from ..data.sample import stack_samples, to_device
 from ..models import mdn_scorer as mdn
-from ..ops import vina
+from ..ops import cartesian, vina
 from ..utils.device import resolve_device
 from .export import PoseStructWriter, export_pose, export_trajectory, pose_metrics
 from .prepare import Failure, PreparedPair, prep, write_failures  # noqa: F401 (re-exported)
@@ -148,25 +149,23 @@ def _batches(prepared: list, results: list, batch_size: int):
     return out
 
 
-class ECEngine:
-    """Vina error correction: each pose re-minimized in (translation,
-    rotation, torsion) space against the rigid pocket (`vina.minimize_batch`,
-    `steps` Adam steps at learning rate `lr`). The typed ligand and receptor
-    of a pair are built on the host once and kept on the device, for at most
-    `max(2 * batch_size, 32)` pairs (the JAX engines' stager capacity): past
-    that the least recently used pair outside the running batch is dropped,
-    so a long-lived server does not grow with every pair it has seen."""
+class _PairSystemEngine:
+    """A pose stage over per-pair systems built on the host and kept on the
+    device, for at most `max(2 * batch_size, 32)` pairs (the JAX engines'
+    stager capacity): past that the least recently used pair outside the
+    running batch is dropped, so a long-lived server does not grow with
+    every pair it has seen. Subclasses name their stage and build a pair's
+    system (`_build`: a tuple of NamedTuples with batch axis 1)."""
 
-    def __init__(self, steps: int = 150, lr: float = 0.05, batch_size: int = 16,
-                 device="cuda", verbose: bool = True):
+    stage = ""
+
+    def __init__(self, batch_size: int, device, verbose: bool):
         self.device = resolve_device(device)
-        self.steps = steps
-        self.lr = lr
         self.batch_size = batch_size
         self.verbose = verbose
         self.capacity = max(2 * batch_size, 32)
-        # id(pair) -> (pair, VinaLigand, VinaReceptor) on the device, least
-        # recently used first; the entry holds the pair, so its id is not reused
+        # id(pair) -> (pair, *system) on the device, least recently used
+        # first; the entry holds the pair, so its id is not reused
         self._systems: OrderedDict = OrderedDict()
 
     def _system(self, pair, keep: set):
@@ -177,11 +176,8 @@ class ECEngine:
             self._systems.move_to_end(key)
             return self._systems[key]
         if pair.lig is None or pair.pocket is None:
-            raise ValueError(f"{pair.name}: no ligand/pocket record (rec.pkl) for EC")
-        b = pair.bucket
-        lig = vina.stack_to_device([vina.build_ligand(pair.lig, b.n_lig, b.n_tor)], self.device)
-        rec = vina.stack_to_device([vina.build_receptor(pair.pocket, b.n_atm)], self.device)
-        self._systems[key] = (pair, lig, rec)
+            raise ValueError(f"{pair.name}: no ligand/pocket record (rec.pkl) for {self.stage}")
+        self._systems[key] = (pair, *self._build(pair))
         while len(self._systems) > self.capacity:
             old = next(k for k in self._systems if k not in keep)
             del self._systems[old]
@@ -191,19 +187,46 @@ class ECEngine:
         """Drop every pair's system from the device."""
         self._systems.clear()
 
+    def _batches(self, prepared: list, results: list):
+        """[(chunk, padded result indices, the batch's pairs, its systems
+        concatenated field by field)] in run order."""
+        for chunk, idxs in _batches(prepared, results, self.batch_size):
+            pairs = [prepared[results[k].pair_idx] for k in idxs]
+            keep = {id(p) for p in pairs}
+            systems = [self._system(p, keep)[1:] for p in pairs]
+            cat = tuple(type(parts[0])(*[torch.cat(f) for f in zip(*parts)])
+                        for parts in zip(*systems))
+            yield chunk, idxs, pairs, cat
+
+    def _tensor(self, arrays: list):
+        return torch.from_numpy(np.stack(arrays)).to(self.device, torch.float32)
+
+
+class ECEngine(_PairSystemEngine):
+    """Vina error correction: each pose re-minimized in (translation,
+    rotation, torsion) space against the rigid pocket (`vina.minimize_batch`,
+    `steps` Adam steps at learning rate `lr`)."""
+
+    stage = "EC"
+
+    def __init__(self, steps: int = 150, lr: float = 0.05, batch_size: int = 16,
+                 device="cuda", verbose: bool = True):
+        super().__init__(batch_size, device, verbose)
+        self.steps = steps
+        self.lr = lr
+
+    def _build(self, pair):
+        b = pair.bucket
+        return (vina.stack_to_device([vina.build_ligand(pair.lig, b.n_lig, b.n_tor)], self.device),
+                vina.stack_to_device([vina.build_receptor(pair.pocket, b.n_atm)], self.device))
+
     def run(self, prepared: list, results: list) -> None:
         """Minimize every result's pose in place: sets lig_pos and
         vina_score."""
         t0 = time.time()
         done = 0
-        for chunk, idxs in _batches(prepared, results, self.batch_size):
-            pairs = [prepared[results[k].pair_idx] for k in idxs]
-            keep = {id(p) for p in pairs}
-            systems = [self._system(p, keep) for p in pairs]
-            ligs = vina.VinaLigand(*[torch.cat(f) for f in zip(*[s[1] for s in systems])])
-            recs = vina.VinaReceptor(*[torch.cat(f) for f in zip(*[s[2] for s in systems])])
-            lp = torch.from_numpy(np.stack([results[k].lig_pos for k in idxs])).to(
-                self.device, torch.float32)
+        for chunk, idxs, pairs, (ligs, recs) in self._batches(prepared, results):
+            lp = self._tensor([results[k].lig_pos for k in idxs])
             # the torsion loop stops after the batch's last real torsion
             n_tor = max(p.lig.num_torsions for p in pairs)
             pos, aff = vina.minimize_batch(lp, ligs, recs, steps=self.steps, lr=self.lr,
@@ -224,6 +247,61 @@ def error_correct(prepared: list, results: list, steps: int = 150, lr: float = 0
     ECEngine."""
     ECEngine(steps=steps, lr=lr, batch_size=batch_size, device=device,
              verbose=verbose).run(prepared, results)
+
+
+class CartesianRelaxEngine(_PairSystemEngine):
+    """All-atom Cartesian fine-relax (`cartesian.cartesian_minimize_batch`,
+    `steps` Adam steps at learning rate `lr`, the default RelaxWeights): the
+    ligand's Cartesian coordinates and the pose's receptor heavy atoms,
+    restrained, move together."""
+
+    stage = "Cartesian relax"
+
+    def __init__(self, steps: int = 300, lr: float = 0.02, batch_size: int = 16,
+                 device="cuda", verbose: bool = True):
+        super().__init__(batch_size, device, verbose)
+        self.steps = steps
+        self.lr = lr
+
+    def _build(self, pair):
+        b = pair.bucket
+        host = (cartesian.build_cartesian_ligand(pair.lig, b.n_lig),
+                vina.build_ligand(pair.lig, b.n_lig, b.n_tor),
+                cartesian.build_cartesian_receptor(pair.pocket, b.n_atm))
+        return tuple(vina.stack_to_device([t], self.device) for t in host)
+
+    def run(self, prepared: list, results: list) -> None:
+        """Relax every result's pose in place: sets lig_pos and atom14_pos
+        (the scores are left as they are)."""
+        t0 = time.time()
+        done = 0
+        for chunk, idxs, _, (cls, vls, crs) in self._batches(prepared, results):
+            lp = self._tensor([results[k].lig_pos for k in idxs])
+            a14 = self._tensor([results[k].atom14_pos for k in idxs])
+            pos, a14 = cartesian.cartesian_minimize_batch(lp, a14, cls, vls, crs,
+                                                          steps=self.steps, lr=self.lr)
+            pos, a14 = pos.cpu().numpy(), a14.cpu().numpy()
+            for j, k in enumerate(chunk):
+                results[k].lig_pos = pos[j]
+                results[k].atom14_pos = a14[j]
+            done += len(chunk)
+            if self.verbose:
+                print(f"[relax] {done}/{len(results)} poses ({time.time() - t0:.1f} s)",
+                      flush=True)
+
+
+def cartesian_relax(prepared: list, results: list, steps: int = 300, lr: float = 0.02,
+                    batch_size: int = 16, device="cuda", verbose: bool = True) -> None:
+    """All-atom Cartesian fine-relax of every pose (the reference's OpenMM
+    relax role): repairs the strain and clashes that EC's pose-space moves
+    cannot reach; updates lig_pos and atom14_pos in place, the vina and MDN
+    scores are not touched. One-shot wrapper around CartesianRelaxEngine."""
+    t0 = time.time()
+    CartesianRelaxEngine(steps=steps, lr=lr, batch_size=batch_size, device=device,
+                         verbose=verbose).run(prepared, results)
+    if verbose:
+        print(f"[relax] Cartesian fine-relax of {len(results)} poses in "
+              f"{time.time() - t0:.1f}s")
 
 
 class MDNEngine:

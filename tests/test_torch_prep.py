@@ -397,10 +397,14 @@ def test_predict_from_raw_files_equals_predict_from_a_jax_cache(tmp_path, jax_ta
 @pytest.mark.parametrize("flags,item", [
     (["--cart-relax"], "A10"), (["-nc", "4"], "A14"), (["--conv-mode", "fc"], "A3")])
 def test_prep_and_workers_leave_the_other_refusals(flags, item, tmp_path):
-    """`-j prep` and `-nw` run now; -nc, --cart-relax and --conv-mode fc
-    still exit naming their ROADMAP items, before any work."""
+    """`-j prep` and `-nw` run now; -nc and --conv-mode fc still exit naming
+    their ROADMAP items, before any work; --cart-relax (A10) is ported and
+    passes the refusal."""
+    argv = ["predict", "-j", "prep", "-nw", "2", "-i", "none.csv", "-o", str(tmp_path)] + flags
+    if item == "A10":
+        assert cli.refuse_unported(cli.build_parser().parse_args(argv)) is None
+        return
     with pytest.raises(SystemExit) as e:
-        cli.main(["predict", "-j", "prep", "-nw", "2", "-i", "none.csv", "-o",
-                  str(tmp_path)] + flags)
+        cli.main(argv)
     assert f"ROADMAP {item}" in str(e.value.code)
     assert not os.listdir(tmp_path)

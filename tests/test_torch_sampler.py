@@ -137,7 +137,9 @@ def test_dock_engine_fused_layer_mode_gives_the_cmt_poses(setup):
 
 def test_import_loads_no_jax():
     code = ("import sys, diffbindfr_torch, diffbindfr_torch.app.pipeline, "
-            "diffbindfr_torch.nn.trunk_convs, diffbindfr_torch.utils.cuda_build; "
+            "diffbindfr_torch.nn.trunk_convs, diffbindfr_torch.utils.cuda_build, "
+            "diffbindfr_torch.app.cli, diffbindfr_torch.ops.cartesian, "
+            "diffbindfr_torch.chem.protonate; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'diffbindfr_tpu')]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
