@@ -56,14 +56,16 @@ a non-zero exit code):
               batch of 4, fixed TrainNoise) on the kernel path and on the
               plain path: loss terms within 1e-5, grad_norm within 1e-4
               (relative), every parameter gradient within 1e-3 max|ref|
-  11. train   the port's train_cli on a copy of the five prep caches from
-              diff_r2's params at -bs 16: 3 warm-up steps, then 20 steps
+  11. train   the port's train_cli at --dtype float32 on a copy of the five
+              prep caches from diff_r2's params at -bs 16: 3 warm-up steps, then 20 steps
               resumed from the saved state, counted: per step each backward
               kernel launches 6 times and each forward kernel 12 (remat
               reruns the forward); then 5 steps with --no-remat (6 each);
-              every step's loss finite, the checkpoint reloads; samples/s
-              and step ms after each run's first step, peak memory, and the
-              profiler's device time over 2 steps
+              every step's loss finite, the checkpoint reloads; then 10 steps
+              at --dtype bfloat16 (train_cli's default), the same counts per
+              step, B11 never; samples/s and step ms after each run's first
+              step, peak memory, and the profiler's device time over 2 steps
+              of f32 and of bf16
   12. rm_kernels  the row-major kernel configurations' kernels: B7 cross,
               B8 pair, B9 knn with the finalize in the kernel, and B10 (the
               whole layer), at the 3dbs bucket shapes, layers 0 and 5, B = 16,
@@ -246,13 +248,30 @@ a non-zero exit code):
               the relax's ms per step and share of the run; three relax steps
               under torch.profiler: launches per step, busy share. (c) `relax` in
               its five modes (rigid, --angular-hb, --explicit-h, --flex,
-              --cartesian) on two of (b)'s exported poses, each mode on its own
-              copy: finite poses, `_relaxed.pdb` where the mode writes one, no
+              --cartesian) on one of (b)'s exported poses, each mode on its own
+              copy: a finite pose, `_relaxed.pdb` where the mode writes one, no
               trunk kernel. (d) `eval_cli --cart-relax` on 2src and 2zec, 8 poses
               each (one batch): 120 launches per B11 kernel, validity_prerelax.csv
               with 16 rows, relax_ab.json with its keys (printed as a reading).
               The B11 rows of the kernels line carry (b)'s and (d)'s launches in
               `path_launches`
+  31. train_cli  train_cli at its defaults (bf16, -bs 8, remat, the f32
+              depthwise chain) from -p/-l of runs/pb_bench's five complexes
+              (receptor x ligand: 25 jobs) with --holdout 2zec --val-poses 4,
+              10 steps resumed from diff_r2: every loss finite; exact launch
+              counts: per step B1-B3 12 and B4-B6 6, B1-B3 6 per evaluation
+              forward, B11 never, the validation dock B1-B3 120 per batch (20
+              steps x 6 layers); ckpt_best.npz reloads to the trained EMA;
+              samples/s, ms/step and peak memory. One full-width bf16 step
+              (diff_r2, a 3dbs batch of 4) on the kernel path against the same
+              path with the convs' plain versions on the card: loss terms and
+              grad_norm at phase 10's gates; the gradients as
+              tests/test_torch_train_bf16.py holds them (relative L2 over all
+              below half of the f32 step's distance, each tensor within 0.2).
+              Then --model mdn, crystal (-i, 3mhw and 2zec) and
+              --pose-dir (scorer_pose_set), 4 steps from runs/mdn_r4b at -bs 2
+              on the card and on the CPU: losses within 1e-4 relative; 10
+              steps at -bs 8 on the card: samples/s, ms/step, peak memory
 Kernel times: `ms` is the wrapper's time by CUDA events around 10 calls
 (its host set-up included), `device_ms` the kernel's own device time per
 call (phases 5, 9, 12, 17, 18, 23-25): from torch.profiler's
@@ -311,7 +330,7 @@ DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 
              "bf16_kernels": 240, "bf16_forward": 120, "bf16_dock": 300, "ec_mdn_ref": 180,
              "score_chain": 240, "probe_mlp": 120,
              "probe_mxu_ops": 180, "probe_mosaic": 180, "predict": 300, "prep_predict": 480,
-             "serve": 300, "eval": 420, "relax": 420}
+             "serve": 300, "eval": 420, "relax": 420, "train_cli": 240}
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, HBM3 bandwidth; bf16 outside the tensor cores (packed
 # bf16x2, two per fp32 lane: the H100 white paper's non-tensor BF16 rate,
@@ -1191,25 +1210,45 @@ def param_paths(tree, prefix=""):
 def phase_train_parity(torch, params, s_np):
     """One full-width train step's loss terms and gradients, kernel path vs
     plain path, same batch and noise."""
+    from diffbindfr_torch.models import score_net as sn
+
+    check_train_parity(torch, params, s_np, sn.ScoreNetConfig(remat=True),
+                       {"kernel": (True, None), "plain": (False, None)})
+
+
+def check_train_parity(torch, params, s_np, cfg, runs, control=None):
+    """loss_and_grads of one full-width train step (a fixed 3dbs batch of 4,
+    fixed TrainNoise) for each of the two `runs`, name -> (use_kernels,
+    context manager factory or None), the first against the second: loss
+    terms within 1e-5, grad_norm within 1e-4 (relative), every parameter
+    gradient within 1e-3 max|ref|. With `control`, a config whose step the
+    second run's gradients are also compared with (bf16: the same path at
+    f32), the gradients are held as tests/test_torch_train_bf16.py holds
+    them: the relative L2 distance over all of them below half of the
+    control's, every tensor within 0.2 relative L2 (the bf16 backward rounds
+    its cotangents at every cast, so element bounds cannot hold)."""
     from diffbindfr_torch import train
     from diffbindfr_torch.data.sample import stack_samples, to_device
-    from diffbindfr_torch.models import score_net as sn
     from diffbindfr_torch.sampler import SamplerConfig
 
-    cfg, tcfg, scfg = sn.ScoreNetConfig(remat=True), train.TrainConfig(), SamplerConfig()
+    tcfg, scfg = train.TrainConfig(), SamplerConfig()
     batch = to_device(stack_samples([s_np] * 4), DEV)
     noise = train.draw_noise(batch, tcfg, torch.Generator(device=DEV).manual_seed(11))
+    cfgs = {path: cfg for path in runs}
+    if control is not None:
+        runs, cfgs = {**runs, "control": (True, None)}, {**cfgs, "control": control}
     out = {}
-    for path, use_kernels in (("kernel", True), ("plain", False)):
+    for path, (use_kernels, ctx) in runs.items():
         torch.cuda.synchronize()
         t0 = time.time()
-        m, g = train.loss_and_grads(params, batch, noise, cfg, scfg, tcfg, use_kernels)
+        with (ctx or contextlib.nullcontext)():
+            m, g = train.loss_and_grads(params, batch, noise, cfgs[path], scfg, tcfg, use_kernels)
         m["grad_norm"] = train.global_norm(g)
         torch.cuda.synchronize()
         out[path] = ({k: float(v) for k, v in m.items()}, g)
         print(f"  {path} path: loss and gradients in {time.time() - t0:.3f} s: "
               + " ".join(f"{k} {v:.6g}" for k, v in out[path][0].items()), flush=True)
-    (mk, gk), (mp, gp) = out["kernel"], out["plain"]
+    (name_k, (mk, gk)), (name_p, (mp, gp)) = list(out.items())[:2]
     terms = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mk}
     paths = param_paths(params)
     keep = [i for i, b in enumerate(gp) if b.numel() and float(b.abs().max()) > 0]
@@ -1220,8 +1259,21 @@ def phase_train_parity(torch, params, s_np):
           f"{len(errs)} tensors ({len(gp) - len(keep)} with zero gradients skipped); above "
           f"1e-4: {sum(e > 1e-4 for e in errs.values())}", flush=True)
     bad = [k for k, v in terms.items() if not v <= (1e-4 if k == "grad_norm" else 1e-5)]
-    if bad or not errs[worst] <= 1e-3:
-        raise AssertionError(f"kernel path disagrees with the plain path: {bad}, "
+    if control is None:
+        ok = errs[worst] <= 1e-3
+    else:
+        def l2(a, b):
+            return float(torch.linalg.vector_norm(torch.cat([(x - y).flatten() for x, y in zip(
+                a, b)])) / torch.linalg.vector_norm(torch.cat([y.flatten() for y in b])))
+
+        err, ctl = l2(gk, gp), l2(out["control"][1], gp)
+        per = {paths[i]: l2([gk[i]], [gp[i]]) for i in keep}
+        top = max(per, key=per.get)
+        print(f"  gradients' relative L2 distance {err:.3e}, the control's {ctl:.3e} (ratio "
+              f"{err / ctl:.3f}); worst tensor {per[top]:.3e} ({top})", flush=True)
+        ok = err < 0.5 * ctl and per[top] <= 0.2
+    if bad or not ok:
+        raise AssertionError(f"{name_k} path disagrees with the {name_p} path: {bad}, "
                              f"gradients {errs[worst]:.3e} ({worst})")
 
 
@@ -1244,8 +1296,8 @@ def phase_train(torch, smi):
                 shutil.copy(os.path.join(PREP, fn), cache)
         step0 = int(load_checkpoint(CKPT, device="cpu")[1] or 0)
         common = ["--stream-cache", cache, "-o", out, "-bs", "16", "--ckpt-every", "1000000",
-                  "--device", DEV]
-        warm, timed, flat = 3, 20, 5
+                  "--device", DEV, "--dtype", "float32"]
+        warm, timed, flat, half = 3, 20, 5, 10
         t0 = time.time()
         train_cli.main(common + ["--resume", CKPT, "--steps", str(step0 + warm)])
         print(f"  {warm} warm-up steps from diff_r2 (step {step0}) in "
@@ -1289,25 +1341,42 @@ def phase_train(torch, smi):
             raise AssertionError(f"launch counts without remat {no_remat}, expected "
                                  f"{6 * flat} each")
 
+        # train_cli's default precision on the same steps: bf16 with the f32
+        # depthwise chain (B1-B6, never B11)
+        TC.reset_launches()
+        res = train_cli.main(common + ["--dtype", "bfloat16", "--resume",
+                                       os.path.join(out, "train_state.npz"),
+                                       "--steps", str(step0 + warm + timed + flat + half)])
+        bf16 = dict(TC.launches)
+        report_rate(res, "bf16, remat on")
+        print(f"  launches in the {half} bf16 steps: {bf16}", flush=True)
+        if not all(v == v and abs(v) < float("inf") for v in res["losses"]):
+            raise AssertionError("non-finite bf16 training loss")
+        if bf16 != {k: v // 2 for k, v in want.items()}:
+            raise AssertionError(f"bf16 launch counts {bf16}, expected half of {want}")
+
         # device time over 2 steps of one 128/1024 batch under the profiler
         from torch.profiler import ProfilerActivity, profile
 
-        cfg = sn.ScoreNetConfig(remat=True)
         tcfg, scfg = train.TrainConfig(total_steps=step0 + 100), SamplerConfig()
         s_np = _load_sample_npz(SAMPLE)
         batch = to_device(stack_samples([s_np] * 4), DEV)
         gen = torch.Generator(device=DEV).manual_seed(5)
         noise = train.draw_noise(batch, tcfg, gen)
-        state, _ = train.train_step(state, batch, noise, cfg, scfg, tcfg, device=DEV)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            for _ in range(2):
-                state, _ = train.train_step(state, batch, noise, cfg, scfg, tcfg, device=DEV)
+        for what, cfg in (("f32", sn.ScoreNetConfig(remat=True)),
+                          ("bf16", sn.ScoreNetConfig(remat=True, compute_dtype="bfloat16",
+                                                     pallas_dw_dtype="float32"))):
+            state, _ = train.train_step(state, batch, noise, cfg, scfg, tcfg, device=DEV)
             torch.cuda.synchronize()
-            wall = time.time() - t0
-        report_profile(prof, wall, "2 train steps, B=4 (128/1024)",
-                       list(KERNELS) + list(BWD_KERNELS))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.time()
+                for _ in range(2):
+                    state, _ = train.train_step(state, batch, noise, cfg, scfg, tcfg,
+                                                device=DEV)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            report_profile(prof, wall, f"2 {what} train steps, B=4 (128/1024)",
+                           list(KERNELS) + list(BWD_KERNELS), steps=2)
         return counts
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3146,16 +3215,16 @@ def relax_profile(torch, np, prepared, results, smi):
 
 
 def relax_modes(np, TC, cli, out, tmp):
-    """Phase 30 (c): `relax` in each mode on two poses exported by `out`'s
-    run, each mode on its own copy: finite poses, `_relaxed.pdb` where the
-    mode writes one, no trunk kernel launched; seconds per mode."""
+    """Phase 30 (c): `relax` in each mode on a pose exported by `out`'s run,
+    each mode on its own copy: a finite pose, `_relaxed.pdb` where the mode
+    writes one, no trunk kernel launched; seconds per mode."""
     import csv
 
     from diffbindfr_torch.io.pdb import parse_pdb
     from diffbindfr_torch.io.sdf import parse_sdf
 
     with open(os.path.join(out, "results.csv"), newline="") as fh:
-        rows = [r for r in csv.DictReader(fh) if r["lig_sdf"]][:2]
+        rows = [r for r in csv.DictReader(fh) if r["lig_sdf"]][:1]
     TC.reset_launches()
     for mode, flags in RELAX_MODES.items():
         mdir = os.path.join(tmp, "relax_" + mode)
@@ -3188,8 +3257,8 @@ def relax_modes(np, TC, cli, out, tmp):
                 raise AssertionError(f"relax {mode}: _relaxed.pdb {os.path.exists(pdb)}")
             if os.path.exists(pdb) and not np.isfinite(parse_pdb(pdb).atom_positions).all():
                 raise AssertionError(f"relax {mode}: non-finite {pdb}")
-        print(f"  relax {' '.join(flags) or '(rigid)'}: {len(kept)} poses (300 steps each, one "
-              f"at a time) in {secs:.3f} s; moved atoms up to {moved:.3f} A; finite", flush=True)
+        print(f"  relax {' '.join(flags) or '(rigid)'}: {len(kept)} pose (300 steps) in "
+              f"{secs:.3f} s; moved atoms up to {moved:.3f} A; finite", flush=True)
     if any(TC.launches.values()):
         raise AssertionError(f"relax launched trunk kernels: {TC.launches}")
 
@@ -3258,6 +3327,207 @@ def phase_relax(torch, np, TC, smi):
                                  f"{n_pre} pre-relax validity rows, relax_ab keys {sorted(ab)}")
         return {k: (counts[k], e_counts[k]) for k in BF16_KERNELS}
     finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ligand fields of a DockingSample: a cross-dock entry of scorer_pose_set takes
+# them from one complex and the pocket fields from another (same padding)
+LIG_FIELDS = ("lig_feat", "lig_pos", "lig_ref_pos", "lig_mask", "lig_e_src", "lig_e_dst",
+              "lig_e_feat", "lig_e_mask", "tor_src", "tor_dst", "tor_mask", "rot_node_mask")
+
+
+def scorer_pose_set(np, outdir, seed=0):
+    """A small MDN pose set in tools/make_scorer_poses.py's npz format, made
+    with a numpy seed from the tracked prep records (their samples made
+    again at a fresh prep's buckets): self-dock entries 2zec (n_lig 32,
+    n_atm 1024) and 3mhw (32, 768), the crystal ligand turned by up to 0.3
+    rad about its centroid and moved 0.3-6 A (L-RMSD 0.8-6 A), side chains
+    jittered by 0.05 A; one cross-dock entry, 3mhw's ligand in 2zec's pocket
+    (`2zec__3mhw`, L-RMSD NaN), in 2zec's bucket, so train_cli's stratified
+    self/cross draw runs there. Returns the file names."""
+    from diffbindfr_torch.chem.records import load_prep_record
+    from diffbindfr_torch.data.sample import make_sample
+    from diffbindfr_torch.mdn_train import crystal_atom14
+
+    rng = np.random.default_rng(seed)
+
+    def turn(v):
+        a = np.linalg.norm(v)
+        k = np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]]) / a
+        return np.eye(3) + np.sin(a) * k + (1 - np.cos(a)) * k @ k
+
+    def poses(s, shifts):
+        m = s.lig_mask > 0
+        c = s.lig_pos[m].mean(0)
+        out, rmsd = [], []
+        for d in shifts:
+            axis = rng.normal(size=3)
+            u = rng.normal(size=3)
+            p = (s.lig_pos - c) @ turn(axis / np.linalg.norm(axis) * rng.uniform(0, 0.3)).T
+            p = ((p + c + d * u / np.linalg.norm(u)) * s.lig_mask[:, None]).astype(np.float32)
+            out.append(p)
+            rmsd.append(np.sqrt(((p[m] - s.lig_pos[m]) ** 2).sum(-1).mean()))
+        return np.stack(out), np.asarray(rmsd, np.float32)
+
+    def jitter(s, k):
+        a14 = crystal_atom14(s)
+        noise = rng.normal(size=(k,) + a14.shape) * 0.05 * s.atom14_mask[None, ..., None]
+        return (a14[None] + noise).astype(np.float32)
+
+    samples = {}
+    for n in ("2zec", "3mhw"):
+        rec = load_prep_record(os.path.join(PREP, f"{n}_r12.rec.pkl"))
+        samples[n] = make_sample(rec["lig"], rec["pocket"])
+    sets = {}
+    for n, s in samples.items():
+        lig, rmsd = poses(s, [0.3, 1.0, 2.0, 3.0, 4.5, 6.0])
+        sets[n] = (s, lig, jitter(s, len(rmsd)), rmsd, True)
+    cross = samples["2zec"]._replace(**{f: getattr(samples["3mhw"], f) for f in LIG_FIELDS})
+    lig, _ = poses(cross, [0.5, 1.5, 2.5, 3.0])
+    sets["2zec__3mhw"] = (cross, lig, jitter(cross, 4), np.full(4, np.nan, np.float32), False)
+    os.makedirs(outdir, exist_ok=True)
+    for n, (s, lig, a14, rmsd, is_self) in sets.items():
+        np.savez(os.path.join(outdir, f"{n}.npz"), **{f"s_{k}": v for k, v in s._asdict().items()},
+                 lig_pos=lig, atom14_pos=a14, l_rmsd=rmsd, is_self=np.array(is_self))
+    return sorted(f"{n}.npz" for n in sets)
+
+
+def pb_train_inputs(tmp):
+    """(-p paths, -l paths): copies of runs/pb_bench's contact-chain receptors
+    with their ligands beside them as `<stem>_crystal.sdf` (the crystal pose
+    `-p` discovers), and those ligands."""
+    recs, ligs = [], []
+    for n in sorted(os.listdir(PB_BENCH)):
+        src = os.path.join(PB_BENCH, n)
+        for dst, name in ((f"{n}.pdb", f"{n}_protein_contact_chains.pdb"),
+                          (f"{n}_crystal.sdf", f"{n}_ligand.sdf"), (f"{n}_lig.sdf", f"{n}_ligand.sdf")):
+            shutil.copy(os.path.join(src, name), os.path.join(tmp, dst))
+        recs.append(os.path.join(tmp, f"{n}.pdb"))
+        ligs.append(os.path.join(tmp, f"{n}_lig.sdf"))
+    return recs, ligs
+
+
+@contextlib.contextmanager
+def plain_convs(TC):
+    """The trunk's conv wrappers replaced by their plain versions (autograd
+    through them), so the kernel path runs without a kernel on the card."""
+    saved = {k: getattr(TC, k) for k in ("pair_conv", "cross_conv", "knn_conv")}
+    for k in saved:
+        setattr(TC, k, getattr(TC, f"{k}_plain"))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(TC, k, v)
+
+
+def phase_train_cli(torch, np, TC, params, s_np, smi):
+    """train_cli at its defaults (bf16) from job tables with validation, then
+    its MDN scorer training on the card and on the CPU; returns the trunk
+    kernels' launches in the diffusion run's training steps and dock."""
+    from diffbindfr_torch import train
+    from diffbindfr_torch.app import pipeline, train_cli
+    from diffbindfr_torch.models import score_net as sn
+    from diffbindfr_torch.utils.checkpoint import load_checkpoint, load_train_state
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_cli.")
+    real_dock, real_eval = pipeline.dock, train.eval_step
+    try:
+        recs, ligs = pb_train_inputs(tmp)
+        docks, evals = [], [0]
+
+        def dock(prepared, p, net_cfg, scfg, num_poses=40, batch_size=16, **kw):
+            plan = pipeline.DockEngine(p, net_cfg, scfg, batch_size, device=DEV).batches(
+                prepared, num_poses)
+            before = dict(TC.launches)
+            res = real_dock(prepared, p, net_cfg, scfg, num_poses, batch_size, **kw)
+            docks.append(({k: TC.launches[k] - before[k] for k in before}, len(plan), len(res)))
+            return res
+
+        def eval_step(*a, **kw):
+            evals[0] += 1
+            return real_eval(*a, **kw)
+
+        pipeline.dock, train.eval_step = dock, eval_step
+        step0 = int(load_checkpoint(CKPT, device="cpu")[1] or 0)
+        steps, out = 10, os.path.join(tmp, "bf16")
+        TC.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = train_cli.main(["-p", *recs, "-l", *ligs, "-o", out, "--resume", CKPT, "--steps",
+                              str(step0 + steps), "--holdout", "2zec", "--val-poses", "4",
+                              "--ckpt-every", "1000000", "--log-every", "5", "--device", DEV])
+        wall = time.time() - t0
+        counts = dict(TC.launches)
+        peak = torch.cuda.max_memory_allocated()
+        pipeline.dock, train.eval_step = real_dock, real_eval
+        report_rate(res, f"bf16 (the default), -bs 8, remat, peak memory {peak / 2**30:.2f} GiB "
+                         f"on {smi}")
+        print(f"  main() {wall:.3f} s with prep and validation; losses "
+              + " ".join(f"{v:.3f}" for v in res["losses"]), flush=True)
+        (dock_counts, n_batches, n_poses), = docks
+        train_counts = {k: counts[k] - dock_counts[k] for k in counts}
+        print(f"  validation dock: {n_poses} poses in {n_batches} batches, launches "
+              f"{dock_counts}; {evals[0]} evaluation forwards; launches in the {steps} steps "
+              f"and evaluations: {train_counts}", flush=True)
+        want_dock = {k: 120 * n_batches if k in KERNELS else 0 for k in counts}
+        want = {k: 0 for k in counts}
+        want.update({**{k: 6 * steps for k in BWD_KERNELS},
+                     **{k: 12 * steps + 6 * evals[0] for k in KERNELS}})
+        if dock_counts != want_dock or train_counts != want:
+            raise AssertionError(f"launch counts: dock {dock_counts} (expected {want_dock}), "
+                                 f"training {train_counts} (expected {want})")
+        if len(res["losses"]) != steps or not np.isfinite(res["losses"]).all():
+            raise AssertionError("non-finite bf16 training loss")
+        state = load_train_state(os.path.join(out, "train_state.npz"), DEV)
+        best, bstep = load_checkpoint(os.path.join(out, "ckpt_best.npz"), use_ema=True, device=DEV)
+        if bstep != step0 + steps or not all(torch.equal(a, b) for a, b in zip(
+                train.tree_leaves(best), train.tree_leaves(state.ema_params))):
+            raise AssertionError("ckpt_best.npz does not reload to the trained EMA")
+
+        # one full-width bf16 step: kernels against their plain versions on the card
+        cfg = sn.ScoreNetConfig(compute_dtype="bfloat16", pallas_dw_dtype="float32", remat=True)
+        check_train_parity(torch, params, s_np, cfg,
+                           {"bf16 kernel": (True, None),
+                            "bf16 plain-conv": (True, lambda: plain_convs(TC))},
+                           control=sn.ScoreNetConfig(remat=True))
+
+        # the MDN scorer: on the card against the same run on the CPU
+        pose_dir = os.path.join(tmp, "poses")
+        scorer_pose_set(np, pose_dir)
+        jobs = os.path.join(tmp, "mdn_jobs.csv")
+        with open(jobs, "w") as fh:
+            fh.write("protein,protein_name,ligand,ligand_name,complex_name,crystal_ligand\n")
+            for n in ("3mhw", "2zec"):
+                lig = os.path.join(PB_BENCH, n, f"{n}_ligand.sdf")
+                fh.write(f"{os.path.join(PB_BENCH, n, n + '_protein_contact_chains.pdb')},"
+                         f"{n},{lig},{n}_ligand,{n},{lig}\n")
+        base = ["--model", "mdn", "--resume", MDN_CKPT, "--warmup", "2", "--seed", "3",
+                "--log-every", "1000"]
+        TC.reset_launches()
+        for name, extra in (("crystal", ["-i", jobs]), ("pose", ["--pose-dir", pose_dir])):
+            runs = {dev: train_cli.main(base + extra + ["--steps", "4", "-bs", "2", "-o",
+                                                        os.path.join(tmp, f"mdn_{name}_{dev}"),
+                                                        "--device", dev])
+                    for dev in (DEV, "cpu")}
+            got, ref = (np.asarray(runs[d]["losses"]) for d in (DEV, "cpu"))
+            err = float(np.abs(got - ref).max() / np.abs(ref).max())
+            print(f"  mdn {name}: losses {' '.join(f'{v:.5f}' for v in got)} on the card, "
+                  f"max rel. difference to the CPU run {err:.2e}", flush=True)
+            if not err <= 1e-4 or not np.isfinite(got).all():
+                raise AssertionError(f"mdn {name}: the card's losses {got} vs the CPU's {ref}")
+            torch.cuda.reset_peak_memory_stats()
+            timed = train_cli.main(base + extra + ["--steps", "10", "-o",
+                                                   os.path.join(tmp, f"mdn_{name}_timed"),
+                                                   "--device", DEV])
+            report_rate(timed, f"mdn {name}, -bs 8, peak memory "
+                               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {smi}")
+        if any(TC.launches.values()):
+            raise AssertionError(f"the MDN runs launched trunk kernels: {dict(TC.launches)}")
+        return {k: {"train_bf16": train_counts[k], "train_val_dock": dock_counts[k]}
+                for k in list(KERNELS) + list(BWD_KERNELS) + list(BF16_KERNELS)}
+    finally:
+        pipeline.dock, train.eval_step = real_dock, real_eval
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -3745,6 +4015,9 @@ def main() -> int:
     with Phase("relax"):
         relax_counts = phase_relax(torch, np, TC, smi)
 
+    with Phase("train_cli"):
+        cli_counts = phase_train_cli(torch, np, TC, params, s_np, smi)
+
     rows = []
     for name, (src, repl) in KERNELS.items():
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 16][0]
@@ -3757,7 +4030,7 @@ def main() -> int:
                      "bound_by": main_row["bound_by"], "library_ms": None,
                      "layer": 5, "batch": 16,
                      **{k: main_row[k] for k in ("graph_same", "blocks") if k in main_row},
-                     "buckets": fresh[name]})
+                     "buckets": fresh[name], "path_launches": cli_counts[name]})
     for name, (src, repl, _) in BWD_KERNELS.items():
         # the training shapes: layer 5, the 128/1024 batch of 4
         main_row = [r for r in per_kernel[name] if r["layer"] == 5 and r["batch"] == 4][0]
@@ -3776,7 +4049,8 @@ def main() -> int:
                                                  "pass_us_per_tile", "splits", "scratch_bytes",
                                                  "parts_ms") if k in main_row},
                      "batch_16": {k: b16[k] for k in ("device_ms", "device_ms_method",
-                                                      "bound_ms", "pairs")}})
+                                                      "bound_ms", "pairs")},
+                     "path_launches": cli_counts[name]})
     for name, (src, repl) in RM_KERNELS.items():
         # the dock shapes at layer 5; launches from the dock in the
         # configuration that runs the kernel
@@ -3808,7 +4082,8 @@ def main() -> int:
                                        "serve_two_buckets": serve_counts[name][1],
                                        "eval": eval_counts[name],
                                        "predict_cart_relax": relax_counts[name][0],
-                                       "eval_cart_relax": relax_counts[name][1]}})
+                                       "eval_cart_relax": relax_counts[name][1],
+                                       **cli_counts[name]}})
     for name in sorted(k for k in per_kernel if k.startswith("probe_bf16/")):
         r = per_kernel[name]
         # 8192 x 1024 elements, 2000 steps; launches from its measurement

@@ -33,7 +33,8 @@ import sys
 # flags of stages not ported yet: (flag, is set, ROADMAP item and what it ports)
 _NOT_PORTED = (
     ("-nc > 0", lambda a: a.num_conformers > 0, "A14 (chem/embed.py conformers)"),
-    ("--conv-mode fc", lambda a: a.conv_mode == "fc", "A3 (the 'fc' tensor product)"),
+    ("--conv-mode fc", lambda a: a.conv_mode == "fc",
+     "A14 (the 'fc' tensor product, with utils/torch_import.py)"),
 )
 
 
@@ -107,7 +108,7 @@ def build_parser():
                    help="accepted and ignored: the device picks the path (the card runs "
                         "the hand-written CUDA kernels, --cpu their plain versions)")
     p.add_argument("--conv-mode", choices=["sep", "fc"], default="sep",
-                   help="'fc' waits for ROADMAP A3")
+                   help="'fc' waits for ROADMAP A14")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
     p.add_argument("-cfg", "--config", help="python config file (utils/config.py: _base_ "
                    "inheritance, ${var} interpolation)")

@@ -185,7 +185,7 @@ def build_parser():
                     help="accepted and ignored: the device picks the path (the card runs the "
                          "hand-written CUDA kernels, --cpu their plain versions)")
     ap.add_argument("--conv-mode", choices=["sep", "fc"], default="sep",
-                    help="'fc' waits for ROADMAP A3")
+                    help="'fc' waits for ROADMAP A14")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
     ap.add_argument("--ns", type=int, default=48)
     ap.add_argument("--nv", type=int, default=12)

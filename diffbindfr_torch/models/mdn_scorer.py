@@ -12,6 +12,9 @@ orientation vectors, knn-30 CA graph edge features) is computed from them.
     their minimum atom14 distance; the score sums the mixture probability at
     the observed distance over pairs closer than 5 A.
 
+`mdn_loss` is the training NLL (`train_cli --model mdn`, mdn_train.py),
+differentiable through the encoders and the mixture head.
+
 Parameters are the JAX package's tree (nested dicts and lists) as tensors:
 `load_checkpoint(path, use_ema=True)` reads a checkpoint file,
 `params_from_jax` carries a JAX parameter tree held as numpy arrays, and
@@ -411,3 +414,17 @@ def score_sample_both(p, cfg: MDNConfig, s, lig_pos, pos14):
     sb = type(s)(*[v[None] for v in s])
     sp_, nll = score_batch_both(p, cfg, sb, lig_pos[None], pos14[None])
     return sp_[0], nll[0]
+
+
+def mdn_loss(p, cfg: MDNConfig, batch, lig_pos, pos14):
+    """[B] training NLL of B poses (the JAX mdn_loss per sample): the mean
+    over the pairs closer than train_dist_threshold of the mixture's
+    negative log-likelihood at their distance; differentiable in `p`."""
+    pro_s = _gvp_encode_protein(p, cfg, batch, pos14)
+    lig_s = _gt_encode_ligand(p, cfg, batch, lig_pos)
+    out = mdn_head(p, cfg, lig_s, pro_s, lig_pos, pos14, batch)
+    logp = _log_gauss(out.dist[..., None], out.mu, out.sigma) + torch.log(out.pi + 1e-12)
+    nll = -torch.logsumexp(logp, dim=-1)
+    keep = out.pair_mask & (out.dist <= cfg.train_dist_threshold)
+    n_keep = keep.sum(dim=(-1, -2)).to(nll.dtype)
+    return torch.where(keep, nll, 0.0).sum(dim=(-1, -2)) / torch.clamp(n_keep, min=1.0)

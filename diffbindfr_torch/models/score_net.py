@@ -31,8 +31,11 @@ stays f32), geometry and masks stay f32, and the heads come back to f32
 before the sigma scaling. The plain path runs its whole trunk in bf16; the
 kernel path keeps the trunk f32 on bf16-rounded weights, as the Pallas path
 does, and under 'cmt' its convs run the bf16 depthwise chain (B11, the
-convs' `bf16_chain`), which is what the JAX package's `pallas_dw_dtype=
-'auto'` gives the cmT kernels under bf16 (score_net.py:208-213 there).
+convs' `bf16_chain`) when `pallas_dw_dtype` asks for it: 'auto' (the
+default) follows compute_dtype, as the JAX package's rule gives the cmT
+kernels (score_net.py:120-130, 208-213 there). Training pins 'float32': the
+backward of every conv is f32 (B4-B6), so a bf16 chain would pair a bf16
+forward with an f32 backward.
 """
 from __future__ import annotations
 
@@ -87,14 +90,27 @@ class ScoreNetConfig:
     fused_epilogue: bool = False
     fused_layer: bool = False
 
-    # 'bfloat16': the trunk in bf16, heads and sigma scaling in f32; under
-    # 'cmt' the kernels' depthwise chain in bf16 too (B11)
+    # 'bfloat16': the trunk in bf16, heads and sigma scaling in f32
     compute_dtype: str = "float32"
+    # the kernels' depthwise chain under 'cmt': 'bfloat16' (B11), 'float32'
+    # (B1-B3) or 'auto' (bfloat16 iff compute_dtype is; JAX's default)
+    pallas_dw_dtype: str = "auto"
 
     @property
     def dtype(self) -> torch.dtype:
         """The trunk's dtype (any value but 'bfloat16' is f32, as in JAX)."""
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+    @property
+    def bf16_chain(self) -> bool:
+        """Whether the kernel path's convs run the bf16 depthwise chain
+        (B11): only in the cmt layout, by pallas_dw_dtype's JAX rule."""
+        dwd = self.pallas_dw_dtype
+        if dwd not in ("auto", "float32", "bfloat16"):
+            raise ValueError(f"pallas_dw_dtype {dwd!r}: 'auto', 'float32' or 'bfloat16'")
+        if dwd == "auto":
+            dwd = "bfloat16" if self.compute_dtype == "bfloat16" else "float32"
+        return self.pallas_layout == "cmt" and dwd == "bfloat16"
 
     @property
     def kernel_mode(self) -> str:
@@ -395,8 +411,7 @@ def _kernel_layer(params, cfg, lc, lp, g, lig_cm, atom_cm):
     s, temb = g["s"], g["temb"]
     spec, c_lig, c_cross, c_knn = lc.spec, lc.lig, lc.cross, lc.atom
     out_dim = spec.out.dim
-    # the chain follows compute_dtype in the cmt layout only (JAX 'auto' rule)
-    bf16 = cfg.pallas_layout == "cmt" and cfg.dtype == torch.bfloat16
+    bf16 = cfg.bf16_chain
     lig_sum = TC.pair_conv(
         c_lig, s.lig_pos, s.lig_pos, lig_cm, lig_cm, s.lig_mask, s.lig_mask,
         g["zero_l"], g["zero_l"], temb, cfg.lig_cutoff,

@@ -12,6 +12,15 @@ here every draw is a tensor in a `TrainNoise`, drawn from a torch.Generator
 on the device (`draw_noise`) or handed in by the caller, as the sampler's
 `SamplerNoise` is: parity tests build the draws on the JAX side.
 
+Under `compute_dtype='bfloat16'` (train_cli's default, as in the JAX
+package) the master parameters, the Adam moments, the EMA and the
+checkpoints stay f32: `score_net.apply` casts the tree to bf16 for the
+forward, so each weight gradient comes back through that cast rounded to
+bf16, as JAX's `castp` rounds it; the heads return f32 before the sigma
+scaling, so the loss terms are f32. The kernel path keeps the trunk f32 on
+the bf16-rounded weights; a training config pins `pallas_dw_dtype=
+'float32'`, so its convs run B1-B3 forward and B4-B6 backward (never B11).
+
 The optimizer is written out to match optax's chain(clip_by_global_norm,
 adam(warmup_cosine_decay_schedule)) step for step: the schedule reads the
 update count before incrementing it (the first update has lr = 0), and the
@@ -203,6 +212,14 @@ class Optimizer:
         zeros = [torch.zeros_like(p) for p in tree_leaves(params)]
         return {"mu": zeros, "nu": [z.clone() for z in zeros], "count": 0}
 
+    def apply(self, params, grads: list, opt_state: dict):
+        """One update of the tree `params` by its leaf gradients: (new
+        tree, new state, grad_norm)."""
+        grad_norm = global_norm(grads)
+        updates, opt_state = self.update(grads, opt_state, grad_norm)
+        new = torch._foreach_add(tree_leaves(params), updates)
+        return tree_unflatten(params, new), opt_state, grad_norm
+
     def update(self, grads: list, opt_state: dict, grad_norm):
         """(updates, new state) for the flat gradient list; moments update in
         place."""
@@ -270,9 +287,14 @@ def loss_and_grads(params, batch, noise: TrainNoise, net_cfg: sn.ScoreNetConfig,
     in tree_leaves order; zeros for leaves the loss does not read)."""
     leaves, f = loss_of_leaves(params, batch, noise, net_cfg, scfg, tcfg, use_kernels)
     loss, metrics = f(*leaves)
+    return metrics, leaf_grads(loss, leaves)
+
+
+def leaf_grads(loss, leaves: list) -> list:
+    """Gradient of `loss` for every leaf (zeros where the loss does not
+    read it)."""
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    return metrics, grads
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
 
 def global_norm(grads):
@@ -290,15 +312,12 @@ def train_step(state: TrainState, batch, noise: TrainNoise, net_cfg: sn.ScoreNet
     opt = optimizer or make_optimizer(tcfg)
     metrics, grads = loss_and_grads(state.params, batch, noise, net_cfg, scfg, tcfg,
                                     use_kernels)
-    grad_norm = global_norm(grads)
-    updates, opt_state = opt.update(grads, state.opt_state, grad_norm)
-    new = torch._foreach_add(tree_leaves(state.params), updates)
+    params, opt_state, grad_norm = opt.apply(state.params, grads, state.opt_state)
     d = tcfg.ema_decay
     ema = torch._foreach_add(torch._foreach_mul(tree_leaves(state.ema_params), d),
-                             torch._foreach_mul(new, 1.0 - d))
+                             torch._foreach_mul(tree_leaves(params), 1.0 - d))
     metrics["grad_norm"] = grad_norm
-    return TrainState(params=tree_unflatten(state.params, new),
-                      ema_params=tree_unflatten(state.params, ema),
+    return TrainState(params=params, ema_params=tree_unflatten(state.params, ema),
                       opt_state=opt_state, step=state.step + 1), metrics
 
 

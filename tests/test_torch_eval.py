@@ -229,7 +229,7 @@ def test_contact_chain_extraction_matches_jax(tmp_path):
 def test_refused_flags_name_their_item(tmp_path):
     """-nc and --conv-mode fc exit naming their ROADMAP items; --cart-relax
     (A10) is ported and passes the refusal."""
-    for flags, item in ((["-nc", "2"], "A14"), (["--conv-mode", "fc"], "A3")):
+    for flags, item in ((["-nc", "2"], "A14"), (["--conv-mode", "fc"], "A14")):
         with pytest.raises(SystemExit) as e:
             TE.main(["--cpu", "-d", PB, "-o", str(tmp_path), "-ckt", SMALL_CKPT] + flags)
         assert item in str(e.value.code), flags

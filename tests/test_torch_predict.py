@@ -387,7 +387,7 @@ sys.exit(rc or (1 if bad else 0))
 @pytest.mark.parametrize("flags,item", [
     pytest.param(["--cart-relax"], "A10", id="flags0-A10"),
     pytest.param(["-nc", "4"], "A14", id="flags3-A14"),
-    pytest.param(["--conv-mode", "fc"], "A3", id="flags4-A3")])
+    pytest.param(["--conv-mode", "fc"], "A14", id="flags4-A3")])
 def test_unported_flags_exit_naming_their_item(flags, item, tmp_path):
     """The flags of ROADMAP items still to port exit naming the item before
     any work; A10's `--cart-relax` is ported and passes the refusal."""

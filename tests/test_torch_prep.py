@@ -395,7 +395,8 @@ def test_predict_from_raw_files_equals_predict_from_a_jax_cache(tmp_path, jax_ta
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--cart-relax"], "A10"), (["-nc", "4"], "A14"), (["--conv-mode", "fc"], "A3")])
+    (["--cart-relax"], "A10"), (["-nc", "4"], "A14"),
+    pytest.param(["--conv-mode", "fc"], "A14", id="flags2-A3")])
 def test_prep_and_workers_leave_the_other_refusals(flags, item, tmp_path):
     """`-j prep` and `-nw` run now; -nc and --conv-mode fc still exit naming
     their ROADMAP items, before any work; --cart-relax (A10) is ported and

@@ -75,7 +75,9 @@ def test_records_ec_and_mdn_load_no_jax_or_networkx():
     files (every module of it imported, 3dbs prepared as an apo->holo job
     against itself, its record read back) runs too; the serving daemon and the evaluation
     modules import, and validity, the reporter and TM-align run on that
-    pair; jax, the JAX package and networkx stay out of sys.modules."""
+    pair; the training modules (train_cli, mdn_train) import and rebuild a
+    crystal atom14; jax, the JAX package and networkx stay out of
+    sys.modules."""
     code = """
 import os, sys, tempfile
 import torch
@@ -91,6 +93,8 @@ from diffbindfr_torch.utils.checkpoint import load_checkpoint
 from diffbindfr_torch.app import cli, eval_cli, reporter, rescore_cli, serve, validity
 from diffbindfr_torch.chem import protonate
 from diffbindfr_torch.ops import cartesian, tmalign
+from diffbindfr_torch import mdn_train
+from diffbindfr_torch.app import train_cli
 d = 'runs/pb_bench/3dbs/'
 job = jobs.Job(d + '3dbs_protein_contact_chains.pdb', '3dbs', d + '3dbs_ligand.sdf', '3dbs',
                '3dbs', crystal_ligand=d + '3dbs_ligand.sdf',
@@ -117,6 +121,7 @@ assert 'Enrichment report' in reporter.format_report(reporter.load_results(
     'runs/eval_r4_mdn/results.csv'))
 ca = fresh[0].pocket.atom14_pos[:, 1]
 assert tmalign.tmalign(ca, ca).tm_target > 0.99
+assert mdn_train.crystal_atom14(pairs[3].sample).shape == (96, 14, 3)
 bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'diffbindfr_tpu',
                                                      'networkx')]
 print(bad)
