@@ -218,7 +218,12 @@ a non-zero exit code):
               center within 1e-3 A, rows best first; (b) concurrent 3dbs and
               3mhw, 8 poses each: one round of two buckets, 240 launches of
               each B11 kernel, one prep (3mhw's); /health, 400 for
-              n_conformers 2 (naming A14) and for a missing file, and /shutdown
+              a missing file, 200 with 2 poses for n_conformers 2; (e) an
+              n_conformers 2 request for 3mhw whose prep begins (and embeds,
+              a CUDA-graph capture in its handler thread) while a 16-pose
+              round docks, then 2zec and 3pp0 with n_conformers 2 at once
+              (these three without EC and MDN): all 200, every pose finite
+              (embed.CARD_LOCK makes them take turns on the card); /shutdown
               with a request in flight serves it. Prints each request's
               latency, the served round's dock poses/s beside the direct run's
   29. eval    eval_cli.main (the pb layout: a copy of runs/pb_bench's five
@@ -272,6 +277,33 @@ a non-zero exit code):
               --pose-dir (scorer_pose_set), 4 steps from runs/mdn_r4b at -bs 2
               on the card and on the CPU: losses within 1e-4 relative; 10
               steps at -bs 8 on the card: samples/s, ms/step, peak memory
+  32. conformers  chem/embed.py on the card: for the crystal ligands of the
+              five runs/pb_bench complexes, each restraint term and its
+              gradient at 4 MDS starts, at both phases' weights, against
+              the port's CPU run (EMBED_GATE, relative); embed_conformers(2,
+              seed 0), every conformer through ok()'s criteria (bonds
+              within 8%, non-bonded pairs above 1.9 A) with its chiral signs
+              kept, seconds per ligand; for 3dbs the refinement replayed as
+              CUDA graphs (the card's path) against the same updates run
+              eagerly, within 1e-4 A, with both times. Then `predict -nc 2 -np 8 -bs 16` of
+              3dbs from its raw files at the defaults (bf16, EC, MDN): each
+              replica's lig_ref_pos has the internal distances of conformer
+              po % 2 (1e-4 A) and zero padding, the exported poses are
+              finite, each B11 kernel launched exactly 120 times and B1-B10
+              never
+  33. fc_import  the full-width synthetic reference state dict
+              (fake_reference_sd, seed 0) saved as a .pth and converted by
+              `python -m diffbindfr_torch.utils.torch_import --arch
+              score_net --unverified-scorenet` in a subprocess; the
+              converted 'fc' net's forward (f32, plain path) on the card
+              against tests/fixtures/torch_fc_ref.npz at t = 0.9, 0.5, 0.1
+              (FC_GATE of max|ref|); the fixture's synthetic MDN head through
+              `--arch mdn`, its pi, sigma and mu likewise; `predict
+              --conv-mode fc -np 4 -bs 4` with the converted checkpoint on
+              the tracked 3dbs cache at (128, 1024) and the default bf16:
+              finite poses and scores, zero launches of B1-B11; seconds per
+              pose, the 'fc' pairs and flop of the dock (counted through
+              tp_conv_messages) and their rate, peak memory, the chunk size
 Kernel times: `ms` is the wrapper's time by CUDA events around 10 calls
 (its host set-up included), `device_ms` the kernel's own device time per
 call (phases 5, 9, 12, 17, 18, 23-25): from torch.profiler's
@@ -310,6 +342,14 @@ FIXTURE_EC = os.path.join(ROOT, "tests/fixtures/torch_ec_ref.npz")
 FIXTURE_MDN = os.path.join(ROOT, "tests/fixtures/torch_mdn_ref.npz")
 FIXTURE_RELAX = os.path.join(ROOT, "tests/fixtures/torch_relax_ref.npz")
 MDN_CKPT = os.path.join(ROOT, "runs/mdn_r4b/ckpt_best.npz")
+# phase 33: the JAX package's import and 'fc' forward of the full-width
+# synthetic reference state dict (fake_reference_sd) on a data/synthetic.py
+# sample, and of a synthetic MDN head (tests/test_torch_fc.py writes it)
+FIXTURE_FC = os.path.join(ROOT, "tests/fixtures/torch_fc_ref.npz")
+# phase 32: the card against the port's CPU run, per restraint term and its
+# gradient (relative to max|ref|); phase 33: the converted model's forward
+# on the card against the JAX fixture
+EMBED_GATE, FC_GATE = 1e-5, 1e-3
 EC_NAMES = ("3dbs", "3mhw")
 PB_BENCH = os.path.join(ROOT, "runs/pb_bench")
 SCREEN_MOLS = os.path.join(ROOT, "runs/screen_demo/mols")
@@ -330,7 +370,8 @@ DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 
              "bf16_kernels": 240, "bf16_forward": 120, "bf16_dock": 300, "ec_mdn_ref": 180,
              "score_chain": 240, "probe_mlp": 120,
              "probe_mxu_ops": 180, "probe_mosaic": 180, "predict": 300, "prep_predict": 480,
-             "serve": 300, "eval": 420, "relax": 420, "train_cli": 240}
+             "serve": 300, "eval": 420, "relax": 420, "train_cli": 240, "conformers": 150,
+             "fc_import": 180}
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, HBM3 bandwidth; bf16 outside the tensor cores (packed
 # bf16x2, two per fp32 lane: the H100 white paper's non-tensor BF16 rate,
@@ -2794,21 +2835,26 @@ def serve_request(name, **kw):
             "ligand": os.path.join(d, f"{name}_ligand.sdf"), **kw}
 
 
-def sdf_error(np, parse_sdf, tmp, sdf, pair, res):
-    """max |SDF coordinates - (lig_pos + center)| of one reply row (A)."""
+def parse_sdf_block(tmp, sdf):
+    """The coordinates of an SDF block (a reply row's)."""
+    from diffbindfr_torch.io.sdf import parse_sdf
+
     path = os.path.join(tmp, "reply.sdf")
     with open(path, "w") as fh:
         fh.write(sdf)
-    coords = parse_sdf(path)[0].coords
+    return parse_sdf(path)[0].coords
+
+
+def sdf_error(np, tmp, sdf, pair, res):
+    """max |SDF coordinates - (lig_pos + center)| of one reply row (A)."""
     na = pair.lig.num_atoms
-    return float(np.abs(coords - (res.lig_pos[:na] + pair.pocket.center)).max())
+    return float(np.abs(parse_sdf_block(tmp, sdf) - (res.lig_pos[:na] + pair.pocket.center)).max())
 
 
 def phase_serve(torch, np, TC, smi):
     """The serving daemon on the card (see the module docstring, phase 28).
     Returns each B11 kernel's launches in rounds (a) and (b)."""
     from diffbindfr_torch.app import pipeline, serve
-    from diffbindfr_torch.io.sdf import parse_sdf
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     server, prep = None, pipeline.prep
@@ -2819,7 +2865,7 @@ def phase_serve(torch, np, TC, smi):
         # a full batch ends the drain at once; the window only has to outlast
         # a concurrent request's prep in its handler thread
         svc.max_wait_s = 2.0
-        rounds, preps = [], []
+        rounds, preps, prep_starts = [], [], []
         run = svc.dock_engine.run
 
         def dock(pairs, num_poses, seed):
@@ -2828,11 +2874,12 @@ def phase_serve(torch, np, TC, smi):
             res = run(pairs, num_poses=num_poses, seed=seed)
             torch.cuda.synchronize()
             rounds.append(dict(pairs=list(pairs), counts=list(num_poses), seed=seed,
-                               results=res, dock_s=time.time() - t0))
+                               results=res, dock_s=time.time() - t0, t0=t0))
             return res
 
         def counted_prep(*a, **kw):
             preps.append(a[0])
+            prep_starts.append((a[0][0].complex_name, time.time()))
             return prep(*a, **kw)
 
         svc.dock_engine.run = dock
@@ -2903,7 +2950,7 @@ def phase_serve(torch, np, TC, smi):
             errs = {}
             for gi in range(len(pairs)):
                 by_pose = {r.pose_idx: r for r in served["results"] if r.pair_idx == gi}
-                errs[gi] = max(sdf_error(np, parse_sdf, tmp, row["sdf"], pairs[gi],
+                errs[gi] = max(sdf_error(np, tmp, row["sdf"], pairs[gi],
                                          by_pose[row["pose"]]) for row in rows)
             gi = min(errs, key=errs.get)
             groups[i] = (gi, errs[gi])
@@ -2938,7 +2985,7 @@ def phase_serve(torch, np, TC, smi):
         for body in (r[1] for r in replies):
             gi = [p.name for p in rounds[0]["pairs"]].index(body["complex_name"])
             by_pose = {r.pose_idx: r for r in rounds[0]["results"] if r.pair_idx == gi}
-            err_b = max([err_b] + [sdf_error(np, parse_sdf, tmp, row["sdf"],
+            err_b = max([err_b] + [sdf_error(np, tmp, row["sdf"],
                                              rounds[0]["pairs"][gi], by_pose[row["pose"]])
                                    for row in body["poses"]])
         print(f"  (b) SDF vs lig_pos + center max {err_b:.2e} A", flush=True)
@@ -2947,15 +2994,59 @@ def phase_serve(torch, np, TC, smi):
 
         # (d) health, the bad requests, shutdown with a request in flight
         code, health, _ = http(server.port, "/health")
-        bad_nc = http(server.port, "/dock", serve_request("3dbs", n_conformers=2))
+        conf = http(server.port, "/dock", serve_request("3dbs", num_poses=2, n_conformers=2))
         bad_file = http(server.port, "/dock", serve_request(
             "3dbs", ligand=os.path.join(tmp, "missing.sdf")))
-        print(f"  (d) /health {code} {health}; n_conformers 2: {bad_nc[0]} {bad_nc[1]}; missing "
+        print(f"  (d) /health {code} {health}; n_conformers 2: {conf[0]}, "
+              f"{len(conf[1].get('poses', []))} poses in {conf[2]:.3f} s; missing "
               f"file: {bad_file[0]} {bad_file[1]}", flush=True)
         if code != 200 or health["device"] != DEV or health["warm_buckets"] != 2:
             raise AssertionError(f"/health: {code} {health}")
-        if bad_nc[0] != 400 or "A14" not in bad_nc[1]["error"] or bad_file[0] != 400:
-            raise AssertionError("the bad requests did not get 400")
+        if conf[0] != 200 or len(conf[1]["poses"]) != 2 or bad_file[0] != 400:
+            raise AssertionError("the n_conformers request was not served, or the missing "
+                                 "file did not get 400")
+
+        # (e) embeddings beside card work: an n_conformers request whose prep
+        # embeds (a CUDA-graph capture in its handler thread) while a round
+        # of 16 poses docks, then two concurrent n_conformers requests for
+        # two more ligands, both embedding at once (dock only: no EC, MDN)
+        docking = threading.Event()
+
+        def dock_flagged(*a, **kw):
+            docking.set()
+            return dock(*a, **kw)
+
+        svc.dock_engine.run = dock_flagged
+        rounds.clear()
+        prep_starts.clear()
+        busy = []
+        t = threading.Thread(target=lambda: busy.append(http(server.port, "/dock", serve_request(
+            "3dbs", num_poses=16, seed=1))))
+        t.start()
+        if not docking.wait(300):
+            raise AssertionError("(e) the 16-pose round never reached the card")
+        beside = http(server.port, "/dock", serve_request("3mhw", num_poses=2, n_conformers=2,
+                                                          ec=False, score=False))
+        t.join(600)
+        busy_end = rounds[0]["t0"] + rounds[0]["dock_s"] if rounds else 0.0
+        overlap = [n for n, ts in prep_starts if n.startswith("3mhw") and ts < busy_end]
+        two = concurrently(server.port, [serve_request(n, num_poses=2, n_conformers=2, ec=False,
+                                                       score=False) for n in ("2zec", "3pp0")])
+        replies_e = busy + [beside] + two
+        finite = all(np.isfinite(parse_sdf_block(tmp, row["sdf"])).all()
+                     for r in replies_e if r[0] == 200 for row in r[1]["poses"])
+        print(f"  (e) 3mhw n_conformers 2 sent while a 16-pose 3dbs round docked: "
+              f"{beside[0]} in {beside[2]:.3f} s, its prep began "
+              f"{(busy_end - prep_starts[0][1]) if prep_starts else float('nan'):.3f} s before "
+              f"that round's dock ended; the round's request {busy[0][0] if busy else None}; "
+              f"2zec and 3pp0 n_conformers 2 at once: {[r[0] for r in two]} in "
+              f"{', '.join(f'{r[2]:.3f} s' for r in two)}; all poses finite: {finite}",
+              flush=True)
+        if [r[0] for r in replies_e] != [200] * 4 or [len(r[1]["poses"]) for r in replies_e] != [
+                16, 2, 2, 2] or not finite:
+            raise AssertionError(f"(e) replies {[(r[0], r[1].get('error')) for r in replies_e]}")
+        if not overlap:
+            raise AssertionError("(e) the n_conformers prep did not begin while the round docked")
         entered = threading.Event()
 
         def dock_entered(*a, **kw):
@@ -3820,6 +3911,325 @@ def phase_probe_mosaic(torch, results):
 
 
 
+def fake_reference_sd(cfg, seed=0):
+    """A random state dict with the reference TensorProductModel's key names
+    and shapes (tpscore.py:203-411) for the port's ScoreNetConfig `cfg`,
+    drawn from numpy's default_rng(seed): the port's copy of the JAX
+    package's test function (tests/test_e3nn_import.py `_fake_reference_sd`,
+    key for key and value for value; tests/test_torch_ckpt_import.py holds
+    the two equal)."""
+    import numpy as np
+
+    from diffbindfr_torch.nn import irreps as IR
+    from diffbindfr_torch.utils import e3nn_compat as E
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def lin(prefix, din, dout, bias=True):
+        sd[f"{prefix}.weight"] = rng.normal(size=(dout, din)).astype(np.float32) * 0.2
+        if bias:
+            sd[f"{prefix}.bias"] = rng.normal(size=(dout,)).astype(np.float32) * 0.1
+
+    def simple(prefix, din, dout, hidden=None, bias=True):
+        hidden = dout if hidden is None else hidden
+        lin(f"{prefix}.lin.0", din, hidden, bias)
+        lin(f"{prefix}.lin.3", hidden, dout, bias)
+
+    def ln(prefix, irr):
+        irr = IR.Irreps.parse(irr)
+        ni = sum(m for m, _ in irr.items)
+        sd[f"{prefix}.mean_shift"] = np.concatenate([
+            (np.ones(m) if (ir.l == 0 and ir.p == 1) else np.zeros(m))
+            for m, ir in irr.items]).astype(np.float32)[None, :]
+        sd[f"{prefix}.affine_weight"] = np.ones(ni, np.float32)
+        sd[f"{prefix}.affine_bias"] = np.zeros(irr.num_scalars, np.float32)
+
+    def conv(prefix, in_s, in2, out_s, nef):
+        fe = E.E3nnFCTP(IR.Irreps.parse(in_s), in2, IR.Irreps.parse(out_s))
+        simple(f"{prefix}.fc", nef, fe.weight_numel, hidden=nef)
+        ln(f"{prefix}.batch_norm", out_s)
+
+    ns, sed, ded = cfg.ns, cfg.sigma_embed_dim, cfg.distance_embed_dim
+    sh = IR.Irreps.parse("1x0e+1x1o+1x2e")
+    simple("lig_node_embedding", cfg.lig_node_dim + sed, ns)
+    simple("lig_edge_embedding", cfg.lig_edge_dim + sed + ded, ns)
+    for i, n in enumerate(cfg.atom_cat_dims):
+        sd[f"atom_node_embedding.atom_emb_list.{i}.weight"] = rng.normal(
+            size=(n, ns)).astype(np.float32) * 0.2
+    lin("atom_node_embedding.scalar_lin", ns + sed, ns, bias=False)
+    simple("atom_edge_embedding", sed + ded, ns)
+    simple("la_edge_embedding", sed + ded, ns)
+    for fam in ("lig_conv_layers", "atom_conv_layers", "cross_al_conv_layers",
+                "cross_la_conv_layers"):
+        for li in range(cfg.num_conv_layers):
+            in_s, out_s = cfg.layer_irreps(li)
+            conv(f"{fam}.{li}", in_s, sh, out_s, 3 * ns)
+    final_in = cfg.layer_irreps(cfg.num_conv_layers - 1)[1]
+    simple("center_edge_embedding", sed + ded, ns)
+    conv("final_conv", final_in, sh, "2x1o+2x1e", 2 * ns)
+    simple("tr_final_layer", 1 + sed, 1, hidden=ns)
+    simple("rot_final_layer", 1 + sed, 1, hidden=ns)
+    simple("tor_edge_embedding", ded, ns)
+    e_slots = E.full_tp_slots_e3nn(sh, IR.Irreps.parse("1x2e"))
+    e_in2 = IR.Irreps(tuple((s["mul"], IR.Irrep(s["l"], s["p"])) for s in e_slots))
+    conv("tor_bond_conv", final_in, e_in2, f"{ns}x0o+{ns}x0e", 3 * ns)
+    simple("tor_final_layer", 2 * ns, 1, hidden=ns, bias=False)
+    simple("sc_edge_embedding", ded, ns)
+    conv("sc_tor_bond_conv", final_in, e_in2, f"{ns}x0o+{ns}x0e", 3 * ns)
+    simple("sc_tor_final_layer", 2 * ns, 1, hidden=ns, bias=False)
+    return sd
+
+
+def signed_volumes(np, pos, quads):
+    """Signed volume of each chiral quad (center, three neighbours)."""
+    p0, p1, p2, p3 = (pos[quads[:, k]] for k in range(4))
+    return (np.cross(p1 - p0, p2 - p0) * (p3 - p0)).sum(-1)
+
+
+def phase_conformers(torch, np, TC, smi):
+    """Conformer starts on the card (see the module docstring, phase 32)."""
+    import csv
+
+    from diffbindfr_torch import sampler as sp
+    from diffbindfr_torch.app import cli
+    from diffbindfr_torch.app import pipeline
+    from diffbindfr_torch.chem import embed as E
+    from diffbindfr_torch.chem.ligand_feats import featurize_ligand
+    from diffbindfr_torch.chem.mol import perceive
+    from diffbindfr_torch.io.sdf import parse_sdf
+
+    worst, n_terms = 0.0, 0
+    for n in EVAL_NAMES:
+        lig = featurize_ligand(perceive(parse_sdf(
+            os.path.join(PB_BENCH, n, f"{n}_ligand.sdf"))[0]), n)
+        r = E.build_restraints(lig)
+        # each restraint term and its gradient at equal positions (4 MDS
+        # starts) on the card and on the CPU, at both phases' weights
+        lo, hi = E._distance_bounds(lig, r)
+        rng = np.random.default_rng(0)
+        x0 = E.mirrored_inits(np.stack([E._mds_init(lo, hi, rng) for _ in range(4)]), r)
+        for w_nb, _ in E.PHASES:
+            got = {}
+            for dev in (DEV, "cpu"):
+                x = torch.as_tensor(x0, device=dev).requires_grad_(True)
+                terms = E.restraint_terms(x, E.restraint_tensors(r, dev), w_nb)
+                got[dev] = {k: (v.detach().double().cpu(), torch.autograd.grad(
+                    v.sum(), x, retain_graph=True)[0].double().cpu()) for k, v in terms.items()}
+            for k, (v, g) in got["cpu"].items():
+                worst = max(worst, rel_err(got[DEV][k][0], v), rel_err(got[DEV][k][1], g))
+                n_terms += 1
+        if n == "3dbs":  # the CUDA-graph refinement against the eager one
+            t = E.restraint_tensors(r, DEV)
+            secs = {}
+            for graph in (True, False):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                secs[graph] = (E.refine(x0.copy(), t, 500, DEV, graph=graph), time.time() - t0)
+            drift = float(np.abs(secs[True][0][0] - secs[False][0][0]).max())
+            print(f"  {n}: refinement of 4 starts, CUDA graph {secs[True][1]:.3f} s, eager "
+                  f"{secs[False][1]:.3f} s; conformers {drift:.2e} A apart (gate 1e-4)",
+                  flush=True)
+            if not drift <= 1e-4:
+                raise AssertionError("the graphed refinement disagrees with the eager one")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        confs = E.embed_conformers(lig, 2, seed=0, device=DEV)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        bad = [i for i, c in enumerate(confs) if not (
+            E.conformer_ok(c, lig, r) and np.array_equal(
+                np.sign(signed_volumes(np, c, r.chiral_quads)), r.chiral_sign))]
+        print(f"  {n}: {lig.num_atoms} atoms, {len(r.chiral_quads)} chiral centres: 2 "
+              f"conformers in {secs:.3f} s on the card; failing ok()/chirality: {bad or 'none'}",
+              flush=True)
+        if confs.shape != (2, lig.num_atoms, 3) or not np.isfinite(confs).all() or bad:
+            raise AssertionError(f"{n}: conformers {confs.shape}, failing {bad}")
+    print(f"  restraint terms and gradients, card vs CPU at equal positions: max rel err "
+          f"{worst:.2e} over {n_terms} terms (gate {EMBED_GATE:g})", flush=True)
+    if not worst <= EMBED_GATE:
+        raise AssertionError("the card's restraint terms disagree with the CPU's")
+
+    # predict -nc 2 -np 8 of 3dbs from its raw files
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_conformers_")
+    sample, starts = sp.sample, []
+
+    def spy(params, net_cfg, cfg, batch, noise, **kw):
+        starts.append(batch.lig_ref_pos.cpu().numpy())
+        return sample(params, net_cfg, cfg, batch, noise, **kw)
+
+    try:
+        out = os.path.join(tmp, "nc")
+        jobs = predict_inputs(out, ("3dbs",), copy_cache=False)
+        sp.sample = spy
+        argv = ["predict", "-i", jobs, "-o", out, "-ckt", CKPT, "-mdn", MDN_CKPT, "-np", "8",
+                "-bs", "16", "-nc", "2"]
+        counts, stage, wall, prepared, results, _ = predict_run(torch, TC, pipeline, cli,
+                                                                argv, 8)
+    finally:
+        sp.sample = sample
+    try:
+        pair = prepared[0]
+        confs, na = pair.conformers, pair.lig.num_atoms
+        if confs is None or confs.shape != (2, na, 3) or len(starts) != 1:
+            raise AssertionError(f"conformers {None if confs is None else confs.shape}, "
+                                 f"{len(starts)} sampler calls")
+
+        def dmat(p):
+            return np.linalg.norm(p[:, None] - p[None, :], axis=-1)
+
+        err = max(float(np.abs(dmat(starts[0][po, :na]) - dmat(confs[po % 2])).max())
+                  for po in range(8))
+        pad = float(np.abs(starts[0][:8, na:]).max()) if starts[0].shape[1] > na else 0.0
+        with open(os.path.join(out, "results.csv"), newline="") as fh:
+            rows = list(csv.DictReader(fh))
+        coords = np.concatenate([parse_sdf(r["lig_sdf"])[0].coords for r in rows])
+        print(f"  predict -nc 2 -np 8 (3dbs from raw files, bf16): prep with the embedding "
+              f"{stage['prep']:.3f} s, dock {stage['dock']:.3f} s, main() {wall:.3f} s "
+              f"({wall / 8:.4f} s per pose) on {smi}; launches {counts}", flush=True)
+        print(f"  replica starts vs conformer po % 2: internal distances max {err:.2e} A "
+              f"(gate 1e-4), padding rows {pad:g}; {len(rows)} exported poses, "
+              f"finite {bool(np.isfinite(coords).all())}", flush=True)
+        want = {k: 120 if k in BF16_KERNELS else 0 for k in TC.launches}
+        if counts != want:
+            raise AssertionError(f"launch counts {counts}, expected {want}")
+        if not (err <= 1e-4 and pad == 0.0 and len(rows) == 8 and np.isfinite(coords).all()):
+            raise AssertionError("the replicas did not start from their conformers")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def tp_flops(tp):
+    """Multiply-adds x 2 of one pair through a weighted 'fc' TP (per path:
+    the CG contraction and the weight contraction, as
+    irreps.apply_fc_tensor_product computes them)."""
+    fl = 0
+    for p in tp.paths:
+        d1, d2, d3 = 2 * p.l1 + 1, 2 * p.l2 + 1, 2 * p.l3 + 1
+        if p.mul2 == 1:
+            fl += 2 * (d2 * d1 * d3 + p.mul1 * d1 * d3 + p.mul1 * p.mul3 * d3)
+        else:
+            fl += 2 * (p.mul1 * p.mul2 * d1 * d2 * d3 + p.mul1 * p.mul2 * p.mul3 * d3)
+    return fl
+
+
+def phase_fc_import(torch, np, TC, smi):
+    """Reference-checkpoint import and the 'fc' dock on the card (see the
+    module docstring, phase 33)."""
+    from types import SimpleNamespace
+
+    from diffbindfr_torch.app import cli
+    from diffbindfr_torch.app import pipeline
+    from diffbindfr_torch.data.sample import DockingSample, stack_samples, to_device
+    from diffbindfr_torch.models import mdn_scorer as mdn
+    from diffbindfr_torch.models import score_net as sn
+    from diffbindfr_torch.nn import layers as L
+    from diffbindfr_torch.utils.checkpoint import load_checkpoint
+
+    ref = np.load(FIXTURE_FC)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fc_")
+    convert = [sys.executable, "-m", "diffbindfr_torch.utils.torch_import"]
+    try:
+        cfg = sn.ScoreNetConfig(conv_mode="fc", compute_dtype="float32")
+        t0 = time.time()
+        sd = fake_reference_sd(cfg)
+        pth, net = os.path.join(tmp, "ref.pth"), os.path.join(tmp, "net.npz")
+        torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}}, pth)
+        proc = subprocess.run(convert + [pth, "-o", net, "--arch", "score_net",
+                                         "--unverified-scorenet"],
+                              cwd=ROOT, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"torch_import failed: {proc.stderr[-2000:]}")
+        print(f"  full-width reference state dict ({len(sd)} tensors, "
+              f"{sum(v.size for v in sd.values())} values) -> torch_import --arch score_net: "
+              f"{time.time() - t0:.3f} s; {proc.stdout.strip().splitlines()[-1]}", flush=True)
+        params, _ = load_checkpoint(net, device=DEV)
+        s = DockingSample(**{f: ref["sample|" + f] for f in DockingSample._fields})
+        nt = len(ref["t"])
+        batch = to_device(stack_samples([s] * nt), DEV)
+        t = torch.from_numpy(ref["t"]).to(DEV)
+        sig = sn.Sigmas(*[torch.from_numpy(ref["sig|" + k]).to(DEV)
+                          for k in ("tr", "rot", "tor", "sc_tor")])
+        with torch.no_grad():
+            out = sn.apply(params, cfg, batch, t, sig, use_kernels=False)
+        errs = {f: rel_err(getattr(out, f), torch.from_numpy(ref[f]).to(DEV))
+                for f in ("tr", "rot", "tor", "sc_tor")}
+        print(f"  converted 'fc' forward at t {ref['t'].tolist()} vs the JAX fixture: "
+              + ", ".join(f"{f} {e:.2e}" for f, e in errs.items()) + f" (gate {FC_GATE:g})",
+              flush=True)
+        if not all(e <= FC_GATE for e in errs.values()):
+            raise AssertionError(f"the converted model disagrees with JAX: {errs}")
+
+        # the MDN head: the fixture's synthetic reference block through the CLI
+        mpth, mnpz = os.path.join(tmp, "mdn.pth"), os.path.join(tmp, "mdn.npz")
+        torch.save({"state_dict": {k[len("mdn|sd|"):]: torch.from_numpy(ref[k])
+                                   for k in ref.files if k.startswith("mdn|sd|")}}, mpth)
+        proc = subprocess.run(convert + [mpth, "-o", mnpz, "--arch", "mdn"], cwd=ROOT,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"torch_import --arch mdn failed: {proc.stderr[-2000:]}")
+        mp, _ = load_checkpoint(mnpz, device=DEV)
+        lig_s, pro_s = (torch.from_numpy(ref[k]).to(DEV)[None] for k in ("mdn|lig_s", "mdn|pro_s"))
+        nl, nr = lig_s.shape[1], pro_s.shape[1]
+        ns_ = SimpleNamespace(atom14_mask=torch.ones(1, nr, 14, device=DEV),
+                              lig_mask=torch.ones(1, nl, device=DEV),
+                              res_mask=torch.ones(1, nr, device=DEV),
+                              lig_e_src=torch.zeros(1, 1, dtype=torch.int64, device=DEV),
+                              lig_e_dst=torch.zeros(1, 1, dtype=torch.int64, device=DEV))
+        with torch.no_grad():
+            head = mdn.mdn_head(mp, mdn.MDNConfig(), lig_s, pro_s,
+                                torch.zeros(1, nl, 3, device=DEV),
+                                torch.zeros(1, nr, 14, 3, device=DEV), ns_)
+        merrs = {f: rel_err(getattr(head, f)[0], torch.from_numpy(ref["mdn|" + f]).to(DEV))
+                 for f in ("pi", "sigma", "mu")}
+        print("  imported MDN head vs the JAX fixture: "
+              + ", ".join(f"{f} {e:.2e}" for f, e in merrs.items()), flush=True)
+        if not all(e <= FC_GATE for e in merrs.values()):
+            raise AssertionError(f"the imported MDN head disagrees with JAX: {merrs}")
+
+        # predict --conv-mode fc with the converted checkpoint (bf16, the
+        # tracked 3dbs cache at its (128, 1024) bucket); the per-pair work
+        # is counted by wrapping the TP's messages
+        flops = {"pairs": 0, "flop": 0}
+        messages = L.tp_conv_messages
+
+        def counted(p, spec, src, sh, e):
+            pairs = int(np.prod(e.shape[:-1]))
+            ne, hid, numel = e.shape[-1], p["fc"]["l1"]["w"].shape[1], spec.tp.weight_numel
+            flops["pairs"] += pairs
+            flops["flop"] += pairs * (2 * ne * hid + 2 * hid * numel + tp_flops(spec.tp))
+            return messages(p, spec, src, sh, e)
+
+        out_dir = os.path.join(tmp, "fc")
+        jobs = predict_inputs(out_dir, ("3dbs",))
+        argv = ["predict", "-i", jobs, "-o", out_dir, "-ckt", net, "-mdn", MDN_CKPT,
+                "--conv-mode", "fc", "-np", "4", "-bs", "4"]
+        torch.cuda.reset_peak_memory_stats()
+        L.tp_conv_messages = counted
+        try:
+            counts, stage, wall, prepared, results, _ = predict_run(torch, TC, pipeline, cli,
+                                                                    argv, 4)
+        finally:
+            L.tp_conv_messages = messages
+        peak = torch.cuda.max_memory_allocated()
+        finite = all(np.isfinite(r.lig_pos).all() and np.isfinite(r.mdn_nll) for r in results)
+        print(f"  predict --conv-mode fc -np 4 -bs 4 (bf16, 3dbs, bucket "
+              f"({prepared[0].bucket.n_lig}, {prepared[0].bucket.n_atm})): dock "
+              f"{stage['dock']:.3f} s ({stage['dock'] / 4:.4f} s per pose), EC "
+              f"{stage['error_correct']:.3f} s, MDN {stage['score_mdn']:.3f} s, main() "
+              f"{wall:.3f} s ({wall / 4:.4f} s per pose); 'fc' pairs {flops['pairs']} "
+              f"({flops['pairs'] / 4 / 20:.0f} per pose and step), {flops['flop']:.4e} flop, "
+              f"{flops['flop'] / stage['dock'] / 1e12:.3f} TFLOP/s over the dock; peak memory "
+              f"{peak / 2**30:.3f} GiB; chunk {L.FC_CHUNK_PAIRS} pairs; launches {counts}; "
+              f"on {smi}", flush=True)
+        if any(counts.values()):
+            raise AssertionError(f"the 'fc' dock launched trunk kernels: {counts}")
+        if not finite:
+            raise AssertionError("non-finite 'fc' poses or scores")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4017,6 +4427,12 @@ def main() -> int:
 
     with Phase("train_cli"):
         cli_counts = phase_train_cli(torch, np, TC, params, s_np, smi)
+
+    with Phase("conformers"):
+        phase_conformers(torch, np, TC, smi)
+
+    with Phase("fc_import"):
+        phase_fc_import(torch, np, TC, smi)
 
     rows = []
     for name, (src, repl) in KERNELS.items():

@@ -15,9 +15,13 @@ ligand + side chains (`--flex`) or all-atom Cartesian (`--cartesian`).
 
 The device picks the path of the stages after prep (as app/train_cli.py):
 the card by default, where the score net's trunk runs the hand-written CUDA
-kernels; `--cpu` runs their plain PyTorch versions on the CPU. Flags of
-stages the port does not have yet exit with an error naming their ROADMAP
-item; none falls back silently.
+kernels; `--cpu` runs their plain PyTorch versions on the CPU. `-nc N`
+embeds N fresh start conformers per ligand at prep (chem/embed.py, on the
+same device), and pose replica i starts from conformer i % N.
+`--conv-mode fc` runs the reference-exact fully connected tensor product
+that a checkpoint converted from the reference needs
+(utils/torch_import.py); it has no kernels, so the dock takes the plain
+path, on the card as on the CPU.
 
     python -m diffbindfr_torch.app.cli predict -i jobs.csv -o OUT -j prep -nw 4
     python -m diffbindfr_torch.app.cli predict -i jobs.csv -o OUT -ckt CKPT -mdn MDN
@@ -30,20 +34,16 @@ import dataclasses
 import os
 import sys
 
-# flags of stages not ported yet: (flag, is set, ROADMAP item and what it ports)
-_NOT_PORTED = (
-    ("-nc > 0", lambda a: a.num_conformers > 0, "A14 (chem/embed.py conformers)"),
-    ("--conv-mode fc", lambda a: a.conv_mode == "fc",
-     "A14 (the 'fc' tensor product, with utils/torch_import.py)"),
-)
+def dock_path(net_cfg) -> bool:
+    """use_kernels for the dock of `net_cfg`: the kernels, except under
+    conv_mode 'fc', which has none (said on stdout)."""
+    if net_cfg.conv_mode != "fc":
+        return True
+    from ..nn.layers import FC_CHUNK_PAIRS
 
-
-def refuse_unported(args) -> None:
-    """Exit naming the ROADMAP item of the first flag set that the port
-    does not have yet (predict's and eval_cli's flags)."""
-    for flag, is_set, item in _NOT_PORTED:
-        if is_set(args):
-            sys.exit(f"{flag}: not ported yet (ROADMAP {item})")
+    print(f"[model] conv_mode 'fc': the plain PyTorch path (no kernel for 'fc'), "
+          f"per-pair weights in chunks of {FC_CHUNK_PAIRS} pairs")
+    return False
 
 
 def build_parser():
@@ -69,7 +69,8 @@ def build_parser():
     p.add_argument("-nw", "--num-workers", type=int, default=0,
                    help="parallel featurization workers (0 = serial)")
     p.add_argument("-nc", "--num-conformers", type=int, default=0,
-                   help="DG-embedded starting conformers (> 0 waits for ROADMAP A14)")
+                   help="DG-embedded starting conformers per ligand (0 = start from the "
+                        "input conformer)")
     p.add_argument("-s", "--start", type=int, default=0, help="job slice start")
     p.add_argument("-e", "--end", type=int, default=None, help="job slice end")
     p.add_argument("-int", "--interval", type=int, default=1)
@@ -108,7 +109,8 @@ def build_parser():
                    help="accepted and ignored: the device picks the path (the card runs "
                         "the hand-written CUDA kernels, --cpu their plain versions)")
     p.add_argument("--conv-mode", choices=["sep", "fc"], default="sep",
-                   help="'fc' waits for ROADMAP A14")
+                   help="'fc': the reference-exact tensor product of converted reference "
+                        "checkpoints (plain PyTorch, no kernels)")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
     p.add_argument("-cfg", "--config", help="python config file (utils/config.py: _base_ "
                    "inheritance, ${var} interpolation)")
@@ -152,8 +154,6 @@ def _config(cls, kw: dict, what: str):
 
 
 def cmd_predict(args):
-    refuse_unported(args)
-
     import torch
 
     from .. import sampler as sp
@@ -181,7 +181,9 @@ def cmd_predict(args):
     os.makedirs(args.outdir, exist_ok=True)
     prepared, failures = P.prep(jobs, pocket_radius=args.pocket_radius,
                                 cache_dir=os.path.join(args.outdir, "prep_cache"),
-                                num_workers=args.num_workers)
+                                num_workers=args.num_workers,
+                                n_conformers=args.num_conformers,
+                                device="cpu" if args.cpu else "cuda")
     P.write_failures(args.outdir, failures)
     if args.job == "prep":
         print("[prep] done (job=prep, stopping before dock)")
@@ -191,7 +193,7 @@ def cmd_predict(args):
     dev = resolve_device("cpu" if args.cpu else "cuda")
     print(f"[device] {dev}")
 
-    net_kw = dict(compute_dtype=args.dtype)
+    net_kw = dict(conv_mode=args.conv_mode, compute_dtype=args.dtype)
     samp_kw = dict(inference_steps=args.steps + 2, actual_steps=args.steps)
     if args.config or args.cfg_options:
         from ..utils.config import apply_overrides, load_config
@@ -213,7 +215,7 @@ def cmd_predict(args):
 
     results = P.dock(prepared, params, net_cfg, scfg, num_poses=args.num_poses,
                      batch_size=args.batch_size, seed=args.seed, device=dev,
-                     keep_trajectory=args.trajectory)
+                     keep_trajectory=args.trajectory, use_kernels=dock_path(net_cfg))
     if not args.no_ec:
         P.error_correct(prepared, results, steps=args.ec_steps,
                         batch_size=args.ec_bs or args.batch_size, device=dev)

@@ -25,8 +25,9 @@ In every layout the ligand file doubles as the crystal reference pose.
 
 The dock, error correction, relax and MDN run on the card unless `--cpu` is given
 (then on the CPU, through the kernels' plain versions); prep, the report
-and validity are host numpy. Flags of stages the port does not have yet
-exit with an error naming their ROADMAP item.
+and validity are host numpy. `-nc N` embeds N start conformers per ligand
+at prep (on the same device); `--conv-mode fc` docks with the
+reference-exact tensor product on the plain path (as app/cli.py predict).
 
     python -m diffbindfr_torch.app.eval_cli --lib pb -d DATA -o OUT -ckt CKPT -mdn MDN
 """
@@ -42,7 +43,7 @@ import numpy as np
 
 from ..io.pdb import parse_pdb
 from ..io.sdf import parse_sdf
-from .cli import refuse_unported
+from .cli import dock_path
 from .jobs import Job
 
 # ---------------------------------------------------------------------------
@@ -163,7 +164,7 @@ def build_parser():
     ap.add_argument("-st", "--steps", type=int, default=20)
     ap.add_argument("-nw", "--num-workers", type=int, default=0)
     ap.add_argument("-nc", "--num-conformers", type=int, default=0,
-                    help="DG-embedded starting conformers (> 0 waits for ROADMAP A14)")
+                    help="DG-embedded starting conformers per ligand (0 = the input conformer)")
     ap.add_argument("-s", "--start", type=int, default=0)
     ap.add_argument("-e", "--end", type=int, default=None)
     ap.add_argument("-int", "--interval", type=int, default=1)
@@ -185,7 +186,8 @@ def build_parser():
                     help="accepted and ignored: the device picks the path (the card runs the "
                          "hand-written CUDA kernels, --cpu their plain versions)")
     ap.add_argument("--conv-mode", choices=["sep", "fc"], default="sep",
-                    help="'fc' waits for ROADMAP A14")
+                    help="'fc': the reference-exact tensor product of converted reference "
+                         "checkpoints (plain PyTorch, no kernels)")
     ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
     ap.add_argument("--ns", type=int, default=48)
     ap.add_argument("--nv", type=int, default=12)
@@ -257,7 +259,6 @@ def write_validity(outdir: str, vrows: list, name: str = "validity.csv") -> floa
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
 
     import torch
 
@@ -279,20 +280,22 @@ def main(argv=None):
 
     prepared, failures = P.prep(jobs, pocket_radius=args.pocket_radius,
                                 cache_dir=os.path.join(args.outdir, "prep_cache"),
-                                num_workers=args.num_workers)
+                                num_workers=args.num_workers,
+                                n_conformers=args.num_conformers, device=dev)
     P.write_failures(args.outdir, failures)
     if not prepared:
         sys.exit("no pairs prepared")
 
     net_cfg = sn.ScoreNetConfig(ns=args.ns, nv=args.nv, num_conv_layers=args.layers,
-                                compute_dtype=args.dtype)
+                                conv_mode=args.conv_mode, compute_dtype=args.dtype)
     scfg = sp.SamplerConfig(inference_steps=args.steps + 2, actual_steps=args.steps)
     ckpt_path = resolve_checkpoint(args.checkpoint)
     params, step = load_checkpoint(ckpt_path, use_ema=True, device=dev)
     print(f"[model] loaded {ckpt_path} (step {step})")
 
     results = P.dock(prepared, params, net_cfg, scfg, num_poses=args.num_poses,
-                     batch_size=args.batch_size, seed=args.seed, device=dev)
+                     batch_size=args.batch_size, seed=args.seed, device=dev,
+                     use_kernels=dock_path(net_cfg))
     if not args.no_ec:
         P.error_correct(prepared, results, steps=args.ec_steps, batch_size=args.batch_size,
                         device=dev)

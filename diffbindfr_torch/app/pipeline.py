@@ -55,11 +55,16 @@ class DockEngine:
     `sampler.draw_noise` (padding replicas included), so a run is
     reproducible and a caller can rebuild any batch's noise.
     `keep_trajectory` attaches each pose's positions after every step.
+    Replica po of a pair with conformers starts from conformer po % C
+    (`start_refs`). `use_kernels` picks the score net's path (the plain
+    path for conv_mode 'fc', which has no kernels).
     """
 
     def __init__(self, params, net_cfg, sampler_cfg, batch_size: int = 16,
-                 device="cuda", verbose: bool = True, keep_trajectory: bool = False):
+                 device="cuda", verbose: bool = True, keep_trajectory: bool = False,
+                 use_kernels: bool = True):
         self.device = resolve_device(device)
+        self.use_kernels = use_kernels
         self.params = _to_device(params, self.device)
         self.net_cfg = net_cfg
         self.sampler_cfg = sampler_cfg
@@ -91,9 +96,11 @@ class DockEngine:
         t0 = time.time()
         for _, chunk in plan:
             reps = chunk + [chunk[0]] * (self.batch_size - len(chunk))
-            batch = to_device(_stack(prepared, [i for i, _ in reps]), self.device)
+            host = start_refs(_stack(prepared, [i for i, _ in reps]), prepared, reps)
+            batch = to_device(host, self.device)
             noise = sp.draw_noise(batch, self.sampler_cfg, gen)
             res = sp.sample(self.params, self.net_cfg, self.sampler_cfg, batch, noise,
+                            use_kernels=self.use_kernels,
                             keep_trajectory=self.keep_trajectory)
             lig_pos, a14, chi = (res.lig_pos.cpu().numpy(), res.atom14_pos.cpu().numpy(),
                                  res.chi.cpu().numpy())
@@ -117,6 +124,25 @@ def _stack(prepared: list, pair_idxs: list):
     return stack_samples([samples[i] for i in pair_idxs])
 
 
+def start_refs(batch, prepared: list, reps: list):
+    """The host batch of the replicas `reps` [(pair_idx, pose_idx)] with
+    each replica's lig_ref_pos set to its pair's conformer pose_idx % C,
+    zero-padded to the bucket, where the pair has conformers (JAX
+    pipeline.py:710-720): the sampler randomises torsions, rotation and
+    translation about lig_ref_pos, so only the conformer's internal
+    geometry matters."""
+    if all(prepared[pi].conformers is None for pi, _ in reps):
+        return batch
+    ref = np.array(batch.lig_ref_pos, copy=True)
+    for j, (pi, po) in enumerate(reps):
+        confs = prepared[pi].conformers
+        if confs is not None:
+            c = confs[po % confs.shape[0]]
+            ref[j] = 0.0
+            ref[j, : c.shape[0]] = c
+    return batch._replace(lig_ref_pos=ref)
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -127,11 +153,12 @@ def _to_device(tree, device):
 
 def dock(prepared: list, params, net_cfg, scfg, num_poses: int = 40, batch_size: int = 16,
          seed: int = 0, device="cuda", verbose: bool = True,
-         keep_trajectory: bool = False) -> list:
+         keep_trajectory: bool = False, use_kernels: bool = True) -> list:
     """Run the reverse diffusion for every (pair, pose) replica (one-shot
     wrapper around DockEngine)."""
     eng = DockEngine(params, net_cfg, scfg, batch_size=batch_size, device=device,
-                     verbose=verbose, keep_trajectory=keep_trajectory)
+                     verbose=verbose, keep_trajectory=keep_trajectory,
+                     use_kernels=use_kernels)
     return eng.run(prepared, num_poses=num_poses, seed=seed)
 
 

@@ -1,6 +1,6 @@
 """Host prep of `predict`: the PreparedPair, prep and write_failures of
-diffbindfr_tpu/app/pipeline.py, without conformers. app/pipeline.py
-re-exports them beside the stages that run on the device.
+diffbindfr_tpu/app/pipeline.py. app/pipeline.py re-exports them beside the
+stages that run on the device.
 
 `prep` featurises each (receptor, ligand) pair from its raw PDB/SDF files on
 the host (numpy, chem/), or serves it from the prep cache: the npz of its
@@ -8,9 +8,12 @@ padded sample and the `<stem>.rec.pkl` record beside it, written by the
 port's prep or by the JAX package's. A pair that fails is a Failure at the
 stage that failed, and the run goes on.
 
-This module and everything it imports stay without torch, so that a spawn
-worker of `prep` starts in the time numpy takes to load, and never touches
-the card.
+With `n_conformers > 0` each ligand is also embedded into that many fresh
+conformers (chem/embed.py, once per ligand and process), which the dock
+starts its replicas from. This module and everything it imports stay
+without torch, so that a spawn worker of `prep` starts in the time numpy
+takes to load: the embedding imports torch when it runs, in the main process
+on the caller's device, in a worker on the CPU, never the card.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import numpy as np
 from ..chem.ligand_feats import featurize_ligand
 from ..chem.mol import perceive
 from ..chem.protein_feats import build_pocket_record
-from ..chem.records import HoloRef, LigandRecord, PocketRecord, ligand_source, load_prep_record
+from ..chem.records import (HoloRef, LigandRecord, PocketRecord, ligand_source,
+                            load_prep_record, pocket_source)
 from ..data.sample import Buckets, DockingSample, _load_sample_npz, bucket_of, make_sample
 from ..io.pdb import Protein, parse_pdb
 from ..io.sdf import parse_ligand_file, read_record
@@ -56,6 +60,9 @@ class PreparedPair:
     job: Job | None = None  # the job the pair was prepared for (its protein path)
     # side-chain reference of an apo->holo job; None grades against the input pocket
     holo_ref: HoloRef | None = None
+    # [C, A, 3] embedded start conformers (centred); the dock's replica po
+    # starts from conformer po % C. None: every replica starts from the input pose
+    conformers: np.ndarray | None = None
     # receptor path -> parsed Protein, shared by the pairs of one `prep` call
     protein_cache: dict = dataclasses.field(default_factory=dict, repr=False)
     sample_path: str | None = None  # the prep-cache npz of the padded sample
@@ -128,46 +135,64 @@ def _cache_paths(cache_dir: str, job: Job, pocket_radius: float):
     return stem + ".npz", stem + ".rec.pkl"
 
 
-def _cache_hit(rec: dict, job: Job) -> bool:
-    """Whether a prep record serves `job`: as the JAX package's `_cache_hit`
-    for a run without conformers (-nc 0), with two more checks. A record
-    with conformers does not serve, since the port's dock starts every
-    replica from the input conformer (conformer starts are ROADMAP A14). A
-    record with `lig_src` (one the port wrote) serves only the ligand record
-    it was built from (chem/records.ligand_source); one without it, as the
-    JAX package writes them, is served without that check."""
-    if rec.get("conformers") is not None:
+def _cache_hit(rec: dict, job: Job, n_conformers: int = 0) -> bool:
+    """Whether a prep record serves `job`, as the JAX package's `_cache_hit`
+    (diffbindfr_tpu/app/pipeline.py:105-133) decides: with `n_conformers >
+    0` the record needs at least that many conformers (one with more serves,
+    sliced by `cached_conformers`), and an apo->holo job needs the record's
+    holo reference to come from its holo structure. Two checks more: a
+    record with `lig_src` and `pocket_src` (one the port wrote) serves only
+    the ligand record, receptor and pocket reference it was built from
+    (chem/records.ligand_source, pocket_source); one without them, as the
+    JAX package writes them, is served without those checks."""
+    confs = rec.get("conformers")
+    if n_conformers and (confs is None or confs.shape[0] < n_conformers):
         return False
     if job.holo_protein and (rec.get("holo_src") != job.holo_protein
                              or rec.get("holo_ref") is None):
         return False
+    if "pocket_src" in rec and rec["pocket_src"] != pocket_source(job):
+        return False
     return "lig_src" not in rec or rec["lig_src"] == ligand_source(job.ligand)
 
 
-def _read_hit(spath: str, rpath: str, job: Job):
+def cached_conformers(rec: dict, n_conformers: int):
+    """The conformers a record that serves a job hands its pair: the first
+    `n_conformers`, so replica-to-conformer assignment matches a fresh run,
+    and none at -nc 0. The JAX package attaches a record's conformers at
+    -nc 0 as well, so its cached -nc 0 run docks from conformers where a
+    fresh one does not; the port does not copy that."""
+    confs = rec.get("conformers")
+    return confs[:n_conformers] if n_conformers and confs is not None else None
+
+
+def _read_hit(spath: str, rpath: str, job: Job, n_conformers: int = 0):
     """The record of the cache entry (spath, rpath) if it serves `job`, else
     None: the pair is then prepared again and the entry replaced."""
     if not (os.path.exists(spath) and os.path.exists(rpath)):
         return None
     try:
         rec = load_prep_record(rpath)
-        return rec if _cache_hit(rec, job) else None
+        return rec if _cache_hit(rec, job, n_conformers) else None
     except Exception:  # stale, corrupt or foreign entry, unreadable ligand: recompute
         return None
 
 
 def _prep_one(job: Job, pocket_radius: float, cache_dir: str | None, lig_cache: dict,
-              prot_cache: dict, pocket_cache: dict):
+              prot_cache: dict, pocket_cache: dict, n_conformers: int = 0,
+              conf_cache: dict | None = None, device="cuda"):
     """Featurise one pair, as the JAX package's `_prep_one`
-    (diffbindfr_tpu/app/pipeline.py:136-241) without conformers. Returns
-    ('ok', (record dict, sample path or None, DockingSample or None: None
-    on a cache hit, which is read from the npz)) or ('fail', Failure) at
-    the stage that failed: 'ligand', 'pocket', 'holo' or 'sample'. The
-    dicts dedup ligand, protein and pocket work within a process."""
+    (diffbindfr_tpu/app/pipeline.py:136-241). Returns ('ok', (record dict,
+    sample path or None, DockingSample or None: None on a cache hit, which
+    is read from the npz)) or ('fail', Failure) at the stage that failed:
+    'ligand', 'pocket', 'holo', 'embed' or 'sample'. The dicts dedup
+    ligand, protein, pocket and (`conf_cache`, keyed by ligand path and
+    seed) conformer work within a process; with `n_conformers > 0` the
+    ligand is embedded on `device`."""
     spath = rpath = None
     if cache_dir:
         spath, rpath = _cache_paths(cache_dir, job, pocket_radius)
-        rec = _read_hit(spath, rpath, job)
+        rec = _read_hit(spath, rpath, job, n_conformers)
         if rec is not None:
             return "ok", (rec, spath, None)
 
@@ -193,6 +218,7 @@ def _prep_one(job: Job, pocket_radius: float, cache_dir: str | None, lig_cache: 
         if pkey not in pocket_cache:
             pocket_cache[pkey] = build_pocket_record(prot, ref_points, cutoff=pocket_radius)
         pocket = pocket_cache[pkey]
+        pocket_src = pocket_source(job)
     except Exception as e:
         return "fail", Failure(job.complex_name, "pocket", repr(e))
 
@@ -205,14 +231,28 @@ def _prep_one(job: Job, pocket_radius: float, cache_dir: str | None, lig_cache: 
         except Exception as e:
             return "fail", Failure(job.complex_name, "holo", repr(e))
 
+    confs = None
+    if n_conformers > 0:
+        try:
+            conf_cache = {} if conf_cache is None else conf_cache
+            key = (job.ligand, 0)
+            if key not in conf_cache:
+                from ..chem.embed import embed_conformers
+
+                conf_cache[key] = embed_conformers(lig0, n_conformers, seed=0, device=device)
+            confs = conf_cache[key]
+        except Exception as e:
+            return "fail", Failure(job.complex_name, "embed", repr(e))
+
     try:
         lig = dataclasses.replace(lig0)
         crystal_pos = lig0.pos.copy()
         lig.pos = lig0.pos - pocket.center
         sample = make_sample(lig, pocket)
         rec = {"lig": lig, "pocket": pocket, "bucket": bucket_of(sample),
-               "crystal_pos": crystal_pos, "conformers": None, "holo_ref": holo_ref,
-               "holo_src": job.holo_protein or None, "lig_src": lig_src}
+               "crystal_pos": crystal_pos, "conformers": confs, "holo_ref": holo_ref,
+               "holo_src": job.holo_protein or None, "lig_src": lig_src,
+               "pocket_src": pocket_src}
         if spath:  # atomic: a reader never sees a half-written file
             tmp = f"{spath}.{os.getpid()}.tmp"
             np.savez(tmp, **sample._asdict())  # writes tmp + ".npz"
@@ -234,13 +274,15 @@ def _worker_init():
 
 def _worker_prep(args):
     """One chunk of (job index, job) in a pool worker. IPC stays light: the
-    padded sample goes back through the npz cache, not the pipe."""
-    chunk, pocket_radius, cache_dir = args
-    lig_cache, prot_cache, pocket_cache = {}, {}, {}
+    padded sample goes back through the npz cache, not the pipe. A worker
+    embeds conformers on the CPU (the JAX package's workers are forced onto
+    the CPU backend)."""
+    chunk, pocket_radius, cache_dir, n_conformers = args
+    lig_cache, prot_cache, pocket_cache, conf_cache = {}, {}, {}, {}
     out = []
     for i, job in chunk:
         status, payload = _prep_one(job, pocket_radius, cache_dir, lig_cache, prot_cache,
-                                    pocket_cache)
+                                    pocket_cache, n_conformers, conf_cache, device="cpu")
         if status == "ok":
             payload = payload[:2] + (None,)
         out.append((i, status, payload))
@@ -248,9 +290,10 @@ def _worker_prep(args):
 
 
 def prep(jobs: list, pocket_radius: float = 12.0, verbose: bool = True,
-         cache_dir: str | None = None, num_workers: int = 0, chunk_size: int = 32):
+         cache_dir: str | None = None, num_workers: int = 0, chunk_size: int = 32,
+         n_conformers: int = 0, device="cuda"):
     """Featurise all pairs on the host; returns (prepared list in job
-    order, failures list). The JAX package's `prep` without conformers.
+    order, failures list). The JAX package's `prep`.
 
     Ligands, proteins and pockets are deduplicated within a process. With
     `cache_dir`, each pair persists its DockingSample npz and record pkl
@@ -265,8 +308,11 @@ def prep(jobs: list, pocket_radius: float = 12.0, verbose: bool = True,
     one; cache hits are served in the parent. Results come back through the
     cache, so a temporary `cache_dir` is made when none is given. Samples
     are read from the cache when first used; of more than RETAIN_PAIRS
-    pairs none is kept in memory. Prep is host numpy and never touches the
-    card."""
+    pairs none is kept in memory. Prep is host numpy and touches no device,
+    except that with `n_conformers > 0` each ligand (once per process) is
+    embedded into that many conformers (chem/embed.embed_conformers, seed
+    0): on `device` in this process, on the CPU in a worker. Every pair gets
+    `conformers` as `cached_conformers` gives them."""
     retain = len(jobs) <= RETAIN_PAIRS
     proteins: dict = {}
     results = []  # (job index, status, payload) in any order
@@ -280,7 +326,7 @@ def prep(jobs: list, pocket_radius: float = 12.0, verbose: bool = True,
         todo = []
         for i, job in enumerate(jobs):
             spath, rpath = _cache_paths(cache_dir, job, pocket_radius)
-            rec = _read_hit(spath, rpath, job)
+            rec = _read_hit(spath, rpath, job, n_conformers)
             if rec is not None:
                 results.append((i, "ok", (rec, spath, None)))
             else:
@@ -295,17 +341,18 @@ def prep(jobs: list, pocket_radius: float = 12.0, verbose: bool = True,
             ctx = mp.get_context("spawn")
             with ctx.Pool(num_workers, initializer=_worker_init) as pool:
                 for out in pool.imap_unordered(
-                        _worker_prep, [(c, pocket_radius, cache_dir) for c in chunks]):
+                        _worker_prep,
+                        [(c, pocket_radius, cache_dir, n_conformers) for c in chunks]):
                     results.extend(out)
                     if verbose:
                         print(f"[prep] {len(results)}/{len(jobs)} pairs featurized", flush=True)
     else:
         if cache_dir:
             os.makedirs(cache_dir, exist_ok=True)
-        lig_cache, pocket_cache = {}, {}
+        lig_cache, pocket_cache, conf_cache = {}, {}, {}
         for i, job in enumerate(jobs):
             results.append((i, *_prep_one(job, pocket_radius, cache_dir, lig_cache, proteins,
-                                          pocket_cache)))
+                                          pocket_cache, n_conformers, conf_cache, device)))
 
     prepared, failures = [], []
     for i, status, payload in sorted(results, key=lambda r: r[0]):
@@ -323,6 +370,7 @@ def prep(jobs: list, pocket_radius: float = 12.0, verbose: bool = True,
                                 pocket=rec["pocket"], crystal_pos=rec["crystal_pos"], job=job,
                                 holo_ref=rec["holo_ref"], protein_cache=proteins,
                                 _sample=sample)
+        pair.conformers = cached_conformers(rec, n_conformers)
         prepared.append(pair)
     if verbose:
         print(f"[prep] {len(prepared)} pairs prepared, {len(failures)} failed")

@@ -13,7 +13,15 @@ The daemon keeps its state across requests:
     request's poses depend on which requests share its round (as in the
     JAX package)
   * prep runs in the HTTP handler threads, off the device thread, with the
-    same per-pair npz cache the CLI uses, and a pair cache in memory
+    same per-pair npz cache the CLI uses, and a pair cache in memory that
+    keeps the max(2 * batch_size, 32) pairs used last (as ECEngine bounds
+    its device cache), keyed by the files' paths, modification times and
+    sizes, so a file rewritten in place is prepared again
+  * `n_conformers > 0` embeds that many start conformers per ligand at prep
+    (chem/embed.py, on the service's device, in the handler thread); pose i
+    starts from conformer i % n. Embeddings and the worker's rounds take
+    turns on the card under embed.CARD_LOCK: work on the card's default
+    stream beside an embedding's CUDA-graph capture would invalidate it
 
 Protocol: JSON over HTTP (stdlib only).
 
@@ -24,7 +32,7 @@ Protocol: JSON over HTTP (stdlib only).
                 "ligand": "/abs/lig.sdf",
                 "center": [x, y, z]          # or "crystal_ligand": path
                 "num_poses": 8,              # default 8
-                "n_conformers": 0,           # > 0 waits for ROADMAP A14 (400)
+                "n_conformers": 0,           # DG-embed fresh starts
                 "ec": true, "score": true,   # stage toggles
                 "seed": 0,
                 "outdir": "/abs/dir"}        # optional file export
@@ -47,9 +55,11 @@ import queue
 import tempfile
 import threading
 import time
+from collections import OrderedDict
 
 import numpy as np
 
+from ..chem.embed import CARD_LOCK
 from .jobs import Job
 
 
@@ -100,10 +110,13 @@ class DockService:
         self._worker = threading.Thread(target=self._work_loop, name="dock-worker",
                                         daemon=True)
         self._worker.start()
-        # prep dedup: (protein, ligand, center/crystal, nc) -> PreparedPair
-        self._pair_cache: dict = {}
+        # prep dedup: (protein, ligand, center/crystal, nc) -> PreparedPair,
+        # least recently used first, at most pair_capacity of them
+        self.pair_capacity = max(2 * batch_size, 32)
+        self._pair_cache: OrderedDict = OrderedDict()
         self._pair_lock = threading.Lock()
-        self._key_locks: dict = {}  # concurrent same-pair requests
+        # complex name -> lock, for concurrent same-pair requests; bounded alike
+        self._key_locks: OrderedDict = OrderedDict()
 
     # ---- host side (handler threads) ----------------------------------
 
@@ -117,9 +130,6 @@ class DockService:
         center = req.get("center")
         crystal = req.get("crystal_ligand")
         nc = int(req.get("n_conformers", 0))
-        if nc > 0:
-            raise ValueError("n_conformers > 0: not ported yet (ROADMAP A14 (chem/embed.py "
-                             "conformers))")
         if center is None and not crystal:
             # auto-discovery convention (<stem>_crystal.sdf / _box.csv next
             # to the receptor), else self-dock on the input ligand
@@ -132,32 +142,44 @@ class DockService:
                 center = ref
             else:
                 crystal = ligand
-        key = (os.path.abspath(protein), os.path.abspath(ligand),
-               tuple(center) if center else os.path.abspath(crystal), nc)
+        key = (_file_key(protein), _file_key(ligand),
+               tuple(center) if center else _file_key(crystal), nc)
         name = (os.path.splitext(os.path.basename(protein))[0] + "_"
                 + os.path.splitext(os.path.basename(ligand))[0])
         with self._pair_lock:
-            hit = self._pair_cache.get(key)
+            hit = self._cached(key)
             if hit is not None:
                 return hit
             # concurrent requests hitting the same prep-cache stem (complex
             # name) must not prep in parallel
             key_lock = self._key_locks.setdefault(name, threading.Lock())
+            self._key_locks.move_to_end(name)
+            _bound(self._key_locks, self.pair_capacity, keep=lambda lk: lk.locked())
         with key_lock:
             with self._pair_lock:
-                hit = self._pair_cache.get(key)
+                hit = self._cached(key)
             if hit is not None:
                 return hit
             job = Job(protein=protein, protein_name=name, ligand=ligand, ligand_name=name,
                       complex_name=name, crystal_ligand=crystal,
                       center=tuple(center) if center else None)
             prepared, failures = P.prep([job], pocket_radius=self.pocket_radius,
-                                        cache_dir=self.cache_dir, verbose=False)
+                                        cache_dir=self.cache_dir, verbose=False,
+                                        n_conformers=nc, device=self.device)
             if failures:
                 raise ValueError(f"prep failed: {failures[0].stage}: {failures[0].error}")
             with self._pair_lock:
                 self._pair_cache[key] = prepared[0]
+                _bound(self._pair_cache, self.pair_capacity)
             return prepared[0]
+
+    def _cached(self, key):
+        """The cached pair of `key` (marked as used last), or None; under
+        _pair_lock."""
+        hit = self._pair_cache.get(key)
+        if hit is not None:
+            self._pair_cache.move_to_end(key)
+        return hit
 
     def warmup(self, protein: str, ligand: str, **req) -> int:
         """Run the full request path (prep, dock, EC, MDN) once on an
@@ -205,7 +227,8 @@ class DockService:
         while True:
             reqs = self._drain()
             try:
-                self._run_round(reqs)
+                with CARD_LOCK:
+                    self._run_round(reqs)
             except Exception as e:  # noqa: BLE001 — reported to the callers
                 for r in reqs:
                     if r is not None and not r.done.is_set():
@@ -250,6 +273,24 @@ class DockService:
     @property
     def warm_buckets(self) -> int:
         return len(self._buckets)
+
+
+def _file_key(path: str):
+    """(absolute path, modification time in ns, size) of a request's file;
+    a file that cannot be read keys by its path alone and fails in prep."""
+    try:
+        st = os.stat(path)
+    except OSError:
+        return (os.path.abspath(path), None, None)
+    return (os.path.abspath(path), st.st_mtime_ns, st.st_size)
+
+
+def _bound(cache: OrderedDict, capacity: int, keep=lambda v: False) -> None:
+    """Drop the least recently used entries of `cache` past `capacity`,
+    skipping those `keep` holds on to."""
+    over = len(cache) - capacity
+    for k in [k for k, v in cache.items() if not keep(v)][:max(over, 0)]:
+        del cache[k]
 
 
 def _pose_payload(pair, res, outdir: str | None):

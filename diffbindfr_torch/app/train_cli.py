@@ -28,7 +28,7 @@ picks.
 The card runs everything unless `--cpu` (or `--device cpu`) is given: the
 trunk convs through their hand-written CUDA kernels there (so `--pallas`
 and `--pallas-bwd` change nothing), their plain PyTorch versions on the
-CPU. `--conv-mode fc` waits for ROADMAP A14. Writes train_log.jsonl,
+CPU. `--conv-mode fc` waits for ROADMAP A15 ('fc' training). Writes train_log.jsonl,
 ckpt_XXXXXXX.npz / mdn_ckpt_XXXXXXX.npz and ckpt_best.npz (the JAX
 package's checkpoint format) and train_state.npz (the port's own format,
 for --resume) into the output directory.
@@ -90,7 +90,7 @@ def build_parser():
                          "EMA model and log best/mean L-RMSD")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--conv-mode", choices=["sep", "fc"], default="sep",
-                    help="'fc' waits for ROADMAP A14")
+                    help="'fc' waits for ROADMAP A15 ('fc' training)")
     ap.add_argument("--ns", type=int, default=48, help="scalar channels")
     ap.add_argument("--nv", type=int, default=12, help="vector channels")
     ap.add_argument("--layers", type=int, default=6, help="conv layers")
@@ -174,8 +174,8 @@ def main(argv=None) -> dict:
     the first batch), and every step's loss, read once after the loop."""
     args = build_parser().parse_args(argv)
     if args.conv_mode == "fc":
-        sys.exit("--conv-mode fc: not ported yet (ROADMAP A14 (the 'fc' tensor product, "
-                 "with utils/torch_import.py))")
+        sys.exit("--conv-mode fc: not ported yet (ROADMAP A15 ('fc' training: "
+                 "train_cli --conv-mode fc, per-chunk recompute))")
     import torch
 
     from ..utils.device import resolve_device

@@ -16,18 +16,22 @@ a record written for an apo->holo job).
 The port's records also carry `lig_src` (`ligand_source`): the ligand path
 as the job names it (with its `#i`) and a sha256 of that record's text, so a
 cache entry written for another ligand, or for an edited or reordered
-library, is recomputed instead of served.
+library, is recomputed instead of served; and `pocket_src`
+(`pocket_source`): the receptor file's sha256 and the pocket reference (the
+centre, or the crystal ligand file's sha256), so an entry whose receptor or
+pocket reference changed is recomputed too.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import importlib
 import pickle
 
 import numpy as np
 
 from ..data.sample import Buckets
-from ..io.sdf import read_record
+from ..io.sdf import _record_address, file_key, read_record
 
 
 @dataclasses.dataclass
@@ -165,3 +169,28 @@ def ligand_source(path: str) -> tuple:
     """`lig_src` of a job's ligand: (path as the job gives it, sha256 of the
     text of the record it names; io/sdf.read_record)."""
     return path, read_record(path)[1]
+
+
+_DIGESTS: dict = {}  # io/sdf.file_key -> sha256 hex of the file's bytes
+
+
+def _file_digest(path: str) -> str:
+    """sha256 hex of a file's bytes, read once while the file is unchanged."""
+    key = file_key(path)
+    if key not in _DIGESTS:
+        if len(_DIGESTS) >= 64:
+            _DIGESTS.clear()
+        with open(path, "rb") as fh:
+            _DIGESTS[key] = hashlib.sha256(fh.read()).hexdigest()
+    return _DIGESTS[key]
+
+
+def pocket_source(job) -> tuple:
+    """`pocket_src` of a job's pocket: (sha256 of its receptor file, the
+    pocket reference's kind, the reference: the centre, or (sha256 of the
+    crystal ligand's file, its record index or None))."""
+    kind, ref = job.pocket_ref()
+    if kind == "center":
+        return _file_digest(job.protein), kind, tuple(float(x) for x in np.ravel(ref))
+    base, idx = _record_address(ref)
+    return _file_digest(job.protein), kind, (_file_digest(base), idx)

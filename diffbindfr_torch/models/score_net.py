@@ -1,12 +1,20 @@
-"""SE(3)-equivariant diffusion score network ('sep' mode), in PyTorch.
+"""SE(3)-equivariant diffusion score network, in PyTorch.
 
 Counterpart of diffbindfr_tpu/models/score_net.py. Same graphs, trunk and
 heads: dense ligand-ligand and ligand-pocket pair blocks, a 16-neighbour
-pocket-atom list, 6 separable tensor-product conv layers over the ladder
+pocket-atom list, 6 tensor-product conv layers over the ladder
 48x0e -> +12x1o -> +12x1e -> +48x0o, the centre-conv tr/rot head, the
 ligand and side-chain pseudotorque heads and the sigma scaling. The forward
 is written for a batch [B, ...] directly (the JAX package vmaps a
 single-sample function).
+
+`conv_mode` picks the convs' tensor product as the JAX field does: 'sep'
+(the default, separable) or 'fc', the reference-exact fully connected TP
+that a checkpoint imported from the reference needs
+(utils/torch_import.py). 'fc' runs only on the plain path (the JAX package
+has no kernel for it), its per-pair weights computed chunk by chunk of
+pairs (nn/layers.fc_conv_mean), since a dense block of them would not fit
+the card.
 
 `use_kernels=True` is the counterpart of `use_pallas=True`: node features
 stay component-major through the trunk, and the config's kernel fields pick
@@ -59,8 +67,8 @@ SH_IRREPS = "1x0e+1x1o+1x2e"
 
 @dataclasses.dataclass(frozen=True)
 class ScoreNetConfig:
-    """The fields of the JAX ScoreNetConfig that the 'sep' path reads, with
-    the same defaults (the flagship model)."""
+    """The fields of the JAX ScoreNetConfig that the port reads, with the
+    same defaults (the flagship model)."""
 
     ns: int = 48
     nv: int = 12
@@ -80,6 +88,10 @@ class ScoreNetConfig:
     emb_scale: float = 1000.0
     scale_by_sigma: bool = True
     no_sc_torsion: bool = False
+    # 'sep': separable depthwise TP + post-aggregation irreps Linear (the
+    # kernels' mode); 'fc': the reference-exact per-edge uvw TP (checkpoints
+    # imported from the reference), plain PyTorch only
+    conv_mode: str = "sep"
     # recompute each trunk layer in the backward (torch.utils.checkpoint,
     # the JAX package's per-layer jax.checkpoint); the training CLI turns it
     # on unless --no-remat
@@ -171,14 +183,15 @@ class ScoreOutput(NamedTuple):
 @functools.lru_cache(maxsize=8)
 def _specs(cfg: ScoreNetConfig):
     """Static TP path tables of every conv in the network."""
-    convs = tuple(L.make_conv_spec(cfg.layer_irreps(l)[0], SH_IRREPS, cfg.layer_irreps(l)[1])
+    mode = cfg.conv_mode
+    convs = tuple(L.make_conv_spec(cfg.layer_irreps(l)[0], SH_IRREPS, cfg.layer_irreps(l)[1], mode)
                   for l in range(cfg.num_conv_layers))
     final_in = cfg.layer_irreps(cfg.num_conv_layers - 1)[1]
-    final = L.make_conv_spec(final_in, SH_IRREPS, "2x1o+2x1e")
+    final = L.make_conv_spec(final_in, SH_IRREPS, "2x1o+2x1e", mode)
     # FullTP(sh, bond 2e) truncated to l <= 1 is exact here: higher-l outputs
     # cannot couple the l <= 1 ladder to the 0o+0e conv output
     tor_sh = compile_full_tensor_product(SH_IRREPS, "1x2e", lmax_out=1)
-    tor_conv = L.make_conv_spec(final_in, str(tor_sh.out), f"{cfg.ns}x0o+{cfg.ns}x0e")
+    tor_conv = L.make_conv_spec(final_in, str(tor_sh.out), f"{cfg.ns}x0o+{cfg.ns}x0e", mode)
     return convs, final, tor_sh, tor_conv
 
 
@@ -221,7 +234,12 @@ def _gather_rows(x, idx):
 def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool = True,
           scales: SigmaScales | None = None):
     """Batched forward. s: DockingSample of tensors [B, ...]; t [B]; `scales`
-    = sigma_scales(sigmas), looked up here when not given."""
+    = sigma_scales(sigmas), looked up here when not given. conv_mode 'fc'
+    runs only with use_kernels=False."""
+    if use_kernels and cfg.conv_mode == "fc":
+        raise ValueError("conv_mode 'fc' has no kernel path: the JAX package has no kernel for "
+                         "'fc' (its Pallas convs are 'sep' only); call apply with "
+                         "use_kernels=False")
     ns = cfg.ns
     convs, final_spec, tor_sh_spec, tor_conv_spec = _specs(cfg)
     bsz, nl, na = s.lig_pos.shape[0], s.lig_pos.shape[1], s.atm_pos.shape[1]
@@ -324,8 +342,8 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
 
             def plain_layer(lig_x, atom_x, spec=spec, lp=lp):
                 return _plain_layer(spec, lp, ns, lig_x, atom_x, lig_e_attr, lig_sh,
-                                    lig_pair_mask, la_attr, cross_sh, cross_mask, atm_e_attr,
-                                    atm_sh, atm_idx, atm_vmask)
+                                lig_pair_mask, la_attr, cross_sh, cross_mask, atm_e_attr,
+                                atm_sh, atm_idx, atm_vmask)
 
             lig_x, atom_x = _remat(cfg, plain_layer, lig_x, atom_x)
 
@@ -336,11 +354,10 @@ def apply(params, cfg: ScoreNetConfig, s, t, sigmas: Sigmas, use_kernels: bool =
     c_len = torch.linalg.norm(c_vec + 1e-12, dim=-1)
     c_attr = L.mlp_apply(params["center_edge_emb"], torch.cat(
         [_bexp(temb, nl), _gs(cfg, c_len, cfg.center_max_distance).to(cd)], dim=-1))
-    c_attr = torch.cat([c_attr, lig_x[..., :ns]], dim=-1)
-    m = L.tp_conv_messages(params["final_conv"], final_spec, lig_x, L.sh_l2(c_vec).to(cd),
-                           c_attr)
-    gp = L.tp_conv_finalize(params["final_conv"], final_spec,
-                            L.masked_mean(m, s.lig_mask, dim=1)).float()  # [B, 12]
+    c_sh = L.sh_l2(c_vec).to(cd)
+    agg = L.conv_mean(params["final_conv"], final_spec, lig_x, c_sh,
+                      [c_attr, lig_x[..., :ns]], s.lig_mask, dim=1)
+    gp = L.tp_conv_finalize(params["final_conv"], final_spec, agg).float()  # [B, 12]
 
     tr_pred = gp[:, 0:3] + gp[:, 6:9]
     rot_pred = gp[:, 3:6] + gp[:, 9:12]
@@ -474,33 +491,33 @@ def _fused_layer(params, cfg, lc, lp, g, lig_cm, atom_cm):
 
 def _plain_layer(spec, lp, ns, lig_x, atom_x, lig_e_attr, lig_sh, lig_pair_mask,
                  la_attr, cross_sh, cross_mask, atm_e_attr, atm_sh, atm_idx, atm_vmask):
-    """One trunk layer on the plain (XLA-path) graph tensors, irreps layout."""
+    """One trunk layer on the plain (XLA-path) graph tensors, irreps layout;
+    each conv's mean through layers.conv_mean (chunked under 'fc')."""
     bsz, nl, na, din = lig_x.shape[0], lig_x.shape[1], atom_x.shape[1], lig_x.shape[-1]
     ka = atm_idx.shape[-1]
     out_dim = spec.out.dim
+
+    def conv(name, src, sh, parts, mask, dim=2):
+        return L.tp_conv_finalize(lp[name], spec,
+                                  L.conv_mean(lp[name], spec, src, sh, parts, mask, dim))
+
     # ligand <- ligand
-    e = torch.cat([lig_e_attr, lig_x[:, :, None, :ns].expand(bsz, nl, nl, ns),
-                   lig_x[:, None, :, :ns].expand(bsz, nl, nl, ns)], dim=-1)
-    m = L.tp_conv_messages(lp["lig"], spec, lig_x[:, None].expand(bsz, nl, nl, din), lig_sh, e)
-    lig_update = L.tp_conv_finalize(lp["lig"], spec, L.masked_mean(m, lig_pair_mask, dim=2))
+    lig_update = conv("lig", lig_x[:, None].expand(bsz, nl, nl, din), lig_sh,
+                      [lig_e_attr, lig_x[:, :, None, :ns].expand(bsz, nl, nl, ns),
+                       lig_x[:, None, :, :ns].expand(bsz, nl, nl, ns)], lig_pair_mask)
     # ligand <- atoms (al), mean over atoms
-    e = torch.cat([la_attr, lig_x[:, :, None, :ns].expand(bsz, nl, na, ns),
-                   atom_x[:, None, :, :ns].expand(bsz, nl, na, ns)], dim=-1)
-    m = L.tp_conv_messages(lp["al"], spec, atom_x[:, None].expand(bsz, nl, na, din),
-                           cross_sh, e)
-    al_update = L.tp_conv_finalize(lp["al"], spec, L.masked_mean(m, cross_mask, dim=2))
+    al_update = conv("al", atom_x[:, None].expand(bsz, nl, na, din), cross_sh,
+                     [la_attr, lig_x[:, :, None, :ns].expand(bsz, nl, na, ns),
+                      atom_x[:, None, :, :ns].expand(bsz, nl, na, ns)], cross_mask)
     # atoms <- atoms, gather-form knn
     nbr = _gather_rows(atom_x, atm_idx)
-    e = torch.cat([atm_e_attr, atom_x[:, :, None, :ns].expand(bsz, na, ka, ns),
-                   nbr[..., :ns]], dim=-1)
-    m = L.tp_conv_messages(lp["atom"], spec, nbr, atm_sh, e)
-    atom_update = L.tp_conv_finalize(lp["atom"], spec, L.masked_mean(m, atm_vmask, dim=2))
+    atom_update = conv("atom", nbr, atm_sh,
+                       [atm_e_attr, atom_x[:, :, None, :ns].expand(bsz, na, ka, ns),
+                        nbr[..., :ns]], atm_vmask)
     # atoms <- ligand (la), mean over the ligand
-    e = torch.cat([la_attr, atom_x[:, None, :, :ns].expand(bsz, nl, na, ns),
-                   lig_x[:, :, None, :ns].expand(bsz, nl, na, ns)], dim=-1)
-    m = L.tp_conv_messages(lp["la"], spec, lig_x[:, :, None].expand(bsz, nl, na, din),
-                           cross_sh, e)
-    la_update = L.tp_conv_finalize(lp["la"], spec, L.masked_mean(m, cross_mask, dim=1))
+    la_update = conv("la", lig_x[:, :, None].expand(bsz, nl, na, din), cross_sh,
+                     [la_attr, atom_x[:, None, :, :ns].expand(bsz, nl, na, ns),
+                      lig_x[:, :, None, :ns].expand(bsz, nl, na, ns)], cross_mask, dim=1)
     lig2 = L.pad_to_dim(lig_x, out_dim) + lig_update + al_update
     atom2 = L.pad_to_dim(atom_x, out_dim) + atom_update + la_update
     return lig2, atom2
@@ -521,12 +538,10 @@ def _pseudotorque(emb_p, conv_p, final_p, tor_sh_spec, tor_conv_spec, *, node_x,
     length = torch.linalg.norm(vec + 1e-12, dim=-1)
     e_attr = L.mlp_apply(emb_p, _gs(cfg, length, cutoff).to(cd))
     nbr = _gather_rows(node_x, idx)
-    e_attr = torch.cat([e_attr, nbr[..., :ns],
-                        bond_attr[:, :, None, :ns].expand(bsz, nb, k, ns)], dim=-1)
+    parts = [e_attr, nbr[..., :ns], bond_attr[:, :, None, :ns].expand(bsz, nb, k, ns)]
     tor_sh = apply_full_tensor_product(tor_sh_spec, L.sh_l2(vec).to(cd),
                                        bond_sh2[:, :, None, :].expand(bsz, nb, k, 5))
-    m = L.tp_conv_messages(conv_p, tor_conv_spec, nbr, tor_sh, e_attr)
-    agg = L.masked_mean(m, valid.float(), dim=2)
+    agg = L.conv_mean(conv_p, tor_conv_spec, nbr, tor_sh, parts, valid.float(), dim=2)
     agg = L.tp_conv_finalize(conv_p, tor_conv_spec, agg)
     return L.mlp_apply(final_p, agg, act=torch.tanh)[..., 0].float()
 
@@ -575,6 +590,9 @@ def _layer_norm_init(irreps):
 
 
 def _tp_conv_init(gen, spec: L.ConvSpec, n_edge: int):
+    if spec.mode == "fc":  # no mix: the per-edge uvw weights mix the channels
+        return {"fc": _mlp_init(gen, n_edge, spec.fc.weight_numel, n_edge),
+                "ln": _layer_norm_init(spec.out)}
     mix = [torch.randn(n_in * mul3, generator=gen) / math.sqrt(max(n_in, 1))
            for _, _, _, n_in, mul3 in spec.lin.blocks]
     return {"fc": _mlp_init(gen, n_edge, spec.dw.weight_numel, n_edge),

@@ -211,6 +211,36 @@ class TensorProductSpec:
 
 
 @functools.lru_cache(maxsize=None)
+def compile_fc_tensor_product(in1_s: str, in2_s: str, out_s: str) -> TensorProductSpec:
+    """Every symmetry-allowed fully connected path (mul1 x mul2 x mul3
+    weights each), enumerated i1-major, with fan-in normalisation alpha =
+    sqrt((2 l3 + 1) / sum of mul1 * mul2 into the output slot). The order,
+    w_offset and alpha are the reference-checkpoint import's weight layout
+    (utils/e3nn_compat.convert_fctp_weights)."""
+    in1, in2, out = Irreps.parse(in1_s), Irreps.parse(in2_s), Irreps.parse(out_s)
+    raw = []
+    for i1, (off1, mul1, ir1) in enumerate(in1.slices()):
+        for i2, (off2, mul2, ir2) in enumerate(in2.slices()):
+            for i3, (off3, mul3, ir3) in enumerate(out.slices()):
+                if ir3.p != ir1.p * ir2.p:
+                    continue
+                if not (abs(ir1.l - ir2.l) <= ir3.l <= ir1.l + ir2.l):
+                    continue
+                raw.append((i1, i2, i3, off1, off2, off3, mul1, mul2, mul3,
+                            ir1.l, ir2.l, ir3.l))
+    fan_in: dict = {}
+    for r in raw:
+        fan_in[r[2]] = fan_in.get(r[2], 0) + r[6] * r[7]
+    paths = []
+    w_off = 0
+    for i1, i2, i3, s1, s2, s3, mul1, mul2, mul3, l1, l2, l3 in raw:
+        alpha = float(np.sqrt((2 * l3 + 1) / max(fan_in[i3], 1)))
+        paths.append(TPPath(i1, i2, i3, s1, s2, s3, mul1, mul2, mul3, l1, l2, l3, w_off, alpha))
+        w_off += mul1 * mul2 * mul3
+    return TensorProductSpec(in1, in2, out, tuple(paths), w_off)
+
+
+@functools.lru_cache(maxsize=None)
 def compile_dw_tensor_product(in1_s: str, in2_s: str, lmax_out: int = 2) -> TensorProductSpec:
     """Depthwise ('uvu') TP: one weight per (path, channel); every coupling
     emits its own output slot, truncated at lmax_out."""
@@ -318,6 +348,45 @@ def apply_dw_tensor_product(spec: TensorProductSpec, x1, x2, weights):
         Cb = (b @ C).reshape(lead + (d1, d3))
         z = torch.einsum("...ui,...ik->...uk", a, Cb)
         y = (z * w[..., None] * p.alpha).reshape(lead + (p.mul1 * d3,))
+        slot_acc[p.i3] = slot_acc[p.i3] + y if p.i3 in slot_acc else y
+    parts = []
+    for i3, (off, mul, ir) in enumerate(spec.out.slices()):
+        parts.append(slot_acc[i3] if i3 in slot_acc
+                     else x1.new_zeros(lead + (mul * ir.dim,)))
+    return torch.cat(parts, dim=-1)
+
+
+def apply_fc_tensor_product(spec: TensorProductSpec, x1, x2, weights):
+    """Fully connected weighted TP with per-edge uvw weights (irreps layout
+    in and out): y_p[e, w, k] = alpha_p sum_uvij w[e, u, v, w] a[e, u, i]
+    b[e, v, j] C[i, j, k], the paths of one output slot summed. x1 [...,
+    in1.dim], x2 [..., in2.dim], weights [..., weight_numel]. A path whose
+    second input has multiplicity 1 (the spherical harmonics) contracts
+    the CG tensor with b first, as the JAX package does; one with mul2 > 1
+    takes the general form."""
+    lead = x1.shape[:-1]
+    slot_acc: dict = {}
+    for p in spec.paths:
+        d1, d2, d3 = 2 * p.l1 + 1, 2 * p.l2 + 1, 2 * p.l3 + 1
+        a = x1[..., p.s1 : p.s1 + p.mul1 * d1].reshape(lead + (p.mul1, d1))
+        b = x2[..., p.s2 : p.s2 + p.mul2 * d2].reshape(lead + (p.mul2, d2))
+        w = weights[..., p.w_offset : p.w_offset + p.mul1 * p.mul2 * p.mul3]
+        C = _cg(p, x1)
+        if p.mul2 == 1:
+            # Cb[e, i, k] = sum_j b[e, j] C[i, j, k]: one [E, d2] @ [d2, d1 d3]
+            Cb = (b[..., 0, :] @ C.permute(1, 0, 2).reshape(d2, d1 * d3)).reshape(
+                lead + (d1, d3))
+            if d1 == 1:
+                z = a[..., :, 0][..., :, None] * Cb[..., 0, :][..., None, :]
+            else:
+                z = torch.einsum("...ui,...ik->...uk", a, Cb)
+            w = w.reshape(lead + (p.mul1, p.mul3))
+            y = torch.einsum("...uw,...uk->...wk", w, z) * p.alpha
+        else:
+            w4 = w.reshape(lead + (p.mul1, p.mul2, p.mul3))
+            z = torch.einsum("...ui,...vj,ijk->...uvk", a, b, C)
+            y = torch.einsum("...uvw,...uvk->...wk", w4, z) * p.alpha
+        y = y.reshape(lead + (p.mul3 * d3,))
         slot_acc[p.i3] = slot_acc[p.i3] + y if p.i3 in slot_acc else y
     parts = []
     for i3, (off, mul, ir) in enumerate(spec.out.slices()):

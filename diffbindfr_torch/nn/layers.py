@@ -16,9 +16,11 @@ from .irreps import (
     LinearSpec,
     TensorProductSpec,
     apply_dw_tensor_product,
+    apply_fc_tensor_product,
     apply_linear,
     apply_linear_cm,
     compile_dw_tensor_product,
+    compile_fc_tensor_product,
     compile_linear,
     promote,
     spherical_harmonics_l2,
@@ -131,43 +133,125 @@ def atom_encoder_apply(p, cat_feats, scalars):
 
 
 # ---------------------------------------------------------------------------
-# tensor-product convolution ('sep' mode)
+# tensor-product convolution
 # ---------------------------------------------------------------------------
+
+# pairs per chunk of the 'fc' conv (fc_conv_mean): its per-pair TP weights
+# number up to 7776 at flagship width, so a dense [16, 128, 1024] cross block
+# of them would take ~65 GB; a chunk of this many pairs takes ~0.5 GB in f32
+FC_CHUNK_PAIRS = 16384
 
 
 @dataclasses.dataclass(frozen=True)
 class ConvSpec:
-    """Static description of one separable TP conv: depthwise TP with
-    per-edge weights, then an edge-independent irreps Linear after
-    aggregation."""
+    """Static description of one TP conv layer.
 
+    mode 'sep' (the default): depthwise TP with per-edge per-channel weights,
+    then an edge-independent irreps Linear (`lin`, weights "mix") after
+    aggregation. mode 'fc': the reference-exact fully connected TP with
+    per-edge uvw weights (`fc`), no mix; checkpoints imported from the
+    reference (utils/torch_import.py) need it."""
+
+    mode: str
     out: Irreps
-    dw: TensorProductSpec
-    lin: LinearSpec
+    fc: TensorProductSpec | None = None
+    dw: TensorProductSpec | None = None
+    lin: LinearSpec | None = None
+
+    @property
+    def tp(self) -> TensorProductSpec:
+        """The per-edge weighted TP: `dw` under 'sep', `fc` under 'fc'."""
+        return self.dw if self.mode == "sep" else self.fc
 
     @property
     def msg_dim(self) -> int:
-        return self.dw.out.dim
+        return self.tp.out.dim
 
 
-def make_conv_spec(in_s: str, sh_s: str, out_s: str) -> ConvSpec:
+def make_conv_spec(in_s: str, sh_s: str, out_s: str, mode: str = "sep") -> ConvSpec:
     out = Irreps.parse(out_s)
+    if mode == "fc":
+        return ConvSpec(mode, out, fc=compile_fc_tensor_product(in_s, sh_s, out_s))
+    if mode != "sep":
+        raise ValueError(f"conv mode {mode!r}: 'sep' or 'fc'")
     lmax = max(ir.l for _, ir in out.items)
     dw = compile_dw_tensor_product(in_s, sh_s, lmax_out=lmax)
-    return ConvSpec(out, dw, compile_linear(str(dw.out), out_s))
+    return ConvSpec(mode, out, dw=dw, lin=compile_linear(str(dw.out), out_s))
 
 
 def tp_conv_messages(p, spec: ConvSpec, src_feat, edge_sh, edge_attr):
-    """Per-edge weighted depthwise TP (before aggregation)."""
+    """Per-edge weighted TP (before aggregation); under 'sep' the result
+    lives in the depthwise output space, mixed after aggregation."""
     w = mlp_apply(p["fc"], edge_attr)
+    if spec.mode == "fc":
+        return apply_fc_tensor_product(spec.fc, src_feat, edge_sh, w)
     return apply_dw_tensor_product(spec.dw, src_feat, edge_sh, w)
 
 
 def tp_conv_finalize(p, spec: ConvSpec, agg):
-    agg = apply_linear(spec.lin, agg, p["mix"])
+    if spec.mode == "sep":
+        agg = apply_linear(spec.lin, agg, p["mix"])
     if "ln" in p:
         agg = irreps_layer_norm_apply(p["ln"], spec.out, agg)
     return agg
+
+
+def fc_conv_mean(p, spec: ConvSpec, src, sh, e_parts, mask, chunk_pairs: int = FC_CHUNK_PAIRS):
+    """masked_mean(tp_conv_messages(p, spec, src, sh, cat(e_parts)), mask,
+    dim=2), computed chunk by chunk of pairs, never over the whole block.
+
+    src [B, R, K, din], sh [B, R, K, d2], each of e_parts [B, R, K, c] (views
+    that broadcast, e.g. expand(), cost no memory), mask [B, R, K]; the mean
+    runs over the K pairs of each of the B x R rows. A chunk holds whole
+    rows, max(1, chunk_pairs // K) of them, so each row's sum over its pairs
+    is the one masked_mean takes, in the same dtype (f32 when K > 32). Pairs
+    whose mask is 0 in every row are left out of every chunk, and so are rows
+    whose pairs are all masked: their products are multiplied by 0 in the
+    mean, so the function is the same. That choice costs one read of the
+    mask to the host per call. Returns [B, R, msg_dim] in the messages'
+    dtype."""
+    bsz, nrow, k = mask.shape
+    dt = src.dtype
+    acc = torch.float32 if k > 32 else dt
+    live = mask > 0
+    rows = torch.nonzero(live.any(dim=2).reshape(-1)).reshape(-1)
+    cols = torch.nonzero(live.any(dim=(0, 1))).reshape(-1)
+    out = src.new_zeros(bsz * nrow, spec.msg_dim)
+    if rows.numel() == 0:
+        return out.reshape(bsz, nrow, -1)
+    n = mask.to(torch.float32).sum(dim=2).reshape(-1)
+    step = max(1, chunk_pairs // max(int(cols.numel()), 1))
+    for lo in range(0, int(rows.numel()), step):
+        r = rows[lo : lo + step]
+        bi, ri = (r // nrow)[:, None], (r % nrow)[:, None]
+        ki = cols[None, :]
+        e = torch.cat([x[bi, ri, ki] for x in e_parts], dim=-1)
+        m = tp_conv_messages(p, spec, src[bi, ri, ki], sh[bi, ri, ki], e)
+        s = (m.to(acc) * mask[bi, ri, ki][..., None].to(acc)).sum(dim=1)
+        out[r] = (s.to(torch.float32) / torch.clamp(n[r], min=1.0)[:, None]).to(m.dtype)
+    return out.reshape(bsz, nrow, -1)
+
+
+def conv_mean(p, spec: ConvSpec, src, sh, e_parts, mask, dim: int):
+    """masked_mean(tp_conv_messages(p, spec, src, sh, cat(e_parts)), mask,
+    dim): a conv's messages averaged over its pairs, axis `dim` of the
+    block. Under 'fc' fc_conv_mean takes it chunk by chunk, over the block
+    laid out [B, R, K] with the mean's axis last ([B, 1, K] for a block
+    [B, K])."""
+    if spec.mode == "sep":
+        return masked_mean(tp_conv_messages(p, spec, src, sh, torch.cat(e_parts, dim=-1)),
+                           mask, dim=dim)
+    if mask.dim() == 2:
+        def rows(x):
+            return x[:, None]
+    elif dim == 1:
+        def rows(x):
+            return x.transpose(1, 2)
+    else:
+        def rows(x):
+            return x
+    agg = fc_conv_mean(p, spec, rows(src), rows(sh), [rows(x) for x in e_parts], rows(mask))
+    return agg[:, 0] if mask.dim() == 2 else agg
 
 
 def tp_conv_finalize_cm(p, spec: ConvSpec, agg_cm):

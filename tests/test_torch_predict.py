@@ -389,16 +389,12 @@ sys.exit(rc or (1 if bad else 0))
     pytest.param(["-nc", "4"], "A14", id="flags3-A14"),
     pytest.param(["--conv-mode", "fc"], "A14", id="flags4-A3")])
 def test_unported_flags_exit_naming_their_item(flags, item, tmp_path):
-    """The flags of ROADMAP items still to port exit naming the item before
-    any work; A10's `--cart-relax` is ported and passes the refusal."""
-    argv = ["predict", "--cpu", "-i", "none.csv", "-o", str(tmp_path)] + flags
-    if item == "A10":
-        assert cli.refuse_unported(cli.build_parser().parse_args(argv)) is None
-        return
-    with pytest.raises(SystemExit) as e:
+    """The flags of ROADMAP items A10 (--cart-relax) and A14 (-nc, --conv-mode
+    fc) are ported: nothing refuses them, and predict goes on to read its job
+    table (here a missing one)."""
+    argv = ["predict", "--cpu", "-i", str(tmp_path / "none.csv"), "-o", str(tmp_path)] + flags
+    with pytest.raises(FileNotFoundError, match="none.csv"):
         cli.main(argv)
-    assert e.value.code != 0 and f"ROADMAP {item}" in str(e.value.code)
-    assert not os.listdir(tmp_path)  # refused before any work
 
 
 def test_unknown_config_option_is_refused(tmp_path):
@@ -412,11 +408,12 @@ def test_unknown_config_option_is_refused(tmp_path):
 
 
 def test_cache_miss_and_unusable_records_are_failures(tmp_path):
-    """A job without a cache entry, and one whose record carries conformers
-    (which the port cannot dock from: ROADMAP A14), are prepared again from
-    their raw files; neither job has a pocket definition, so both are
-    Failures at stage 'pocket', and write_failures lists them. The third,
-    a JAX-written entry, is served."""
+    """A job without a cache entry, and one whose record was built from
+    another ligand file (`lig_src`), are prepared again from their raw
+    files; neither job has a pocket definition, so both are Failures at
+    stage 'pocket', and write_failures lists them. The third, a JAX-written
+    entry, is served. A record with 2 conformers serves an -nc 0 run (with
+    no conformers attached) and is prepared again for -nc 4."""
     import pickle
 
     for ext in (".npz", ".rec.pkl"):
@@ -424,9 +421,12 @@ def test_cache_miss_and_unusable_records_are_failures(tmp_path):
     shutil.copy(os.path.join(PREP, "3dbs_r12.npz"), tmp_path)
     with open(os.path.join(PREP, "3dbs_r12.rec.pkl"), "rb") as fh:
         rec = pickle.load(fh)
-    rec["conformers"] = np.zeros((2, rec["lig"].num_atoms, 3), np.float32)
-    with open(tmp_path / "3dbs_r12.rec.pkl", "wb") as fh:
-        pickle.dump(rec, fh)
+
+    def write_rec(**kw):
+        with open(tmp_path / "3dbs_r12.rec.pkl", "wb") as fh:
+            pickle.dump({**rec, **kw}, fh)
+
+    write_rec(lig_src=("elsewhere.sdf", "0" * 64))
     jobs = TJ.load_jobs_csv(_write_jobs(tmp_path / "jobs.csv", ("3dbs", "3mhw", "2zec")))
     prepared, failures = TP.prep(jobs, 12.0, cache_dir=str(tmp_path), verbose=False)
     assert [p.name for p in prepared] == ["3mhw"]
@@ -437,6 +437,14 @@ def test_cache_miss_and_unusable_records_are_failures(tmp_path):
     TP.write_failures(str(tmp_path), failures)
     with open(tmp_path / "failed.csv", newline="") as fh:
         assert [r["complex_name"] for r in csv.DictReader(fh)] == ["3dbs", "2zec"]
+
+    write_rec(conformers=np.zeros((2, rec["lig"].num_atoms, 3), np.float32))
+    prepared, failures = TP.prep(jobs[:1], 12.0, cache_dir=str(tmp_path), verbose=False)
+    assert [p.name for p in prepared] == ["3dbs"] and prepared[0].conformers is None
+    prepared, failures = TP.prep(jobs[:1], 12.0, cache_dir=str(tmp_path), verbose=False,
+                                 n_conformers=4, device="cpu")
+    assert not prepared and [(f.complex_name, f.stage) for f in failures] == [
+        ("3dbs", "pocket")]
 
 
 def _job_tuples(jobs):

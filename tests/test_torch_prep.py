@@ -87,7 +87,7 @@ def _same(a, b, what):
 def _same_entry(tdir, jdir, name):
     """The port's cache entry `name` equals the JAX package's: every npz
     array bit for bit, every record key of the JAX record field by field;
-    the port's record adds lig_src."""
+    the port's record adds lig_src and pocket_src."""
     with np.load(os.path.join(jdir, f"{name}_r12.npz")) as j, \
             np.load(os.path.join(tdir, f"{name}_r12.npz")) as t:
         assert t.files == j.files
@@ -96,7 +96,7 @@ def _same_entry(tdir, jdir, name):
     with open(os.path.join(jdir, f"{name}_r12.rec.pkl"), "rb") as fh:
         jrec = pickle.load(fh)
     trec = R.load_prep_record(os.path.join(tdir, f"{name}_r12.rec.pkl"))
-    assert set(trec) == set(jrec) | {"lig_src"}
+    assert set(trec) == set(jrec) | {"lig_src", "pocket_src"}
     for k in jrec:
         _same(trec[k], jrec[k], f"{name} {k}")
     return trec
@@ -398,14 +398,10 @@ def test_predict_from_raw_files_equals_predict_from_a_jax_cache(tmp_path, jax_ta
     (["--cart-relax"], "A10"), (["-nc", "4"], "A14"),
     pytest.param(["--conv-mode", "fc"], "A14", id="flags2-A3")])
 def test_prep_and_workers_leave_the_other_refusals(flags, item, tmp_path):
-    """`-j prep` and `-nw` run now; -nc and --conv-mode fc still exit naming
-    their ROADMAP items, before any work; --cart-relax (A10) is ported and
-    passes the refusal."""
-    argv = ["predict", "-j", "prep", "-nw", "2", "-i", "none.csv", "-o", str(tmp_path)] + flags
-    if item == "A10":
-        assert cli.refuse_unported(cli.build_parser().parse_args(argv)) is None
-        return
-    with pytest.raises(SystemExit) as e:
+    """`-j prep` and `-nw` run with every flag of predict: A10's
+    --cart-relax and A14's -nc and --conv-mode fc are ported, so nothing
+    refuses them, and prep goes on to read its job table (a missing one)."""
+    argv = ["predict", "-j", "prep", "-nw", "2", "-i", str(tmp_path / "none.csv"), "-o",
+            str(tmp_path)] + flags
+    with pytest.raises(FileNotFoundError, match="none.csv"):
         cli.main(argv)
-    assert f"ROADMAP {item}" in str(e.value.code)
-    assert not os.listdir(tmp_path)

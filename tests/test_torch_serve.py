@@ -169,8 +169,8 @@ def test_concurrent_requests_share_a_round(weights, tmp_path, monkeypatch):
 
 def test_bad_requests_and_health_match_jax(weights, tmp_path):
     """The JAX handler's replies, code and text, to the same bad requests;
-    /health's keys; a request the port lacks (n_conformers > 0) gets 400
-    naming its ROADMAP item."""
+    /health's keys; a request with n_conformers > 0 (ROADMAP A14, ported)
+    is served: 200 with its poses."""
     port_server = _server(weights, tmp_path / "t")
     jcfg = jsn.ScoreNetConfig(ns=8, nv=4, num_conv_layers=2)
     # the bad requests end before the dock: the JAX service needs no weights
@@ -190,10 +190,10 @@ def test_bad_requests_and_health_match_jax(weights, tmp_path):
         for path in ("/nowhere",):
             assert _post(port_server.port, path, {}) == _post(jax_server.port, path, {})
             assert _get(port_server.port, path) == _get(jax_server.port, path)
-        code, body = _post(port_server.port, "/dock", _req("3mhw", n_conformers=2))
-        assert code == 400 and "A14" in body["error"]
         (c1, h1), (c2, h2) = _get(port_server.port, "/health"), _get(jax_server.port, "/health")
         assert c1 == c2 == 200 and set(h1) == set(h2) and h1 == h2
+        code, body = _post(port_server.port, "/dock", _req("3mhw", n_conformers=2))
+        assert code == 200 and len(body["poses"]) == POSES
     finally:
         port_server.stop()
         jax_server.stop()

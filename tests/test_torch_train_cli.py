@@ -142,10 +142,11 @@ def test_diffusion_from_job_tables_matches_jax_draws(monkeypatch, pb_copy, tmp_p
 @pytest.mark.parametrize("argv", [["--conv-mode", "fc"],
                                   ["--conv-mode", "fc", "--model", "mdn", "--pallas"]])
 def test_fc_mode_is_refused_by_name(argv, tmp_path):
-    """--conv-mode fc exits naming its ROADMAP item before any work."""
+    """--conv-mode fc exits naming its ROADMAP item ('fc' training, A15)
+    before any work."""
     with pytest.raises(SystemExit) as e:
         train_cli.main(["--cpu", "-i", "none.csv", "-o", str(tmp_path / "out")] + argv)
-    assert "--conv-mode fc" in str(e.value.code) and "ROADMAP A14" in str(e.value.code)
+    assert "--conv-mode fc" in str(e.value.code) and "ROADMAP A15" in str(e.value.code)
     assert not os.path.exists(tmp_path / "out")
 
 
