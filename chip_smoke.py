@@ -233,10 +233,10 @@ a non-zero exit code):
               times and B1-B10 never; 80 rows of finite scores and metrics,
               metrics_report.txt, 80 validity rows, poses.npz; each stage's
               time, validity's included, s per pose, the validity pass share,
-              the top-1 l_rmsd by mdn_nll per complex (readings). B11 at the
-              new bucket (n_lig 32, n_atm 1024), layers 0 and 5, B = 16, as
-              phase 27 (c), and a CUDA-graph replay gives the same bits (rows
-              into `buckets`). rescore_cli --poses on that run: MDN scores
+              the top-1 l_rmsd by mdn_nll per complex (readings). B11 and
+              B1-B3 at the new bucket (n_lig 32, n_atm 1024), layers 0 and 5,
+              B = 16, as phase 27 (c), and a CUDA-graph replay gives the same
+              bits (rows into `buckets`; no path launches B1-B3 there). rescore_cli --poses on that run: MDN scores
               within 1e-3 relative of eval's; rescore_cli -i results.csv
               scores all 80 poses. The B11 rows of the kernels line carry the
               launches of (a), (b) and eval in `path_launches`
@@ -253,8 +253,8 @@ a non-zero exit code):
               the relax's ms per step and share of the run; three relax steps
               under torch.profiler: launches per step, busy share. (c) `relax` in
               its five modes (rigid, --angular-hb, --explicit-h, --flex,
-              --cartesian) on one of (b)'s exported poses, each mode on its own
-              copy: a finite pose, `_relaxed.pdb` where the mode writes one, no
+              --cartesian) on one of (b)'s exported poses, RELAX_MODE_STEPS
+              steps each, each mode on its own copy: a finite pose, `_relaxed.pdb` where the mode writes one, no
               trunk kernel. (d) `eval_cli --cart-relax` on 2src and 2zec, 8 poses
               each (one batch): 120 launches per B11 kernel, validity_prerelax.csv
               with 16 rows, relax_ab.json with its keys (printed as a reading).
@@ -304,6 +304,31 @@ a non-zero exit code):
               finite poses and scores, zero launches of B1-B11; seconds per
               pose, the 'fc' pairs and flop of the dock (counted through
               tp_conv_messages) and their rate, peak memory, the chunk size
+  34. fc_train  `train_cli --conv-mode fc` at full width (bf16, train_cli's
+              default; -bs 8, remat) resumed from phase 33's converted
+              synthetic reference (fake_reference_sd, seed 0, converted in
+              process) on a crystal job table of runs/pb_bench's five
+              complexes, 3 steps: finite losses, zero trunk kernel launches,
+              the fine-tuned checkpoint moved from the import; ms/step,
+              samples/s, peak memory, the chunk runs per step
+              (nn/layers.fc_conv_mean: a trunk conv's chunks run 3 times a
+              remat step); one bf16 step under torch.profiler (3mhw, B = 8):
+              kernel launches per step, device time, busy share; one f32
+              step's gradients (3mhw, B = 1, fixed noise) on the card
+              against the same step on the CPU, relative L2 over every
+              gradient <= FC_GRAD_GATE
+  35. split   DockEngine over parallel.make_mesh([cuda:0, cuda:0]) (the
+              split's code on one card, two shards of 8: not two cards)
+              against the unsplit dock of the same 16 poses of 3dbs (f32,
+              diff_r2, 20 steps) at the shards' batch size, 8: poses within
+              1e-3 A, B1-B3 launched 240 times by each; the distance to the
+              unsplit dock at B = 16 (120 launches) printed beside the
+              unsplit docks' own at B = 8 and 16 (the kernels' row groups
+              follow the batch); KarmaDock (models/karmadock.py, default width,
+              init_params seed 0) on 4 poses of 3dbs on the card against
+              its CPU run (1e-4 of max|ref|); utils/observe.trace around
+              one bf16 dock step (B = 16): its Chrome trace names every B11
+              kernel symbol
 Kernel times: `ms` is the wrapper's time by CUDA events around 10 calls
 (its host set-up included), `device_ms` the kernel's own device time per
 call (phases 5, 9, 12, 17, 18, 23-25): from torch.profiler's
@@ -371,7 +396,7 @@ DEADLINES = {"device": 60, "build": 300, "load": 120, "tables": 120, "kernels": 
              "score_chain": 240, "probe_mlp": 120,
              "probe_mxu_ops": 180, "probe_mosaic": 180, "predict": 300, "prep_predict": 480,
              "serve": 300, "eval": 420, "relax": 420, "train_cli": 240, "conformers": 150,
-             "fc_import": 180}
+             "fc_import": 180, "fc_train": 240, "split": 180}
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, HBM3 bandwidth; bf16 outside the tensor cores (packed
 # bf16x2, two per fp32 lane: the H100 white paper's non-tensor BF16 rate,
@@ -895,7 +920,8 @@ def cross_block_report(torch, TC, name, wrapper, a):
             TC._cross_fin_kernel(*a, cycles=cycles)
         else:
             d = TC._cross_inputs(*a, bf16_chain=name == "cross_conv_bf16")
-            TC._cross_conv_kernel(TC._library(), *d[:5], d[5:], TC._stream(), cycles=cycles)
+            TC._cross_conv_kernel(TC._library(), *d[:5], d[5:],
+                                  torch.cuda.current_stream().cuda_stream, cycles=cycles)
         torch.cuda.synchronize()
     cyc = cycles.double().cpu()
     out = {"groups": [g_l, g_a], "smem_bytes": TC.cross_conv_stats[name]["smem_bytes"],
@@ -937,7 +963,8 @@ def knn_block_report(torch, TC, name, wrapper, a):
             TC._knn_fin_kernel(*a, cycles=cycles)
         else:
             d = TC._knn_inputs(c, pos, x, idx, valid, temb, p, name == "knn_conv_bf16")
-            TC._knn_conv_kernel(TC._library(), *d[:4], d[4:], TC._stream(), cycles=cycles)
+            TC._knn_conv_kernel(TC._library(), *d[:4], d[4:],
+                                torch.cuda.current_stream().cuda_stream, cycles=cycles)
         torch.cuda.synchronize()
     print(f"    g_k {g_k} atoms per block, {stats['smem_bytes']} bytes of shared memory; two "
           f"calls bit-identical", flush=True)
@@ -964,7 +991,8 @@ def pair_block_report(torch, TC, name, wrapper, a):
         else:
             d = TC._pair_inputs(c, tp, sp, tx, sx, tm, sm, cs, temb, cut, p, bf, bm,
                                 name == "pair_conv_bf16")
-            TC._pair_conv_kernel(TC._library(), *d[:5], d[5:], TC._stream(), cycles=cycles)
+            TC._pair_conv_kernel(TC._library(), *d[:5], d[5:],
+                                 torch.cuda.current_stream().cuda_stream, cycles=cycles)
         torch.cuda.synchronize()
     print(f"    g_p {g_p} ligand rows per block, {stats['smem_bytes']} bytes of shared memory; "
           f"two calls bit-identical", flush=True)
@@ -3138,12 +3166,14 @@ def phase_eval(torch, np, TC, params, smi, new_buckets):
                   f"{r['complex_name']} pose {r['pose']} l_rmsd {float(r['l_rmsd']):.3f} A"
                   for r in top), flush=True)
 
-        # B11 at the bucket no earlier phase runs: (n_lig 32, n_atm 1024)
+        # B11 at the bucket no earlier phase runs: (n_lig 32, n_atm 1024); B1-B3
+        # there too (no path launches them at this bucket: its docks are bf16),
+        # for their times and bounds
         small = [p for p in prepared if (p.bucket.n_lig, p.bucket.n_atm) == (32, 1024)]
         if not small:
             raise AssertionError(f"no pair at (32, 1024): {buckets}")
         bucket_kernels(torch, TC, params, [(small[0].name, small[0].sample_path)], new_buckets,
-                       f32=False, check_graph=True)
+                       check_graph=True)
 
         # rescore both ways on the card: the fast path's MDN scores are eval's
         t0 = time.time()
@@ -3181,6 +3211,9 @@ RELAX_MODES = {"rigid": [], "angular": ["--angular-hb"], "explicit_h": ["--expli
                "flex": ["--flex"], "cartesian": ["--cartesian"]}
 # phase 30's eval: two complexes that share a bucket (one batch of 16)
 RELAX_EVAL_NAMES = ("2src", "2zec")
+# phase 30 (c): steps of each `relax` mode on its one pose (the command's
+# default is 300; the gates there are a finite pose and the files written)
+RELAX_MODE_STEPS = 100
 
 
 def relax_fixture_check(torch, np, pipeline, smi):
@@ -3334,7 +3367,7 @@ def relax_modes(np, TC, cli, out, tmp):
             w.writerows(kept)
         before = [parse_sdf(k["lig_sdf"])[0].coords for k in kept]
         t0 = time.time()
-        if cli.main(["relax", "-i", table] + flags) != 0:
+        if cli.main(["relax", "-i", table, "--steps", str(RELAX_MODE_STEPS)] + flags) != 0:
             raise AssertionError(f"relax {mode} failed")
         secs = time.time() - t0
         moved = 0.0
@@ -3348,8 +3381,8 @@ def relax_modes(np, TC, cli, out, tmp):
                 raise AssertionError(f"relax {mode}: _relaxed.pdb {os.path.exists(pdb)}")
             if os.path.exists(pdb) and not np.isfinite(parse_pdb(pdb).atom_positions).all():
                 raise AssertionError(f"relax {mode}: non-finite {pdb}")
-        print(f"  relax {' '.join(flags) or '(rigid)'}: {len(kept)} pose (300 steps) in "
-              f"{secs:.3f} s; moved atoms up to {moved:.3f} A; finite", flush=True)
+        print(f"  relax {' '.join(flags) or '(rigid)'}: {len(kept)} pose ({RELAX_MODE_STEPS} "
+              f"steps) in {secs:.3f} s; moved atoms up to {moved:.3f} A; finite", flush=True)
     if any(TC.launches.values()):
         raise AssertionError(f"relax launched trunk kernels: {TC.launches}")
 
@@ -4230,6 +4263,241 @@ def phase_fc_import(torch, np, TC, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# one f32 'fc' train step's gradients, the card against the CPU: relative L2
+# distance over every parameter gradient (the two sum in other orders)
+FC_GRAD_GATE = 1e-4
+SAMPLE_3MHW = os.path.join(ROOT, "runs/eval_r5_scsrc/prep_cache/3mhw_r12.npz")
+
+
+def pb_jobs_csv(path):
+    """A crystal job table of runs/pb_bench's five complexes (receptor,
+    its ligand, the ligand as the crystal pose)."""
+    with open(path, "w") as fh:
+        fh.write("protein,protein_name,ligand,ligand_name,complex_name,crystal_ligand\n")
+        for n in sorted(os.listdir(PB_BENCH)):
+            lig = os.path.join(PB_BENCH, n, f"{n}_ligand.sdf")
+            fh.write(f"{os.path.join(PB_BENCH, n, n + '_protein_contact_chains.pdb')},{n},"
+                     f"{lig},{n}_ligand,{n},{lig}\n")
+    return path
+
+
+def phase_fc_train(torch, np, TC, smi):
+    """'fc' training on the card (the module docstring, phase 34)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffbindfr_torch import train
+    from diffbindfr_torch.app import train_cli
+    from diffbindfr_torch.data.sample import _load_sample_npz, stack_samples, to_device
+    from diffbindfr_torch.models import score_net as sn
+    from diffbindfr_torch.nn import layers as L
+    from diffbindfr_torch.sampler import SamplerConfig
+    from diffbindfr_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from diffbindfr_torch.utils.torch_import import import_score_net
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fc_train.")
+    real_chunk = L._chunk_mean
+    chunks = [0]
+
+    def counted(*a):
+        chunks[0] += 1
+        return real_chunk(*a)
+
+    try:
+        t0 = time.time()
+        cfg = sn.ScoreNetConfig(conv_mode="fc")
+        params, _ = import_score_net(fake_reference_sd(cfg), cfg)
+        net = os.path.join(tmp, "net.npz")
+        save_checkpoint(net, params)
+        print(f"  the synthetic reference converted and saved in {time.time() - t0:.3f} s",
+              flush=True)
+        jobs = pb_jobs_csv(os.path.join(tmp, "jobs.csv"))
+        steps = 3
+        TC.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        L._chunk_mean = counted
+        t0 = time.time()
+        try:
+            res = train_cli.main(["-i", jobs, "-o", os.path.join(tmp, "out"), "--conv-mode",
+                                  "fc", "--resume", net, "--steps", str(steps), "-bs", "8",
+                                  "--log-every", "1", "--ckpt-every", "1000000", "--device",
+                                  DEV])
+        finally:
+            L._chunk_mean = real_chunk
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = dict(TC.launches)
+        report_rate(res, f"'fc' train_cli from the converted reference, bf16 (the default), "
+                         f"-bs 8, remat, peak memory {peak / 2**30:.3f} GiB on {smi}")
+        print(f"  main() {wall:.3f} s with prep; losses "
+              + " ".join(f"{v:.4f}" for v in res["losses"])
+              + f"; {res['samples']} samples; chunk runs {chunks[0]} ({chunks[0] / steps:.0f} "
+              f"per step: a trunk conv's chunks run 3 times a step under remat, forward, "
+              f"recompute, backward; a head conv's twice); trunk kernel launches {counts}", flush=True)
+        if any(counts.values()):
+            raise AssertionError(f"'fc' training launched trunk kernels: {counts}")
+        if len(res["losses"]) != steps or not np.isfinite(res["losses"]).all():
+            raise AssertionError(f"'fc' training losses {res['losses']}")
+        tuned, step = load_checkpoint(os.path.join(tmp, "out", f"ckpt_{steps:07d}.npz"),
+                                      use_ema=False, device=DEV)
+        start, _ = load_checkpoint(net, use_ema=False, device=DEV)
+        moved = max(float((a - b).abs().max()) for a, b in zip(
+            train.tree_leaves(tuned), train.tree_leaves(start)) if a.numel())
+        print(f"  fine-tuned checkpoint at step {step}: max |change| from the import "
+              f"{moved:.3e}", flush=True)
+        if step != steps or not 0 < moved < 1.0:
+            raise AssertionError(f"the fine-tuned checkpoint: step {step}, change {moved}")
+
+        # one bf16 step of the same model under the profiler (3mhw, B = 8)
+        s_np = _load_sample_npz(SAMPLE_3MHW)
+        tcfg, scfg = train.TrainConfig(), SamplerConfig()
+        batch = to_device(stack_samples([s_np] * 8), DEV)
+        noise = train.draw_noise(batch, tcfg, torch.Generator(device=DEV).manual_seed(4))
+        bcfg = sn.ScoreNetConfig(conv_mode="fc", compute_dtype="bfloat16", remat=True)
+        t0 = time.time()
+        train.loss_and_grads(tuned, batch, noise, bcfg, scfg, tcfg, use_kernels=False)
+        torch.cuda.synchronize()
+        warm = time.time() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            train.loss_and_grads(tuned, batch, noise, bcfg, scfg, tcfg, use_kernels=False)
+            torch.cuda.synchronize()
+            pwall = time.time() - t0
+        t0 = time.time()
+        report_profile(prof, pwall, f"one bf16 'fc' train step (3mhw, B = 8; {warm:.3f} s "
+                                    f"without the profiler)", [], steps=1)
+        print(f"  the profile read in {time.time() - t0:.3f} s", flush=True)
+
+        # one f32 step's gradients: the card against the CPU (3mhw, B = 1)
+        one = stack_samples([s_np])
+        noise = train.draw_noise(one, tcfg, torch.Generator().manual_seed(12))
+        fcfg = sn.ScoreNetConfig(conv_mode="fc", remat=True)
+        grads, terms = {}, {}
+        for dev in (DEV, "cpu"):
+            p = start if dev == DEV else load_checkpoint(net, use_ema=False, device="cpu")[0]
+            t0 = time.time()
+            m, g = train.loss_and_grads(p, to_device(one, dev), train.TrainNoise(
+                *[v.to(dev) for v in noise]), fcfg, scfg, tcfg, use_kernels=False)
+            grads[dev] = [x.detach().double().cpu() for x in g]
+            terms[dev] = {k: float(v) for k, v in m.items()}
+            print(f"  f32 'fc' step on {dev}: {time.time() - t0:.3f} s, "
+                  + " ".join(f"{k} {v:.6g}" for k, v in terms[dev].items()), flush=True)
+        diff = torch.cat([(a - b).flatten() for a, b in zip(grads[DEV], grads["cpu"])])
+        ref = torch.cat([b.flatten() for b in grads["cpu"]])
+        rel = float(diff.norm() / ref.norm())
+        print(f"  f32 'fc' gradients, the card against the CPU: relative L2 {rel:.3e} over "
+              f"{len(ref)} entries (gate {FC_GRAD_GATE:g})", flush=True)
+        if not rel <= FC_GRAD_GATE:
+            raise AssertionError(f"'fc' gradients on the card vs the CPU: {rel:.3e}")
+    finally:
+        L._chunk_mean = real_chunk
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_split(torch, np, TC, params, smi):
+    """The dock split over a mesh, KarmaDock, and a trace (the module
+    docstring, phase 35)."""
+    from diffbindfr_torch import parallel
+    from diffbindfr_torch import sampler as sp
+    from diffbindfr_torch.app import pipeline
+    from diffbindfr_torch.data.sample import _load_sample_npz, stack_samples, to_device
+    from diffbindfr_torch.mdn_train import crystal_atom14
+    from diffbindfr_torch.models import karmadock as kd
+    from diffbindfr_torch.models import score_net as sn
+    from diffbindfr_torch.utils import observe
+
+    cfg, scfg = sn.ScoreNetConfig(), sp.SamplerConfig()
+    prepared = [pipeline.PreparedPair.from_prep_cache(SAMPLE)]
+    runs = {}
+    for name, bs, devices in (("unsplit", 16, None), ("unsplit, B = 8", 8, None),
+                              ("split", 16, [DEV + ":0", DEV + ":0"])):
+        eng = pipeline.DockEngine(params, cfg, scfg, batch_size=bs, device=DEV, verbose=False,
+                                  devices=devices)
+        if (name == "split") != eng.split:
+            raise AssertionError(f"{name}: DockEngine.split is {eng.split}")
+        if name != "split":  # the split's shards have the shapes B = 8 warmed
+            eng.run(prepared, num_poses=16, seed=5)
+        TC.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = eng.run(prepared, num_poses=16, seed=3)
+        torch.cuda.synchronize()
+        runs[name] = (np.stack([r.lig_pos for r in res]), np.stack([r.atom14_pos for r in res]),
+                      time.time() - t0, dict(TC.launches))
+    def dist(a, b):
+        return max(float(np.abs(runs[a][0] - runs[b][0]).max()),
+                   float(np.abs(runs[a][1] - runs[b][1]).max()))
+
+    for name, (_, _, t, c) in runs.items():
+        print(f"  16 poses of 3dbs, 20 steps, {name}"
+              + (" over make_mesh([cuda:0, cuda:0]) (two shards of 8 on one card, not two "
+                 "cards)" if name == "split" else "")
+              + f": {t:.3f} s ({16 / t:.3f} poses/s), launches {c}", flush=True)
+    err, b16, ctl = dist("split", "unsplit, B = 8"), dist("split", "unsplit"), dist(
+        "unsplit, B = 8", "unsplit")
+    print(f"  max |pose difference|: split vs the unsplit dock at the shards' batch size "
+          f"{err:.3e} A (gate 1e-3); vs the unsplit dock at B = 16 {b16:.3e} A, where the "
+          f"unsplit docks at B = 8 and 16 differ by {ctl:.3e} A (the kernels' row groups "
+          f"follow the batch; 20 steps amplify the sums' other order) on {smi}", flush=True)
+    if not (err <= 1e-3 and np.isfinite(runs["split"][0]).all()):
+        raise AssertionError(f"the split dock differs from the unsplit one by {err:.3e} A")
+    want = {name: {k: n if k in KERNELS else 0 for k in TC.launches}
+            for name, n in (("unsplit", 120), ("unsplit, B = 8", 240), ("split", 240))}
+    if any(runs[name][3] != want[name] for name in runs):
+        raise AssertionError(f"launch counts: { {n: r[3] for n, r in runs.items()} }")
+
+    # KarmaDock at its default width on the card against its CPU run
+    kcfg = kd.KarmaDockConfig()
+    kp = kd.init_params(torch.Generator().manual_seed(0), kcfg)
+    s_np = _load_sample_npz(SAMPLE)
+    rng = np.random.default_rng(0)
+    lig = np.stack([(s_np.lig_pos + rng.normal(size=s_np.lig_pos.shape) * 0.5)
+                    * s_np.lig_mask[:, None] for _ in range(4)]).astype(np.float32)
+    p14 = np.stack([crystal_atom14(s_np)] * 4).astype(np.float32)
+    outs = {}
+    for dev in (DEV, "cpu"):
+        b = to_device(stack_samples([s_np] * 4), dev)
+        kpd = parallel.replicate([torch.device(dev)], kp)[0]
+        t0 = time.time()
+        with torch.no_grad():
+            o = kd.apply(kpd, kcfg, b, torch.from_numpy(lig).to(dev),
+                         torch.from_numpy(p14).to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        outs[dev] = {f: getattr(o, f).cpu() for f in o._fields}
+        print(f"  KarmaDock (hidden {kcfg.mdn.hidden}, {kcfg.egnn_layers} EGNN layers) on 4 "
+              f"poses of 3dbs on {dev}: {time.time() - t0:.3f} s", flush=True)
+    kerr = {f: rel_err(outs[DEV][f], outs["cpu"][f]) for f in outs["cpu"]}
+    print("  KarmaDock, the card against the CPU: " + ", ".join(
+        f"{f} {e:.2e}" for f, e in kerr.items()) + " of max|ref| (gate 1e-4)", flush=True)
+    if not all(e <= 1e-4 for e in kerr.values()):
+        raise AssertionError(f"KarmaDock on the card vs the CPU: {kerr}")
+
+    # observe.trace around one bf16 dock step: the trace names B11's kernels
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace.")
+    try:
+        bcfg = sn.ScoreNetConfig(compute_dtype="bfloat16")
+        one = sp.SamplerConfig(actual_steps=1)
+        batch = to_device(stack_samples([s_np] * 16), DEV)
+        noise = sp.draw_noise(batch, one, torch.Generator(device=DEV).manual_seed(6))
+        with torch.no_grad():
+            sp.sample(params, bcfg, one, batch, noise)
+            t0 = time.time()
+            with observe.trace(tmp) as prof:
+                sp.sample(params, bcfg, one, batch, noise)
+            twall = time.time() - t0
+        with open(prof.trace_path) as fh:
+            names = {str(e.get("name", "")) for e in json.load(fh)["traceEvents"]}
+        found = {k: [sym for sym in SYMBOLS[k] if any(sym in n for n in names)]
+                 for k in BF16_KERNELS}
+        print(f"  observe.trace of one bf16 dock step (B = 16): {twall:.3f} s with the "
+              f"export, {os.path.getsize(prof.trace_path) / 2**20:.2f} MiB, {len(names)} "
+              f"distinct event names; B11 symbols found {found}", flush=True)
+        if not all(found.values()):
+            raise AssertionError(f"the trace does not name every B11 kernel: {found}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4433,6 +4701,12 @@ def main() -> int:
 
     with Phase("fc_import"):
         phase_fc_import(torch, np, TC, smi)
+
+    with Phase("fc_train"):
+        phase_fc_train(torch, np, TC, smi)
+
+    with Phase("split"):
+        phase_split(torch, np, TC, params, smi)
 
     rows = []
     for name, (src, repl) in KERNELS.items():

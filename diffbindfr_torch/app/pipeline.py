@@ -22,6 +22,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import parallel
 from .. import sampler as sp
 from ..data.sample import stack_samples, to_device
 from ..models import mdn_scorer as mdn
@@ -58,14 +59,40 @@ class DockEngine:
     Replica po of a pair with conformers starts from conformer po % C
     (`start_refs`). `use_kernels` picks the score net's path (the plain
     path for conv_mode 'fc', which has no kernels).
+
+    Split (parallel/): `devices` is the mesh, by default every visible CUDA
+    device when `device` is the bare "cuda" (as the JAX engine takes every
+    device), else `device` alone. With more than one device and batch_size
+    a multiple of their number, each batch's rows are split into one chunk
+    per device, each chunk sampled there on its copy of the parameters
+    (copied once, in the constructor); the noise is still drawn for the
+    whole batch on the first device from the one generator, and each device
+    takes its rows of it. A split run gives the poses of an unsplit engine
+    at the shards' batch size (batch_size / number of devices), not those at
+    batch_size: the kernels group rows by the batch they are given, which
+    moves a pose by ulps that the sampler grows (about 7e-2 A between
+    batch 8 and 16 over 20 steps on an H100). So on a host with several
+    cards a bare "cuda" docks other poses, for the same seed, than one card.
     """
 
     def __init__(self, params, net_cfg, sampler_cfg, batch_size: int = 16,
                  device="cuda", verbose: bool = True, keep_trajectory: bool = False,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, devices=None):
         self.device = resolve_device(device)
+        if devices is None and self.device.type == "cuda" and self.device.index is None:
+            devices = parallel.make_mesh()
+        self.mesh = parallel.make_mesh(devices) if devices is not None else [self.device]
+        nd = len(self.mesh)
+        self.split = nd > 1 and batch_size % nd == 0
+        if self.split:
+            self.device = self.mesh[0]
+            self.replicas = parallel.replicate(self.mesh, params)
+            self.params = self.replicas[0]
+            if verbose:
+                print(f"[dock] splitting replica batches over {nd} devices")
+        else:
+            self.params = _to_device(params, self.device)
         self.use_kernels = use_kernels
-        self.params = _to_device(params, self.device)
         self.net_cfg = net_cfg
         self.sampler_cfg = sampler_cfg
         self.batch_size = batch_size
@@ -97,16 +124,7 @@ class DockEngine:
         for _, chunk in plan:
             reps = chunk + [chunk[0]] * (self.batch_size - len(chunk))
             host = start_refs(_stack(prepared, [i for i, _ in reps]), prepared, reps)
-            batch = to_device(host, self.device)
-            noise = sp.draw_noise(batch, self.sampler_cfg, gen)
-            res = sp.sample(self.params, self.net_cfg, self.sampler_cfg, batch, noise,
-                            use_kernels=self.use_kernels,
-                            keep_trajectory=self.keep_trajectory)
-            lig_pos, a14, chi = (res.lig_pos.cpu().numpy(), res.atom14_pos.cpu().numpy(),
-                                 res.chi.cpu().numpy())
-            lt = at = None
-            if self.keep_trajectory:
-                lt, at = res.lig_traj.cpu().numpy(), res.atom14_traj.cpu().numpy()
+            lig_pos, a14, chi, lt, at = self._sample(host, gen)
             for j, (pi, po) in enumerate(chunk):
                 results.append(PoseResult(pi, po, lig_pos[j], a14[j], chi[j],
                                           lig_traj=None if lt is None else lt[:, j],
@@ -115,6 +133,36 @@ class DockEngine:
                 rate = len(results) / max(time.time() - t0, 1e-9)
                 print(f"[dock] {len(results)}/{total} poses ({rate:.2f}/s)", flush=True)
         return results
+
+    def _sample(self, host, gen):
+        """(lig_pos, atom14_pos, chi, lig_traj or None, atom14_traj or None)
+        of one host batch, as numpy; split over the mesh when self.split."""
+        if not self.split:
+            batch = to_device(host, self.device)
+            noise = sp.draw_noise(batch, self.sampler_cfg, gen)
+            outs = [sp.sample(self.params, self.net_cfg, self.sampler_cfg, batch, noise,
+                              use_kernels=self.use_kernels,
+                              keep_trajectory=self.keep_trajectory)]
+        else:
+            noise = sp.draw_noise(host, self.sampler_cfg, gen)
+            per = self.batch_size // len(self.mesh)
+            outs = []
+            # each device's launches are queued before any result is read
+            shards = parallel.shard_batch(self.mesh, to_device(host, "cpu"))
+            for d, (dev, shard, params) in enumerate(zip(self.mesh, shards, self.replicas)):
+                rows = noise.select(list(range(d * per, (d + 1) * per)))
+                outs.append(sp.sample(params, self.net_cfg, self.sampler_cfg, shard,
+                                      sp.SamplerNoise(*[v.to(dev) for v in rows]),
+                                      use_kernels=self.use_kernels,
+                                      keep_trajectory=self.keep_trajectory))
+
+        def cat(field, axis=0):
+            if getattr(outs[0], field) is None:
+                return None
+            return np.concatenate([getattr(o, field).cpu().numpy() for o in outs], axis=axis)
+
+        return (cat("lig_pos"), cat("atom14_pos"), cat("chi"), cat("lig_traj", 1),
+                cat("atom14_traj", 1))
 
 
 def _stack(prepared: list, pair_idxs: list):

@@ -338,6 +338,11 @@ def prep(jobs: list, pocket_radius: float = 12.0, verbose: bool = True,
             # at most chunk_size jobs a chunk, and a chunk for every worker
             size = max(1, min(chunk_size, -(-len(grouped) // num_workers)))
             chunks = [grouped[k : k + size] for k in range(0, len(grouped), size)]
+            # the native parser's library is built here, once, before the
+            # workers load it
+            from ..io import native
+
+            native.build()
             ctx = mp.get_context("spawn")
             with ctx.Pool(num_workers, initializer=_worker_init) as pool:
                 for out in pool.imap_unordered(

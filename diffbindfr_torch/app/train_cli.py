@@ -28,7 +28,10 @@ picks.
 The card runs everything unless `--cpu` (or `--device cpu`) is given: the
 trunk convs through their hand-written CUDA kernels there (so `--pallas`
 and `--pallas-bwd` change nothing), their plain PyTorch versions on the
-CPU. `--conv-mode fc` waits for ROADMAP A15 ('fc' training). Writes train_log.jsonl,
+CPU. `--conv-mode fc` trains the reference-exact fully connected tensor
+product on the plain PyTorch path (it has no kernel), each conv's per-pair
+weights in chunks whose backward recomputes them (nn/layers.fc_conv_mean);
+`--resume` takes a checkpoint converted by utils/torch_import.py. Writes train_log.jsonl,
 ckpt_XXXXXXX.npz / mdn_ckpt_XXXXXXX.npz and ckpt_best.npz (the JAX
 package's checkpoint format) and train_state.npz (the port's own format,
 for --resume) into the output directory.
@@ -90,7 +93,8 @@ def build_parser():
                          "EMA model and log best/mean L-RMSD")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--conv-mode", choices=["sep", "fc"], default="sep",
-                    help="'fc' waits for ROADMAP A15 ('fc' training)")
+                    help="the convs' tensor product: 'sep' (kernels on the card) or the "
+                         "reference's fully connected 'fc' (plain PyTorch path)")
     ap.add_argument("--ns", type=int, default=48, help="scalar channels")
     ap.add_argument("--nv", type=int, default=12, help="vector channels")
     ap.add_argument("--layers", type=int, default=6, help="conv layers")
@@ -173,9 +177,6 @@ def main(argv=None) -> dict:
     {steady_steps, steady_samples, steady_seconds} (the first step waits for
     the first batch), and every step's loss, read once after the loop."""
     args = build_parser().parse_args(argv)
-    if args.conv_mode == "fc":
-        sys.exit("--conv-mode fc: not ported yet (ROADMAP A15 ('fc' training: "
-                 "train_cli --conv-mode fc, per-chunk recompute))")
     import torch
 
     from ..utils.device import resolve_device
@@ -310,10 +311,12 @@ def _train_diffusion(args, dev, inputs: _Inputs) -> dict:
     from ..sampler import SamplerConfig
     from ..utils.checkpoint import (load_checkpoint, load_train_state, save_checkpoint,
                                     save_train_state)
+    from .cli import dock_path
 
     val_batches, val_prepared, log = inputs.val_batches, inputs.val_prepared, inputs.log
 
     net_cfg = sn.ScoreNetConfig(ns=args.ns, nv=args.nv, num_conv_layers=args.layers,
+                                conv_mode=args.conv_mode,
                                 compute_dtype=args.dtype, remat=not args.no_remat,
                                 # both backward paths are f32: a bf16 chain would pair
                                 # a bf16 forward with an f32 backward (the JAX pin)
@@ -321,6 +324,7 @@ def _train_diffusion(args, dev, inputs: _Inputs) -> dict:
     tcfg = train.TrainConfig(lr=args.lr, warmup_steps=args.warmup, total_steps=args.steps,
                              ema_decay=args.ema)
     scfg = SamplerConfig()
+    uk = dock_path(net_cfg)
     opt = train.make_optimizer(tcfg)
     start_step = 0
     if args.resume and args.resume.endswith("state.npz"):
@@ -348,14 +352,15 @@ def _train_diffusion(args, dev, inputs: _Inputs) -> dict:
 
         rec = {}
         for tag, p in (("val", state.params), ("val_ema", state.ema_params)):
-            ms = [train.eval_step(p, b, n, net_cfg, scfg, tcfg)
+            ms = [train.eval_step(p, b, n, net_cfg, scfg, tcfg, use_kernels=uk)
                   for b, n in zip(val_batches, val_noise)]
             for name in ms[0]:
                 rec[f"{tag}_{name}"] = float(np.mean([float(m[name]) for m in ms]))
         if args.val_poses:
             res = PL.dock(val_prepared, state.ema_params, net_cfg, scfg,
                           num_poses=args.val_poses, batch_size=args.batch_size,
-                          seed=args.seed + step, device=dev, verbose=False)
+                          seed=args.seed + step, device=dev, verbose=False,
+                          use_kernels=uk)
             best: dict = {}
             for r in res:
                 pr = val_prepared[r.pair_idx]
@@ -388,7 +393,7 @@ def _train_diffusion(args, dev, inputs: _Inputs) -> dict:
         batch = to_device(inputs.draw_batch(), dev)
         noise = train.draw_noise(batch, tcfg, gen)
         state, metrics = train.train_step(state, batch, noise, net_cfg, scfg, tcfg,
-                                          device=dev, optimizer=opt)
+                                          use_kernels=uk, device=dev, optimizer=opt)
         n_samp += int(batch.lig_mask.shape[0])
         losses.append(metrics["loss"].detach())
         if step % args.log_every == 0:

@@ -40,7 +40,8 @@ _VDW = {
 PHASES = ((0.02, 0.08), (2.0, 0.03))
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 # held by embed_conformers through its card work on a CUDA device, and by
-# any thread that does card work beside it
+# any thread that does card work beside it; one lock for every card of the
+# process (a dock split over several cards takes it once for all of them)
 CARD_LOCK = threading.Lock()
 
 
@@ -284,7 +285,16 @@ def _graphed_phase(pos, t, w_nb: float, n: int, lr0: float):
     update's learning rate and bias corrections read from a device table
     (adam_scalars) at a device counter. The eager loop launches ~100 small
     kernels an update from the host, which sets its pace. No other thread
-    may use the card meanwhile (embed_conformers holds CARD_LOCK)."""
+    may use the card meanwhile (embed_conformers holds CARD_LOCK). It runs
+    under pos's device: torch.cuda.graph captures on a side stream of the
+    current device, which must be the card that holds the tensors."""
+    import torch
+
+    with torch.cuda.device(pos.device):
+        return _graphed_updates(pos, t, w_nb, n, lr0)
+
+
+def _graphed_updates(pos, t, w_nb: float, n: int, lr0: float):
     import torch
 
     dev = pos.device

@@ -48,12 +48,10 @@ def select_pocket(
     ref = np.asarray(ref_points, dtype=np.float32).reshape(-1, 3)
 
     ridx, aidx = np.nonzero(mask)
-    # the JAX package's numpy path (a C++ cell grid there when it builds:
-    # the same float32 squared distances against the same bound)
-    flat = pos[ridx, aidx]  # [A, 3]
-    d2 = ((flat[:, None, :] - ref[None]) ** 2).sum(-1).min(axis=1)
-    hits = np.zeros(prot.num_res, dtype=bool)
-    np.logical_or.at(hits, ridx, d2 < cutoff * cutoff)
+    # the native C++ cell grid (io/native.py), as the JAX package runs it
+    from ..io.native import pocket_hits_native
+
+    hits = pocket_hits_native(pos[ridx, aidx], ridx, prot.num_res, ref, cutoff)
     backbone_ok = prot.atom_mask[:, :3].all(axis=-1).astype(bool)
     return np.where(hits & backbone_ok)[0]
 

@@ -76,6 +76,15 @@ def parse_pdb(
     if is_string:
         lines = path_or_str.splitlines()
     else:
+        if model == 1 and not keep_hetero and not path_or_str.endswith(".gz"):
+            # the native C++ parser (io/native.py), where the JAX package
+            # uses it; it leaves a file it cannot open, or one with more
+            # residues than its max_res, to the line parser below
+            from .native import parse_pdb_native
+
+            prot = parse_pdb_native(path_or_str)
+            if prot is not None:
+                return prot
         with _open(path_or_str) as fh:
             lines = fh.read().splitlines()
 

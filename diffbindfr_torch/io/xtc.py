@@ -1,12 +1,14 @@
-"""GROMACS XTC trajectory writer (pure Python): the port's copy of the
-writer half of diffbindfr_tpu/io/xtc.py, byte for byte the same output.
+"""GROMACS XTC trajectory writer and reader (pure Python): the port's copy
+of diffbindfr_tpu/io/xtc.py, byte for byte the same output.
 
 XDR framing and the libxdrf 3dfcoord compressed coordinate codec (magicints
 table, big-number base encoding, MSB-first bit packing). After every
 full-size atom the bitstream carries a 1-bit flag for the codec's run-length
 "small diff" mode; this writer always emits 0 (every atom full-size), which
-any conforming decoder reads exactly. Coordinates are stored in nm at the
-given precision (GROMACS convention); the writer converts from Angstrom.
+any conforming decoder reads exactly. The reader decodes the run mode too,
+so files from GROMACS tools parse. Coordinates are stored in nm at the
+given precision (GROMACS convention); writer and reader convert from and to
+Angstrom.
 """
 from __future__ import annotations
 
@@ -53,6 +55,36 @@ class _BitWriter:
         if self.lastbits > 0:
             out += bytes([(self.lastbyte << (8 - self.lastbits)) & 0xFF])
         return out
+
+
+class _BitReader:
+    def __init__(self, data: bytes):
+        self.data = data
+        self.cnt = 0
+        self.lastbits = 0
+        self.lastbyte = 0
+
+    def receive(self, num_of_bits: int) -> int:
+        num = 0
+        while num_of_bits >= 8:
+            self.lastbyte = (
+                (self.lastbyte << 8) | self.data[self.cnt]
+            ) & 0xFFFFFF
+            self.cnt += 1
+            num |= ((self.lastbyte >> self.lastbits) & 0xFF) << (
+                num_of_bits - 8
+            )
+            num_of_bits -= 8
+        if num_of_bits > 0:
+            if self.lastbits < num_of_bits:
+                self.lastbits += 8
+                self.lastbyte = (
+                    (self.lastbyte << 8) | self.data[self.cnt]
+                ) & 0xFFFFFF
+                self.cnt += 1
+            self.lastbits -= num_of_bits
+            num |= (self.lastbyte >> self.lastbits) & ((1 << num_of_bits) - 1)
+        return num
 
 
 def _sizeofint(size: int) -> int:
@@ -116,6 +148,30 @@ def _encodeints(bw: _BitWriter, num_of_bits: int, sizes, nums):
         bw.send(num_of_bits - (len(arr) - 1) * 8, arr[-1])
 
 
+def _decodeints(br: _BitReader, num_of_bits: int, sizes):
+    arr = []
+    nb = num_of_bits
+    while nb > 8:
+        arr.append(br.receive(8))
+        nb -= 8
+    if nb > 0:
+        arr.append(br.receive(nb))
+    nums = [0, 0, 0]
+    for i in range(len(sizes) - 1, 0, -1):
+        num = 0
+        for j in range(len(arr) - 1, -1, -1):
+            num = (num << 8) | arr[j]
+            p = num // int(sizes[i])
+            arr[j] = p
+            num -= p * int(sizes[i])
+        nums[i] = num
+    v = 0
+    for j in range(min(len(arr), 8) - 1, -1, -1):
+        v = (v << 8) | arr[j]
+    nums[0] = v
+    return nums
+
+
 def write_xtc(path: str, coords: np.ndarray, *, time_ps: np.ndarray | None
               = None, precision: float = 1000.0, units: str = "angstrom",
               box: np.ndarray | None = None):
@@ -172,3 +228,105 @@ def _frame_bytes(xyz_nm, natoms, step, time_ps, box, precision) -> bytes:
     out = head + struct.pack(">i", len(data)) + data
     pad = (-len(data)) % 4
     return out + b"\x00" * pad
+
+
+def read_xtc(path: str, units: str = "angstrom"):
+    """Returns (coords [F, N, 3], time_ps [F]). Implements the full
+    reference decoder including the small-diff run mode this writer never
+    emits (so files from GROMACS tools also parse)."""
+    frames = []
+    times = []
+    with open(path, "rb") as fh:
+        data = fh.read()
+    off = 0
+    while off < len(data):
+        magic, natoms, step, t = struct.unpack_from(">iiif", data, off)
+        if magic != _MAGIC:
+            raise ValueError(f"bad XTC magic {magic} at offset {off}")
+        off += 16
+        off += 36  # box
+        (lsize,) = struct.unpack_from(">i", data, off)
+        off += 4
+        if natoms <= 9:
+            xyz = np.asarray(struct.unpack_from(f">{natoms * 3}f", data, off),
+                             np.float64).reshape(natoms, 3)
+            off += natoms * 12
+        else:
+            (precision,) = struct.unpack_from(">f", data, off)
+            off += 4
+            minint = struct.unpack_from(">3i", data, off)
+            off += 12
+            maxint = struct.unpack_from(">3i", data, off)
+            off += 12
+            (smallidx,) = struct.unpack_from(">i", data, off)
+            off += 4
+            (nbytes,) = struct.unpack_from(">i", data, off)
+            off += 4
+            br = _BitReader(data[off : off + nbytes])
+            off += nbytes + ((-nbytes) % 4)
+            sizeint = [maxint[j] - minint[j] + 1 for j in range(3)]
+            if any(s > 0xFFFFFF for s in sizeint):
+                bitsizeint = [_sizeofint(s) for s in sizeint]
+                bitsize = 0
+            else:
+                bitsizeint = [0, 0, 0]
+                bitsize = _sizeofints(sizeint)
+            smaller = _MAGICINTS[max(_FIRSTIDX, smallidx - 1)] // 2
+            smallnum = _MAGICINTS[smallidx] // 2
+            sizesmall = [_MAGICINTS[smallidx]] * 3
+            xyz = np.zeros((natoms, 3), np.float64)
+            w = 0
+            while w < natoms:
+                if bitsize == 0:
+                    this = [br.receive(bitsizeint[j]) for j in range(3)]
+                else:
+                    this = _decodeints(br, bitsize, sizeint)
+                this = [this[j] + minint[j] for j in range(3)]
+                prev = list(this)
+                flag = br.receive(1)
+                is_smaller = 0
+                run = 0
+                if flag:
+                    run = br.receive(5)
+                    is_smaller = run % 3
+                    run -= is_smaller
+                    is_smaller -= 1
+                if run > 0:
+                    smallbits = _sizeofints(sizesmall)
+                    for kk in range(0, run, 3):
+                        sm = _decodeints(br, smallbits, sizesmall)
+                        this = [sm[j] + prev[j] - smallnum
+                                for j in range(3)]
+                        if kk == 0:
+                            # the codec swaps the run's first atom with
+                            # its anchor (water-molecule correlation) and
+                            # emits the small one first
+                            this, prev = prev, this
+                            xyz[w] = np.asarray(prev) / precision
+                            w += 1
+                        else:
+                            prev = list(this)
+                        if w < natoms:
+                            xyz[w] = np.asarray(this) / precision
+                            w += 1
+                else:
+                    xyz[w] = np.asarray(prev) / precision
+                    w += 1
+                if is_smaller < 0:
+                    smallnum = smaller
+                    if smallidx > _FIRSTIDX:
+                        smallidx -= 1
+                        smaller = _MAGICINTS[max(_FIRSTIDX,
+                                                 smallidx - 1)] // 2
+                    sizesmall = [_MAGICINTS[smallidx]] * 3
+                elif is_smaller > 0:
+                    smallidx += 1
+                    smaller = smallnum
+                    smallnum = _MAGICINTS[smallidx] // 2
+                    sizesmall = [_MAGICINTS[smallidx]] * 3
+        frames.append(xyz)
+        times.append(t)
+    coords = np.stack(frames)
+    if units == "angstrom":
+        coords = coords * 10.0
+    return coords, np.asarray(times)

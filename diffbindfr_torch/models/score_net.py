@@ -493,31 +493,28 @@ def _plain_layer(spec, lp, ns, lig_x, atom_x, lig_e_attr, lig_sh, lig_pair_mask,
                  la_attr, cross_sh, cross_mask, atm_e_attr, atm_sh, atm_idx, atm_vmask):
     """One trunk layer on the plain (XLA-path) graph tensors, irreps layout;
     each conv's mean through layers.conv_mean (chunked under 'fc')."""
-    bsz, nl, na, din = lig_x.shape[0], lig_x.shape[1], atom_x.shape[1], lig_x.shape[-1]
-    ka = atm_idx.shape[-1]
     out_dim = spec.out.dim
 
     def conv(name, src, sh, parts, mask, dim=2):
         return L.tp_conv_finalize(lp[name], spec,
                                   L.conv_mean(lp[name], spec, src, sh, parts, mask, dim))
 
+    # the broadcast operands keep their axes of size 1 (conv_mean expands
+    # them under 'sep'; under 'fc' the chunked backward sums their
+    # gradients over those axes without a block-sized buffer)
     # ligand <- ligand
-    lig_update = conv("lig", lig_x[:, None].expand(bsz, nl, nl, din), lig_sh,
-                      [lig_e_attr, lig_x[:, :, None, :ns].expand(bsz, nl, nl, ns),
-                       lig_x[:, None, :, :ns].expand(bsz, nl, nl, ns)], lig_pair_mask)
+    lig_update = conv("lig", lig_x[:, None], lig_sh,
+                      [lig_e_attr, lig_x[:, :, None, :ns], lig_x[:, None, :, :ns]], lig_pair_mask)
     # ligand <- atoms (al), mean over atoms
-    al_update = conv("al", atom_x[:, None].expand(bsz, nl, na, din), cross_sh,
-                     [la_attr, lig_x[:, :, None, :ns].expand(bsz, nl, na, ns),
-                      atom_x[:, None, :, :ns].expand(bsz, nl, na, ns)], cross_mask)
+    al_update = conv("al", atom_x[:, None], cross_sh,
+                     [la_attr, lig_x[:, :, None, :ns], atom_x[:, None, :, :ns]], cross_mask)
     # atoms <- atoms, gather-form knn
     nbr = _gather_rows(atom_x, atm_idx)
-    atom_update = conv("atom", nbr, atm_sh,
-                       [atm_e_attr, atom_x[:, :, None, :ns].expand(bsz, na, ka, ns),
-                        nbr[..., :ns]], atm_vmask)
+    atom_update = conv("atom", nbr, atm_sh, [atm_e_attr, atom_x[:, :, None, :ns], nbr[..., :ns]],
+                       atm_vmask)
     # atoms <- ligand (la), mean over the ligand
-    la_update = conv("la", lig_x[:, :, None].expand(bsz, nl, na, din), cross_sh,
-                     [la_attr, atom_x[:, None, :, :ns].expand(bsz, nl, na, ns),
-                      lig_x[:, :, None, :ns].expand(bsz, nl, na, ns)], cross_mask, dim=1)
+    la_update = conv("la", lig_x[:, :, None], cross_sh,
+                     [la_attr, atom_x[:, None, :, :ns], lig_x[:, :, None, :ns]], cross_mask, dim=1)
     lig2 = L.pad_to_dim(lig_x, out_dim) + lig_update + al_update
     atom2 = L.pad_to_dim(atom_x, out_dim) + atom_update + la_update
     return lig2, atom2
@@ -538,7 +535,7 @@ def _pseudotorque(emb_p, conv_p, final_p, tor_sh_spec, tor_conv_spec, *, node_x,
     length = torch.linalg.norm(vec + 1e-12, dim=-1)
     e_attr = L.mlp_apply(emb_p, _gs(cfg, length, cutoff).to(cd))
     nbr = _gather_rows(node_x, idx)
-    parts = [e_attr, nbr[..., :ns], bond_attr[:, :, None, :ns].expand(bsz, nb, k, ns)]
+    parts = [e_attr, nbr[..., :ns], bond_attr[:, :, None, :ns]]
     tor_sh = apply_full_tensor_product(tor_sh_spec, L.sh_l2(vec).to(cd),
                                        bond_sh2[:, :, None, :].expand(bsz, nb, k, 5))
     agg = L.conv_mean(conv_p, tor_conv_spec, nbr, tor_sh, parts, valid.float(), dim=2)

@@ -356,6 +356,14 @@ def apply_dw_tensor_product(spec: TensorProductSpec, x1, x2, weights):
     return torch.cat(parts, dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _weak_scalar(c: float, dtype) -> float:
+    """c as the JAX package applies a Python float to an array of `dtype`:
+    rounded to that dtype first (JAX's weak typing), where torch would
+    multiply a bf16 tensor by c kept in f32."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
 def apply_fc_tensor_product(spec: TensorProductSpec, x1, x2, weights):
     """Fully connected weighted TP with per-edge uvw weights (irreps layout
     in and out): y_p[e, w, k] = alpha_p sum_uvij w[e, u, v, w] a[e, u, i]
@@ -363,7 +371,9 @@ def apply_fc_tensor_product(spec: TensorProductSpec, x1, x2, weights):
     in1.dim], x2 [..., in2.dim], weights [..., weight_numel]. A path whose
     second input has multiplicity 1 (the spherical harmonics) contracts
     the CG tensor with b first, as the JAX package does; one with mul2 > 1
-    takes the general form."""
+    takes the general form. alpha_p is rounded to the inputs' dtype first,
+    as JAX rounds it: in bf16, an alpha kept in f32 moves a training step's
+    gradients by half of the distance between the bf16 and f32 steps."""
     lead = x1.shape[:-1]
     slot_acc: dict = {}
     for p in spec.paths:
@@ -372,6 +382,7 @@ def apply_fc_tensor_product(spec: TensorProductSpec, x1, x2, weights):
         b = x2[..., p.s2 : p.s2 + p.mul2 * d2].reshape(lead + (p.mul2, d2))
         w = weights[..., p.w_offset : p.w_offset + p.mul1 * p.mul2 * p.mul3]
         C = _cg(p, x1)
+        alpha = _weak_scalar(p.alpha, x1.dtype)
         if p.mul2 == 1:
             # Cb[e, i, k] = sum_j b[e, j] C[i, j, k]: one [E, d2] @ [d2, d1 d3]
             Cb = (b[..., 0, :] @ C.permute(1, 0, 2).reshape(d2, d1 * d3)).reshape(
@@ -381,11 +392,11 @@ def apply_fc_tensor_product(spec: TensorProductSpec, x1, x2, weights):
             else:
                 z = torch.einsum("...ui,...ik->...uk", a, Cb)
             w = w.reshape(lead + (p.mul1, p.mul3))
-            y = torch.einsum("...uw,...uk->...wk", w, z) * p.alpha
+            y = torch.einsum("...uw,...uk->...wk", w, z) * alpha
         else:
             w4 = w.reshape(lead + (p.mul1, p.mul2, p.mul3))
             z = torch.einsum("...ui,...vj,ijk->...uvk", a, b, C)
-            y = torch.einsum("...uvw,...uvk->...wk", w4, z) * p.alpha
+            y = torch.einsum("...uvw,...uvk->...wk", w4, z) * alpha
         y = y.reshape(lead + (p.mul3 * d3,))
         slot_acc[p.i3] = slot_acc[p.i3] + y if p.i3 in slot_acc else y
     parts = []

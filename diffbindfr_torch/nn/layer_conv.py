@@ -298,8 +298,10 @@ def _layer_kernel(lc, lig_pos, atm_pos, lig_cm, atm_cm, lig_mask, atm_mask, cab,
     ptr_arr = (ctypes.c_void_p * len(PTRS))(*[TC._ptr(t[n]) for n in PTRS])
     int_arr = (ctypes.c_int * len(INTS))(*[int(ints[n]) for n in INTS])
     float_arr = (ctypes.c_float * len(FLOATS))(*[float(floats[n]) for n in FLOATS])
-    rc = TC._library().dbfr_layer_conv(ptr_arr, len(PTRS), int_arr, len(INTS), float_arr,
-                                       len(FLOATS), TC._stream())
+    lib = TC._library()
+    with TC._on_device(dev) as st:
+        rc = lib.dbfr_layer_conv(ptr_arr, len(PTRS), int_arr, len(INTS), float_arr,
+                                 len(FLOATS), st)
     TC._check(rc, "layer_conv")
     TC.launches["layer_conv"] += 1
     return out_lig, out_atm

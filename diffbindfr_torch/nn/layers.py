@@ -200,36 +200,159 @@ def fc_conv_mean(p, spec: ConvSpec, src, sh, e_parts, mask, chunk_pairs: int = F
     """masked_mean(tp_conv_messages(p, spec, src, sh, cat(e_parts)), mask,
     dim=2), computed chunk by chunk of pairs, never over the whole block.
 
-    src [B, R, K, din], sh [B, R, K, d2], each of e_parts [B, R, K, c] (views
-    that broadcast, e.g. expand(), cost no memory), mask [B, R, K]; the mean
-    runs over the K pairs of each of the B x R rows. A chunk holds whole
-    rows, max(1, chunk_pairs // K) of them, so each row's sum over its pairs
-    is the one masked_mean takes, in the same dtype (f32 when K > 32). Pairs
-    whose mask is 0 in every row are left out of every chunk, and so are rows
-    whose pairs are all masked: their products are multiplied by 0 in the
-    mean, so the function is the same. That choice costs one read of the
-    mask to the host per call. Returns [B, R, msg_dim] in the messages'
-    dtype."""
-    bsz, nrow, k = mask.shape
-    dt = src.dtype
-    acc = torch.float32 if k > 32 else dt
-    live = mask > 0
-    rows = torch.nonzero(live.any(dim=2).reshape(-1)).reshape(-1)
-    cols = torch.nonzero(live.any(dim=(0, 1))).reshape(-1)
-    out = src.new_zeros(bsz * nrow, spec.msg_dim)
-    if rows.numel() == 0:
+    mask [B, R, K]; src [B, R, K, din], sh [B, R, K, d2] and each of e_parts
+    [B, R, K, c] may have size 1 on any of their first three axes, which then
+    broadcasts (pass x[:, None] rather than x[:, None].expand(...): the
+    backward sums such an input's gradient over its broadcast axes chunk by
+    chunk, while an expanded view would take its gradient at the block's
+    size). The mean runs over the K pairs of each of the B x R rows. A chunk
+    holds whole rows, max(1, chunk_pairs // K) of them, so each row's sum
+    over its pairs is the one masked_mean takes, in the same dtype (f32 when
+    K > 32). Pairs whose mask is 0 in every row are left out of every chunk,
+    and so are rows whose pairs are all masked: their products are
+    multiplied by 0 in the mean, so the function is the same. That choice
+    costs one read of the mask to the host per call.
+
+    Under autograd the forward keeps only its inputs and the live rows and
+    columns; the backward walks the same chunks again, reruns each chunk's
+    weight MLP and TP with grad enabled and takes its gradients, so at most
+    one chunk's per-pair weights are alive (_FcConvMean). Returns [B, R,
+    msg_dim] in the messages' dtype."""
+    leaves = _tree_leaves(p["fc"])
+    return _FcConvMean.apply(spec, chunk_pairs, mask, p["fc"], len(e_parts), src, sh,
+                             *e_parts, *leaves)
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [tree]
+
+
+def _tree_like(tree, leaves: list):
+    """`tree` with its leaves (in _tree_leaves order) replaced by `leaves`."""
+    it = iter(leaves)
+
+    def build(t):
+        return {k: build(t[k]) for k in sorted(t)} if isinstance(t, dict) else next(it)
+
+    return build(tree)
+
+
+def _chunk_index(x, bi, ri, ki):
+    """x's index at a chunk's rows and pairs: an axis of size 1 broadcasts."""
+    zero = bi.new_zeros(())
+    return tuple(i if n > 1 else zero for i, n in zip((bi, ri, ki), x.shape[:3]))
+
+
+def _take(x, bi, ri, ki):
+    """x [B|1, R|1, K|1, c] at a chunk's rows and pairs -> [rows, pairs, c]."""
+    return x[_chunk_index(x, bi, ri, ki)].expand(bi.shape[0], ki.shape[1], x.shape[-1])
+
+
+def _put_add(acc, x, bi, ri, ki, g):
+    """acc (x's shape, f32) += the chunk's gradient g [rows, pairs, c] at
+    x's entries, summed first over the axes on which x broadcasts."""
+    idx = _chunk_index(x, bi, ri, ki)
+    shape = torch.broadcast_shapes(*[i.shape for i in idx])
+    g = g.to(acc.dtype)
+    for d, n in enumerate(shape):
+        if n == 1 and g.shape[d] > 1:
+            g = g.sum(dim=d, keepdim=True)
+    acc.index_put_(idx, g, accumulate=True)
+
+
+def _chunk_mean(fc, spec: ConvSpec, xs, n_parts: int, mask_c, n_r, acc):
+    """One chunk's rows of the mean: xs = (src, sh, *e_parts) at the chunk
+    ([rows, pairs, c] each), mask_c [rows, pairs], n_r [rows]."""
+    src, sh, parts = xs[0], xs[1], xs[2 : 2 + n_parts]
+    m = tp_conv_messages({"fc": fc}, spec, src, sh, torch.cat(parts, dim=-1))
+    s = (m.to(acc) * mask_c[..., None].to(acc)).sum(dim=1)
+    return (s.to(torch.float32) / torch.clamp(n_r, min=1.0)[:, None]).to(m.dtype)
+
+
+class _FcConvMean(torch.autograd.Function):
+    """fc_conv_mean with a backward that recomputes each chunk.
+
+    Inputs: spec, chunk_pairs, mask, the fc MLP's tree (its structure), the
+    number of e_parts, then src, sh, *e_parts and the MLP's leaves."""
+
+    @staticmethod
+    def _plan(ctx, mask, chunk_pairs):
+        bsz, nrow, k = mask.shape
+        live = mask > 0
+        ctx.rows = torch.nonzero(live.any(dim=2).reshape(-1)).reshape(-1)
+        ctx.cols = torch.nonzero(live.any(dim=(0, 1))).reshape(-1)
+        ctx.n = mask.to(torch.float32).sum(dim=2).reshape(-1)
+        ctx.step = max(1, chunk_pairs // max(int(ctx.cols.numel()), 1))
+        ctx.nrow, ctx.acc_long = nrow, k > 32
+
+    @staticmethod
+    def _chunks(ctx, mask):
+        """(rows r, bi, ri, ki, mask at the chunk) of every chunk."""
+        ki = ctx.cols[None, :]
+        for lo in range(0, int(ctx.rows.numel()), ctx.step):
+            r = ctx.rows[lo : lo + ctx.step]
+            bi, ri = (r // ctx.nrow)[:, None], (r % ctx.nrow)[:, None]
+            yield r, bi, ri, ki, mask[bi, ri, ki]
+
+    @staticmethod
+    def forward(ctx, spec, chunk_pairs, mask, fc_tree, n_parts, *tensors):
+        bsz, nrow, _ = mask.shape
+        ctx.spec, ctx.fc_tree, ctx.n_parts = spec, fc_tree, n_parts
+        _FcConvMean._plan(ctx, mask, chunk_pairs)
+        xs, leaves = tensors[: 2 + n_parts], tensors[2 + n_parts :]
+        fc = _tree_like(fc_tree, leaves)
+        acc = torch.float32 if ctx.acc_long else xs[0].dtype
+        out = xs[0].new_zeros(bsz * nrow, spec.msg_dim)
+        for r, bi, ri, ki, mask_c in _FcConvMean._chunks(ctx, mask):
+            out[r] = _chunk_mean(fc, spec, [_take(x, bi, ri, ki) for x in xs], n_parts,
+                                 mask_c, ctx.n[r], acc)
+        ctx.save_for_backward(mask, *tensors)
         return out.reshape(bsz, nrow, -1)
-    n = mask.to(torch.float32).sum(dim=2).reshape(-1)
-    step = max(1, chunk_pairs // max(int(cols.numel()), 1))
-    for lo in range(0, int(rows.numel()), step):
-        r = rows[lo : lo + step]
-        bi, ri = (r // nrow)[:, None], (r % nrow)[:, None]
-        ki = cols[None, :]
-        e = torch.cat([x[bi, ri, ki] for x in e_parts], dim=-1)
-        m = tp_conv_messages(p, spec, src[bi, ri, ki], sh[bi, ri, ki], e)
-        s = (m.to(acc) * mask[bi, ri, ki][..., None].to(acc)).sum(dim=1)
-        out[r] = (s.to(torch.float32) / torch.clamp(n[r], min=1.0)[:, None]).to(m.dtype)
-    return out.reshape(bsz, nrow, -1)
+
+    @staticmethod
+    def _chunk_grads(ctx, fc, lv, xs, need_x, index, mask_c, n_r, acc, g_r):
+        """One chunk rerun with grad enabled: the gradients of its rows'
+        mean (cotangent g_r) for its slices of xs and for lv (None where not
+        needed). The chunk's graph, and its per-pair weights, go when this
+        returns."""
+        with torch.enable_grad():
+            xc = [_take(x, *index).detach().requires_grad_(nd) for x, nd in zip(xs, need_x)]
+            o = _chunk_mean(fc, ctx.spec, xc, ctx.n_parts, mask_c, n_r, acc)
+            wrt = [t for t in xc + lv if t.requires_grad]
+            got = iter(torch.autograd.grad(o, wrt, g_r.to(o.dtype), allow_unused=True))
+        return [next(got) if t.requires_grad else None for t in xc + lv]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_out):
+        mask, *tensors = ctx.saved_tensors
+        n_parts = ctx.n_parts
+        xs, leaves = tensors[: 2 + n_parts], tensors[2 + n_parts :]
+        need = ctx.needs_input_grad[5:]
+        need_x, need_p = need[: 2 + n_parts], need[2 + n_parts :]
+        if not any(need):
+            return (None,) * (5 + len(tensors))
+        g = g_out.reshape(-1, g_out.shape[-1])
+        gx = [torch.zeros(x.shape, dtype=torch.float32, device=x.device) if nd else None
+              for x, nd in zip(xs, need_x)]
+        gp = [torch.zeros(w.shape, dtype=torch.float32, device=w.device) if nd else None
+              for w, nd in zip(leaves, need_p)]
+        lv = [w.detach().requires_grad_(nd) for w, nd in zip(leaves, need_p)]
+        fc = _tree_like(ctx.fc_tree, lv)
+        acc = torch.float32 if ctx.acc_long else xs[0].dtype
+        for r, bi, ri, ki, mask_c in _FcConvMean._chunks(ctx, mask):
+            got = _FcConvMean._chunk_grads(ctx, fc, lv, xs, need_x, (bi, ri, ki), mask_c,
+                                           ctx.n[r], acc, g[r])
+            for x, gt, acc_x in zip(xs, got, gx):
+                if gt is not None:
+                    _put_add(acc_x, x, bi, ri, ki, gt)
+            for gt, acc_p in zip(got[len(xs):], gp):
+                if gt is not None:
+                    acc_p += gt.to(torch.float32)
+        grads = [None if a is None else a.to(x.dtype) for a, x in zip(gx + gp, tensors)]
+        return (None, None, None, None, None, *grads)
 
 
 def conv_mean(p, spec: ConvSpec, src, sh, e_parts, mask, dim: int):
@@ -239,7 +362,10 @@ def conv_mean(p, spec: ConvSpec, src, sh, e_parts, mask, dim: int):
     laid out [B, R, K] with the mean's axis last ([B, 1, K] for a block
     [B, K])."""
     if spec.mode == "sep":
-        return masked_mean(tp_conv_messages(p, spec, src, sh, torch.cat(e_parts, dim=-1)),
+        def full(x):
+            return x.expand(*mask.shape, x.shape[-1])
+        return masked_mean(tp_conv_messages(p, spec, full(src), full(sh),
+                                            torch.cat([full(x) for x in e_parts], dim=-1)),
                            mask, dim=dim)
     if mask.dim() == 2:
         def rows(x):

@@ -75,6 +75,7 @@ hold against the plain versions and the JAX kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -483,8 +484,13 @@ def _library():
     return lib
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
+@contextlib.contextmanager
+def _on_device(dev):
+    """Launches inside run on `dev`, the device of their tensors: the host
+    thread's current device is set to it (a kernel launches on the current
+    device), and the handle yielded is that device's current stream."""
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
 
 
 def _arg(t, shape, dev):
@@ -681,12 +687,14 @@ class _PairConvFn(torch.autograd.Function):
     def forward(ctx, data, tgt_x, src_x, w_in, beff, *weights):
         ctx.data = data
         ctx.save_for_backward(tgt_x, src_x, w_in, beff, *weights)
-        lib, st = _library(), _stream()
-        out = _pair_conv_kernel(lib, data, tgt_x, src_x, w_in, beff, weights, st)
-        # B5's pair counts start here, so that its backward reads the count
-        # it sizes its scratch by without waiting for the queue to drain
-        ctx.pairs = (_pair_pairs(lib, st, data, tgt_x.shape[0], tgt_x.shape[1], src_x.shape[1])
-                     if any(ctx.needs_input_grad) else None)
+        lib = _library()
+        with _on_device(tgt_x.device) as st:
+            out = _pair_conv_kernel(lib, data, tgt_x, src_x, w_in, beff, weights, st)
+            # B5's pair counts start here, so that its backward reads the count
+            # it sizes its scratch by without waiting for the queue to drain
+            ctx.pairs = (_pair_pairs(lib, st, data, tgt_x.shape[0], tgt_x.shape[1],
+                                     src_x.shape[1])
+                         if any(ctx.needs_input_grad) else None)
         return out
 
     @staticmethod
@@ -727,10 +735,11 @@ def pair_bwd(data, tgt_x, src_x, w_in, beff, weights, g, pairs=None):
     g = _arg(g, (bsz, nt, c.dout), dev)
     if not tgt_x.is_cuda:
         return pair_bwd_plain(data, tgt_x, src_x, w_in, beff, weights, g)
-    lib, st = _library(), _stream()
-    if pairs is None:
-        pairs = _pair_pairs(lib, st, data, bsz, nt, nsrc)
-    return _pair_bwd_kernel(lib, st, data, tgt_x, src_x, w_in, beff, weights, g, pairs)
+    lib = _library()
+    with _on_device(dev) as st:
+        if pairs is None:
+            pairs = _pair_pairs(lib, st, data, bsz, nt, nsrc)
+        return _pair_bwd_kernel(lib, st, data, tgt_x, src_x, w_in, beff, weights, g, pairs)
 
 
 def _pair_pairs(lib, st, data, bsz, nt, nsrc):
@@ -831,12 +840,14 @@ class _CrossConvFn(torch.autograd.Function):
     def forward(ctx, data, lig_x, atm_x, w_in, beff, *weights):
         ctx.data = data
         ctx.save_for_backward(lig_x, atm_x, w_in, beff, *weights)
-        lib, st = _library(), _stream()
-        out = _cross_conv_kernel(lib, data, lig_x, atm_x, w_in, beff, weights, st)
-        # B4's pair counts start here, so that its backward reads the count
-        # it sizes its scratch by without waiting for the queue to drain
-        ctx.pairs = (_cross_pairs(lib, st, data, lig_x.shape[0], lig_x.shape[1], atm_x.shape[1])
-                     if any(ctx.needs_input_grad) else None)
+        lib = _library()
+        with _on_device(lig_x.device) as st:
+            out = _cross_conv_kernel(lib, data, lig_x, atm_x, w_in, beff, weights, st)
+            # B4's pair counts start here, so that its backward reads the count
+            # it sizes its scratch by without waiting for the queue to drain
+            ctx.pairs = (_cross_pairs(lib, st, data, lig_x.shape[0], lig_x.shape[1],
+                                      atm_x.shape[1])
+                         if any(ctx.needs_input_grad) else None)
         return out
 
     @staticmethod
@@ -950,10 +961,12 @@ def cross_bwd(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la, pairs=None):
     g_la = atm_x.new_zeros(bsz, na, c.dout) if g_la is None else _arg(g_la, (bsz, na, c.dout), dev)
     if not lig_x.is_cuda:
         return cross_bwd_plain(data, lig_x, atm_x, w_in, beff, weights, g_al, g_la)
-    lib, st = _library(), _stream()
-    if pairs is None:
-        pairs = _cross_pairs(lib, st, data, bsz, nl, na)
-    return _cross_bwd_kernel(lib, st, data, lig_x, atm_x, w_in, beff, weights, g_al, g_la, pairs)
+    lib = _library()
+    with _on_device(dev) as st:
+        if pairs is None:
+            pairs = _cross_pairs(lib, st, data, bsz, nl, na)
+        return _cross_bwd_kernel(lib, st, data, lig_x, atm_x, w_in, beff, weights, g_al, g_la,
+                                 pairs)
 
 
 def _cross_pairs(lib, st, data, bsz, nl, na):
@@ -1576,7 +1589,9 @@ class _KnnConvFn(torch.autograd.Function):
     def forward(ctx, data, x, w_in, beff, *weights):
         ctx.data = data
         ctx.save_for_backward(x, w_in, beff, *weights)
-        return _knn_conv_kernel(_library(), data, x, w_in, beff, weights, _stream())
+        lib = _library()
+        with _on_device(x.device) as st:
+            return _knn_conv_kernel(lib, data, x, w_in, beff, weights, st)
 
     @staticmethod
     def backward(ctx, g):
@@ -1731,7 +1746,9 @@ def knn_bwd(data, x, w_in, beff, weights, g):
     g = _arg(g, (bsz, n, c.dout), dev)
     if not x.is_cuda:
         return knn_bwd_plain(data, x, w_in, beff, weights, g)
-    return _knn_bwd_kernel(_library(), _stream(), data, x, w_in, beff, weights, g)
+    lib = _library()
+    with _on_device(dev) as st:
+        return _knn_bwd_kernel(lib, st, data, x, w_in, beff, weights, g)
 
 
 def _knn_bwd_kernel(lib, st, data, x, w_in, beff, weights, g):
@@ -2108,8 +2125,10 @@ def _pair_fin_kernel(c, fin, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask,
         c, tgt_pos, src_pos, tgt_x, src_x, tgt_mask, src_mask, cab_s, temb, cutoff, params,
         bond_feat, bond_mask)
     _, fin_ts = _fin_ptrs(fin, params, cnt, (tx.shape[0], tx.shape[1]), tx.device)
-    return _pair_wide(_library(), "pair_conv_fin", data, tx, sx, w_in, beff, weights, _stream(),
-                      fin=fin, fin_ts=fin_ts, cycles=cycles)
+    lib = _library()
+    with _on_device(tx.device) as st:
+        return _pair_wide(lib, "pair_conv_fin", data, tx, sx, w_in, beff, weights, st,
+                          fin=fin, fin_ts=fin_ts, cycles=cycles)
 
 
 def pair_tile_plan(tgt_pos, src_pos, tgt_mask, src_mask, cab, cutoff, bond_mask, g_p):
@@ -2187,8 +2206,10 @@ def _cross_fin_kernel(c, fin, lig_pos, atm_pos, lig_x, atm_x, lig_mask, atm_mask
     dev, bsz, nl, na = lx.device, lx.shape[0], lx.shape[1], ax.shape[1]
     _, ts_al = _fin_ptrs(fin, fin_al, cnt_al, (bsz, nl), dev)
     _, ts_la = _fin_ptrs(fin, fin_la, cnt_la, (bsz, na), dev)
-    return _cross_wide(_library(), "cross_conv_fin", data, lx, ax, w_in, beff, weights,
-                       _stream(), fin=fin, fin_ts=(ts_al, ts_la), cycles=cycles)
+    lib = _library()
+    with _on_device(dev) as st:
+        return _cross_wide(lib, "cross_conv_fin", data, lx, ax, w_in, beff, weights, st,
+                           fin=fin, fin_ts=(ts_al, ts_la), cycles=cycles)
 
 
 # ---- B9 knn conv with finalize ---------------------------------------------
@@ -2209,5 +2230,7 @@ def _knn_fin_kernel(c, fin, pos, x, mask, idx, valid, temb, params, cycles=None)
     d, dev = data, xx.device
     bsz, n, _ = d.idx.shape
     _, ts = _fin_ptrs(fin, params, d.valid.sum(-1), (bsz, n), dev)
-    return _knn_conv_kernel(_library(), data, xx, w_in, beff, weights, _stream(), cycles,
-                            fin=fin, fin_ts=ts)
+    lib = _library()
+    with _on_device(dev) as st:
+        return _knn_conv_kernel(lib, data, xx, w_in, beff, weights, st, cycles,
+                                fin=fin, fin_ts=ts)

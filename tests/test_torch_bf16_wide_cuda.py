@@ -192,10 +192,11 @@ def test_bf16_wide_block_cycles_cover_the_plans(dev):
     with torch.no_grad():
         d = TC._cross_inputs(*args, bf16_chain=True)
         kd = TC._knn_inputs(kc, pos, x, idx, valid, temb, p, True)
+        st = torch.cuda.current_stream().cuda_stream
         for n, launch in ((len(plan), lambda cyc: TC._cross_conv_kernel(
-                TC._library(), *d[:5], d[5:], TC._stream(), cycles=cyc)),
+                TC._library(), *d[:5], d[5:], st, cycles=cyc)),
                           (len(knn_plan), lambda cyc: TC._knn_conv_kernel(
-                              TC._library(), *kd[:4], kd[4:], TC._stream(), cycles=cyc))):
+                              TC._library(), *kd[:4], kd[4:], st, cycles=cyc))):
             cycles = torch.zeros(n, dtype=torch.int64, device=dev)
             launch(cycles)
             torch.cuda.synchronize()

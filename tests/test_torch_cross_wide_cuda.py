@@ -147,8 +147,9 @@ def test_cross_wide_block_cycles_cover_the_plan(dev):
     assert len(plan) == B * (-(-NL // g_l) + -(-NA // g_a))
     with torch.no_grad():
         d = TC._cross_inputs(*args)
-        for launch in (lambda cyc: TC._cross_conv_kernel(TC._library(), *d[:5], d[5:],
-                                                         TC._stream(), cycles=cyc),
+        st = torch.cuda.current_stream().cuda_stream
+        for launch in (lambda cyc: TC._cross_conv_kernel(TC._library(), *d[:5], d[5:], st,
+                                                         cycles=cyc),
                        lambda cyc: TC._cross_fin_kernel(*fin_args, cycles=cyc)):
             cycles = torch.zeros(len(plan), dtype=torch.int64, device=dev)
             launch(cycles)

@@ -148,8 +148,8 @@ def test_knn_wide_block_cycles_cover_the_plan(dev):
                 d = TC._knn_inputs(c, pos, x, idx, valid, temb, p)
 
                 def launch(cyc):
-                    return TC._knn_conv_kernel(TC._library(), *d[:4], d[4:], TC._stream(),
-                                               cycles=cyc)
+                    st = torch.cuda.current_stream().cuda_stream
+                    return TC._knn_conv_kernel(TC._library(), *d[:4], d[4:], st, cycles=cyc)
             else:
                 def launch(cyc):
                     return TC._knn_fin_kernel(*fin_args, cycles=cyc)

@@ -124,11 +124,12 @@ def test_pair_sums_block_cycles_cover_the_plan(dev, name):
         assert len(plan) == B * -(-NL // g_p)
         d = TC._pair_inputs(c, tp, sp, tx, sx, tm, sm, cs, temb, cut, p, bf, bm, _bf16(name))
         cycles = torch.zeros(len(plan), dtype=torch.int64, device=dev)
-        TC._pair_conv_kernel(TC._library(), *d[:5], d[5:], TC._stream(), cycles=cycles)
+        st = torch.cuda.current_stream().cuda_stream
+        TC._pair_conv_kernel(TC._library(), *d[:5], d[5:], st, cycles=cycles)
         torch.cuda.synchronize()
         assert bool((cycles > 0).all())
         with pytest.raises(ValueError, match="cycles"):
-            TC._pair_conv_kernel(TC._library(), *d[:5], d[5:], TC._stream(), cycles=cycles[1:])
+            TC._pair_conv_kernel(TC._library(), *d[:5], d[5:], st, cycles=cycles[1:])
 
 
 @pytest.mark.cuda
