@@ -98,7 +98,9 @@ a non-zero exit code):
               at 8 steps (f32 1e-5 relative, mul/add exact, fma 2^-8), then
               the time per sweep from R = 2000 and 2R steps at the TPU
               probe's 256 x 1024 and at 8192 x 1024 (which fills the card),
-              GFLOP/s
+              GFLOP/s, each beside its instruction floor (2 / 1.5 / 1 instructions
+              per element and step at one per lane and clock); the step
+              loop's SASS instructions per step (cuobjdump -sass)
   18. bf16_kernels  B11 cross, pair, knn (the bf16 chain) at the 3dbs bucket
               shapes, layers 0 and 5, B = 16, on the bf16-rounded diff_r2
               weights: each against its plain bf16 version (max|err| <=
@@ -407,6 +409,13 @@ PEAK_BF16X2 = 2 * PEAK_FP32
 # separately rounded bf16 operations (bf16x2 mul.rn and add.rn, one result
 # per lane each, at the fp32 lane rate): half the fma-counted rate
 PEAK_BF16X2_ROUNDED = PEAK_BF16X2 / 2
+# the instruction rate of the CUDA cores: one FP32 or bf16x2 lane-instruction
+# per lane and clock (132 SMs x 128 lanes x 1.98 GHz; the fp32 peak counts
+# an fma as 2)
+PEAK_LANE_INSTR = PEAK_FP32 / 2
+# P1's instructions per element and step: f32 fma + add, bf16x2 mul + add +
+# add, bf16x2 fma + add (two elements to a bf16x2 instruction)
+P1_INSTR = {"f32_fma": 2.0, "bf16x2_mul_add": 1.5, "bf16x2_fma": 1.0}
 KERNELS = {
     "cross_conv": ("diffbindfr_torch/csrc/cross_conv.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:693"),
     "pair_conv": ("diffbindfr_torch/csrc/pair_conv.cu", "diffbindfr_tpu/nn/pallas_conv_t.py:433"),
@@ -1974,6 +1983,12 @@ def phase_probe_bf16(torch, results):
     from diffbindfr_torch.probes import bf16_chain as P
 
     tols = {"f32_fma": 1e-5, "bf16x2_mul_add": 0.0, "bf16x2_fma": 2.0 ** -8}
+    sass = P.sass_steps(cuobjdump_sass())
+    for v, q in sass.items():
+        ops = ", ".join(f"{op} {n:g}" for op, n in q["opcodes_per_step"].items())
+        print(f"  {v}: the step loop runs {q['per_step']:g} SASS instructions per step "
+              f"({q['per_element_step']:.4f} per element and step; floor {P1_INSTR[v]:g}): "
+              f"{ops}", flush=True)
     checks = {}
     for v in P.VARIANTS:
         x, w = P.inputs(256, 1024, v, DEV)
@@ -2002,26 +2017,39 @@ def phase_probe_bf16(torch, results):
                     "bf16x2_fma": PEAK_BF16X2}[v]
             byts = 3.0 * elems * torch.finfo(dt).bits / 8
             bound_ms = max(ops / peak, byts / PEAK_BYTES) * 1e3
+            floor_ms = P1_INSTR[v] * elems * r["reps"] / PEAK_LANE_INSTR * 1e3
             print(f"  {v} {rows} x 1024: {r['ms_r']:.4f} ms at {r['reps']} steps, "
                   f"{r['ms_2r']:.4f} ms at {2 * r['reps']}: {r['us_per_sweep']:.4f} us per sweep, "
                   f"{r['gflops']:.0f} GFLOP/s (2 per element), {r['gops']:.0f} G rounded "
-                  f"operations/s; plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms", flush=True)
+                  f"operations/s; plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms, instruction "
+                  f"floor {floor_ms:.4f} ms ({floor_ms / r['ms_r']:.1%} of it)", flush=True)
             if rows == 8192:
                 dev_ms, dev_how = device_ms(torch, lambda: P.chain(x, w, r["reps"], v),
                                                    f"probe_bf16/{v}")
                 print(f"  {v} {rows} x 1024 at {r['reps']} steps: kernel {fmt_ms(dev_ms)} "
-                      f"({dev_how})", flush=True)
+                      f"({dev_how})"
+                      + (f", {floor_ms / dev_ms:.1%} of its instruction floor" if dev_ms else ""),
+                      flush=True)
                 results[f"probe_bf16/{v}"] = dict(
                     r, launches=launches[f"probe_bf16/{v}"], max_rel_err=checks[v][0],
                     max_abs_err=checks[v][1], ms=r["ms_r"], device_ms=dev_ms,
                     device_ms_method=dev_how, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by="operations" if ops / peak >= byts / PEAK_BYTES
-                    else "bytes")
+                    else "bytes", sass=sass[v])
         rate = res["bf16x2_mul_add"]["gops"] * 1e9
         f32 = res["f32_fma"]["gflops"]
         print(f"  {rows} x 1024: bf16x2 mul/add {res['bf16x2_mul_add']['gflops'] / f32:.2f}x, "
               f"bf16x2 fma {res['bf16x2_fma']['gflops'] / f32:.2f}x the f32 fma rate", flush=True)
     return rate
+
+
+def cuobjdump_sass():
+    """`cuobjdump -sass` of the built kernel library."""
+    from diffbindfr_torch.utils import cuda_build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", cuda_build.build()], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
 
 
 def chain_ops(c):
@@ -4783,7 +4811,8 @@ def main() -> int:
                      "device_ms_method": r["device_ms_method"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,
-                     "rows": r["rows"], "reps": r["reps"], "gflops": r["gflops"]})
+                     "rows": r["rows"], "reps": r["reps"], "gflops": r["gflops"],
+                     "sass_per_step": r["sass"]["per_step"]})
     keys = ("launches", "max_abs_err", "max_rel_err", "ms", "device_ms", "device_ms_method",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     probes = dict(PROBE_KERNELS)

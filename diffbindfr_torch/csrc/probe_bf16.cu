@@ -9,11 +9,29 @@
 //                    rounded to bf16 (mul.rn / add.rn.bf16x2: the rounding
 //                    of the B11 chain, conv_fwd_wide.cuh)
 //   2  bf16x2 fma:   acc = fma(acc, w, x) + pert, one rounding for the fma
-// A thread runs one 16-byte vector of elements (4 f32 or 8 bf16 chains):
-// independent chains hide the latency of each dependent step. Bound on the
-// H100: arithmetic on the CUDA cores (67 TFLOP/s f32; bf16x2 packs two
-// elements per instruction); probes/bf16_chain.py times R and
-// 2R steps and takes the per-step time from the difference.
+//
+// Bound on the H100: the instruction rate of the CUDA cores. An SM starts one
+// FP32 or one bf16x2 instruction per lane and clock, so a step costs 2, 1.5
+// or 1 instructions per element (f32, bf16x2 mul/add, bf16x2 fma) and
+// 8192 x 1024 elements x 2000 steps take at least 1.003 / 0.752 / 0.502 ms
+// at 132 SMs x 128 lanes x 1.98 GHz. Everything else a step runs is
+// overhead against that floor: the step's pert (a multiply, and for bf16 a
+// rounding and pack), the step counter, the loop. The design spreads it:
+// - a thread runs kVecs = 4 vectors of 16 bytes (16 f32 or 32 bf16
+//   chains), so the per-step scalar work is shared by 4x the chains, and
+//   the independent chains hide each step's dependent latency;
+// - the step number comes from a float counter (rf += 1, exact below
+//   2^24), so no int-to-float conversion runs; pert is formed and
+//   packed once per thread and step;
+// - x and w are read with 4-byte loads: a 16-byte load lands in an aligned
+//   quad of registers, which puts an element's w and x (and, as ptxas then
+//   allocates, its acc) in the same register banks, and the three-operand
+//   FFMA / HFMA2 then waits on bank conflicts; with 4-byte loads ptxas
+//   places the operands apart;
+// - the step loop is unrolled 8x.
+// Every element-step is still computed: nothing is hoisted or folded
+// across steps. A block is one warp, so that the blocks spread evenly over
+// the SMs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -22,48 +40,95 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 32;
+constexpr int kVecs = 4;
+constexpr int kBlockVecs = kThreads * kVecs;
+// 32 one-warp blocks per SM (its most): 8 warps per scheduler, <= 64 registers
+constexpr int kMinBlocks = 32;
 
-__global__ void __launch_bounds__(kThreads) probe_f32_kernel(const float4* __restrict__ x,
-                                                             const float4* __restrict__ w,
-                                                             float4* __restrict__ out, int n,
-                                                             int reps) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const float4 xv = x[i], wv = w[i];
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int r = 0; r < reps; ++r) {
-    const float pert = __fmul_rn((float)r, 1e-6f);
-    acc.x = __fadd_rn(fmaf(acc.x, wv.x, xv.x), pert);
-    acc.y = __fadd_rn(fmaf(acc.y, wv.y, xv.y), pert);
-    acc.z = __fadd_rn(fmaf(acc.z, wv.z, xv.z), pert);
-    acc.w = __fadd_rn(fmaf(acc.w, wv.w, xv.w), pert);
+// the thread's first vector, and how many of its kVecs vectors (j-th at
+// v0 + j * kThreads) lie below n
+__device__ __forceinline__ int thread_vecs(int n, int* v0) {
+  *v0 = blockIdx.x * kBlockVecs + threadIdx.x;
+  const int left = n - *v0;
+  return left <= 0 ? 0 : min(kVecs, (left + kThreads - 1) / kThreads);
+}
+
+// the four 32-bit words of vector v (zeros where it lies past the array),
+// each by its own load
+template <class V, class T>
+__device__ __forceinline__ void load_words(const V* __restrict__ p, int v, bool in, T* dst) {
+  const T* q = reinterpret_cast<const T*>(p + (in ? v : 0));
+#pragma unroll
+  for (int k = 0; k < 4; ++k) dst[k] = in ? __ldg(q + k) : T(0);
+}
+
+// A thread's vectors past the array run on zeros and are not stored, so
+// that every thread runs the one compiled step loop.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    probe_f32_kernel(const float4* __restrict__ x, const float4* __restrict__ w,
+                     float4* __restrict__ out, int n, int reps) {
+  int v0;
+  const int nv = thread_vecs(n, &v0);
+  if (nv == 0) return;
+  float xs[kVecs * 4], ws[kVecs * 4], acc[kVecs * 4];
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    load_words(x, v0 + j * kThreads, j < nv, xs + 4 * j);
+    load_words(w, v0 + j * kThreads, j < nv, ws + 4 * j);
   }
-  out[i] = acc;
+#pragma unroll
+  for (int e = 0; e < kVecs * 4; ++e) acc[e] = 0.f;
+  float rf = 0.f;
+#pragma unroll 8
+  for (int r = 0; r < reps; ++r) {
+    const float pert = __fmul_rn(rf, 1e-6f);
+#pragma unroll
+    for (int e = 0; e < kVecs * 4; ++e) acc[e] = __fadd_rn(fmaf(acc[e], ws[e], xs[e]), pert);
+    rf = __fadd_rn(rf, 1.f);
+  }
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j)
+    if (j < nv)
+      out[v0 + j * kThreads] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                                           acc[4 * j + 3]);
 }
 
 template <bool FMA>
-__global__ void __launch_bounds__(kThreads) probe_bf16_kernel(const uint4* __restrict__ x,
-                                                              const uint4* __restrict__ w,
-                                                              uint4* __restrict__ out, int n,
-                                                              int reps) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint4 xv = x[i], wv = w[i];
-  const uint32_t xs[4] = {xv.x, xv.y, xv.z, xv.w};
-  const uint32_t ws[4] = {wv.x, wv.y, wv.z, wv.w};
-  uint32_t acc[4] = {0u, 0u, 0u, 0u};
-  for (int r = 0; r < reps; ++r) {
-    const __nv_bfloat16 p = __float2bfloat16_rn(__fmul_rn((float)r, 1e-6f));
-    const uint32_t pert = dbfr::pack_bf16x2(p, p);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    probe_bf16_kernel(const uint4* __restrict__ x, const uint4* __restrict__ w,
+                      uint4* __restrict__ out, int n, int reps) {
+  int v0;
+  const int nv = thread_vecs(n, &v0);
+  if (nv == 0) return;
+  uint32_t xs[kVecs * 4], ws[kVecs * 4], acc[kVecs * 4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t t = FMA ? dbfr::fma_bf16x2(acc[j], ws[j], xs[j])
-                             : dbfr::add_bf16x2(dbfr::mul_bf16x2(acc[j], ws[j]), xs[j]);
-      acc[j] = dbfr::add_bf16x2(t, pert);
-    }
+  for (int j = 0; j < kVecs; ++j) {
+    load_words(x, v0 + j * kThreads, j < nv, xs + 4 * j);
+    load_words(w, v0 + j * kThreads, j < nv, ws + 4 * j);
   }
-  out[i] = make_uint4(acc[0], acc[1], acc[2], acc[3]);
+#pragma unroll
+  for (int e = 0; e < kVecs * 4; ++e) acc[e] = 0u;
+  float rf = 0.f;
+#pragma unroll 8
+  for (int r = 0; r < reps; ++r) {
+    // one cvt.rn.bf16x2.f32: both halves the bf16 of step * 1e-6
+    const float pf = __fmul_rn(rf, 1e-6f);
+    const __nv_bfloat162 p2 = __floats2bfloat162_rn(pf, pf);
+    const uint32_t pert = *reinterpret_cast<const uint32_t*>(&p2);
+#pragma unroll
+    for (int e = 0; e < kVecs * 4; ++e) {
+      const uint32_t t = FMA ? dbfr::fma_bf16x2(acc[e], ws[e], xs[e])
+                             : dbfr::add_bf16x2(dbfr::mul_bf16x2(acc[e], ws[e]), xs[e]);
+      acc[e] = dbfr::add_bf16x2(t, pert);
+    }
+    rf = __fadd_rn(rf, 1.f);
+  }
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j)
+    if (j < nv)
+      out[v0 + j * kThreads] = make_uint4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                                          acc[4 * j + 3]);
 }
 
 }  // namespace
@@ -72,7 +137,7 @@ __global__ void __launch_bounds__(kThreads) probe_bf16_kernel(const uint4* __res
 extern "C" int dbfr_probe_bf16(const void* x, const void* w, void* out, int n_vec, int reps,
                                int variant, void* stream) {
   if (n_vec <= 0) return 0;
-  const int blocks = (n_vec + kThreads - 1) / kThreads;
+  const int blocks = (n_vec + kBlockVecs - 1) / kBlockVecs;
   cudaStream_t st = (cudaStream_t)stream;
   if (variant == 0) {
     probe_f32_kernel<<<blocks, kThreads, 0, st>>>((const float4*)x, (const float4*)w,

@@ -1,9 +1,9 @@
 // The cmT path table of the probes' depthwise chains (P2 chain_vpu /
 // chain_mxu, probe_mxu_ops.cu; P3 dwloop, probe_mosaic.cu), and the warp's
-// f32 butterfly sum they share. The table is built by
+// f32 butterfly sum of P3 dwloop. The table is built by
 // diffbindfr_torch/probes/cm_layout.py (`path_table`): int32 [n_paths,
 // kPathCols], one row per path, its columns in the order of `Path` below
-// (unused source rows -1).
+// (unused source rows -1); chain_vpu reads a row as four int4.
 #pragma once
 
 namespace dbfr {

@@ -333,10 +333,19 @@ def _cg_tensor(l1: int, l2: int, l3: int, dtype, device: str) -> torch.Tensor:
     return torch.as_tensor(clebsch_gordan(l1, l2, l3), dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _weak_scalar(c: float, dtype) -> float:
+    """c as the JAX package applies a Python float to an array of `dtype`:
+    rounded to that dtype first (JAX's weak typing), where torch would
+    multiply a bf16 tensor by c kept in f32."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
 def apply_dw_tensor_product(spec: TensorProductSpec, x1, x2, weights):
     """Depthwise weighted TP: y_p[e, u, k] = w_p[e, u] sum_ij a[e,u,i] b[e,j] C[ijk]
-    (irreps layout in and out). x1 [..., in1.dim], x2 [..., 9], weights
-    [..., weight_numel]."""
+    times alpha_p (irreps layout in and out). x1 [..., in1.dim], x2 [..., 9],
+    weights [..., weight_numel]. alpha_p is rounded to the product's dtype
+    first, as JAX rounds it."""
     lead = x1.shape[:-1]
     slot_acc: dict = {}
     for p in spec.paths:
@@ -347,21 +356,14 @@ def apply_dw_tensor_product(spec: TensorProductSpec, x1, x2, weights):
         C = _cg(p, x1).permute(1, 0, 2).reshape(d2, d1 * d3)
         Cb = (b @ C).reshape(lead + (d1, d3))
         z = torch.einsum("...ui,...ik->...uk", a, Cb)
-        y = (z * w[..., None] * p.alpha).reshape(lead + (p.mul1 * d3,))
+        zw = z * w[..., None]
+        y = (zw * _weak_scalar(p.alpha, zw.dtype)).reshape(lead + (p.mul1 * d3,))
         slot_acc[p.i3] = slot_acc[p.i3] + y if p.i3 in slot_acc else y
     parts = []
     for i3, (off, mul, ir) in enumerate(spec.out.slices()):
         parts.append(slot_acc[i3] if i3 in slot_acc
                      else x1.new_zeros(lead + (mul * ir.dim,)))
     return torch.cat(parts, dim=-1)
-
-
-@functools.lru_cache(maxsize=None)
-def _weak_scalar(c: float, dtype) -> float:
-    """c as the JAX package applies a Python float to an array of `dtype`:
-    rounded to that dtype first (JAX's weak typing), where torch would
-    multiply a bf16 tensor by c kept in f32."""
-    return float(torch.tensor(c, dtype=dtype))
 
 
 def apply_fc_tensor_product(spec: TensorProductSpec, x1, x2, weights):
@@ -407,13 +409,15 @@ def apply_fc_tensor_product(spec: TensorProductSpec, x1, x2, weights):
 
 
 def apply_full_tensor_product(spec: TensorProductSpec, x1, x2):
-    """Unweighted full TP (irreps layout)."""
+    """Unweighted full TP (irreps layout); alpha_p rounded to the product's
+    dtype first, as JAX rounds it."""
     out_parts = []
     for p in spec.paths:
         d1, d2, d3 = 2 * p.l1 + 1, 2 * p.l2 + 1, 2 * p.l3 + 1
         a = x1[..., p.s1 : p.s1 + p.mul1 * d1].reshape(x1.shape[:-1] + (p.mul1, d1))
         b = x2[..., p.s2 : p.s2 + p.mul2 * d2].reshape(x2.shape[:-1] + (p.mul2, d2))
-        y = torch.einsum("...ui,...vj,ijk->...uvk", a, b, _cg(p, x1)) * p.alpha
+        y = torch.einsum("...ui,...vj,ijk->...uvk", a, b, _cg(p, x1))
+        y = y * _weak_scalar(p.alpha, y.dtype)
         out_parts.append(y.reshape(y.shape[:-3] + (p.mul1 * p.mul2 * d3,)))
     return torch.cat(out_parts, dim=-1)
 

@@ -52,6 +52,17 @@ def mlp_apply(p, x, act=torch.relu):
 # ---------------------------------------------------------------------------
 
 
+def _rsqrt(x):
+    """rsqrt(x) in x's dtype, taken in f32 and rounded once, as JAX takes a
+    bf16 rsqrt. torch's own bf16 rsqrt does so on the card (held there by
+    tests/test_torch_kernels_cuda.py), so a CUDA tensor takes it as it is,
+    with no casts to launch; on the CPU it rounds wrongly in about a quarter
+    of the elements that its vector loop leaves over."""
+    if x.is_cuda:
+        return torch.rsqrt(x)
+    return torch.rsqrt(x.float()).to(x.dtype)
+
+
 def irreps_layer_norm_apply(p, irreps: Irreps, x, eps: float = 1e-5):
     outs = []
     iw = ib = ims = 0
@@ -63,7 +74,7 @@ def irreps_layer_norm_apply(p, irreps: Irreps, x, eps: float = 1e-5):
         field = field - mean * shift
         ims += mul
         norm = (field**2).mean(dim=-1).mean(dim=-1, keepdim=True)
-        inv = torch.rsqrt(norm + eps) * p["weight"][iw : iw + mul]
+        inv = _rsqrt(norm + eps) * p["weight"][iw : iw + mul]
         iw += mul
         field = field * inv[..., None]
         if d == 1 and ir.p == 1:
@@ -86,7 +97,7 @@ def irreps_layer_norm_apply_cm(p, irreps: Irreps, x, eps: float = 1e-5):
         field = field - mean * shift[None, :]
         ims += mul
         norm = (field**2).mean(dim=-2).mean(dim=-1, keepdim=True)
-        inv = torch.rsqrt(norm + eps) * p["weight"][iw : iw + mul]
+        inv = _rsqrt(norm + eps) * p["weight"][iw : iw + mul]
         iw += mul
         field = field * inv[..., None, :]
         if d == 1 and ir.p == 1:

@@ -16,9 +16,14 @@ arithmetics (csrc/probe_bf16.cu):
 count 2 operations per element and step (a multiply-add), the TPU probe's
 convention, and `gops` counts every rounded operation (3 per element and
 step). `chain` is the wrapper: the kernel for CUDA tensors (counted in
-`launches`), the plain version `chain_plain` for CPU tensors.
+`launches`), the plain version `chain_plain` for CPU tensors. The kernel's
+bound is its instruction rate (2, 1.5 and 1 instructions per element and step);
+`sass_steps` reads from the compiled kernel (`cuobjdump -sass`) how many
+instructions its step loop runs per step.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -28,8 +33,14 @@ from . import _cuda
 VARIANTS = ("f32_fma", "bf16x2_mul_add", "bf16x2_fma")
 launches = {f"probe_bf16/{v}": 0 for v in VARIANTS}
 
-# elements per thread of the kernel: one 16-byte vector
+# elements per 16-byte vector of the kernel (a thread runs up to 4 vectors)
 _VEC = {"f32_fma": 4, "bf16x2_mul_add": 8, "bf16x2_fma": 8}
+# each variant's kernel symbol, as the mangled name in the SASS listing holds it
+SASS_KERNELS = {"f32_fma": "probe_f32_kernel", "bf16x2_mul_add": "probe_bf16_kernelILb0E",
+                "bf16x2_fma": "probe_bf16_kernelILb1E"}
+# the kernel counts steps in a float (no integer-to-float conversion a
+# step), exact up to 2**24
+_MAX_REPS = 2**24
 
 
 def reset_launches() -> None:
@@ -78,6 +89,9 @@ def chain(x, w, reps: int, variant: str):
     multiple of 8): the CUDA kernel for CUDA tensors, else chain_plain."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r}: one of {VARIANTS}")
+    if reps > _MAX_REPS:
+        raise ValueError(f"reps {reps}: at most 2**24, where the kernel's float step counter "
+                         "stops counting exactly")
     if not x.is_cuda:
         return chain_plain(x, w, reps, variant)
     dt = dtype_of(variant)
@@ -111,4 +125,64 @@ def measure(rows: int = 256, lanes: int = 1024, reps: int = 2000, iters: int = 2
                       us_per_sweep=sweep_s * 1e6,
                       gflops=elems * 2 / sweep_s / 1e9 if sweep_s > 0 else float("inf"),
                       gops=elems * 3 / sweep_s / 1e9 if sweep_s > 0 else float("inf"))
+    return out
+
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def _sass_functions(sass: str) -> dict:
+    """`cuobjdump -sass` text -> {function name: [(address, opcode, operands)]}."""
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            cur = funcs.setdefault(line.split("Function : ", 1)[1].strip(), [])
+        elif cur is not None:
+            m = _SASS_INSN.search(line)
+            if m:
+                cur.append((int(m.group(1), 16), m.group(3), m.group(4).strip()))
+    return funcs
+
+
+def _loops(insns):
+    """[(first, last)] instruction indices of each loop body of one
+    function: the branches (`BRA 0x<address>`) to an instruction at or
+    before their own."""
+    at = {addr: i for i, (addr, _, _) in enumerate(insns)}
+    out = []
+    for i, (_, op, args) in enumerate(insns):
+        m = re.fullmatch(r"0x([0-9a-f]+)", args)
+        j = at.get(int(m.group(1), 16)) if op.split(".")[0] == "BRA" and m else None
+        if j is not None and j <= i:
+            out.append((j, i))
+    return out
+
+
+def sass_steps(sass: str) -> dict:
+    """Per variant, from the kernel's SASS: its widest step loop (the one
+    that runs a thread's four vectors, unrolled) as instructions per step,
+    per element and step, and by opcode per step. A step runs one pert
+    multiply (FMUL), so the loop's FMULs count its steps."""
+    funcs = _sass_functions(sass)
+    out = {}
+    for v, key in SASS_KERNELS.items():
+        names = [n for n in funcs if key in n]
+        if len(names) != 1:
+            raise ValueError(f"{v}: {len(names)} functions named like {key} in the SASS")
+        insns = funcs[names[0]]
+        loops = _loops(insns)
+        if not loops:
+            raise ValueError(f"{v}: no loop in the SASS of {names[0]}")
+        first, last = max(loops, key=lambda fl: fl[1] - fl[0])
+        body = [op for _, op, _ in insns[first : last + 1]]
+        steps = sum(op.split(".")[0] == "FMUL" for op in body)
+        if steps == 0:
+            raise ValueError(f"{v}: no FMUL (the step's pert) in the loop of {names[0]}")
+        ops = {}
+        for op in body:
+            ops[op] = ops.get(op, 0) + 1
+        elems = 4 * _VEC[v]  # four vectors a thread
+        out[v] = dict(loop_instructions=len(body), steps=steps,
+                      per_step=len(body) / steps, per_element_step=len(body) / steps / elems,
+                      opcodes_per_step={op: n / steps for op, n in sorted(ops.items())})
     return out

@@ -13,7 +13,9 @@ dout_p 1216, kdim 138). Here (csrc/probe_mxu_ops.cu):
   * chain_vpu grid step i reads input block i % nblk; per path
               bs = src * w, t = bs * cb, z_k = sum over i2 of t, each bf16
               operation rounded (CUDA cores, bf16x2), then the f32 sum over
-              each 32-lane group -> [reps, dout_p, 8] (columns 4-7 zero);
+              each 32-lane group -> [reps, dout_p, 8] (columns 4-7 zero),
+              a warp's rows summed by reduce-scatter in the order of
+              `_cuda.butterfly_sum`;
   * chain_mxu per path lhs [mp, d1*128] = bf16(src * w) @ rhs [d1*128, d3*8]
               (the one-hot-expanded cb rows) in bf16 with an f32 sum on the
               tensor cores (mma.sync m16n8k16), rows w_row.. of
@@ -28,6 +30,7 @@ tool's REPS = 4096 steps over NBLK = 64 input blocks. Run on the card:
 """
 from __future__ import annotations
 
+import functools
 import sys
 
 import numpy as np
@@ -55,8 +58,10 @@ def spec():
     return compile_dw_tensor_product("48x0e+12x1o+12x1e+12x0o", "1x0e+1x1o+1x2e", 2)
 
 
+@functools.lru_cache(maxsize=None)
 def plan():
-    """(path metas, wn_p, din_p, dout_p, kdim, d3max) of `spec()`."""
+    """(path metas, wn_p, din_p, dout_p, kdim, d3max) of `spec()`, built once
+    (a wrapper call would otherwise spend longer on it than chain_vpu runs)."""
     metas, ck, wn_p, din_p, dout_p = cm_layout.tmetas(spec())
     return metas, wn_p, din_p, dout_p, ck.shape[1], max(m["d3"] for m in metas)
 
@@ -170,6 +175,7 @@ def mxu_errors(got, ref):
 # wrappers
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
 def _path_table(device):
     metas = plan()[0]
     for m in metas:
@@ -177,6 +183,10 @@ def _path_table(device):
                 or m["mul_p"] > 48:
             raise ValueError(f"path {m}: the kernels take d1, d3 in (1, 3, 5) and mul_p "
                              "a multiple of 16 up to 48")
+    # chain_vpu writes each output row once (the plain version adds paths' rows)
+    spans = sorted((m["out_row"], m["out_row"] + m["mul_p"] * m["d3"]) for m in metas)
+    if any(a[1] > b[0] for a, b in zip(spans, spans[1:])):
+        raise ValueError("the paths' output rows overlap")
     return cm_layout.device_table(metas, device)
 
 

@@ -7,6 +7,7 @@ backward) in two checkouts of this repository, in turns on one card
 
     python3 kernel_ab.py <checkout A> <checkout B> [--knn-rows G,G,...]
                          [--pair-rows G,G,...]
+    python3 kernel_ab.py <checkout A> <checkout B> --probes
 
 A checkout is a directory that holds a `diffbindfr_torch` package (for
 example the parent commit's, unpacked with `git archive <commit>
@@ -39,8 +40,13 @@ to each G (the host's rule, knn_row_groups, replaced for the call), beside
 the G the rule picks; with --pair-rows, each kernel that runs on the
 checkout's grid of ligand rows (B2, B11-pair, B8: the kernels whose call
 records trunk_convs.pair_conv_stats) at its shapes with each forced g_p
-(pair_row_groups replaced). Imports nothing of JAX.
+(pair_row_groups replaced). With --probes, each turn times the probe
+kernels instead: P1 (`bf16_chain.chain`, its three arithmetics at 8192 x
+1024 elements and 2000 steps) and P2-vpu (`mxu_ops.chain_vpu`, the tool's
+4096 grid steps over 64 input blocks), on the probes' own seeded inputs.
+Imports nothing of JAX.
 """
+import functools
 import json
 import os
 import subprocess
@@ -56,10 +62,39 @@ KNN_GRID = ("knn_conv_bf16", "knn_conv", "knn_conv_fin")
 PAIR_GRID = ("pair_conv", "pair_conv_bf16", "pair_conv_fin")
 
 
-def child(checkout, knn_rows=(), pair_rows=()):
+def _timed(cs, torch, fn, reads_host=False):
+    """One row of a turn: graph replay and wrapper times of `fn`."""
+    with torch.no_grad():
+        fn()
+        ms = cs.time_ms(fn, 3, 10)
+        graph = None if reads_host else cs.graph_ms(torch, fn)
+    return {"graph_ms": graph, "ms": ms,
+            "method": ("events around 10 calls: the call reads its pair count to the host, no "
+                       "CUDA graph captures it") if reads_host else "graph replay"}
+
+
+def probe_times(cs, torch):
+    """The probe kernels P1 and P2-vpu of the imported checkout at their
+    tools' shapes."""
+    from diffbindfr_torch.probes import bf16_chain, mxu_ops
+
+    out = {}
+    for v in bf16_chain.VARIANTS:
+        x, w = bf16_chain.inputs(8192, 1024, v, cs.DEV)
+        fn = functools.partial(bf16_chain.chain, x, w, 2000, v)
+        out[f"probe_bf16/{v} 8192x1024 2000"] = _timed(cs, torch, fn)
+        del x, w, fn
+    src, w, cb = mxu_ops.chain_inputs(mxu_ops.NBLK, cs.DEV)
+    fn = functools.partial(mxu_ops.chain_vpu, src, w, cb, mxu_ops.REPS)
+    out[f"probe_mxu_ops/chain_vpu {mxu_ops.REPS} {mxu_ops.NBLK}"] = _timed(cs, torch, fn)
+    return out
+
+
+def child(checkout, knn_rows=(), pair_rows=(), probes=False):
     """One turn: the kernels of `checkout` at every shape (and its knn-grid
     kernels at each forced g_k of knn_rows, its kernels on the grid of
-    ligand rows at each forced g_p of pair_rows); one JSON line."""
+    ligand rows at each forced g_p of pair_rows), or with `probes` the
+    probe kernels; one JSON line."""
     import importlib.util
 
     sys.path.insert(0, os.path.abspath(checkout))
@@ -67,17 +102,25 @@ def child(checkout, knn_rows=(), pair_rows=()):
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    import functools
 
     import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_ab.py needs a CUDA device")
+    if probes:
+        from diffbindfr_torch.probes import bf16_chain
+
+        if not bf16_chain.__file__.startswith(os.path.abspath(checkout)):
+            raise RuntimeError(f"imported {bf16_chain.__file__}, not the package of {checkout}")
+        print(json.dumps({"checkout": checkout, "times": probe_times(cs, torch), "rows": {}}),
+              flush=True)
+        return
 
     from diffbindfr_torch.data.sample import _load_sample_npz
     from diffbindfr_torch.models import score_net as sn
     from diffbindfr_torch.nn import trunk_convs as TC
     from diffbindfr_torch.utils.checkpoint import load_checkpoint
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("kernel_ab.py needs a CUDA device")
     if not TC.__file__.startswith(os.path.abspath(checkout)):
         raise RuntimeError(f"imported {TC.__file__}, not the package of {checkout}")
     params, _ = load_checkpoint(cs.CKPT, use_ema=True, device=cs.DEV)
@@ -112,14 +155,7 @@ def child(checkout, knn_rows=(), pair_rows=()):
     for name, shapes in SHAPES.items():
         for layer, bsz in shapes:
             fn, reads_host = call(name, layer, bsz)
-            with torch.no_grad():
-                fn()
-                ms = cs.time_ms(fn, 3, 10)
-                graph = None if reads_host else cs.graph_ms(torch, fn)
-            out[f"{name} {layer} {bsz}"] = {
-                "graph_ms": graph, "ms": ms,
-                "method": ("events around 10 calls: the call reads its pair count to the host, no "
-                           "CUDA graph captures it") if reads_host else "graph replay"}
+            out[f"{name} {layer} {bsz}"] = _timed(cs, torch, fn, reads_host)
     sweep = {}
     for grid, stats, rule_name, word, rows in (
             (KNN_GRID, "knn_conv_stats", "knn_row_groups", "atom_rows", knn_rows),
@@ -144,15 +180,15 @@ def child(checkout, knn_rows=(), pair_rows=()):
     print(json.dumps({"checkout": checkout, "times": out, "rows": sweep}), flush=True)
 
 
-def main(a, b, knn_rows="", pair_rows=""):
+def main(a, b, knn_rows="", pair_rows="", probes=False):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=30).stdout.strip()
     print(smi, flush=True)
     turns = []
     for checkout in (a, b, b, a):
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", checkout,
-                              knn_rows, pair_rows], capture_output=True, text=True, timeout=900,
-                             cwd=ROOT)
+                              knn_rows, pair_rows, "probes" if probes else ""],
+                             capture_output=True, text=True, timeout=900, cwd=ROOT)
         if res.returncode != 0:
             print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
             raise RuntimeError(f"turn on {checkout} failed")
@@ -178,8 +214,10 @@ def _rows(word):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 5 and sys.argv[1] == "--child":
-        child(sys.argv[2], _rows(sys.argv[3]), _rows(sys.argv[4]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--child":
+        child(sys.argv[2], _rows(sys.argv[3]), _rows(sys.argv[4]), sys.argv[5] == "probes")
+    elif len(sys.argv) == 4 and sys.argv[3] == "--probes":
+        sys.exit(main(sys.argv[1], sys.argv[2], probes=True))
     elif len(sys.argv) >= 3 and len(sys.argv) % 2 == 1 and all(
             k in ("--knn-rows", "--pair-rows") for k in sys.argv[3::2]):
         opts = dict(zip(sys.argv[3::2], sys.argv[4::2]))

@@ -227,7 +227,7 @@ def test_small_bf16_score_net_matches_jax(small_net, small_net_f32, path):
     """compute_dtype='bfloat16': the port's kernel path (B11 plain versions
     on the CPU) against use_pallas=True (cmt, interpret mode) and its plain
     path against the XLA path, every output field within 3e-2 * max|ref|
-    (measured: <= 1.0e-2 kernel path, <= 1.4e-2 plain path). The bf16 trunk
+    (measured: <= 1.1e-2 kernel path, <= 1.2e-2 plain path). The bf16 trunk
     and heads round every matmul and sum; the two frameworks accumulate in
     another f32 order, which moves some roundings by one bf16 unit, and each
     such move spreads: scaling the port's weights by 1 + 2^-20 alone moves
@@ -236,8 +236,10 @@ def test_small_bf16_score_net_matches_jax(small_net, small_net_f32, path):
     That bound alone cannot tell bf16 from f32: the JAX f32 forward lies 7e-3
     to 3e-2 from the JAX bf16 one on these inputs (the control). So the sum
     over the four fields of the port's distance to JAX bf16 must also stay
-    within 0.6 of the control's sum (measured 0.47 kernel path, 0.44 plain
-    path; a forward that ignored compute_dtype scores 1.0)."""
+    within 0.6 of the control's sum (measured 0.52 kernel path, 0.33 plain
+    path; a forward that ignored compute_dtype scores 1.0). They read 0.47
+    and 0.44 before the TPs' alpha was rounded to bf16 and the layer norms'
+    rsqrt taken in f32, as JAX takes both."""
     samples, _, tp, t = small_net
     use = PATHS[path]
     want = _jax_small(small_net, compute_dtype="bfloat16", use_pallas=use)
@@ -420,7 +422,8 @@ def test_full_width_bf16_matches_jax_fixture():
     """The flagship score net (diff_r2 EMA) under compute_dtype='bfloat16'
     on the CPU, kernel path (the B11 plain versions), against the JAX
     package's use_pallas=True bf16 forward, within FULL_WIDTH_TOL (measured:
-    tr 2.9e-3, rot 1.0e-3, tor 5.5e-2, sc_tor 2.5e-2), each bound of
+    tr 2.9e-3, rot 1.0e-7, tor 5.5e-2, sc_tor 1.7e-2; rot 1.0e-3 and sc_tor
+    2.4e-2 while the heads' TPs kept alpha in f32), each bound of
     SEPARATING below the f32 control's distance."""
     ref = np.load(FIXTURE)
     ref32 = np.load(os.path.join(ROOT, "tests/fixtures/torch_port_ref.npz"))

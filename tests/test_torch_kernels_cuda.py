@@ -6,8 +6,9 @@ gradients of their plain-recompute backward), the bf16-chain kernels B11
 (forward against their plain bf16 versions, backward equal to the f32
 wrappers'), the kernel path's error for gradients it does not give
 (positions, time embedding, cutoff), the probes' kernels P2-P4, the split-K
-contraction at ragged shapes, and B4 at a ragged pair count (bit-identical
-across two calls) and with no valid pair. Marked
+contraction at ragged shapes, B4 at a ragged pair count (bit-identical
+across two calls) and with no valid pair, and the card's bf16 rsqrt (the
+layer norms') rounded once from f32. Marked
 `cuda`: skipped (with a reason) where no GPU is present. Imports no JAX, so
 it runs on the GPU machine with
 
@@ -616,3 +617,16 @@ def test_cross_backward_kernel_without_valid_pairs(dev):
     assert TC.cross_bwd_stats["pairs"] == 0
     assert not any(o.requires_grad for o in TC.cross_conv_plain(*args))
     assert all(not bool(g.abs().max()) and torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_bf16_rsqrt_rounds_once_on_the_card(dev):
+    """The layer norms' rsqrt (layers._rsqrt) takes torch's bf16 rsqrt on
+    a CUDA tensor as it is: over every positive finite bf16 number it equals
+    the f32 rsqrt rounded once to bf16, as JAX takes it, bit for bit."""
+    bits = torch.arange(1, 0x7F80, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16).to(dev)
+    got = L._rsqrt(x)
+    want = torch.rsqrt(x.float()).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
